@@ -130,14 +130,16 @@ def stream_ptr(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def check_cuda_f32(name: str, *tensors: torch.Tensor) -> None:
-    """The launchers take contiguous float32 rows on one CUDA device."""
+def check_cuda(name: str, allowed: tuple, *tensors: torch.Tensor) -> None:
+    """The launchers take contiguous tensors of the ``allowed`` dtypes on
+    one CUDA device."""
     dev = tensors[0].device
     for t in tensors:
         if t.device != dev:
             raise ValueError(f"{name}: tensors on {t.device} and {dev}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name}: want float32, got {t.dtype}")
+        if t.dtype not in allowed:
+            want = ", ".join(str(d).replace("torch.", "") for d in allowed)
+            raise ValueError(f"{name}: want {want}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: want contiguous tensors")
 

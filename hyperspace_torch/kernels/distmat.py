@@ -42,7 +42,7 @@ def pdist_plain(x: torch.Tensor, y: torch.Tensor, c, *,
 
 def _launch(x: torch.Tensor, y: torch.Tensor, c: float,
             kind: int) -> torch.Tensor:
-    S.check_cuda_f32("pdist", x, y)
+    S.check_cuda("pdist", (torch.float32,), x, y)
     n, d = x.shape
     out = torch.empty((n, y.shape[0]), dtype=torch.float32, device=x.device)
     P, I = ctypes.c_void_p, ctypes.c_int

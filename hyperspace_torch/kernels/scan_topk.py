@@ -87,7 +87,7 @@ def _splits(b: int, m: int, device: torch.device) -> int:
 
 
 def _launch(slab, q, q_idx, col0, *, kind, c, k, n, exclude_self):
-    S.check_cuda_f32("scan_topk", slab, q)
+    S.check_cuda("scan_topk", (torch.float32,), slab, q)
     if (q_idx.device != q.device or q_idx.dtype != torch.int32
             or not q_idx.is_contiguous()):
         raise ValueError("scan_topk: q_idx must be contiguous int32 on "

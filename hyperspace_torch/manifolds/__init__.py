@@ -1,4 +1,5 @@
-"""Manifolds of the serving path (counterpart of ``hyperspace_tpu.manifolds``)."""
+"""Manifolds of the serving and HGCN training paths (counterpart of
+``hyperspace_tpu.manifolds``)."""
 
 from hyperspace_torch.manifolds.lorentz import Lorentz
 from hyperspace_torch.manifolds.poincare import PoincareBall
