@@ -35,7 +35,23 @@ prints its seconds):
 8. the whole step on the card against the port on the CPU (the plain
    versions), 2 steps each on a 20,000-node split with its cluster
    split, from the same parameters and negatives: losses within rel 2e-2;
-9. print the kernels line (device times of each kernel and its plain
+9. hold the HyboNet kernels (flash attention forward, dq, dk/dv and
+   ``hyp_mlr``) against their plain versions at the three HyboNet
+   entry points' shapes (the bench leg, the long-context leg, the CLI
+   config), with padded sequences (query rows with no valid key) and an
+   extra case whose lengths are not a tile multiple: forward output and
+   lse; dq, dk, dv and dτ of the whole Function against autograd of the
+   dense twin; MLR logits;
+10. the HyboNet bench legs (``workloads_bench``: ``hybonet`` and
+   ``hybonet_long``): step ms, tokens/s, device busy ms and idle share,
+   peak memory, the largest device items, and each kernel's launch count
+   (exactly layers, layers, layers and 1 a step);
+11. the CLI, ``cli.train hybonet --yaml configs/hybonet_textclf.yaml``
+   at its 500 steps: loss and accuracy; the last loss finite and below
+   the first;
+12. two HyboNet steps on the card against the port on the CPU from the
+   same parameters and batches: losses within rel 1e-4 (all f32);
+13. print the kernels line (device times of each kernel and its plain
    version at the main paths' shapes, bounds, launches, the library
    call's time), the top-k throughput at bucket 1024 (batches of cold ids
    through the batcher, the engine call alone, and the card's busy
@@ -386,6 +402,7 @@ def train_kernel_entries(torch, tr: dict, card: dict) -> list:
     seg_entry = {
         "name": "csr_segment_sum", "route": "cuda",
         "source": "hyperspace_torch/kernels/csrc/segment.cu",
+        "entry": "hs_csr_segment_sum",
         "replaces": "hyperspace_tpu/kernels/segment.py:132",
         "launches": tr["launches"]["csr_segment_sum"],
         "launches_per_step": LAUNCHES_PER_STEP["csr_segment_sum"],
@@ -420,6 +437,7 @@ def train_kernel_entries(torch, tr: dict, card: dict) -> list:
     cl_entry = {
         "name": "cluster_aggregate", "route": "cuda",
         "source": "hyperspace_torch/kernels/csrc/cluster.cu",
+        "entry": "hs_cluster_aggregate",
         "replaces": "hyperspace_tpu/kernels/cluster.py:213",
         "launches": tr["launches"]["cluster_aggregate"],
         "launches_per_step": LAUNCHES_PER_STEP["cluster_aggregate"],
@@ -437,6 +455,414 @@ def train_kernel_entries(torch, tr: dict, card: dict) -> list:
         "bound_ms_F32": bound_ms(*cluster_cost(e, 32, n, 2))[0],
         **card}
     return [seg_entry, cl_entry]
+
+
+# --- the HyboNet path: text classification with flash attention -------------
+
+# (batch, heads, L, dim) of the three entry points: workloads_bench's hybonet
+# and hybonet_long legs and configs/hybonet_textclf.yaml through the CLI
+HB_SHAPES = {"bench": (256, 4, 128, 128, 64),
+              "long": (2, 2, 4096, 64, 4095),
+              "cli": (64, 4, 32, 128, 8)}     # last: shortest sequence
+# f32 kernels against their f32 plain versions (other summation orders)
+FLASH_RTOL, FLASH_ATOL = 1e-4, 1e-5
+LSE_TOL = 1e-5
+MLR_RTOL, MLR_ATOL = 1e-4, 1e-5
+# the whole Function against autograd of the dense twin: largest error
+# over the largest entry, as the JAX package holds its own kernel; dτ
+# (a sum with cancellation over every pair) against the float64 twin,
+# within FLASH_GRAD_TOL of it plus 4× the f32 twin's own error
+FLASH_GRAD_TOL = 2e-3
+HB_CARD_CPU_RTOL = 1e-4
+HB_CLI_YAML = os.path.join("configs", "hybonet_textclf.yaml")
+
+
+def hb_counts() -> dict:
+    from hyperspace_torch.kernels import attention as A
+    from hyperspace_torch.kernels.mlr import hyp_mlr
+
+    return {"flash_fwd": A.flash_fwd.launches,
+            "flash_dq": A.flash_dq.launches,
+            "flash_dkv": A.flash_dkv.launches, "hyp_mlr": hyp_mlr.launches}
+
+
+def hb_reset() -> None:
+    from hyperspace_torch.kernels import attention as A
+    from hyperspace_torch.kernels.mlr import hyp_mlr
+
+    A.flash_fwd.launches = A.flash_dq.launches = 0
+    A.flash_dkv.launches = hyp_mlr.launches = 0
+
+
+def hb_inputs(torch, rng, dev, batch, heads, length, dim, min_len):
+    """Attention inputs as an entry point gives them: q, k, v [B·h, L,
+    dim/h + 1] on the hyperboloid, per-head β and τ, and the padding mask of
+    sequences of min_len..L tokens (uint8 [B, L, L], shared by the
+    heads; padded query rows have no valid key)."""
+    d = dim // heads + 1
+    b = batch * heads
+
+    def rows(n):
+        sp = rng.standard_normal((b, n, d - 1)) * 0.5
+        t = np.sqrt(1.0 + np.sum(sp * sp, axis=-1, keepdims=True))
+        return torch.as_tensor(np.concatenate([t, sp], axis=-1),
+                               dtype=torch.float32, device=dev)
+
+    lens = rng.integers(min_len, length + 1, batch)
+    lens[0] = min_len
+    m = np.arange(length)[None, :] < lens[:, None]
+    att = m[:, None, :] & m[:, :, None]
+    beta = rng.standard_normal(heads) * 0.3
+    tau = 1.0 + rng.random(heads)
+    f32 = dict(dtype=torch.float32, device=dev)
+    return {"q": rows(length), "k": rows(length), "v": rows(length),
+            "beta_h": torch.as_tensor(beta, **f32),
+            "tau_h": torch.as_tensor(tau, **f32),
+            "beta_b": torch.as_tensor(np.tile(beta, batch), **f32),
+            "tau_b": torch.as_tensor(np.tile(tau, batch), **f32),
+            "mask": torch.as_tensor(att.astype(np.uint8), device=dev),
+            "group": heads, "batch": batch, "heads": heads,
+            "valid_pairs": int(att.sum()) * heads}
+
+
+def check_flash(torch, label, x) -> dict:
+    """Forward (out, lse) against the forward kernel's plain version; dq,
+    dk, dv and dτ of the whole Function against the dense twin's
+    autograd.  Returns the largest errors."""
+    from hyperspace_torch.kernels import attention as A
+
+    q, k, v, mask, g = x["q"], x["k"], x["v"], x["mask"], x["group"]
+    out, lse, _ = A.flash_fwd(q, k, v, C, x["beta_b"], x["tau_b"], mask, g)
+    torch.cuda.synchronize()
+    w_out, w_lse, _ = A.flash_fwd_plain(q, k, v, C, x["beta_b"],
+                                        x["tau_b"], mask, g)
+    over = int(((out - w_out).abs()
+                > FLASH_ATOL + FLASH_RTOL * w_out.abs()).sum())
+    over += int(((lse - w_lse).abs() > LSE_TOL * (1 + w_lse.abs())).sum())
+    empty = lse == 1e30
+    if not torch.equal(empty, w_lse == 1e30) or bool(
+            (out[empty] != 0).any()):
+        raise AssertionError(f"flash {label}: rows with no valid key differ")
+    b4 = (x["batch"], x["heads"])
+    shape4 = b4 + tuple(q.shape[1:])
+    mask4 = mask.bool()[:, None]
+    g_out = torch.randn(shape4, device=q.device)
+    grads = {}
+    for kind in ("kernel", "twin", "twin64"):
+        dt = torch.float64 if kind == "twin64" else torch.float32
+        ins = [t.reshape(b4 + tuple(t.shape[1:])).to(dt).clone()
+               .requires_grad_() for t in (q, k, v)]
+        tau = x["tau_h"].to(dt)[:, None, None].clone().requires_grad_()
+        beta = x["beta_h"].to(dt)[:, None, None].clone().requires_grad_()
+        if kind == "kernel":
+            o = A.flash_attention(*ins, C, beta=beta, tau=tau, mask=mask4)
+        else:
+            o = A.flash_attention_plain(*ins, C, beta, tau, mask4)
+        (o * g_out.to(dt)).sum().backward()
+        grads[kind] = [t.grad.double() for t in (*ins, tau, beta)]
+    torch.cuda.synchronize()
+    errs = {}
+    for i, name in enumerate(("dq", "dk", "dv")):
+        got, want = grads["kernel"][i], grads["twin"][i]
+        errs[name] = float((got - want).abs().max()) / max(
+            float(want.abs().max()), 1e-3)
+    t64 = grads["twin64"][3]
+    t_err = (grads["kernel"][3] - t64).abs()
+    t_lim = FLASH_GRAD_TOL * t64.abs() + 4 * (grads["twin"][3] - t64).abs()
+    errs["dtau"] = float(t_err.max())
+    dbeta_zero = bool((grads["kernel"][4] == 0).all())
+    emit({"phase": "check", "kernel": "flash_attention", "case": label,
+          "shape": list(q.shape), "mask_group": g,
+          "empty_rows": int(empty.sum()),
+          "out_max_abs_err": float((out - w_out).abs().max()),
+          "lse_max_abs_err": float((lse - w_lse).abs().max()),
+          "over_tolerance": over, **{f"{k}_err": e for k, e in errs.items()},
+          "dtau_kernel": grads["kernel"][3].flatten().tolist(),
+          "dtau_f64_twin": t64.flatten().tolist(), "dbeta_zero": dbeta_zero})
+    if over or max(errs["dq"], errs["dk"], errs["dv"]) > FLASH_GRAD_TOL or (
+            bool((t_err > t_lim).any())) or not dbeta_zero:
+        raise AssertionError(f"flash {label}: kernels disagree with their "
+                             "plain versions")
+    return {"fwd": float((out - w_out).abs().max()),
+            "dq": errs["dq"], "dkv": max(errs["dk"], errs["dv"])}
+
+
+def check_mlr(torch, rng, dev, n, k, d) -> float:
+    from hyperspace_torch.kernels.mlr import hyp_mlr, hyp_mlr_plain
+
+    def ball(m, s):
+        u = rng.standard_normal((m, d))
+        u *= rng.uniform(0.0, s, (m, 1)) / np.linalg.norm(u, axis=1,
+                                                          keepdims=True)
+        return torch.as_tensor(u, dtype=torch.float32, device=dev)
+
+    x, p = ball(n, 0.9), ball(k, 0.5)
+    a = torch.as_tensor(rng.standard_normal((k, d)) * 0.1,
+                        dtype=torch.float32, device=dev)
+    got = hyp_mlr(x, p, a, C)
+    torch.cuda.synchronize()
+    want = hyp_mlr_plain(x, p, a, C)
+    diff = (got - want).abs()
+    over = int((diff > MLR_ATOL + MLR_RTOL * want.abs()).sum())
+    emit({"phase": "check", "kernel": "hyp_mlr", "shape": [n, k, d],
+          "max_abs_err": float(diff.max()), "over_tolerance": over})
+    if over:
+        raise AssertionError(f"hyp_mlr [{n}, {k}, {d}]: {over} entries "
+                             "beyond tolerance")
+    return float(diff.max())
+
+
+def hybonet_path(torch, args, card: dict) -> dict:
+    """Phases 9–12; returns what the kernels line needs."""
+    import contextlib
+
+    from hyperspace_torch.benchmarks import workloads_bench as WB
+    from hyperspace_torch.cli import train as cli_train
+    from hyperspace_torch.data.text import synthetic_text
+    from hyperspace_torch.models import hybonet
+
+    dev = torch.device("cuda")
+    # --- phase 9: the HyboNet kernels against their plain versions ------
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(args.seed + 3)
+    inputs = {name: hb_inputs(torch, rng, dev, *shape)
+              for name, shape in HB_SHAPES.items()}
+    err = {"flash_fwd": 0.0, "flash_dq": 0.0, "flash_dkv": 0.0,
+           "hyp_mlr": 0.0}
+    tails = hb_inputs(torch, rng, dev, 3, 2, 70, 16, 1)  # 70 = 64 + 6
+    tails["k"] = tails["k"][:, :45].contiguous()     # Nk = 45 keys
+    tails["v"] = tails["v"][:, :45].contiguous()
+    tails["mask"] = tails["mask"][:, :, :45].contiguous()
+    for label, x in (*inputs.items(), ("tails", tails)):
+        e = check_flash(torch, label, x)
+        err["flash_fwd"] = max(err["flash_fwd"], e["fwd"])
+        err["flash_dq"] = max(err["flash_dq"], e["dq"])
+        err["flash_dkv"] = max(err["flash_dkv"], e["dkv"])
+    for n, k, d in ((256, 8, 128), (2, 8, 64), (64, 4, 128), (3, 300, 33)):
+        err["hyp_mlr"] = max(err["hyp_mlr"], check_mlr(torch, rng, dev, n,
+                                                       k, d))
+    emit({"phase": "hybonet_checks", "seconds": time.perf_counter() - t0})
+
+    # --- phase 10: the bench legs ---------------------------------------
+    launches = {name: 0 for name in hb_counts()}
+    legs = {}
+    for name, steps in (("hybonet", 10), ("hybonet_long", 5)):
+        t0 = time.perf_counter()
+        leg = WB.setup_leg(name, device=dev, seed=args.seed)
+        hb_reset()
+        torch.cuda.reset_peak_memory_stats()
+        res = WB.run_leg(leg, steps=steps, repeats=3)
+        counts = hb_counts()
+        peak = torch.cuda.max_memory_allocated()
+        n_steps = 1 + 3 * steps
+        layers = leg.cfg.num_layers
+        want = {"flash_fwd": layers, "flash_dq": layers,
+                "flash_dkv": layers, "hyp_mlr": 1}
+        share = device_share(torch, leg.step, res["step_ms"], reps=3,
+                             top_n=8)
+        legs[name] = {**res, **share, "launches": counts,
+                      "peak_device_memory_bytes": peak}
+        emit({"phase": "hybonet_bench", "leg": name,
+              **{k: v for k, v in res.items() if k != "losses"},
+              "first_loss": res["losses"][0], "last_loss": res["losses"][-1],
+              **share, "launches": counts, "steps_run": n_steps,
+              "peak_device_memory_bytes": peak,
+              "seconds": time.perf_counter() - t0, **card})
+        for kname, per in want.items():
+            if counts[kname] != n_steps * per:
+                raise AssertionError(f"{name}: {kname} launched "
+                                     f"{counts[kname]} times in {n_steps} "
+                                     f"steps, want {per} a step")
+            launches[kname] += counts[kname]
+        if not np.all(np.isfinite(res["losses"])):
+            raise AssertionError(f"{name}: non-finite loss {res['losses']}")
+
+    # --- phase 11: the CLI with configs/hybonet_textclf.yaml -----------
+    t0 = time.perf_counter()
+    log = os.path.join(REPO, "build", "chip_smoke", "hybonet_cli.jsonl")
+    if os.path.exists(log):
+        os.remove(log)
+    hb_reset()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli_train.main(["hybonet", "--yaml", os.path.join(REPO, HB_CLI_YAML),
+                        f"log={log}"])
+    counts = hb_counts()
+    res = json.loads(out.getvalue().strip().splitlines()[-1])
+    with open(log) as f:
+        losses = [json.loads(s)["loss"] for s in f]
+    emit({"phase": "hybonet_cli", "config": HB_CLI_YAML, **res,
+          "steps": len(losses), "first_loss": losses[0],
+          "launches": counts, "seconds": time.perf_counter() - t0, **card})
+    for kname, n in counts.items():
+        if n < len(losses):
+            raise AssertionError(f"CLI: {kname} launched {n} times in "
+                                 f"{len(losses)} steps")
+        launches[kname] += n
+    if not (np.isfinite(res["loss"]) and res["loss"] < losses[0]):
+        raise AssertionError(f"CLI: the loss did not fall: {losses[0]} -> "
+                             f"{res['loss']}")
+
+    # --- phase 12: two steps, card against CPU --------------------------
+    t0 = time.perf_counter()
+    ds = synthetic_text(num_samples=64, vocab_size=512, num_classes=4,
+                        max_len=32, seed=args.seed)
+    cfg = hybonet.HyboNetConfig(dim=64, num_heads=4, num_layers=2,
+                                batch_size=32)
+    runs = {}
+    for where in ("cuda", "cpu"):
+        model, opt, state = hybonet.init_model(cfg, seed=args.seed,
+                                               device=where)
+        losses_w = []
+        for i in range(2):
+            t, m, y = (torch.as_tensor(a[32 * i:32 * i + 32], device=where)
+                       for a in (ds.tokens, ds.mask, ds.labels))
+            state, loss = hybonet.train_step(model, opt, state, t, m, y)
+            losses_w.append(float(loss))
+        runs[where] = losses_w
+    rel = max(abs(a - b) / abs(b) for a, b in zip(runs["cuda"], runs["cpu"]))
+    emit({"phase": "hybonet_card_vs_cpu", "losses_cuda": runs["cuda"],
+          "losses_cpu": runs["cpu"], "max_rel_loss_diff": rel,
+          "seconds": time.perf_counter() - t0})
+    if not rel <= HB_CARD_CPU_RTOL:
+        raise AssertionError(f"HyboNet card and CPU losses differ by {rel}")
+    return {"inputs": inputs, "err": err, "launches": launches,
+            "legs": legs}
+
+
+def flash_cost(x: dict, kind: str) -> tuple[float, float]:
+    """(bytes, operations) of one flash kernel on an entry point's inputs: each
+    input read once and each output written once, the mask as uint8 (one
+    byte per (sequence, query, key), shared by the heads); multiply-adds
+    over the valid (query, key) pairs only: 2·D forward (Gram, p·v), 3·D
+    in dq (Gram, ⟨dsp, v⟩, dσ·Jk), 4·D in dk/dv (Gram, p·dsp, ⟨dsp, v⟩,
+    dσ·Jq)."""
+    b, nq, d = x["q"].shape
+    nk = x["k"].shape[1]
+    rows_q, rows_k = 4.0 * b * nq * d, 4.0 * b * nk * d
+    mask = float(x["mask"].numel()) + 8.0 * b
+    if kind == "fwd":      # q, k, v in; out, lse, nrm out
+        nbytes, macs = rows_q + 2 * rows_k + rows_q + 8.0 * b * nq, 2 * d
+    elif kind == "dq":     # q, k, v, dsp, lse, di in; dq out
+        nbytes, macs = 3 * rows_q + 2 * rows_k + 8.0 * b * nq, 3 * d
+    else:                  # q, k, v, dsp, lse, di in; dk, dv out
+        nbytes, macs = 2 * rows_q + 4 * rows_k + 8.0 * b * nq, 4 * d
+    return nbytes + mask, 2.0 * macs * x["valid_pairs"]
+
+
+def mlr_cost(n: int, k: int, d: int) -> tuple[float, float]:
+    """(bytes, operations) of the MLR logits: x, p, a read and the [n, k]
+    logits written once; the two products x·pᵀ, x·aᵀ, the row and class
+    norms, and about 30 operations of closed form per logit."""
+    return (4.0 * (n * d + 2 * k * d + n * k),
+            4.0 * n * k * d + 2.0 * (n + 3 * k) * d + 30.0 * n * k)
+
+
+def hybonet_kernel_entries(torch, hb: dict, card: dict) -> list:
+    """The four HyboNet kernels' entries of the kernels line: device times
+    at the bench leg's shape (the largest per launch), and at the long
+    leg's and the CLI's."""
+    from hyperspace_torch.kernels import attention as A
+    from hyperspace_torch.kernels.mlr import hyp_mlr, hyp_mlr_plain
+
+    dev = torch.device("cuda")
+    runs = {}
+    for name, x in hb["inputs"].items():
+        q, k, v, m, g = x["q"], x["k"], x["v"], x["mask"], x["group"]
+        bb, tb = x["beta_b"], x["tau_b"]
+        out, lse, _ = A.flash_fwd(q, k, v, C, bb, tb, m, g)
+        dsp = torch.randn_like(out)
+        di = torch.sum(dsp * out, dim=-1)
+        fa = (q, k, v, C, bb, tb, m, g)
+        ba = fa + (dsp, lse, di)
+        runs[name] = {
+            "fwd": (lambda fa=fa: A.flash_fwd(*fa),
+                    lambda fa=fa: A.flash_fwd_plain(*fa)),
+            "dq": (lambda ba=ba: A.flash_dq(*ba),
+                   lambda ba=ba: A.flash_dq_plain(*ba)),
+            "dkv": (lambda ba=ba: A.flash_dkv(*ba),
+                    lambda ba=ba: A.flash_dkv_plain(*ba))}
+    # the library yardstick: one scaled_dot_product_attention call on
+    # (q·2/τ, Jk, v) with the boolean mask (the score's constant (2/c +
+    # β)/τ cancels in the softmax), D zero-padded to 40, then the
+    # elementwise Lorentz epilogue
+    x = hb["inputs"]["bench"]
+    bsz, h = x["batch"], x["heads"]
+    d = x["q"].shape[-1]
+
+    def pad40(t):
+        return torch.nn.functional.pad(t, (0, 40 - d)).reshape(
+            bsz, h, t.shape[1], 40)
+
+    qs = pad40(x["q"] * (2.0 / x["tau_b"])[:, None, None])
+    kf = pad40(torch.cat([-x["k"][..., :1], x["k"][..., 1:]], dim=-1))
+    vs = pad40(x["v"])
+    mb = x["mask"].bool()[:, None]
+
+    def library():
+        s = torch.nn.functional.scaled_dot_product_attention(
+            qs, kf, vs, attn_mask=mb, scale=1.0)[..., :d]
+        return A._epilogue(s, C)
+
+    library_ms = device_ms(torch, library)
+    names = {"fwd": ("flash_attention_fwd", "hs_flash_fwd", ":199"),
+             "dq": ("flash_attention_dq", "hs_flash_dq", ":410"),
+             "dkv": ("flash_attention_dkv", "hs_flash_dkv", ":461")}
+    per_step = {"fwd": "flash_fwd", "dq": "flash_dq", "dkv": "flash_dkv"}
+    entries = []
+    for kind, (name, entry, line) in names.items():
+        kern, plain = runs["bench"][kind]
+        bd, bby = bound_ms(*flash_cost(hb["inputs"]["bench"], kind))
+        e = {"name": name, "route": "cuda",
+             "source": "hyperspace_torch/kernels/csrc/attention.cu",
+             "entry": entry,
+             "replaces": f"hyperspace_tpu/kernels/attention.py{line}",
+             "launches": hb["launches"][per_step[kind]],
+             "launches_per_step": "num_layers",
+             "max_abs_err": hb["err"][per_step[kind]],
+             "shape": list(hb["inputs"]["bench"]["q"].shape),
+             "ms": device_ms(torch, kern),
+             "plain_ms": device_ms(torch, plain, reps=5),
+             "bound_ms": bd, "bound_by": bby,
+             "library_ms": library_ms if kind == "fwd" else None,
+             "library_call": ("scaled_dot_product_attention on (q·2/τ, Jk, "
+                              "v), D padded to 40, bool mask, + epilogue"
+                              if kind == "fwd" else None),
+             "mask": "uint8 [B, Nq, Nk] shared by the heads",
+             "call_ms": timed_ms(torch, kern)}
+        for src in ("long", "cli"):
+            k2, _ = runs[src][kind]
+            e[f"ms_{src}"] = device_ms(torch, k2, reps=5)
+            e[f"bound_ms_{src}"] = bound_ms(*flash_cost(hb["inputs"][src],
+                                                        kind))[0]
+            e[f"shape_{src}"] = list(hb["inputs"][src]["q"].shape)
+        entries.append({**e, **card})
+    gen = torch.Generator(device=dev).manual_seed(12)
+    mlr_args = {}
+    for src, (n, k, d) in (("bench", (256, 8, 128)), ("long", (2, 8, 64)),
+                           ("cli", (64, 4, 128))):
+        xb = torch.rand((n, d), generator=gen, device=dev) * 0.05
+        p = torch.rand((k, d), generator=gen, device=dev) * 0.05
+        a = torch.randn((k, d), generator=gen, device=dev) * 0.1
+        mlr_args[src] = (xb, p, a, C)
+    mb_, mby = bound_ms(*mlr_cost(256, 8, 128))
+    entries.append({
+        "name": "hyp_mlr", "route": "cuda",
+        "source": "hyperspace_torch/kernels/csrc/mlr.cu",
+        "entry": "hs_hyp_mlr",
+        "replaces": "hyperspace_tpu/kernels/mlr.py:125",
+        "launches": hb["launches"]["hyp_mlr"], "launches_per_step": 1,
+        "max_abs_err": hb["err"]["hyp_mlr"], "shape": [256, 8, 128],
+        "ms": device_ms(torch, lambda: hyp_mlr(*mlr_args["bench"])),
+        "plain_ms": device_ms(torch, lambda: hyp_mlr_plain(
+            *mlr_args["bench"])),
+        "bound_ms": mb_, "bound_by": mby, "library_ms": None,
+        "call_ms": timed_ms(torch, lambda: hyp_mlr(*mlr_args["bench"])),
+        "ms_long": device_ms(torch, lambda: hyp_mlr(*mlr_args["long"])),
+        "ms_cli": device_ms(torch, lambda: hyp_mlr(*mlr_args["cli"])),
+        "bound_ms_long": bound_ms(*mlr_cost(2, 8, 64))[0],
+        "bound_ms_cli": bound_ms(*mlr_cost(64, 4, 128))[0], **card})
+    return entries
 
 
 def main(argv=None) -> int:
@@ -473,7 +899,8 @@ def main(argv=None) -> int:
 
     # --- phase 2: build ----------------------------------------------------
     t0 = time.perf_counter()
-    _support.build_all(["pdist", "scan_topk", "segment", "cluster"])
+    _support.build_all(["pdist", "scan_topk", "segment", "cluster",
+                        "attention", "mlr"])
     emit({"phase": "build", "seconds": time.perf_counter() - t0, **card})
 
     # --- data from the seed ------------------------------------------------
@@ -629,7 +1056,10 @@ def main(argv=None) -> int:
     # --- phases 5-8: the training path ----------------------------------
     tr = train_path(torch, args, card)
 
-    # --- phase 9: times ----------------------------------------------------
+    # --- phases 9-12: the HyboNet path ------------------------------------
+    hb = hybonet_path(torch, args, card)
+
+    # --- phase 13: times ---------------------------------------------------
     # kernel and plain times are device times from the profiler at the
     # main path's shapes; call_ms adds the host's launch path (CUDA
     # events around back-to-back calls)
@@ -651,6 +1081,7 @@ def main(argv=None) -> int:
     kernels = [
         {"name": "pdist", "route": "cuda",
          "source": "hyperspace_torch/kernels/csrc/pdist.cu",
+         "entry": "hs_pdist",
          "replaces": "hyperspace_tpu/kernels/distmat.py:119",
          "launches": launches["pdist"], "max_abs_err": err["pdist"],
          "shape": [BATCH, chunk, DIM],
@@ -664,6 +1095,7 @@ def main(argv=None) -> int:
          **card},
         {"name": "scan_topk", "route": "cuda",
          "source": "hyperspace_torch/kernels/csrc/scan_topk.cu",
+         "entry": "hs_scan_topk",
          "replaces": "hyperspace_tpu/kernels/scan_topk.py:677",
          "launches": launches["scan_topk"],
          "max_abs_err": err["scan_topk"],
@@ -675,7 +1107,8 @@ def main(argv=None) -> int:
          "bound_ms": sb, "bound_by": sby, "library_ms": None,
          "call_ms": timed_ms(torch, run_scan(BATCH)),
          "ms_bucket8": device_ms(torch, run_scan(8)), **card},
-    ] + train_kernel_entries(torch, tr, card)
+    ] + train_kernel_entries(torch, tr, card) + hybonet_kernel_entries(
+        torch, hb, card)
     # requests through the batcher at bucket 1024 with its default cache,
     # each batch of distinct ids never seen before (all cold, so every id
     # is computed), and the engine call alone on the same ids, the two

@@ -4,10 +4,10 @@
 Points live on { x ∈ R^{d+1} : ⟨x,x⟩_L = -1/c, x_0 > 0 } with
 ⟨x,y⟩_L = -x_0 y_0 + Σ_{i≥1} x_i y_i; lane 0 is the time coordinate.
 Ported: ``proj``, ``dist``/``sqdist``, ``expmap``/``logmap`` and their
-origin forms, ``origin`` and the origin coordinate chart — what serving
-and HGCN training use.  ``c`` may be a Python number or a tensor; every
-method works in float64, float32 and bfloat16, with ``c`` taken in the
-points' dtype as the JAX methods take it.
+origin forms, ``origin``, the origin coordinate chart and ``centroid`` —
+what serving, HGCN and HyboNet use.  ``c`` may be a Python number or a
+tensor; every method works in float64, float32 and bfloat16, with ``c``
+taken in the points' dtype as the JAX methods take it.
 """
 
 from __future__ import annotations
@@ -106,3 +106,15 @@ class Lorentz:
 
     def origin_coords_from_tangent(self, u: torch.Tensor) -> torch.Tensor:
         return u[..., 1:]
+
+    # --- aggregation ------------------------------------------------------------
+
+    def centroid(self, x: torch.Tensor,
+                 w: torch.Tensor | None = None) -> torch.Tensor:
+        """Lorentz centroid (Law et al. 2019) of x [..., n, d+1] under
+        weights w [..., n] (uniform if None): s / (√c·√(-⟨s,s⟩_L)) with
+        s = Σ w_i x_i."""
+        s = torch.sum(x if w is None else w[..., None] * x, dim=-2)
+        nrm = smath.safe_sqrt(smath.clamp_min(-minkowski_dot(s, s),
+                                              smath.eps_for(x.dtype)))
+        return s / (smath.sqrt_curvature(self.c, x.dtype) * nrm)

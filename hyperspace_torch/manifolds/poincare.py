@@ -1,8 +1,8 @@
 """Poincaré ball of curvature -c (c > 0) — counterpart of
 ``hyperspace_tpu/manifolds/poincare.py``.
 
-Only what the serving path needs is ported: ``proj``, ``expmap0``,
-``mobius_add`` and ``dist`` (the edge scorer's distance).  The ball of
+Ported: ``proj``, ``expmap0``, ``mobius_add`` and ``dist`` (the edge
+scorer's distance), and ``lambda_x`` (the MLR head's oracle).  The ball of
 curvature -c is { x : c‖x‖² < 1 }.
 """
 
@@ -22,6 +22,13 @@ class PoincareBall:
 
     def _c(self, like: torch.Tensor) -> torch.Tensor:
         return torch.as_tensor(self.c, dtype=like.dtype, device=like.device)
+
+    def lambda_x(self, x: torch.Tensor, keepdim: bool = True) -> torch.Tensor:
+        """Conformal factor 2 / (1 − c‖x‖²), the denominator clamped."""
+        denom = smath.clamp_min(1.0 - self._c(x) * smath.sq_norm(x),
+                                smath.eps_for(x.dtype))
+        out = 2.0 / denom
+        return out if keepdim else out[..., 0]
 
     def proj(self, x: torch.Tensor) -> torch.Tensor:
         c = self._c(x)

@@ -145,6 +145,15 @@ def arcosh1p(u: torch.Tensor) -> torch.Tensor:
     return torch.log1p(u + safe_sqrt(u * (u + 2.0)))
 
 
+def kasinh(x: torch.Tensor) -> torch.Tensor:
+    """asinh in the kernels' log form, sign(x)·log1p(|x| + x²/(1 + √(1 +
+    x²))) (``hyperspace_tpu/kernels/_support.py:kasinh``): exact for
+    small |x|, never cancels."""
+    ax = torch.abs(x)
+    r = torch.sqrt(torch.clamp_min(ax * ax + 1.0, 0.0))
+    return torch.sign(x) * torch.log1p(ax + ax * ax / (1.0 + r))
+
+
 def safe_tanh(x: torch.Tensor) -> torch.Tensor:
     return torch.tanh(clip(x, -20.0, 20.0))
 

@@ -1,11 +1,13 @@
-"""Mixed-precision policy, the part the HGCN path uses (counterpart of
-``hyperspace_tpu/precision.py``).
+"""Mixed-precision policy, the part the HGCN and HyboNet paths use
+(counterpart of ``hyperspace_tpu/precision.py``).
 
 A policy names a compute dtype; ``f32`` (the default) computes in
 float32, ``bf16`` in bfloat16 — for HGCN that means the bf16 edge-message
 lane (``agg_dtype``) and the bf16 training decoder lane
 (``decoder_dtype``), while the encoder's matmuls, every manifold op and
-every reduction stay float32.  :func:`parse_dtype` maps a flag string
+every reduction stay float32; for HyboNet the LorentzLinear and
+attention-projection matmuls (:func:`compute_matmul` with the policy's
+:meth:`Policy.module_dtype`).  :func:`parse_dtype` maps a flag string
 such as ``"bfloat16"`` to a torch dtype.
 """
 
@@ -32,6 +34,11 @@ class Policy:
         """True when the compute dtype is not float32."""
         return self.compute != torch.float32
 
+    def module_dtype(self) -> Optional[torch.dtype]:
+        """The compute dtype a layer's matmuls take: ``compute`` when
+        mixed, ``None`` (the plain matmul) otherwise."""
+        return self.compute if self.mixed else None
+
 
 F32 = Policy("f32")
 BF16 = Policy("bf16", compute=torch.bfloat16)
@@ -49,6 +56,16 @@ def get_policy(p: Union[None, str, Policy]) -> Policy:
     except (KeyError, TypeError):
         raise ValueError(
             f"unknown precision {p!r} (want one of {PRESET_NAMES})") from None
+
+
+def compute_matmul(x: torch.Tensor, w: torch.Tensor,
+                   compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``x @ w`` on the compute lane: both cast to ``compute_dtype`` and the
+    product cast back to ``x.dtype``, so what follows (bias adds, time
+    coordinates) runs in full precision.  ``None`` is the plain matmul."""
+    if compute_dtype is None:
+        return x @ w
+    return (x.to(compute_dtype) @ w.to(compute_dtype)).to(x.dtype)
 
 
 def parse_dtype(name: Union[str, torch.dtype, None],

@@ -1,5 +1,6 @@
 """Evaluation metrics (counterpart of ``hyperspace_tpu/utils/metrics.py``):
-ROC-AUC, rank-based (Mann–Whitney U) with tie-averaged ranks."""
+ROC-AUC, rank-based (Mann–Whitney U) with tie-averaged ranks, and
+accuracy."""
 
 from __future__ import annotations
 
@@ -26,3 +27,15 @@ def roc_auc(scores_pos: np.ndarray, scores_neg: np.ndarray) -> float:
     r_pos = ranks[:n_pos].sum()
     u = r_pos - n_pos * (n_pos + 1) / 2.0
     return float(u / (n_pos * n_neg))
+
+
+def accuracy(logits: np.ndarray, labels: np.ndarray,
+             mask: np.ndarray | None = None) -> float:
+    """Share of rows whose arg-max logit is the label (over ``mask``'s
+    rows when given)."""
+    pred = np.asarray(logits).argmax(-1)
+    correct = (pred == np.asarray(labels)).astype(np.float64)
+    if mask is not None:
+        mask = np.asarray(mask, np.float64)
+        return float((correct * mask).sum() / np.maximum(mask.sum(), 1.0))
+    return float(correct.mean())

@@ -10,7 +10,8 @@ plain version sum in different orders); ids equal outside runs of
 near-ties.  Queries are never table rows here: at d = 0 the Gram form's
 rounding noise differs between the two.  The scatter kernels: float32
 rtol = atol = 1e-5 (sums in another order); bf16 within one bf16 ulp of
-the plain version's result (both sum in f32 and round once).
+the plain version's result (both sum in f32 and round once).  The
+HyboNet kernels' tolerances stand above their tests.
 """
 
 import numpy as np
@@ -234,5 +235,180 @@ def test_train_step_on_the_card_matches_the_cpu(dev):
             neg_v = torch.randint(0, 3000, s.neg_u.shape, generator=gen,
                                   dtype=torch.int32)
             losses.append(float(s.step(neg_v.to(s.device))))
+        runs[where] = losses
+    np.testing.assert_allclose(runs["cuda"], runs["cpu"], rtol=1e-4)
+
+
+# --- HyboNet: flash attention and hyp_mlr ------------------------------------
+# Tolerances: f32 kernels against their f32 plain versions, which sum the
+# same terms in other orders: values rtol 1e-4 / atol 1e-5; backward
+# results within 1e-4 of the largest entry; the whole Function against
+# autograd of the dense twin within 2e-3 of the largest entry (the
+# clamps differ at the epilogue, as in the JAX package's own test).
+
+
+def hyperboloid_rows(rng, shape, dev, scale=0.7):
+    sp = rng.standard_normal(shape[:-1] + (shape[-1] - 1,)) * scale
+    t = np.sqrt(1.0 + np.sum(sp * sp, axis=-1, keepdims=True))
+    return torch.as_tensor(np.concatenate([t, sp], axis=-1),
+                           dtype=torch.float32, device=dev)
+
+
+def attention_case(rng, dev, b, group, nq, nk, d, masked, empty=()):
+    q = hyperboloid_rows(rng, (b, nq, d), dev)
+    k = hyperboloid_rows(rng, (b, nk, d), dev)
+    v = hyperboloid_rows(rng, (b, nk, d), dev)
+    beta = torch.as_tensor(rng.standard_normal(b) * 0.3, dtype=torch.float32,
+                           device=dev)
+    tau = torch.as_tensor(1.0 + rng.random(b), dtype=torch.float32,
+                          device=dev)
+    mask = None
+    if masked:
+        m = rng.random((b // group, nq, nk)) > 0.3
+        m[:, list(empty), :] = False
+        mask = torch.as_tensor(m.astype(np.uint8), device=dev)
+    return q, k, v, beta, tau, mask
+
+
+def scaled_err(got, want) -> float:
+    return float((got - want).abs().max()) / max(float(want.abs().max()),
+                                                  1e-3)
+
+
+# b, group, nq, nk, d, masked, empty query rows
+FLASH_SHAPES = [(8, 4, 128, 128, 33, True, (100, 127)),
+                (6, 2, 70, 130, 9, True, (0, 69)),
+                (3, 1, 1, 200, 33, False, ()),
+                (2, 1, 65, 33, 72, True, (64,)),
+                (4, 4, 31, 257, 16, True, ())]
+
+
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+def test_flash_kernels_match_plain(dev, shape):
+    from hyperspace_torch.kernels import attention as A
+
+    b, group, nq, nk, d, masked, empty = shape
+    rng = np.random.default_rng(nq + nk + d)
+    q, k, v, beta, tau, mask = attention_case(rng, dev, b, group, nq, nk, d,
+                                              masked, empty)
+    before = (A.flash_fwd.launches, A.flash_dq.launches,
+              A.flash_dkv.launches)
+    out, lse, nrm = A.flash_fwd(q, k, v, 1.0, beta, tau, mask, group)
+    torch.cuda.synchronize()
+    w_out, w_lse, w_nrm = A.flash_fwd_plain(q, k, v, 1.0, beta, tau, mask,
+                                            group)
+    torch.testing.assert_close(out, w_out, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(lse, w_lse, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(nrm, w_nrm, rtol=1e-4, atol=1e-6)
+    for r in empty:
+        assert torch.all(out[:, r] == 0) and torch.all(lse[:, r] == 1e30)
+    dsp = torch.randn(out.shape, device=dev)
+    di = torch.sum(dsp * out, dim=-1)
+    got = (*A.flash_dq(q, k, v, 1.0, beta, tau, mask, group, dsp, lse, di),
+           *A.flash_dkv(q, k, v, 1.0, beta, tau, mask, group, dsp, lse, di))
+    torch.cuda.synchronize()
+    want = (*A.flash_dq_plain(q, k, v, 1.0, beta, tau, mask, group, dsp,
+                              lse, di),
+            *A.flash_dkv_plain(q, k, v, 1.0, beta, tau, mask, group, dsp,
+                               lse, di))
+    for g, w in zip(got, want):
+        assert torch.all(torch.isfinite(g))
+        assert scaled_err(g, w) < 1e-4
+    assert (A.flash_fwd.launches, A.flash_dq.launches,
+            A.flash_dkv.launches) == tuple(x + 1 for x in before)
+
+
+def test_flash_attention_gradients_match_dense_twin(dev):
+    """The Function on the card (three kernels) against autograd of the
+    dense twin on the card: q, k, v, τ and c; dβ exactly 0."""
+    from hyperspace_torch.kernels import attention as A
+
+    rng = np.random.default_rng(9)
+    q, k, v = (hyperboloid_rows(rng, (2, 3, n, 17), dev) for n in (40, 50,
+                                                                   50))
+    m = torch.as_tensor(rng.random((2, 1, 40, 50)) > 0.3, device=dev)
+    m[:, :, 7] = False
+    g_out = torch.randn(q.shape, device=dev)
+    beta0 = torch.as_tensor(rng.standard_normal((3, 1, 1)) * 0.3,
+                            dtype=torch.float32, device=dev)
+    tau0 = torch.as_tensor(1.0 + rng.random((3, 1, 1)), dtype=torch.float32,
+                           device=dev)
+    grads = []
+    for fn in ("kernel", "twin"):
+        ins = [t.clone().requires_grad_() for t in (q, k, v)]
+        c = torch.tensor(1.3, device=dev, requires_grad=True)
+        beta, tau = (t.clone().requires_grad_() for t in (beta0, tau0))
+        if fn == "kernel":
+            out = A.flash_attention(*ins, c, beta=beta, tau=tau, mask=m)
+        else:
+            out = A.flash_attention_plain(*ins, c, beta, tau, m)
+        (out * g_out).sum().backward()
+        grads.append([t.grad for t in (*ins, tau, c, beta)])
+    for name, g, w in zip("q k v tau c".split(), grads[0], grads[1]):
+        assert scaled_err(g, w) < 2e-3, name
+    assert torch.all(grads[0][5] == 0)
+
+
+@pytest.mark.parametrize("n,k,d", [(256, 8, 128), (64, 4, 128),
+                                   (37, 5, 10), (3, 300, 33)])
+def test_hyp_mlr_kernel_matches_plain(dev, n, k, d):
+    from hyperspace_torch.kernels.mlr import hyp_mlr, hyp_mlr_plain
+
+    rng = np.random.default_rng(n + k)
+
+    def ball(m, s):
+        v = rng.standard_normal((m, d))
+        v *= rng.uniform(0.0, s, (m, 1)) / np.linalg.norm(v, axis=1,
+                                                          keepdims=True)
+        return torch.as_tensor(v, dtype=torch.float32, device=dev)
+
+    x, p = ball(n, 0.9), ball(k, 0.5)
+    a = torch.as_tensor(rng.standard_normal((k, d)), dtype=torch.float32,
+                        device=dev)
+    before = hyp_mlr.launches
+    got = hyp_mlr(x, p, a, 1.0)
+    torch.cuda.synchronize()
+    assert hyp_mlr.launches == before + 1
+    torch.testing.assert_close(got, hyp_mlr_plain(x, p, a, 1.0), rtol=1e-4,
+                               atol=1e-5)
+
+
+def test_hybonet_kernels_refuse_what_they_do_not_take(dev):
+    from hyperspace_torch.kernels import attention as A
+    from hyperspace_torch.kernels.mlr import hyp_mlr
+
+    x = torch.zeros((4, 3), dtype=torch.float64, device=dev)
+    with pytest.raises(ValueError, match="float32"):
+        hyp_mlr(x, x, x, 1.0)
+    q = torch.zeros((2, 5, 80), device=dev)
+    one = torch.ones(2, device=dev)
+    with pytest.raises(ValueError, match="width 80"):
+        A.flash_fwd(q, q, q, 1.0, one, one)
+    q = torch.zeros((2, 5, 9), dtype=torch.float64, device=dev)
+    with pytest.raises(ValueError, match="float32"):
+        A.flash_fwd(q, q, q, 1.0, one.double(), one.double())
+
+
+def test_hybonet_step_on_the_card_matches_the_cpu(dev):
+    """Two HyboNet steps from the same parameters and batches, card
+    against CPU, all f32: losses within rtol 1e-4."""
+    from hyperspace_torch.data.text import synthetic_text
+    from hyperspace_torch.models import hybonet
+
+    ds = synthetic_text(num_samples=64, vocab_size=128, num_classes=3,
+                        max_len=24, min_len=4, seed=3)
+    cfg = hybonet.HyboNetConfig(vocab_size=128, num_classes=3, max_len=24,
+                                dim=32, num_heads=2, num_layers=2,
+                                batch_size=16)
+    runs = {}
+    for where in ("cpu", "cuda"):
+        model, opt, state = hybonet.init_model(cfg, seed=0, device=where)
+        losses = []
+        for i in range(2):
+            sl = slice(16 * i, 16 * i + 16)
+            t, m, y = (torch.as_tensor(a[sl], device=where)
+                       for a in (ds.tokens, ds.mask, ds.labels))
+            state, loss = hybonet.train_step(model, opt, state, t, m, y)
+            losses.append(float(loss))
         runs[where] = losses
     np.testing.assert_allclose(runs["cuda"], runs["cpu"], rtol=1e-4)

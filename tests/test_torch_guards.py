@@ -11,13 +11,16 @@ import numpy as np
 import pytest
 import torch
 
-from hyperspace_torch.benchmarks import hgcn_bench
+from hyperspace_torch.benchmarks import hgcn_bench, workloads_bench
+from hyperspace_torch.cli import train as cli_train
 from hyperspace_torch.kernels import _support
+from hyperspace_torch.kernels import attention as flash
 from hyperspace_torch.kernels.cluster import cluster_aggregate
 from hyperspace_torch.kernels.distmat import pdist
+from hyperspace_torch.kernels.mlr import hyp_mlr
 from hyperspace_torch.kernels.scan_topk import scan_topk
 from hyperspace_torch.kernels.segment import csr_segment_sum
-from hyperspace_torch.models import hgcn
+from hyperspace_torch.models import hgcn, hybonet
 from hyperspace_torch.serve.engine import QueryEngine
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -55,7 +58,14 @@ def test_port_imports_no_jax():
                  "hyperspace_torch.nn.gcn", "hyperspace_torch.nn.decoders",
                  "hyperspace_torch.precision", "hyperspace_torch.utils.metrics",
                  "hyperspace_torch.models.hgcn",
-                 "hyperspace_torch.benchmarks.hgcn_bench"):
+                 "hyperspace_torch.benchmarks.hgcn_bench",
+                 "hyperspace_torch.data.text", "hyperspace_torch.nn.attention",
+                 "hyperspace_torch.nn.layers", "hyperspace_torch.nn.mlr",
+                 "hyperspace_torch.kernels.attention",
+                 "hyperspace_torch.kernels.mlr",
+                 "hyperspace_torch.models.hybonet",
+                 "hyperspace_torch.optim.adamw", "hyperspace_torch.cli.train",
+                 "hyperspace_torch.benchmarks.workloads_bench"):
         assert name in res["modules"]
 
 
@@ -84,6 +94,21 @@ def test_training_without_cuda_raises():
         hgcn_bench.setup_lp(64)
 
 
+def test_hybonet_entry_points_without_cuda_raise():
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA")
+    cfg = hybonet.HyboNetConfig(dim=8, num_heads=2, num_layers=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        hybonet.init_model(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli_train.main(["hybonet", "steps=1", "dim=8", "num_heads=2",
+                        "num_layers=1"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        workloads_bench.setup_leg("hybonet_long")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        workloads_bench.run_workloads_bench(steps=1, repeats=1)
+
+
 def test_wrappers_refuse_other_devices():
     x = torch.zeros((4, 3), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
@@ -96,6 +121,57 @@ def test_wrappers_refuse_other_devices():
         csr_segment_sum(torch.zeros((4, 3), device="meta"), ids, None, 4)
     with pytest.raises(ValueError, match="unsupported device"):
         cluster_aggregate(x, torch.zeros(4, device="meta"), ids, ids, None, 4)
+    with pytest.raises(ValueError, match="unsupported device"):
+        hyp_mlr(x, x, x, 1.0)
+    q, b = torch.zeros((2, 5, 4), device="meta"), torch.ones(2, device="meta")
+    for fn in (flash.flash_fwd, flash.flash_dq, flash.flash_dkv):
+        extra = () if fn is flash.flash_fwd else (q, b[:, None].expand(2, 5),
+                                                  b[:, None].expand(2, 5))
+        with pytest.raises(ValueError, match="unsupported device"):
+            fn(q, q, q, 1.0, b, b, None, 1, *extra)
+    with pytest.raises(ValueError, match="unsupported device"):
+        flash.flash_attention(q, q, q, 1.0)
+
+
+def test_hybonet_wrappers_check_shapes():
+    x = torch.zeros((4, 3))
+    with pytest.raises(ValueError, match="want x"):
+        hyp_mlr(x, torch.zeros((2, 4)), torch.zeros((2, 4)), 1.0)
+    with pytest.raises(ValueError, match="want x"):
+        hyp_mlr(x, torch.zeros((2, 3)), torch.zeros((3, 3)), 1.0)
+    q, b = torch.zeros((2, 5, 4)), torch.ones(2)
+    with pytest.raises(ValueError, match="want q"):
+        flash.flash_fwd(q, q[:, :, :3], q[:, :, :3], 1.0, b, b)
+    with pytest.raises(ValueError, match="beta and tau"):
+        flash.flash_fwd(q, q, q, 1.0, b[:1], b)
+    m = torch.ones((2, 5, 5), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="want a mask"):
+        flash.flash_fwd(q, q, q, 1.0, b, b, m, 2)
+    out, lse, nrm = flash.flash_fwd(q, q, q, 1.0, b, b, m[:1], 2)
+    assert out.shape == q.shape and lse.shape == nrm.shape == (2, 5)
+
+
+def test_kernels_line_names_every_cuda_entry():
+    """Every exported launcher of every csrc/*.cu appears in
+    chip_smoke.py's kernels line with its source, so no kernel can be
+    built and never checked."""
+    import re
+
+    csrc = os.path.join(REPO, "hyperspace_torch", "kernels", "csrc")
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        smoke = f.read()
+    found = 0
+    for name in sorted(os.listdir(csrc)):
+        if not name.endswith(".cu"):
+            continue
+        assert f'"hyperspace_torch/kernels/csrc/{name}"' in smoke, name
+        with open(os.path.join(csrc, name)) as f:
+            entries = re.findall(r'extern "C" int (\w+)\(', f.read())
+        assert entries, name
+        for entry in entries:
+            found += 1
+            assert f'"{entry}"' in smoke, entry
+    assert found >= 8
 
 
 def test_missing_compiler_raises(monkeypatch, tmp_path):
