@@ -35,23 +35,40 @@ prints its seconds):
 8. the whole step on the card against the port on the CPU (the plain
    versions), 2 steps each on a 20,000-node split with its cluster
    split, from the same parameters and negatives: losses within rel 2e-2;
-9. hold the HyboNet kernels (flash attention forward, dq, dk/dv and
+9. the attention arm's data: phase 5's split with its cluster split
+   rebuilt at the attention threshold (128 edges a pair); the gate must
+   be open; then ``csr_segment_reduce_1d`` (sum and max),
+   ``csr_att_bwd_edges``, ``cluster_att_fwd`` and ``cluster_att_bwd``
+   against their plain versions on the path's straggler and clustered
+   edge sets at F = 128 and 32, bf16 and f32, plus inputs with empty rows
+   and padding edges and with F = 8 and 130; each kernel launched twice
+   must give the same bits;
+10. the attention training path: ``run_hgcn_bench`` with ``use_att`` (lr
+   3e-3, clip 1.0) for one warm-up and 10 timed steps; losses finite and
+   falling, and the launch counts exactly steps × 2 for each attention
+   kernel, × 7 for ``csr_segment_sum`` and 0 for ``cluster_aggregate``;
+   the device busy time, idle share, top device items, peak memory and
+   test ROC-AUC;
+11. two attention steps on the card against the CPU on phase 8's split,
+   its cluster split at 128 with the gate held open on both: losses
+   within rel 2e-2;
+12. hold the HyboNet kernels (flash attention forward, dq, dk/dv and
    ``hyp_mlr``) against their plain versions at the three HyboNet
    entry points' shapes (the bench leg, the long-context leg, the CLI
    config), with padded sequences (query rows with no valid key) and an
    extra case whose lengths are not a tile multiple: forward output and
    lse; dq, dk, dv and dτ of the whole Function against autograd of the
    dense twin; MLR logits;
-10. the HyboNet bench legs (``workloads_bench``: ``hybonet`` and
+13. the HyboNet bench legs (``workloads_bench``: ``hybonet`` and
    ``hybonet_long``): step ms, tokens/s, device busy ms and idle share,
    peak memory, the largest device items, and each kernel's launch count
    (exactly layers, layers, layers and 1 a step);
-11. the CLI, ``cli.train hybonet --yaml configs/hybonet_textclf.yaml``
+14. the CLI, ``cli.train hybonet --yaml configs/hybonet_textclf.yaml``
    at its 500 steps: loss and accuracy; the last loss finite and below
    the first;
-12. two HyboNet steps on the card against the port on the CPU from the
+15. two HyboNet steps on the card against the port on the CPU from the
    same parameters and batches: losses within rel 1e-4 (all f32);
-13. print the kernels line (device times of each kernel and its plain
+16. print the kernels line (device times of each kernel and its plain
    version at the main paths' shapes, bounds, launches, the library
    call's time), the top-k throughput at bucket 1024 (batches of cold ids
    through the batcher, the engine call alone, and the card's busy
@@ -110,27 +127,43 @@ def timed_ms(torch, fn, reps: int = 20) -> float:
 def device_items(torch, fn, reps: int) -> dict:
     """Device time per call of ``fn`` by item (kernel, copy, fill) under
     ``torch.profiler``: only the events that ran on the card, so a host
-    operator and the kernels it launched are not counted twice."""
+    operator and the kernels it launched are not counted twice.  Late in
+    a long process the profiler drops some device events, so an
+    item's time per call is its mean time per recorded
+    launch times its launches per call (its count over ``reps``, rounded
+    up): a dropped event does not read as a faster call.  A window with
+    no device event is profiled once more, and else ``{}`` is returned."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key: e.self_device_time_total / 1e3 / reps
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0}
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        items = {e.key: e.self_device_time_total / 1e3 / e.count
+                 * -(-e.count // reps)
+                 for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA
+                 and e.self_device_time_total > 0}
+        if items:
+            return items
+    return {}
 
 
 def device_ms(torch, fn, reps: int = 20) -> float:
     """Summed device time of everything ``fn`` runs on the card, per
-    call: a kernel's own time, free of the host's launch overhead."""
-    return sum(device_items(torch, fn, reps).values())
+    call: a kernel's own time, free of the host's launch overhead.  Where
+    the profiler recorded nothing, the time comes from CUDA events
+    instead (:func:`timed_ms`, which adds the launch path's gaps)."""
+    items = device_items(torch, fn, reps)
+    if items:
+        return sum(items.values())
+    emit({"phase": "profiler_fallback", "reps": reps})
+    return timed_ms(torch, fn, reps)
 
 
 def device_share(torch, fn, wall_ms: float, reps: int = 5,
@@ -138,11 +171,22 @@ def device_share(torch, fn, wall_ms: float, reps: int = 5,
     """Device busy time per call of ``fn``, its share of ``wall_ms`` (the
     call's unprofiled wall time) and the ``top_n`` largest device items."""
     items = device_items(torch, fn, reps)
+    if not items:                  # the profiler recorded nothing
+        return {"device_busy_ms": None, "device_idle_share": None,
+                "top_device_ms": "not measured"}
     busy = sum(items.values())
     top = sorted(items.items(), key=lambda r: -r[1])[:top_n]
+    named = {}                     # names cut to 60 characters may collide
+    for k, ms in top:
+        named[k[:60]] = named.get(k[:60], 0.0) + ms
+    # the port's own kernels sit in a top-level anonymous namespace
+    # (PyTorch's in at::native::(anonymous namespace))
+    hand = sum(ms for k, ms in items.items()
+               if k.removeprefix("void ").startswith("(anonymous namespace)"))
     return {"device_busy_ms": busy,
             "device_idle_share": 1.0 - busy / wall_ms,
-            "top_device_ms": {k[:60]: ms for k, ms in top}}
+            "hand_kernels_ms": hand, "device_items": len(items),
+            "top_device_ms": named}
 
 
 def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
@@ -369,7 +413,8 @@ def train_path(torch, args, card: dict) -> dict:
           "seconds": time.perf_counter() - t0})
     if not rel <= CARD_CPU_RTOL:
         raise AssertionError(f"card and CPU losses differ by {rel}")
-    return {"setup": setup, "launches": launches, "err": err}
+    return {"setup": setup, "launches": launches, "err": err,
+            "cpu_split": split}
 
 
 def train_kernel_entries(torch, tr: dict, card: dict) -> list:
@@ -455,6 +500,378 @@ def train_kernel_entries(torch, tr: dict, card: dict) -> list:
         "bound_ms_F32": bound_ms(*cluster_cost(e, 32, n, 2))[0],
         **card}
     return [seg_entry, cl_entry]
+
+
+# --- the HGCN attention arm at ogbn-arxiv scale -------------------------------
+
+ATT_LAUNCHES_PER_STEP = {"cluster_att_fwd": 2, "cluster_att_bwd": 2,
+                         "csr_att_bwd_edges": 2, "csr_segment_reduce_1d": 2,
+                         "csr_segment_sum": 7, "cluster_aggregate": 0}
+ATT_BOUND = 30.0
+ATT_SLOPE = 0.2
+
+
+def att_counts() -> dict:
+    from hyperspace_torch.kernels import cluster as KC
+    from hyperspace_torch.kernels import segment as KS
+
+    return {name: getattr(KC if name.startswith("cluster") else KS,
+                          name).launches for name in ATT_LAUNCHES_PER_STEP}
+
+
+def att_reset() -> None:
+    from hyperspace_torch.kernels import cluster as KC
+    from hyperspace_torch.kernels import segment as KS
+
+    for name in ATT_LAUNCHES_PER_STEP:
+        getattr(KC if name.startswith("cluster") else KS, name).launches = 0
+
+
+def check_att(torch, kernel, label, got, again, want, scale, terms,
+              weight_ulp=2.0 ** -23) -> float:
+    """Hold an attention kernel's f32 output against its plain version's:
+    within (2·terms·2^-24 + weight_ulp)·scale, where ``scale`` is the
+    plain version's result on the absolute inputs (each output's absolute
+    term sum) and ``terms`` the terms of each sum (the row's edge count,
+    plus F + 1 where a dot product feeds it): both sum the same f32
+    terms in other orders, and a weight may sit one ulp apart (one bf16
+    ulp, at most 2^-7 of it, where it is rounded to bf16).  A second launch on the same input
+    must give the same bits."""
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"{kernel} {label}: {got.dtype} {got.shape} "
+                             f"vs {want.dtype} {want.shape}")
+    diff = (got - want).abs()
+    tol = (2.0 * terms * F32_EPS + weight_ulp) * scale.abs()
+    over = int((diff > tol).sum())
+    worst = float(diff.max()) if diff.numel() else 0.0
+    bitwise = bool(torch.equal(got, again))
+    emit({"phase": "check", "kernel": kernel, "case": label,
+          "shape": list(got.shape), "max_abs_err": worst,
+          "over_tolerance": over, "repeat_bitwise_equal": bitwise})
+    if over or not bitwise:
+        raise AssertionError(f"{kernel} {label}: {over} entries beyond "
+                             f"tolerance, repeat bitwise equal: {bitwise}")
+    return worst
+
+
+def att_path(torch, args, card: dict, tr: dict) -> dict:
+    """Phases 9–11; returns what the kernels line needs."""
+    from hyperspace_torch.benchmarks import hgcn_bench as B
+    from hyperspace_torch.data import graphs as G
+    from hyperspace_torch.kernels import cluster as KC
+    from hyperspace_torch.kernels import segment as KS
+    from hyperspace_torch.models import hgcn
+
+    dev = torch.device("cuda")
+    f32, bf16 = torch.float32, torch.bfloat16
+    # --- phase 9: phase 5's split, its cluster split at the attention
+    # threshold; the four kernels against their plain versions ----------
+    t0 = time.perf_counter()
+    split = tr["setup"].split
+    g = split.graph
+    g.cluster_split = KC.build_cluster_split(
+        g.senders, g.receivers, g.edge_mask, g.deg, g.num_nodes,
+        min_pair_edges=G.cluster_min_pair_for(True), rev_perm=g.rev_perm)
+    split_s = time.perf_counter() - t0
+    setup = B.setup_lp(device=dev, split=split, seed=args.seed, use_att=True)
+    agg, n = setup.ga.cluster, setup.num_nodes
+    cs = g.cluster_split
+    n_strag = int(cs.s_mask.sum())
+    emit({"phase": "att_setup", "cluster_split_s": split_s,
+          "seconds": time.perf_counter() - t0, "nodes": n,
+          "min_pair_edges": G.cluster_min_pair_for(True),
+          "frac_clustered": cs.frac_clustered, "att_ok": agg.att_ok,
+          "clustered_edges": len(cs.c_recv), "straggler_edges": n_strag,
+          "straggler_edges_padded": len(cs.s_recv),
+          "lr": setup.cfg.lr, "clip_norm": setup.cfg.clip_norm})
+    if not agg.att_ok:
+        raise AssertionError(f"the attention gate is shut at arxiv scale "
+                             f"(frac_clustered {cs.frac_clustered})")
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 2)
+    err = {name: 0.0 for name in ("csr_segment_reduce_1d",
+                                  "csr_att_bwd_edges", "cluster_att_fwd",
+                                  "cluster_att_bwd")}
+
+    def rand(*shape, dtype=f32, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev)
+                * scale).to(dtype)
+
+    rng = np.random.default_rng(args.seed + 2)
+    sparse = np.sort(rng.choice(n // 3, 200_000) * 3)   # 2 rows in 3 empty
+    sparse_r = torch.as_tensor(np.concatenate(
+        [sparse, np.full(50_000, n - 1)]).astype(np.int32), device=dev)
+    csr_sets = {"stragglers": (agg.s_recv, n_strag),
+                "empty rows + padding": (sparse_r, 200_000)}
+
+    def twice(fn):
+        a = fn()
+        b = fn()
+        torch.cuda.synchronize()
+        return a, b
+
+    for label, (r, n_real) in csr_sets.items():
+        k = torch.bincount(r.long(), minlength=n).float()
+        v = rand(r.shape[0])
+        v[n_real:] = 0                      # padding edges carry zeros
+        for op in ("sum", "max"):
+            got, again = twice(lambda: KS.csr_segment_reduce_1d(v, r, None,
+                                                                n, op))
+            want = KS.csr_segment_reduce_1d_plain(v, r, n, op)
+            scale = (KS.csr_segment_reduce_1d_plain(v.abs(), r, n)
+                     if op == "sum" else torch.zeros_like(want))
+            err["csr_segment_reduce_1d"] = max(
+                err["csr_segment_reduce_1d"], check_att(
+                    torch, "csr_segment_reduce_1d", f"{label} {op}", got,
+                    again, want, scale, k, 0.0))
+        for f, dt in ((128, bf16), (32, bf16), (128, f32), (8, f32),
+                      (130, bf16)):
+            dn = rand(n, f + 1)
+            h = rand(r.shape[0], f, dtype=dt)
+            w = torch.rand(r.shape[0], generator=gen, device=dev) * 3
+            w[n_real:] = 0
+            lm = rand(r.shape[0], scale=8.0).clamp(-29.0, 29.0)
+            got, again = twice(lambda: KS.csr_att_bwd_edges(
+                dn, h, w, lm, r, None, n, ATT_BOUND, ATT_SLOPE))
+            want = KS.csr_att_bwd_edges_plain(dn, h, w, lm, r, n, ATT_BOUND,
+                                              ATT_SLOPE)
+            sc = KS.csr_att_bwd_edges_plain(dn.abs(), h.abs(), w, lm, r, n,
+                                            ATT_BOUND, ATT_SLOPE)
+            tag = f"{label} F={f} {str(dt)[6:]}"
+            e0 = check_att(torch, "csr_att_bwd_edges", f"{tag} dpre",
+                           got[0], again[0], want[0], sc[0], f + 1)
+            e1 = check_att(torch, "csr_att_bwd_edges", f"{tag} d_alpha_r",
+                           got[1], again[1], want[1], sc[1], f + 1 + k)
+            err["csr_att_bwd_edges"] = max(err["csr_att_bwd_edges"], e0, e1)
+
+    every3 = (agg.c_recv % 3) == 0           # rows 1, 2 of every 3 empty
+    c_sets = {"clustered": (agg.c_recv, agg.c_send),
+              "clustered, empty rows": (agg.c_recv[every3].contiguous(),
+                                        agg.c_send[every3].contiguous())}
+    a_s, a_r = rand(n, scale=0.7), rand(n, scale=0.7) + 0.3
+    for label, (r, s_) in c_sets.items():
+        k = torch.bincount(r.long(), minlength=n).float()
+        for f, dt in ((128, bf16), (32, bf16), (128, f32), (8, f32),
+                      (130, bf16)):
+            if label != "clustered" and f not in (128, 130):
+                continue
+            wulp = 2.0 ** -7 if dt == bf16 else 2.0 ** -23
+            h = rand(n, f, dtype=dt)
+            gext = rand(n, f + 1)
+            tag = f"{label} F={f} {str(dt)[6:]}"
+            got, again = twice(lambda: KC.cluster_att_fwd(
+                h, a_s, a_r, r, s_, None, n, ATT_SLOPE, ATT_BOUND))
+            want = KC.cluster_att_fwd_plain(h, a_s, a_r, r, s_, n, ATT_SLOPE,
+                                            ATT_BOUND)
+            sc = KC.cluster_att_fwd_plain(h.abs(), a_s, a_r, r, s_, n,
+                                          ATT_SLOPE, ATT_BOUND)
+            err["cluster_att_fwd"] = max(err["cluster_att_fwd"], check_att(
+                torch, "cluster_att_fwd", tag, got, again, want, sc,
+                k[:, None], wulp))
+            got, again = twice(lambda: KC.cluster_att_bwd(
+                gext, h, a_s, a_r, r, s_, None, n, ATT_SLOPE, ATT_BOUND))
+            want = KC.cluster_att_bwd_plain(gext, h, a_s, a_r, r, s_, n,
+                                            ATT_SLOPE, ATT_BOUND)
+            sc = KC.cluster_att_bwd_plain(gext.abs(), h.abs(), a_s, a_r, r,
+                                          s_, n, ATT_SLOPE, ATT_BOUND)
+            for i, (part, terms, wu) in enumerate((
+                    ("dh", k[:, None], wulp), ("d_alpha_s", f + 1 + k, 0.0),
+                    ("d_alpha_r", f + 1 + k, 0.0))):
+                err["cluster_att_bwd"] = max(err["cluster_att_bwd"],
+                                             check_att(
+                    torch, "cluster_att_bwd", f"{tag} {part}", got[i],
+                    again[i], want[i], sc[i], terms, wu + 2.0 ** -23))
+    emit({"phase": "att_checks", "seconds": time.perf_counter() - t0})
+
+    # --- phase 10: the attention training path -------------------------
+    t0 = time.perf_counter()
+    att_reset()
+    torch.cuda.reset_peak_memory_stats()
+    res = B.run_hgcn_bench(steps=TRAIN_STEPS, warmup=1, setup=setup)
+    launches = att_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = res["losses"]
+    emit({"phase": "att_train", "steps": TRAIN_STEPS, "warmup": 1,
+          "warmup_loss": res["warmup_losses"], "losses": losses,
+          "step_ms": res["step_ms"], "samples_per_s": res["value"],
+          "use_att": res["use_att"], "lr": res["lr"],
+          "clip_norm": res["clip_norm"],
+          "frac_clustered": res["frac_clustered"], "launches": launches,
+          "peak_device_memory_bytes": peak,
+          "seconds": time.perf_counter() - t0, **card})
+    for name, per_step in ATT_LAUNCHES_PER_STEP.items():
+        if launches[name] != (TRAIN_STEPS + 1) * per_step:
+            raise AssertionError(
+                f"attention: {name} launched {launches[name]} times in "
+                f"{TRAIN_STEPS + 1} steps, want {per_step} a step")
+    if not np.all(np.isfinite(losses + res["warmup_losses"])):
+        raise AssertionError(f"non-finite attention loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the attention loss did not fall: {losses}")
+    t1 = time.perf_counter()
+    share = device_share(torch, setup.step, res["step_ms"], reps=3, top_n=12)
+    auc = hgcn.evaluate_lp(setup.model, setup.split, "test", setup.ga)
+    emit({"phase": "att_profile", "step_ms": res["step_ms"], **share,
+          "test_roc_auc_after_steps": auc["roc_auc"],
+          "peak_device_memory_bytes": peak,
+          "seconds": time.perf_counter() - t1, **card})
+
+    # --- phase 11: two attention steps, card against CPU ---------------
+    t0 = time.perf_counter()
+    split20 = tr["cpu_split"]
+    g20 = split20.graph
+    g20.cluster_split = KC.build_cluster_split(
+        g20.senders, g20.receivers, g20.edge_mask, g20.deg, CARD_CPU_NODES,
+        min_pair_edges=G.cluster_min_pair_for(True), rev_perm=g20.rev_perm)
+    runs = {}
+    for where in ("cuda", "cpu"):
+        s20 = B.setup_lp(device=where, split=split20, seed=args.seed,
+                         use_att=True)
+        s20.ga.cluster.use_att_cluster = True    # all four kernels run
+        gen20 = torch.Generator().manual_seed(args.seed + 9)
+        out = []
+        for _ in range(2):
+            neg_v = torch.randint(0, CARD_CPU_NODES, s20.neg_u.shape,
+                                  generator=gen20, dtype=torch.int32)
+            out.append(float(s20.step(neg_v.to(s20.device))))
+        runs[where] = out
+    rel = max(abs(a - b) / abs(b) for a, b in zip(runs["cuda"], runs["cpu"]))
+    emit({"phase": "att_card_vs_cpu", "nodes": CARD_CPU_NODES,
+          "frac_clustered": g20.cluster_split.frac_clustered,
+          "losses_cuda": runs["cuda"], "losses_cpu": runs["cpu"],
+          "max_rel_loss_diff": rel, "seconds": time.perf_counter() - t0})
+    if not rel <= CARD_CPU_RTOL:
+        raise AssertionError(f"attention: card and CPU losses differ by "
+                             f"{rel}")
+    return {"setup": setup, "launches": launches, "err": err}
+
+
+def att_kernel_entries(torch, at: dict, card: dict) -> list:
+    """The attention kernels' entries of the kernels line, timed at the
+    attention path's shapes on this run's edge sets: the stragglers (B3,
+    B5) and the clustered edges (B6) at F = 128, bf16 rows; bounds from
+    the bytes each must move (inputs read once, outputs written once) or
+    its f32 operations."""
+    from hyperspace_torch.kernels import cluster as KC
+    from hyperspace_torch.kernels import segment as KS
+
+    setup = at["setup"]
+    agg, n, dev = setup.ga.cluster, setup.num_nodes, setup.device
+    gen = torch.Generator(device=dev).manual_seed(13)
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def rand(*shape, dtype=f32, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev)
+                * scale).to(dtype)
+
+    base = lambda name, entry, line, shape: {
+        "name": name, "route": "cuda", "entry": entry,
+        "replaces": f"hyperspace_tpu/kernels/{line}",
+        "launches": at["launches"][name],
+        "launches_per_step": ATT_LAUNCHES_PER_STEP[name],
+        "max_abs_err": at["err"][name], "shape": shape}
+    seg_src = "hyperspace_torch/kernels/csrc/segment.cu"
+    cl_src = "hyperspace_torch/kernels/csrc/cluster.cu"
+    r = agg.s_recv
+    e = r.shape[0]
+    v = rand(e)
+    r64 = r.long()
+    lengths = torch.bincount(r64, minlength=n)
+    b3b, b3y = bound_ms(e * 8.0 + n * 4.0, float(e))
+    entries = [{
+        **base("csr_segment_reduce_1d", "hs_csr_segment_reduce_1d",
+               "segment.py:257", [e, n]),
+        "source": seg_src, "dtype": "float32", "op": "sum",
+        "ms": device_ms(torch, lambda: KS.csr_segment_reduce_1d(
+            v, r, None, n)),
+        "plain_ms": device_ms(torch, lambda: KS.csr_segment_reduce_1d_plain(
+            v, r, n)),
+        "bound_ms": b3b, "bound_by": b3y,
+        "library_ms": device_ms(torch, lambda: torch.zeros(
+            n, device=dev).index_add_(0, r64, v)),
+        "library_call": "index_add_ of the f32 values into an f32 [N]",
+        "segment_reduce_ms": device_ms(torch, lambda: torch.segment_reduce(
+            v, "sum", lengths=lengths)),
+        "ms_max": device_ms(torch, lambda: KS.csr_segment_reduce_1d(
+            v, r, None, n, "max")),
+        "call_ms": timed_ms(torch, lambda: KS.csr_segment_reduce_1d(
+            v, r, None, n)), **card}]
+
+    def b5_cost(f, size):
+        return (e * (f * size + 16.0) + n * (4.0 * (f + 1) + 4.0),
+                e * (2.0 * f + 8.0))
+
+    dn = {f: rand(n, f + 1) for f in (128, 32)}
+    hrow = {f: rand(e, f, dtype=bf16) for f in (128, 32)}
+    w = torch.rand(e, generator=gen, device=dev) * 3
+    lm = rand(e, scale=8.0).clamp(-29.0, 29.0)
+
+    def b5(f):
+        return lambda: KS.csr_att_bwd_edges(dn[f], hrow[f], w, lm, r, None,
+                                            n, ATT_BOUND, ATT_SLOPE)
+
+    b5b, b5y = bound_ms(*b5_cost(128, 2))
+    entries.append({
+        **base("csr_att_bwd_edges", "hs_csr_att_bwd_edges",
+               "segment.py:392", [e, 128, n]),
+        "source": seg_src, "dtype": "bfloat16 rows, f32 dn",
+        "ms": device_ms(torch, b5(128)),
+        "plain_ms": device_ms(torch, lambda: KS.csr_att_bwd_edges_plain(
+            dn[128], hrow[128], w, lm, r, n, ATT_BOUND, ATT_SLOPE), reps=5),
+        "bound_ms": b5b, "bound_by": b5y, "library_ms": None,
+        "call_ms": timed_ms(torch, b5(128)),
+        "ms_F32": device_ms(torch, b5(32)),
+        "bound_ms_F32": bound_ms(*b5_cost(32, 2))[0], **card})
+
+    ce = agg.c_recv.shape[0]
+    h = {f: rand(n, f, dtype=bf16) for f in (128, 32)}
+    gx = {f: rand(n, f + 1) for f in (128, 32)}
+    a_s, a_r = rand(n, scale=0.7), rand(n, scale=0.7) + 0.3
+    cr, csn = agg.c_recv, agg.c_send
+
+    def fwd_cost(f, size):
+        return (ce * 8.0 + n * (f * size + 8.0) + n * 4.0 * (f + 1),
+                ce * (2.0 * f + 20.0))
+
+    def bwd_cost(f, size):
+        return (ce * 8.0 + n * (4.0 * (f + 1) + f * size + 8.0)
+                + n * 4.0 * (f + 2), ce * (6.0 * f + 40.0))
+
+    def fwd(f):
+        return lambda: KC.cluster_att_fwd(h[f], a_s, a_r, cr, csn, None, n,
+                                          ATT_SLOPE, ATT_BOUND)
+
+    def bwd(f):
+        return lambda: KC.cluster_att_bwd(gx[f], h[f], a_s, a_r, cr, csn,
+                                          None, n, ATT_SLOPE, ATT_BOUND)
+
+    fb, fby = bound_ms(*fwd_cost(128, 2))
+    entries.append({
+        **base("cluster_att_fwd", "hs_cluster_att_fwd", "cluster.py:401",
+               [n, 128, ce]),
+        "source": cl_src, "dtype": "bfloat16",
+        "ms": device_ms(torch, fwd(128)),
+        "plain_ms": device_ms(torch, lambda: KC.cluster_att_fwd_plain(
+            h[128], a_s, a_r, cr, csn, n, ATT_SLOPE, ATT_BOUND), reps=5),
+        "bound_ms": fb, "bound_by": fby, "library_ms": None,
+        "call_ms": timed_ms(torch, fwd(128)),
+        "ms_F32": device_ms(torch, fwd(32)),
+        "bound_ms_F32": bound_ms(*fwd_cost(32, 2))[0], **card})
+    bb, bby = bound_ms(*bwd_cost(128, 2))
+    entries.append({
+        **base("cluster_att_bwd", "hs_cluster_att_bwd", "cluster.py:575",
+               [n, 128, ce]),
+        "source": cl_src, "dtype": "bfloat16 h, f32 cotangent",
+        "ms": device_ms(torch, bwd(128)),
+        "plain_ms": device_ms(torch, lambda: KC.cluster_att_bwd_plain(
+            gx[128], h[128], a_s, a_r, cr, csn, n, ATT_SLOPE, ATT_BOUND),
+            reps=5),
+        "bound_ms": bb, "bound_by": bby, "library_ms": None,
+        "call_ms": timed_ms(torch, bwd(128)),
+        "ms_F32": device_ms(torch, bwd(32)),
+        "bound_ms_F32": bound_ms(*bwd_cost(32, 2))[0], **card})
+    return entries
 
 
 # --- the HyboNet path: text classification with flash attention -------------
@@ -613,7 +1030,7 @@ def check_mlr(torch, rng, dev, n, k, d) -> float:
 
 
 def hybonet_path(torch, args, card: dict) -> dict:
-    """Phases 9–12; returns what the kernels line needs."""
+    """Phases 12–15; returns what the kernels line needs."""
     import contextlib
 
     from hyperspace_torch.benchmarks import workloads_bench as WB
@@ -622,7 +1039,7 @@ def hybonet_path(torch, args, card: dict) -> dict:
     from hyperspace_torch.models import hybonet
 
     dev = torch.device("cuda")
-    # --- phase 9: the HyboNet kernels against their plain versions ------
+    # --- phase 12: the HyboNet kernels against their plain versions ------
     t0 = time.perf_counter()
     rng = np.random.default_rng(args.seed + 3)
     inputs = {name: hb_inputs(torch, rng, dev, *shape)
@@ -643,7 +1060,7 @@ def hybonet_path(torch, args, card: dict) -> dict:
                                                        k, d))
     emit({"phase": "hybonet_checks", "seconds": time.perf_counter() - t0})
 
-    # --- phase 10: the bench legs ---------------------------------------
+    # --- phase 13: the bench legs ---------------------------------------
     launches = {name: 0 for name in hb_counts()}
     legs = {}
     for name, steps in (("hybonet", 10), ("hybonet_long", 5)):
@@ -677,7 +1094,7 @@ def hybonet_path(torch, args, card: dict) -> dict:
         if not np.all(np.isfinite(res["losses"])):
             raise AssertionError(f"{name}: non-finite loss {res['losses']}")
 
-    # --- phase 11: the CLI with configs/hybonet_textclf.yaml -----------
+    # --- phase 14: the CLI with configs/hybonet_textclf.yaml -----------
     t0 = time.perf_counter()
     log = os.path.join(REPO, "build", "chip_smoke", "hybonet_cli.jsonl")
     if os.path.exists(log):
@@ -703,7 +1120,7 @@ def hybonet_path(torch, args, card: dict) -> dict:
         raise AssertionError(f"CLI: the loss did not fall: {losses[0]} -> "
                              f"{res['loss']}")
 
-    # --- phase 12: two steps, card against CPU --------------------------
+    # --- phase 15: two steps, card against CPU --------------------------
     t0 = time.perf_counter()
     ds = synthetic_text(num_samples=64, vocab_size=512, num_classes=4,
                         max_len=32, seed=args.seed)
@@ -1056,10 +1473,13 @@ def main(argv=None) -> int:
     # --- phases 5-8: the training path ----------------------------------
     tr = train_path(torch, args, card)
 
-    # --- phases 9-12: the HyboNet path ------------------------------------
+    # --- phases 9-11: the HGCN attention arm --------------------------------
+    at = att_path(torch, args, card, tr)
+
+    # --- phases 12-15: the HyboNet path -----------------------------------
     hb = hybonet_path(torch, args, card)
 
-    # --- phase 13: times ---------------------------------------------------
+    # --- phase 16: times ---------------------------------------------------
     # kernel and plain times are device times from the profiler at the
     # main path's shapes; call_ms adds the host's launch path (CUDA
     # events around back-to-back calls)
@@ -1107,8 +1527,11 @@ def main(argv=None) -> int:
          "bound_ms": sb, "bound_by": sby, "library_ms": None,
          "call_ms": timed_ms(torch, run_scan(BATCH)),
          "ms_bucket8": device_ms(torch, run_scan(8)), **card},
-    ] + train_kernel_entries(torch, tr, card) + hybonet_kernel_entries(
-        torch, hb, card)
+    ] + train_kernel_entries(torch, tr, card) + att_kernel_entries(
+        torch, at, card) + hybonet_kernel_entries(torch, hb, card)
+    for entry in kernels:      # the mean path's kernels on the attention arm
+        if entry["name"] in ("csr_segment_sum", "cluster_aggregate"):
+            entry["launches_attention"] = at["launches"][entry["name"]]
     # requests through the batcher at bucket 1024 with its default cache,
     # each batch of distinct ids never seen before (all cold, so every id
     # is computed), and the engine call alone on the same ids, the two

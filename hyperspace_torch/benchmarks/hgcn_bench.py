@@ -8,11 +8,13 @@ nodes, 1.166 M directed edges, 128 features), community-reordered, split
 2% / 2% for validation and test.
 
     python -m hyperspace_torch.benchmarks.hgcn_bench [--steps 10]
-        [--num-nodes 169343] [--device cuda]
+        [--num-nodes 169343] [--device cuda] [--use-att]
 
 prints one JSON object.  The defaults are the JAX bench's: float32
 compute, bf16 edge messages and bf16 training decoder pass,
-``hidden_dims=(128, 32)``, Lorentz, mean aggregation.
+``hidden_dims=(128, 32)``, Lorentz, mean aggregation.  ``--use-att``
+runs the attention arm with its shipped mode defaults (lr 3e-3, clip
+1.0) on a cluster split at the attention threshold (128 edges a pair).
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from typing import Any
 
 import torch
 
+from hyperspace_torch.cli.train import hgcn_mode_defaults
 from hyperspace_torch.data import graphs as G
 from hyperspace_torch.kernels._support import resolve_device
 from hyperspace_torch.models import hgcn
@@ -90,21 +93,25 @@ class LPSetup:
 def setup_lp(num_nodes: int = ARXIV_NODES, *, device="cuda",
              dtype: str = "float32", agg_dtype: str | None = "bfloat16",
              decoder_dtype: str | None = "bfloat16", seed: int = 0,
-             split: G.LinkSplit | None = None) -> LPSetup:
+             split: G.LinkSplit | None = None,
+             use_att: bool = False) -> LPSetup:
     """The bench's config, graph, model and step inputs on ``device``
-    (``split`` reuses an already prepared split)."""
+    (``split`` reuses an already prepared split; its cluster split should
+    be built at ``G.cluster_min_pair_for(use_att)``)."""
     dev = resolve_device(device)
     t0 = time.perf_counter()
     if split is None:
         split, _ = arxiv_scale_split(num_nodes, seed=seed,
                                      cluster_min_pair=G.cluster_min_pair_for(
-                                         False))
+                                         use_att))
     num_nodes = split.graph.num_nodes
     cfg = hgcn.HGCNConfig(
         feat_dim=split.graph.x.shape[1], hidden_dims=(128, 32),
-        kind="lorentz", dtype=parse_dtype(dtype),
+        kind="lorentz", use_att=use_att, dtype=parse_dtype(dtype),
         agg_dtype=parse_dtype(agg_dtype),
         decoder_dtype=parse_dtype(decoder_dtype))
+    if use_att:  # the shipped attention-mode defaults
+        cfg = hgcn_mode_defaults(cfg, {"use_att": "true"}, sampled=False)
     pos_host = split.train_pos
     neg_u, neg_plan = hgcn.make_static_negatives(
         num_nodes, len(pos_host) * cfg.neg_per_pos, seed=seed, device=dev)
@@ -133,16 +140,20 @@ def run_hgcn_bench(steps: int = 10, warmup: int = 1,
                    num_nodes: int = ARXIV_NODES, *, device="cuda",
                    dtype: str = "float32", agg_dtype: str = "bfloat16",
                    decoder_dtype: str | None = "bfloat16",
+                   use_att: bool = False,
                    setup: LPSetup | None = None) -> dict[str, Any]:
     """Time ``steps`` training steps after ``warmup`` untimed ones.
 
     Returns samples/s (``num_nodes × steps / time``), the step time, the
     loss of every step, ``frac_clustered``, the host preparation
-    seconds and the device (with the card's name and power limit on
-    CUDA).  ``setup`` reuses a prepared :class:`LPSetup`."""
+    seconds, the config as executed (``use_att``, ``lr``, ``clip_norm``)
+    and the device (with the card's name and power limit on CUDA).
+    ``setup`` reuses a prepared :class:`LPSetup` (whose config then
+    decides ``use_att``)."""
     if setup is None:
         setup = setup_lp(num_nodes, device=device, dtype=dtype,
-                         agg_dtype=agg_dtype, decoder_dtype=decoder_dtype)
+                         agg_dtype=agg_dtype, decoder_dtype=decoder_dtype,
+                         use_att=use_att)
     dev = setup.device
     warm = [setup.step() for _ in range(warmup)]
     _sync(dev)
@@ -169,6 +180,8 @@ def run_hgcn_bench(steps: int = 10, warmup: int = 1,
         "dtype": str(setup.cfg.dtype), "agg_dtype": str(
             setup.cfg.agg_dtype), "decoder_dtype": str(
                 setup.cfg.decoder_dtype),
+        "use_att": setup.cfg.use_att, "lr": setup.cfg.lr,
+        "clip_norm": setup.cfg.clip_norm,
     }
 
 
@@ -178,9 +191,11 @@ def main(argv=None) -> int:
     ap.add_argument("--warmup", type=int, default=1)
     ap.add_argument("--num-nodes", type=int, default=ARXIV_NODES)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--use-att", action="store_true",
+                    help="the attention arm (use_att) with its mode defaults")
     args = ap.parse_args(argv)
     out = run_hgcn_bench(args.steps, args.warmup, args.num_nodes,
-                         device=args.device)
+                         device=args.device, use_att=args.use_att)
     print(json.dumps(out))
     return 0
 

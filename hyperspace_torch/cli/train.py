@@ -27,7 +27,7 @@ import math
 import os
 
 from hyperspace_torch import precision as precision_lib
-from hyperspace_torch.cli.serve import _json_safe, apply_overrides
+from hyperspace_torch.cli.serve import _coerce, _json_safe, apply_overrides
 
 
 @dataclasses.dataclass
@@ -94,6 +94,20 @@ def run_hybonet(run: RunConfig, overrides: dict) -> dict:
     res = hybonet.evaluate(model, te)
     return {"workload": "hybonet", "source": source,
             "loss": losses[-1] if losses else math.nan, **res}
+
+
+def hgcn_mode_defaults(base, overrides: dict, sampled: bool):
+    """HGCN's mode-aware defaults, as the JAX package ships them: sampled
+    minibatches and the attention arm train at lr 3e-3 (the full-graph
+    1e-2 oscillates or collapses there), and attention also clips the
+    global gradient norm at 1.0.  An explicit ``lr``/``clip_norm`` in
+    ``overrides`` wins."""
+    use_att = _coerce(False, overrides.get("use_att", "false"))
+    if (sampled or use_att) and "lr" not in overrides:
+        base = dataclasses.replace(base, lr=3e-3)
+    if use_att and "clip_norm" not in overrides:
+        base = dataclasses.replace(base, clip_norm=1.0)
+    return base
 
 
 WORKLOADS = {"hybonet": run_hybonet}

@@ -1,14 +1,21 @@
 """Cluster-pair aggregation (counterpart of
 ``hyperspace_tpu/kernels/cluster.py``).
 
-``cluster_aggregate(h, w, receivers, senders, plan, n)`` is
-``out[r] = Σ_{e: receivers_e = r} w_e · h[senders_e]`` over the
-block-dense ("clustered") edges, without an [E, F] message array,
-accumulated in float32 and returned in h's dtype.  When h is bf16 each
-weight is rounded to bf16 before its product, as the TPU kernel does in
-its bf16 mode.  For tensors on a CUDA device the wrapper launches the
-hand-written kernel ``csrc/cluster.cu``; for tensors on the CPU it runs
-:func:`cluster_aggregate_plain`.
+Three functions over the block-dense ("clustered") edges, none writing
+an [E, F] message array, all accumulating in float32:
+
+- ``cluster_aggregate(h, w, receivers, senders, plan, n)`` is
+  ``out[r] = Σ_{e: receivers_e = r} w_e · h[senders_e]``, returned in h's
+  dtype (the mean path);
+- ``cluster_att_fwd`` gives the attention arm's unnormalised
+  ``[N, F+1]`` (num | den) partials, the weights computed from the two
+  score vectors; ``cluster_att_bwd`` its backward.
+
+When h is bf16 each weight is rounded to bf16 before its product, and
+the attention backward rounds the cotangent rows to bf16, as the TPU
+kernels do in their bf16 mode.  For tensors on a CUDA device the
+wrappers launch the hand-written kernels in ``csrc/cluster.cu``; for
+tensors on the CPU they run their ``*_plain`` versions.
 
 The host side — the (receiver block, sender block, chunk) plan and the
 split of a graph's edges into clustered pairs and stragglers — is
@@ -27,7 +34,7 @@ import torch
 
 from hyperspace_torch.kernels import _support as S
 from hyperspace_torch.kernels.segment import CARD_DTYPES, build_csr_plan, \
-    round_up
+    round_up, true_div
 
 _BN = 256   # receiver-block rows
 _BS = 256   # sender-block rows
@@ -158,6 +165,194 @@ def cluster_aggregate(h: torch.Tensor, w: torch.Tensor,
 
 
 cluster_aggregate.launches = 0
+
+
+# --- in-tile attention ----------------------------------------------------------
+
+
+def att_squash(pre: torch.Tensor, bound: float, slope: float):
+    """The bounded-logit softmax weight ``w = exp(B·tanh(leaky(pre)/B))``
+    and its derivative ``w·(1 − tanh²)·leaky'(pre)`` (leaky' is 1 at 0),
+    as the JAX kernels' ``_att_squash``."""
+    pos = pre >= 0
+    lam = torch.where(pos, pre, slope * pre)
+    th = torch.tanh(true_div(lam, bound))
+    w = torch.exp(bound * th)
+    dfac = w * (1.0 - th * th) * torch.where(
+        pos, torch.ones_like(pre), torch.full_like(pre, slope))
+    return w, dfac
+
+
+def cluster_att_fwd_plain(h: torch.Tensor, alpha_s: torch.Tensor,
+                          alpha_r: torch.Tensor, receivers: torch.Tensor,
+                          senders: torch.Tensor, num_nodes: int,
+                          negative_slope: float = 0.2,
+                          bound: float = 30.0) -> torch.Tensor:
+    """:func:`cluster_att_fwd` in plain PyTorch, in promote(h, float32)."""
+    acc_dt = torch.promote_types(h.dtype, torch.float32)
+    pre = alpha_s.to(acc_dt)[senders] + alpha_r.to(acc_dt)[receivers]
+    w, _ = att_squash(pre, bound, negative_slope)
+    if h.dtype == torch.bfloat16:
+        w = w.to(torch.bfloat16).to(acc_dt)
+    msgs = torch.cat([w[:, None] * h[senders].to(acc_dt), w[:, None]], 1)
+    out = torch.zeros((num_nodes, h.shape[1] + 1), dtype=acc_dt,
+                      device=h.device)
+    return out.index_add_(0, receivers, msgs)
+
+
+def cluster_att_bwd_plain(g_ext: torch.Tensor, h: torch.Tensor,
+                          alpha_s: torch.Tensor, alpha_r: torch.Tensor,
+                          receivers: torch.Tensor, senders: torch.Tensor,
+                          num_nodes: int, negative_slope: float = 0.2,
+                          bound: float = 30.0):
+    """:func:`cluster_att_bwd` in plain PyTorch, in promote(h, float32),
+    through the involution as the kernel computes it."""
+    acc_dt = torch.promote_types(h.dtype, torch.float32)
+    f = h.shape[1]
+    g = g_ext.to(acc_dt)
+    if h.dtype == torch.bfloat16:
+        g = g.to(torch.bfloat16).to(acc_dt)
+    hf = h.to(acc_dt)
+    a_s, a_r = alpha_s.to(acc_dt), alpha_r.to(acc_dt)
+    _, dfac = att_squash(a_s[senders] + a_r[receivers], bound,
+                         negative_slope)
+    w_rev, dfac_rev = att_squash(a_s[receivers] + a_r[senders], bound,
+                                 negative_slope)
+    if h.dtype == torch.bfloat16:
+        w_rev = w_rev.to(torch.bfloat16).to(acc_dt)
+    g_s = g[senders]
+    dw = torch.sum(g[receivers, :f] * hf[senders], dim=-1) + g[receivers, f]
+    dw_rev = torch.sum(g_s[:, :f] * hf[receivers], dim=-1) + g_s[:, f]
+    zeros = dict(dtype=acc_dt, device=h.device)
+    dh = torch.zeros((num_nodes, f), **zeros).index_add_(
+        0, receivers, w_rev[:, None] * g_s[:, :f])
+    da_s = torch.zeros(num_nodes, **zeros).index_add_(0, receivers,
+                                                      dw_rev * dfac_rev)
+    da_r = torch.zeros(num_nodes, **zeros).index_add_(0, receivers,
+                                                      dw * dfac)
+    return dh, da_s, da_r
+
+
+def _check_att(name: str, h: torch.Tensor, alpha_s: torch.Tensor,
+               alpha_r: torch.Tensor, receivers: torch.Tensor,
+               senders: torch.Tensor, num_nodes: int) -> None:
+    if (h.ndim != 2 or h.shape[0] != num_nodes or h.shape[1] < 1
+            or alpha_s.shape != (num_nodes,)
+            or alpha_r.shape != (num_nodes,)
+            or receivers.ndim != 1 or senders.shape != receivers.shape):
+        raise ValueError(f"{name}: want [N, F] h, [N] scores and [E] edges "
+                         f"with N = {num_nodes}; got {tuple(h.shape)}, "
+                         f"{tuple(alpha_s.shape)}, {tuple(alpha_r.shape)}, "
+                         f"{tuple(receivers.shape)}, {tuple(senders.shape)}")
+
+
+def _check_att_cuda(name: str, h: torch.Tensor, floats: tuple,
+                    ids: tuple) -> None:
+    S.check_cuda(name, CARD_DTYPES, h)
+    S.check_cuda(name, (torch.float32,), *floats)
+    S.check_cuda(name, (torch.int32,), *ids)
+    if len({t.device for t in (h, *floats, *ids)}) != 1:
+        raise ValueError(f"{name}: tensors on several devices")
+
+
+def cluster_att_fwd(h: torch.Tensor, alpha_s: torch.Tensor,
+                    alpha_r: torch.Tensor, receivers: torch.Tensor,
+                    senders: torch.Tensor, plan, num_nodes: int,
+                    negative_slope: float = 0.2,
+                    bound: float = 30.0) -> torch.Tensor:
+    """``[N, F+1]`` f32 unnormalised attention partials over the
+    clustered edges: ``out[r] = Σ_e w_e·[h[s_e] | 1]`` with
+    ``w_e = exp(bound·tanh(leaky(α_s[s_e] + α_r[r_e]) / bound))``.
+
+    ``h: [N, F]`` (bf16 or f32), ``alpha_s``/``alpha_r: [N]`` f32,
+    ``receivers``/``senders: [E]`` int32 sorted by (receiver // 256,
+    sender // 256); ``plan`` accepted for the JAX signature, not needed.
+    CUDA tensors go through ``csrc/cluster.cu``; CPU tensors through
+    :func:`cluster_att_fwd_plain`."""
+    del plan
+    _check_att("cluster_att_fwd", h, alpha_s, alpha_r, receivers, senders,
+               num_nodes)
+    if h.device.type == "cpu" and receivers.device.type == "cpu":
+        return cluster_att_fwd_plain(h, alpha_s, alpha_r, receivers,
+                                     senders, num_nodes, negative_slope,
+                                     bound)
+    if h.device.type != "cuda":
+        raise ValueError(f"cluster_att_fwd: unsupported device {h.device}")
+    _check_att_cuda("cluster_att_fwd", h, (alpha_s, alpha_r),
+                    (receivers, senders))
+    f = h.shape[1]
+    if receivers.shape[0] == 0:
+        return torch.zeros((num_nodes, f + 1), dtype=torch.float32,
+                           device=h.device)
+    ptr = torch.empty(-(-num_nodes // _BN) + 1, dtype=torch.int32,
+                      device=h.device)
+    out = torch.empty((num_nodes, f + 1), dtype=torch.float32,
+                      device=h.device)
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn = S.function("cluster", "hs_cluster_att_fwd",
+                    [P, P, P, P, P, P, P, I, I, I, I, F, F, P])
+    S.check(fn(h.data_ptr(), alpha_s.data_ptr(), alpha_r.data_ptr(),
+               receivers.data_ptr(), senders.data_ptr(), ptr.data_ptr(),
+               out.data_ptr(), receivers.shape[0], num_nodes, f,
+               int(h.dtype == torch.bfloat16), bound, negative_slope,
+               S.stream_ptr(h)), "cluster_att_fwd")
+    cluster_att_fwd.launches += 1
+    return out
+
+
+cluster_att_fwd.launches = 0
+
+
+def cluster_att_bwd(g_ext: torch.Tensor, h: torch.Tensor,
+                    alpha_s: torch.Tensor, alpha_r: torch.Tensor,
+                    receivers: torch.Tensor, senders: torch.Tensor, plan,
+                    num_nodes: int, negative_slope: float = 0.2,
+                    bound: float = 30.0):
+    """Backward of :func:`cluster_att_fwd` from the cotangent
+    ``g_ext: [N, F+1]`` f32 (d_num | d_den): returns
+    ``(dh [N, F], d_alpha_s [N], d_alpha_r [N])``, f32, each indexed by
+    receiver through the edge involution, so the edge set must be closed
+    under reversal (the cluster split's is).  CUDA tensors go through
+    ``csrc/cluster.cu``; CPU tensors through :func:`cluster_att_bwd_plain`."""
+    del plan
+    _check_att("cluster_att_bwd", h, alpha_s, alpha_r, receivers, senders,
+               num_nodes)
+    f = h.shape[1]
+    if g_ext.shape != (num_nodes, f + 1):
+        raise ValueError(f"cluster_att_bwd: want a [N, F+1] cotangent; got "
+                         f"{tuple(g_ext.shape)} for h {tuple(h.shape)}")
+    if h.device.type == "cpu" and receivers.device.type == "cpu":
+        return cluster_att_bwd_plain(g_ext, h, alpha_s, alpha_r, receivers,
+                                     senders, num_nodes, negative_slope,
+                                     bound)
+    if h.device.type != "cuda":
+        raise ValueError(f"cluster_att_bwd: unsupported device {h.device}")
+    _check_att_cuda("cluster_att_bwd", h, (g_ext, alpha_s, alpha_r),
+                    (receivers, senders))
+    dev = h.device
+    if receivers.shape[0] == 0:
+        z = torch.zeros(num_nodes, dtype=torch.float32, device=dev)
+        return torch.zeros((num_nodes, f), dtype=torch.float32,
+                           device=dev), z, z.clone()
+    ptr = torch.empty(-(-num_nodes // _BN) + 1, dtype=torch.int32,
+                      device=dev)
+    dh = torch.empty((num_nodes, f), dtype=torch.float32, device=dev)
+    da_s = torch.empty(num_nodes, dtype=torch.float32, device=dev)
+    da_r = torch.empty(num_nodes, dtype=torch.float32, device=dev)
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn = S.function("cluster", "hs_cluster_att_bwd",
+                    [P, P, P, P, P, P, P, P, P, P, I, I, I, I, F, F, P])
+    S.check(fn(g_ext.data_ptr(), h.data_ptr(), alpha_s.data_ptr(),
+               alpha_r.data_ptr(), receivers.data_ptr(), senders.data_ptr(),
+               ptr.data_ptr(), dh.data_ptr(), da_s.data_ptr(),
+               da_r.data_ptr(), receivers.shape[0], num_nodes, f,
+               int(h.dtype == torch.bfloat16), bound, negative_slope,
+               S.stream_ptr(h)), "cluster_att_bwd")
+    cluster_att_bwd.launches += 1
+    return dh, da_s, da_r
+
+
+cluster_att_bwd.launches = 0
 
 
 class ClusterSplit(NamedTuple):

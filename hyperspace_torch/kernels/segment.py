@@ -1,11 +1,16 @@
-"""Sorted segment sum (counterpart of ``hyperspace_tpu/kernels/segment.py``).
+"""Sorted segment reductions (counterpart of
+``hyperspace_tpu/kernels/segment.py``).
 
-``csr_segment_sum(values, receivers, plan, n)`` is
-``out[r] = Σ_{e: receivers_e = r} values_e`` over receiver-sorted edges,
-accumulated in at least float32 and returned in the values' dtype.  For
-tensors on a CUDA device it launches the hand-written kernel
-``csrc/segment.cu`` (bf16 or f32 values); for tensors on the CPU it runs
-:func:`csr_segment_sum_plain`.
+- ``csr_segment_sum(values, receivers, plan, n)`` is
+  ``out[r] = Σ_{e: receivers_e = r} values_e`` over receiver-sorted edges,
+  accumulated in at least float32 and returned in the values' dtype;
+- ``csr_segment_reduce_1d`` is the same walk over per-edge scalars, with
+  ``sum`` or ``max``;
+- ``csr_att_bwd_edges`` is the attention backward's fused edge pass.
+
+For tensors on a CUDA device each launches its hand-written kernel in
+``csrc/segment.cu``; for tensors on the CPU it runs its ``*_plain``
+version.
 
 The JAX kernel walks a host-built plan of (node block × edge chunk)
 items; the CUDA kernel needs none (a warp owns a receiver row and walks
@@ -127,3 +132,164 @@ def csr_segment_sum(values: torch.Tensor, receivers: torch.Tensor, plan,
 
 
 csr_segment_sum.launches = 0
+
+
+# --- per-edge scalar reductions ------------------------------------------------
+
+NEG_FILL = -3.0e38  # the JAX kernel's max fill: an empty segment's max
+
+
+def csr_segment_reduce_1d_plain(values: torch.Tensor, receivers: torch.Tensor,
+                                num_segments: int,
+                                op: str = "sum") -> torch.Tensor:
+    """Per-segment ``sum`` or ``max`` in plain PyTorch, in
+    promote(values, float32), returned in the values' dtype; a max starts
+    from :data:`NEG_FILL`, as the JAX kernel does."""
+    acc_dt = torch.promote_types(values.dtype, torch.float32)
+    v = values.to(acc_dt)
+    if op == "sum":
+        out = torch.zeros(num_segments, dtype=acc_dt, device=values.device)
+        out.index_add_(0, receivers, v)
+    else:
+        out = torch.full((num_segments,), NEG_FILL, dtype=acc_dt,
+                         device=values.device)
+        out.scatter_reduce_(0, receivers.long(), v, "amax")
+    return out.to(values.dtype)
+
+
+def csr_segment_reduce_1d(values: torch.Tensor, receivers: torch.Tensor, plan,
+                          num_segments: int, op: str = "sum") -> torch.Tensor:
+    """Per-segment scalar ``sum`` or ``max`` over receiver-sorted edges.
+
+    ``values: [E]`` (0 on padding edges for a sum), ``receivers: [E]``
+    int32 ascending, ``plan`` accepted for the JAX signature and not
+    needed.  A max over no edge is :data:`NEG_FILL`.  CUDA tensors (f32
+    values) go through ``csrc/segment.cu``; CPU tensors through
+    :func:`csr_segment_reduce_1d_plain`."""
+    del plan
+    if op not in ("sum", "max"):
+        raise ValueError(f"csr_segment_reduce_1d: op must be sum or max; "
+                         f"got {op!r}")
+    if values.ndim != 1 or receivers.shape != values.shape:
+        raise ValueError(f"csr_segment_reduce_1d: want [E] values and [E] "
+                         f"receivers; got {tuple(values.shape)} and "
+                         f"{tuple(receivers.shape)}")
+    if values.device.type == "cpu" and receivers.device.type == "cpu":
+        return csr_segment_reduce_1d_plain(values, receivers, num_segments,
+                                           op)
+    if values.device.type != "cuda":
+        raise ValueError(f"csr_segment_reduce_1d: unsupported device "
+                         f"{values.device}")
+    S.check_cuda("csr_segment_reduce_1d", (torch.float32,), values)
+    S.check_cuda("csr_segment_reduce_1d", (torch.int32,), receivers)
+    if receivers.device != values.device:
+        raise ValueError("csr_segment_reduce_1d: values and receivers on "
+                         f"{values.device} and {receivers.device}")
+    dev = values.device
+    rowptr = torch.empty(num_segments + 1, dtype=torch.int32, device=dev)
+    out = torch.empty(num_segments, dtype=torch.float32, device=dev)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn = S.function("segment", "hs_csr_segment_reduce_1d",
+                    [P, P, P, P, I, I, I, P])
+    S.check(fn(values.data_ptr(), receivers.data_ptr(), rowptr.data_ptr(),
+               out.data_ptr(), values.shape[0], num_segments,
+               int(op == "max"), S.stream_ptr(values)),
+            "csr_segment_reduce_1d")
+    csr_segment_reduce_1d.launches += 1
+    return out
+
+
+csr_segment_reduce_1d.launches = 0
+
+
+# --- the attention backward's fused edge pass ----------------------------------
+
+
+def true_div(x: torch.Tensor, c: float) -> torch.Tensor:
+    """``x / c`` rounded once to x's dtype, as the kernels and JAX divide,
+    on every device: the quotient is taken in float64 (a float32 quotient
+    rounded from float64 is the correctly rounded one), since PyTorch's
+    CUDA division by a Python number multiplies by its rounded reciprocal
+    instead (an ulp apart, which ``1 − (x/c)²`` amplifies near |x| = c)."""
+    x64 = x.to(torch.float64)
+    return (x64 / torch.full_like(x64, c)).to(x.dtype)
+
+
+def csr_att_bwd_edges_plain(dn_ext: torch.Tensor, h: torch.Tensor,
+                            w: torch.Tensor, lm: torch.Tensor,
+                            receivers: torch.Tensor, num_segments: int,
+                            bound: float, negative_slope: float):
+    """:func:`csr_att_bwd_edges` in plain PyTorch, in
+    promote(dn_ext, float32)."""
+    acc_dt = torch.promote_types(dn_ext.dtype, torch.float32)
+    f = h.shape[1]
+    dn = dn_ext.to(acc_dt)[receivers]
+    dw = torch.sum(dn[:, :f] * h.to(acc_dt), dim=-1) + dn[:, f]
+    lmf = lm.to(acc_dt)
+    leaky = torch.where(lmf >= 0.0, torch.ones_like(lmf),
+                        torch.full_like(lmf, negative_slope))
+    dpre = dw * w.to(acc_dt) * (1.0 - true_div(lmf, bound) ** 2) * leaky
+    dar = torch.zeros(num_segments, dtype=acc_dt, device=dn_ext.device)
+    dar.index_add_(0, receivers, dpre)
+    return dpre, dar
+
+
+def csr_att_bwd_edges(dn_ext: torch.Tensor, h: torch.Tensor, w: torch.Tensor,
+                      lm: torch.Tensor, receivers: torch.Tensor, plan,
+                      num_segments: int, bound: float,
+                      negative_slope: float):
+    """The attention backward's edge pass over receiver-sorted edges:
+
+        dw_e   = <d_num[r_e], h_e> + d_den[r_e]
+        dpre_e = dw_e · w_e · (1 − (lm_e / bound)²) · (lm_e ≥ 0 ? 1 : slope)
+        d_alpha_r[r] = Σ_{e: r_e = r} dpre_e
+
+    ``dn_ext: [N, F+1]`` f32 (d_num | d_den), ``h: [E, F]`` the residual
+    sender rows (bf16 or f32), ``w``/``lm: [E]`` f32 (the forward's
+    masked weights and bounded logits; ``w`` is 0 on padding).  The JAX
+    function takes ``h`` with a ones column appended (``[E, F+1]``) for
+    the d_den term; here the kernel adds that term itself.  Returns
+    ``(dpre [E], d_alpha_r [N])``, f32.  CUDA tensors go through
+    ``csrc/segment.cu``; CPU tensors through
+    :func:`csr_att_bwd_edges_plain`."""
+    del plan
+    e, f = h.shape if h.ndim == 2 else (-1, -1)
+    if (dn_ext.ndim != 2 or dn_ext.shape[1] != f + 1 or f < 1
+            or not (w.shape == lm.shape == receivers.shape == (e,))):
+        raise ValueError(
+            f"csr_att_bwd_edges: want [N, F+1] dn_ext, [E, F] h and [E] "
+            f"w, lm, receivers; got {tuple(dn_ext.shape)}, "
+            f"{tuple(h.shape)}, {tuple(w.shape)}, {tuple(lm.shape)}, "
+            f"{tuple(receivers.shape)}")
+    if dn_ext.device.type == "cpu" and receivers.device.type == "cpu":
+        return csr_att_bwd_edges_plain(dn_ext, h, w, lm, receivers,
+                                       num_segments, bound, negative_slope)
+    if dn_ext.device.type != "cuda":
+        raise ValueError(f"csr_att_bwd_edges: unsupported device "
+                         f"{dn_ext.device}")
+    S.check_cuda("csr_att_bwd_edges", (torch.float32,), dn_ext, w, lm)
+    S.check_cuda("csr_att_bwd_edges", CARD_DTYPES, h)
+    S.check_cuda("csr_att_bwd_edges", (torch.int32,), receivers)
+    if len({dn_ext.device, h.device, w.device, lm.device,
+            receivers.device}) != 1:
+        raise ValueError("csr_att_bwd_edges: tensors on several devices")
+    if dn_ext.shape[0] != num_segments:
+        raise ValueError(f"csr_att_bwd_edges: dn_ext has "
+                         f"{dn_ext.shape[0]} rows, want {num_segments}")
+    dev = dn_ext.device
+    rowptr = torch.empty(num_segments + 1, dtype=torch.int32, device=dev)
+    dpre = torch.empty(e, dtype=torch.float32, device=dev)
+    dar = torch.empty(num_segments, dtype=torch.float32, device=dev)
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn = S.function("segment", "hs_csr_att_bwd_edges",
+                    [P, P, P, P, P, P, P, P, I, I, I, I, F, F, P])
+    S.check(fn(dn_ext.data_ptr(), h.data_ptr(), w.data_ptr(), lm.data_ptr(),
+               receivers.data_ptr(), rowptr.data_ptr(), dpre.data_ptr(),
+               dar.data_ptr(), e, f, num_segments,
+               int(h.dtype == torch.bfloat16), bound, negative_slope,
+               S.stream_ptr(dn_ext)), "csr_att_bwd_edges")
+    csr_att_bwd_edges.launches += 1
+    return dpre, dar
+
+
+csr_att_bwd_edges.launches = 0

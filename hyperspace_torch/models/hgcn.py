@@ -182,8 +182,8 @@ def init_lp(cfg: HGCNConfig, g: graph_data.Graph, seed: int = 0,
     generator seeded with ``seed`` (the same on every device), step
     generators on the device."""
     dev = resolve_device(device)
-    if cfg.learn_c or cfg.use_att:
-        raise NotImplementedError("learn_c and use_att are not ported yet")
+    if cfg.learn_c:
+        raise NotImplementedError("learn_c is not ported yet")
     del g  # shapes come from cfg; kept for the JAX signature
     init_gen = torch.Generator().manual_seed(seed)
     model = HGCNLinkPred(cfg, init_gen).to(dev)
@@ -196,12 +196,13 @@ def init_lp(cfg: HGCNConfig, g: graph_data.Graph, seed: int = 0,
 
 def params_from_jax(tree) -> dict:
     """A ``state_dict`` for :class:`HGCNLinkPred` from the flax parameter
-    tree ``{encoder: {conv0: {kernel, bias}, …}, decoder: {r, t_raw}}``
-    (numpy arrays; kernels keep JAX's (d_in, d_out) layout)."""
+    tree ``{encoder: {conv0: {kernel, bias[, att_src, att_dst]}, …},
+    decoder: {r, t_raw}}`` (numpy arrays; every leaf keeps JAX's layout:
+    kernels (d_in, d_out), attention vectors (d_out, 1))."""
     out = {}
     for conv, leaves in tree["encoder"].items():
         for name, a in leaves.items():
-            if name not in ("kernel", "bias"):
+            if name not in ("kernel", "bias", "att_src", "att_dst"):
                 raise NotImplementedError(f"parameter {conv}/{name} is not "
                                           "ported yet")
             out[f"encoder.{conv}.{name}"] = torch.as_tensor(np.array(a))

@@ -1,15 +1,23 @@
-"""Hyperbolic graph convolution, mean aggregation (counterpart of
+"""Hyperbolic graph convolution (counterpart of
 ``hyperspace_tpu/nn/gcn.py``, Chami et al. NeurIPS 2019).
 
 Each layer: logmap to the origin tangent chart → one [N, d] linear map
-→ neighbour mean aggregation → activation → expmap at the output
-curvature.  The aggregation takes the graph's cluster split when it has
-one (``nn.scatter.cluster_sym_aggregate``), else the sorted involution
-aggregation (``nn.scatter.sym_segment_aggregate``).
+→ neighbour aggregation → activation → expmap at the output curvature.
 
-Not ported yet (each raises ``NotImplementedError``): attention
-(``use_att``), learned curvature (``learn_c``), node-sharded graphs, and
-graphs without the symmetric layout of ``data.graphs.prepare``.
+Mean aggregation takes the graph's cluster split when it has one
+(``nn.scatter.cluster_sym_aggregate``), else the sorted involution
+aggregation (``nn.scatter.sym_segment_aggregate``).  Attention
+(``use_att``) weighs neighbours by a softmax of bounded GAT logits
+``α_s[s] + α_r[r]``: with a CSR plan, through the fused planned partial
+(``nn.scatter.att_partial_planned``) — on a cluster split whose gate is
+open, the clustered edges through the in-tile kernels
+(``nn.scatter.cluster_att_partial``) and the stragglers through the
+planned partial, one division for both; without a plan, through
+:func:`segment_softmax` and the involution aggregation.
+
+Not ported yet (each raises ``NotImplementedError``): learned curvature
+(``learn_c``), node-sharded graphs, and graphs without the symmetric
+layout of ``data.graphs.prepare``.
 """
 
 from __future__ import annotations
@@ -20,8 +28,49 @@ import torch
 from torch import nn
 
 from hyperspace_torch.manifolds import Lorentz, smath
-from hyperspace_torch.nn.scatter import (cluster_sym_aggregate,
+from hyperspace_torch.nn.scatter import (att_combine, att_partial_planned,
+                                         cluster_att_partial,
+                                         cluster_sym_aggregate,
                                          sym_segment_aggregate)
+
+
+def segment_softmax(logits: torch.Tensor, segment_ids: torch.Tensor,
+                    num_segments: int, mask: Optional[torch.Tensor] = None,
+                    indices_are_sorted: bool = False) -> torch.Tensor:
+    """Softmax of ``logits`` within each segment; masked entries get 0.
+    Max-shifted, safe for empty segments.  The shift is held constant
+    (the softmax does not depend on it), so no gradient flows through
+    the maximum.  ``indices_are_sorted`` is accepted for the JAX
+    signature."""
+    del indices_are_sorted
+    neg_inf = torch.full_like(logits, -torch.inf)
+    if mask is not None:
+        logits = torch.where(mask, logits, neg_inf)
+    seg_max = torch.full((num_segments,), -torch.inf, dtype=logits.dtype,
+                         device=logits.device).scatter_reduce_(
+        0, segment_ids.long(), logits.detach(), "amax")
+    seg_max = torch.where(torch.isfinite(seg_max), seg_max,
+                          torch.zeros_like(seg_max))
+    ex = torch.exp(logits - seg_max[segment_ids])
+    if mask is not None:
+        ex = torch.where(mask, ex, torch.zeros_like(ex))
+    denom = torch.zeros(num_segments, dtype=ex.dtype,
+                        device=ex.device).index_add(0, segment_ids, ex)
+    return ex / smath.clamp_min(denom[segment_ids], 1e-15)
+
+
+ATT_LOGIT_BOUND = 30.0
+
+
+def bounded_att_logits(pre: torch.Tensor,
+                       negative_slope: float = 0.2) -> torch.Tensor:
+    """leaky_relu, then the smooth ±30 squash ``B·tanh(·/B)``: ``exp`` of
+    the result cannot overflow in f32 or bf16, so the attention softmax
+    needs no max shift.  The leaky ReLU is a ``where`` on ``pre >= 0``,
+    whose gradient at 0 is 1, as JAX's (``F.leaky_relu``'s is the
+    slope)."""
+    lm = torch.where(pre >= 0, pre, negative_slope * pre)
+    return ATT_LOGIT_BOUND * torch.tanh(lm / ATT_LOGIT_BOUND)
 
 
 def tangent0_coords(manifold, x: torch.Tensor) -> torch.Tensor:
@@ -61,7 +110,8 @@ def dropout(h: torch.Tensor, rate: float,
 class HGCConv(nn.Module):
     """One hyperbolic graph-conv layer: points on ``(kind, c_in)`` in,
     points on ``(kind, c_out)`` out.  ``kernel`` keeps the JAX layout
-    ``(d_in, d_out)``."""
+    ``(d_in, d_out)``, and so do the attention vectors ``att_src`` and
+    ``att_dst`` ``(d_out, 1)`` (``use_att``)."""
 
     def __init__(self, in_features: int, features: int, *,
                  kind: str = "lorentz", c_in: float = 1.0,
@@ -75,9 +125,8 @@ class HGCConv(nn.Module):
         super().__init__()
         if learn_c:
             raise NotImplementedError("learn_c=True is not ported yet")
-        if use_att:
-            raise NotImplementedError("use_att=True is not ported yet")
         self.kind, self.c_in, self.c_out = kind, c_in, c_out
+        self.use_att = use_att
         self.activation = activation
         self.dropout_rate = dropout_rate
         self.agg_dtype = agg_dtype
@@ -87,6 +136,11 @@ class HGCConv(nn.Module):
             generator=generator))
         self.bias = (nn.Parameter(torch.zeros(features, dtype=dtype))
                      if use_bias else None)
+        if use_att:
+            self.att_src, self.att_dst = (
+                nn.Parameter(nn.init.xavier_uniform_(
+                    torch.empty(features, 1, dtype=dtype),
+                    generator=generator)) for _ in range(2))
 
     def forward(self, x: torch.Tensor, g, *, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None):
@@ -101,7 +155,9 @@ class HGCConv(nn.Module):
         if hasattr(g, "w_fwd"):
             raise NotImplementedError("node-sharded graphs are not ported yet")
         h_in = h if self.agg_dtype is None else h.to(self.agg_dtype)
-        if g.cluster is not None:
+        if self.use_att:
+            agg = self._attend(h, h_in, g, n)
+        elif g.cluster is not None:
             agg = cluster_sym_aggregate(h_in, g.cluster, n)
         else:
             if g.rev_perm is None or g.deg is None:
@@ -116,3 +172,31 @@ class HGCConv(nn.Module):
                                         g.rev_perm, g.plan, n, with_dw=False)
         agg = agg.to(h.dtype)
         return from_tangent0_coords(m_out, self.activation(agg)), m_out
+
+    def _attend(self, h: torch.Tensor, h_in: torch.Tensor, g, n: int):
+        """GAT-style attention aggregation in the tangent chart."""
+        if g.rev_perm is None:
+            raise NotImplementedError(
+                "attention needs the symmetric layout of data.graphs.prepare "
+                "(rev_perm)")
+        alpha_s = (h @ self.att_src)[:, 0]
+        alpha_r = (h @ self.att_dst)[:, 0]
+        if g.plan is None:
+            logits = bounded_att_logits(alpha_s[g.senders]
+                                        + alpha_r[g.receivers])
+            w = segment_softmax(logits, g.receivers, n, mask=g.edge_mask,
+                                indices_are_sorted=True)
+            w_in = w if self.agg_dtype is None else w.to(self.agg_dtype)
+            return sym_segment_aggregate(h_in, w_in, g.senders, g.receivers,
+                                         g.rev_perm, g.plan, n, with_dw=True)
+        cl = g.cluster
+        if cl is not None and cl.att_ok:
+            nd = cluster_att_partial(h_in, alpha_s, alpha_r, cl, n, 0.2)
+            nd = nd + att_partial_planned(
+                h, alpha_s, alpha_r, cl.s_send, cl.s_recv, cl.s_rev_local,
+                cl.s_mask, cl.s_plan, n, self.agg_dtype, 0.2)
+        else:
+            nd = att_partial_planned(h, alpha_s, alpha_r, g.senders,
+                                     g.receivers, g.rev_perm, g.edge_mask,
+                                     g.plan, n, self.agg_dtype, 0.2)
+        return att_combine(nd, h.dtype)

@@ -1,5 +1,5 @@
-"""Sorted symmetric segment aggregation, mean path (counterpart of
-``hyperspace_tpu/nn/scatter.py``).
+"""Sorted symmetric segment aggregation and planned attention
+(counterpart of ``hyperspace_tpu/nn/scatter.py``).
 
 1. **Sorted both ways.**  The forward aggregation
 
@@ -17,20 +17,34 @@
    the same two-path program on (ḡ, reverse-edge weights), since both
    subsets are closed under edge reversal.
 
-Every sorted scatter is ``kernels.segment.csr_segment_sum``: the CUDA
-kernel on the card, its plain version on the CPU.  Attention partials,
-picks and the scalar planned reductions are not ported yet.
+3. **Attention partials.**  The attention arm sums unnormalised
+   ``[N, F+1]`` (num | den) partials over edge subsets and divides once
+   (:func:`att_combine`): :func:`att_partial_planned` over a receiver-
+   sorted edge list (one gather of ``[h | α_s]``, one segment sum of
+   ``w·[h | 1]``; its backward reuses the gathered rows and runs the
+   fused edge pass ``csr_att_bwd_edges``), and :func:`cluster_att_partial`
+   over the clustered edges, whose weights and whole backward are
+   computed inside ``kernels.cluster``'s attention kernels.
+
+Every sorted scatter is ``kernels.segment.csr_segment_sum`` (scalars:
+``csr_segment_reduce_1d``): the CUDA kernel on the card, its plain
+version on the CPU.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import ClassVar, Optional
 
 import torch
 
-from hyperspace_torch.kernels.cluster import cluster_aggregate
-from hyperspace_torch.kernels.segment import csr_segment_sum
+from hyperspace_torch.kernels.cluster import (cluster_aggregate,
+                                              cluster_att_bwd,
+                                              cluster_att_fwd)
+from hyperspace_torch.kernels.segment import (csr_att_bwd_edges,
+                                              csr_segment_reduce_1d,
+                                              csr_segment_sum)
+from hyperspace_torch.manifolds import smath
 
 
 def _sorted_segsum(vals: torch.Tensor, receivers: torch.Tensor, plan,
@@ -72,11 +86,111 @@ def sym_segment_aggregate(h: torch.Tensor, w: torch.Tensor,
                                       plan, num_segments, with_dw)
 
 
+# --- per-edge scalar picks with planned-scatter backward passes --------------
+#
+# GAT logits α_s[s_e] + α_r[r_e] send a per-edge gradient back to per-node
+# scalars: a scatter, routed through the sorted scalar reduction in both
+# directions (the sender direction via the involution, s∘π = r).
+
+
+class _PickSenders(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, alpha, senders, receivers, rev_perm, plan,
+                num_segments):
+        ctx.save_for_backward(receivers, rev_perm)
+        ctx.plan, ctx.num_segments = plan, num_segments
+        return alpha[senders]
+
+    @staticmethod
+    def backward(ctx, g):
+        receivers, rev_perm = ctx.saved_tensors
+        d = csr_segment_reduce_1d(g[rev_perm], receivers, ctx.plan,
+                                  ctx.num_segments, op="sum")
+        return d, None, None, None, None, None
+
+
+def pick_senders(alpha: torch.Tensor, senders: torch.Tensor,
+                 receivers: torch.Tensor, rev_perm: torch.Tensor, plan,
+                 num_segments: int) -> torch.Tensor:
+    """alpha[senders] with a receiver-sorted planned-scatter backward."""
+    return _PickSenders.apply(alpha, senders, receivers, rev_perm, plan,
+                              num_segments)
+
+
+class _PickReceivers(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, alpha, receivers, plan, num_segments):
+        ctx.save_for_backward(receivers)
+        ctx.plan, ctx.num_segments = plan, num_segments
+        return alpha[receivers]
+
+    @staticmethod
+    def backward(ctx, g):
+        (receivers,) = ctx.saved_tensors
+        d = csr_segment_reduce_1d(g.contiguous(), receivers, ctx.plan,
+                                  ctx.num_segments, op="sum")
+        return d, None, None, None
+
+
+def pick_receivers(alpha: torch.Tensor, receivers: torch.Tensor, plan,
+                   num_segments: int) -> torch.Tensor:
+    """alpha[receivers] with a planned-scatter backward (receivers
+    sorted)."""
+    return _PickReceivers.apply(alpha, receivers, plan, num_segments)
+
+
+class _PlannedSegmentSum1d(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, vals, receivers, plan, num_segments):
+        ctx.save_for_backward(receivers)
+        return csr_segment_reduce_1d(vals.contiguous(), receivers, plan,
+                                     num_segments, op="sum")
+
+    @staticmethod
+    def backward(ctx, g):
+        (receivers,) = ctx.saved_tensors
+        return g[receivers], None, None, None
+
+
+def planned_segment_sum_1d(vals: torch.Tensor, receivers: torch.Tensor,
+                           plan, num_segments: int) -> torch.Tensor:
+    """Differentiable per-segment scalar sum: ``csr_segment_reduce_1d``
+    forward, a row gather ``ḡ[receivers]`` backward."""
+    return _PlannedSegmentSum1d.apply(vals, receivers, plan, num_segments)
+
+
+class _PlannedSegmentMax1d(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, vals, receivers, plan, num_segments):
+        ctx.n_edges = receivers.shape[0]
+        return csr_segment_reduce_1d(vals.contiguous(), receivers, plan,
+                                     num_segments, op="max")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.new_zeros(ctx.n_edges), None, None, None
+
+
+def planned_segment_max_1d(vals: torch.Tensor, receivers: torch.Tensor,
+                           plan, num_segments: int) -> torch.Tensor:
+    """Per-segment scalar max whose gradient is zero by construction: its
+    only use is a softmax's max shift, which the softmax does not depend
+    on."""
+    return _PlannedSegmentMax1d.apply(vals, receivers, plan, num_segments)
+
+
 @dataclasses.dataclass
 class ClusterAgg:
     """Device tensors of a host ``kernels.cluster.ClusterSplit``: the
     clustered edges with their forward/backward weights and plan, and the
-    stragglers with theirs."""
+    stragglers with theirs (and, for attention, their involution and
+    validity mask).  ``use_att_cluster`` is the attention gate, set by
+    :meth:`from_host` from the clustered fraction."""
+
+    # the attention arm takes the in-tile cluster kernels only when at
+    # least this share of the edges is clustered: the JAX package's gate
+    # (below it the kernels' fixed cost outweighs the edges they take)
+    ATT_MIN_FRAC: ClassVar[float] = 0.15
 
     c_recv: torch.Tensor
     c_send: torch.Tensor
@@ -90,6 +204,13 @@ class ClusterAgg:
     s_plan: tuple
     s_rev_local: Optional[torch.Tensor] = None
     s_mask: Optional[torch.Tensor] = None
+    use_att_cluster: bool = False
+
+    @property
+    def att_ok(self) -> bool:
+        """Whether attention takes the in-tile cluster path: the straggler
+        involution is present and the gate is open."""
+        return self.s_rev_local is not None and self.use_att_cluster
 
     @classmethod
     def from_host(cls, split, device) -> "ClusterAgg":
@@ -100,7 +221,8 @@ class ClusterAgg:
                    dev(split.c_wb), tuple(dev(a) for a in split.c_plan),
                    dev(split.s_recv), dev(split.s_send), dev(split.s_wf),
                    dev(split.s_wb), tuple(dev(a) for a in split.s_plan),
-                   dev(split.s_rev_local), dev(split.s_mask))
+                   dev(split.s_rev_local), dev(split.s_mask),
+                   use_att_cluster=split.frac_clustered >= cls.ATT_MIN_FRAC)
 
 
 def _cluster_two_path(h: torch.Tensor, wf_c: torch.Tensor, wf_s: torch.Tensor,
@@ -136,3 +258,136 @@ def cluster_sym_aggregate(h: torch.Tensor, agg: ClusterAgg,
     weights.  ``h`` is already in the aggregation dtype (bf16 messages
     halve the straggler traffic)."""
     return _ClusterSymAggregate.apply(h, agg, num_segments)
+
+
+# --- planned attention partials ---------------------------------------------------
+
+
+class _AttPartialPlanned(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, h, alpha_s, alpha_r, senders, receivers, rev_perm,
+                edge_mask, plan, num_segments, agg_dtype, negative_slope):
+        from hyperspace_torch.nn.gcn import bounded_att_logits
+
+        f = h.shape[1]
+        # α_s rides as an extra column: one gather serves both
+        hs_a = torch.cat([h, alpha_s[:, None].to(h.dtype)], 1)[senders]
+        h_s, a_se = hs_a[:, :f], hs_a[:, f]
+        lm = bounded_att_logits(a_se + alpha_r[receivers], negative_slope)
+        w = torch.where(edge_mask, torch.exp(lm), torch.zeros_like(lm))
+        h_in = (h_s.contiguous() if agg_dtype is None
+                else h_s.to(agg_dtype))
+        w_in = w if agg_dtype is None else w.to(agg_dtype)
+        # num and den in one segment sum: the messages carry a 1-column
+        msgs = torch.cat([w_in[:, None] * h_in, w_in[:, None]], 1)
+        nd = _sorted_segsum(msgs, receivers, plan, num_segments).to(
+            torch.float32)
+        ctx.save_for_backward(h_in, w_in, lm, senders, receivers, rev_perm,
+                              edge_mask)
+        ctx.plan, ctx.num_segments = plan, num_segments
+        ctx.agg_dtype, ctx.negative_slope = agg_dtype, negative_slope
+        ctx.dtypes = (h.dtype, alpha_s.dtype, alpha_r.dtype)
+        return nd
+
+    @staticmethod
+    def backward(ctx, g):
+        from hyperspace_torch.nn.gcn import ATT_LOGIT_BOUND
+
+        h_in, w_in, lm, senders, receivers, rev_perm, edge_mask = (
+            ctx.saved_tensors)
+        plan, n = ctx.plan, ctx.num_segments
+        h_dt, as_dt, ar_dt = ctx.dtypes
+        f = h_in.shape[1]
+        # the cotangent is the fused (d_num | d_den) block
+        dn_ext = g.to(torch.float32).contiguous()
+        dn_dt = (dn_ext if ctx.agg_dtype is None
+                 else dn_ext.to(ctx.agg_dtype))
+        # dh via the involution: the sender scatter becomes a receiver one
+        dh = _sorted_segsum(w_in[rev_perm][:, None] * dn_dt[:, :f][senders],
+                            receivers, plan, n).to(h_dt)
+        # dw, the softmax chain and d_alpha_r in one fused edge pass over
+        # the saved rows
+        w_m = torch.where(edge_mask, w_in.to(torch.float32),
+                          torch.zeros_like(lm, dtype=torch.float32))
+        dpre, d_alpha_r = csr_att_bwd_edges(
+            dn_ext, h_in, w_m, lm.to(torch.float32).contiguous(), receivers,
+            plan, n, float(ATT_LOGIT_BOUND), ctx.negative_slope)
+        d_alpha_s = csr_segment_reduce_1d(dpre[rev_perm], receivers, plan, n,
+                                          op="sum")
+        return (dh, d_alpha_s.to(as_dt), d_alpha_r.to(ar_dt), None, None,
+                None, None, None, None, None, None)
+
+
+def att_partial_planned(h: torch.Tensor, alpha_s: torch.Tensor,
+                        alpha_r: torch.Tensor, senders: torch.Tensor,
+                        receivers: torch.Tensor, rev_perm: torch.Tensor,
+                        edge_mask: torch.Tensor, plan, num_segments: int,
+                        agg_dtype, negative_slope: float) -> torch.Tensor:
+    """Unnormalised attention partials on a receiver-sorted edge list:
+    ``out[r] = Σ_e w_e·[h[s_e] | 1]`` (f32 ``[N, F+1]``) with
+    ``w_e = exp(bounded_att_logits(α_s[s_e] + α_r[r_e]))``, 0 where
+    ``edge_mask`` is False.  Messages go in ``agg_dtype`` (None keeps
+    h's); the backward returns (dh, dα_s, dα_r) through the involution
+    ``rev_perm`` (module doc)."""
+    return _AttPartialPlanned.apply(h, alpha_s, alpha_r, senders, receivers,
+                                    rev_perm, edge_mask, plan, num_segments,
+                                    agg_dtype, negative_slope)
+
+
+def att_combine(nd: torch.Tensor, out_dtype) -> torch.Tensor:
+    """num / den of an ``[N, F+1]`` attention partial sum: the one
+    division, after every edge subset's partial is added."""
+    num, den = nd[:, :-1], smath.clamp_min(nd[:, -1], 1e-15)
+    return (num / den[:, None]).to(out_dtype)
+
+
+def att_aggregate_planned(h: torch.Tensor, alpha_s: torch.Tensor,
+                          alpha_r: torch.Tensor, senders: torch.Tensor,
+                          receivers: torch.Tensor, rev_perm: torch.Tensor,
+                          edge_mask: torch.Tensor, plan, num_segments: int,
+                          agg_dtype, negative_slope: float) -> torch.Tensor:
+    """Softmax-attention neighbour aggregation on the planned layout:
+    :func:`att_partial_planned` over the whole edge list, then
+    :func:`att_combine`."""
+    nd = att_partial_planned(h, alpha_s, alpha_r, senders, receivers,
+                             rev_perm, edge_mask, plan, num_segments,
+                             agg_dtype, negative_slope)
+    return att_combine(nd, h.dtype)
+
+
+class _ClusterAttPartial(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, h, alpha_s, alpha_r, agg, num_segments, negative_slope):
+        from hyperspace_torch.nn.gcn import ATT_LOGIT_BOUND
+
+        h, alpha_s, alpha_r = (t.contiguous() for t in (h, alpha_s, alpha_r))
+        ctx.save_for_backward(h, alpha_s, alpha_r)
+        ctx.agg, ctx.num_segments = agg, num_segments
+        ctx.negative_slope = negative_slope
+        return cluster_att_fwd(h, alpha_s, alpha_r, agg.c_recv, agg.c_send,
+                               agg.c_plan, num_segments, negative_slope,
+                               float(ATT_LOGIT_BOUND))
+
+    @staticmethod
+    def backward(ctx, g):
+        from hyperspace_torch.nn.gcn import ATT_LOGIT_BOUND
+
+        h, alpha_s, alpha_r = ctx.saved_tensors
+        agg = ctx.agg
+        dh, da_s, da_r = cluster_att_bwd(
+            g.to(torch.float32).contiguous(), h, alpha_s, alpha_r,
+            agg.c_recv, agg.c_send, agg.c_plan, ctx.num_segments,
+            ctx.negative_slope, float(ATT_LOGIT_BOUND))
+        return (dh.to(h.dtype), da_s.to(alpha_s.dtype),
+                da_r.to(alpha_r.dtype), None, None, None)
+
+
+def cluster_att_partial(h: torch.Tensor, alpha_s: torch.Tensor,
+                        alpha_r: torch.Tensor, agg: ClusterAgg,
+                        num_segments: int,
+                        negative_slope: float = 0.2) -> torch.Tensor:
+    """``[N, F+1]`` f32 unnormalised attention partials over the
+    clustered edges, the weights computed inside the kernel; the backward
+    returns (dh in h's dtype, dα_s, dα_r).  Meant for ``agg.att_ok``."""
+    return _ClusterAttPartial.apply(h, alpha_s, alpha_r, agg, num_segments,
+                                    negative_slope)

@@ -11,7 +11,11 @@ near-ties.  Queries are never table rows here: at d = 0 the Gram form's
 rounding noise differs between the two.  The scatter kernels: float32
 rtol = atol = 1e-5 (sums in another order); bf16 within one bf16 ulp of
 the plain version's result (both sum in f32 and round once).  The
-HyboNet kernels' tolerances stand above their tests.
+attention arm's kernels: within 2·k·2^-24 of each output's absolute
+term sum for a sum of k terms (another order), plus one f32 ulp of each
+weight, and one bf16 ulp of each weight (2^-7 of it) where the weights
+are rounded to bf16; a max exactly.  The HyboNet kernels' tolerances stand above
+their tests.
 """
 
 import numpy as np
@@ -20,9 +24,17 @@ import torch
 
 from hyperspace_torch.kernels._support import topk_disagreements
 from hyperspace_torch.kernels.cluster import (cluster_aggregate,
-                                              cluster_aggregate_plain)
+                                              cluster_aggregate_plain,
+                                              cluster_att_bwd,
+                                              cluster_att_bwd_plain,
+                                              cluster_att_fwd,
+                                              cluster_att_fwd_plain)
 from hyperspace_torch.kernels.distmat import pdist, pdist_plain
-from hyperspace_torch.kernels.segment import (csr_segment_sum,
+from hyperspace_torch.kernels.segment import (csr_att_bwd_edges,
+                                              csr_att_bwd_edges_plain,
+                                              csr_segment_reduce_1d,
+                                              csr_segment_reduce_1d_plain,
+                                              csr_segment_sum,
                                               csr_segment_sum_plain)
 from hyperspace_torch.kernels.scan_topk import scan_topk, scan_topk_plain
 from hyperspace_torch.manifolds.maps import ball_to_lorentz
@@ -210,6 +222,194 @@ def test_scatter_kernels_refuse_float64(dev):
         cluster_aggregate(torch.zeros((4, 3), dtype=torch.float64,
                                       device=dev),
                           torch.zeros(4, device=dev), ids, ids, None, 4)
+
+
+# --- the HGCN attention arm ---------------------------------------------------
+
+
+def assert_att_close(got, want, scale, terms, weight_ulp=2.0 ** -23):
+    """|got − want| ≤ (2·terms·2^-24 + weight_ulp)·scale: ``scale`` is the
+    output's absolute term sum, ``terms`` the terms a sum holds (per
+    row, broadcastable)."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    tol = (2.0 * terms * 2.0 ** -24 + weight_ulp) * scale.abs() + 1e-30
+    assert torch.all((got - want).abs() <= tol)
+
+
+def sorted_edges(rng, n, e):
+    """Receiver-sorted edges with a hub row, empty rows and a padding
+    tail at row n − 1."""
+    r = np.sort(np.where(rng.random(e) < 0.3, n // 3,
+                         rng.integers(0, max(n // 2, 1), e)))
+    return np.concatenate([r, np.full(37, n - 1)]).astype(np.int32)
+
+
+@pytest.mark.parametrize("n,e", [(300, 2000), (7, 3), (2000, 200000),
+                                 (64, 0)])
+def test_csr_segment_reduce_1d_kernel_matches_plain(dev, n, e):
+    rng = np.random.default_rng(n + e)
+    rr = torch.as_tensor(sorted_edges(rng, n, e), device=dev)
+    v = torch.as_tensor(rng.standard_normal(len(rr)), dtype=torch.float32,
+                        device=dev)
+    v[e:] = 0
+    k = torch.bincount(rr.long(), minlength=n).float()
+    for op in ("sum", "max"):
+        before = csr_segment_reduce_1d.launches
+        got = csr_segment_reduce_1d(v, rr, None, n, op=op)
+        again = csr_segment_reduce_1d(v, rr, None, n, op=op)
+        torch.cuda.synchronize()
+        assert csr_segment_reduce_1d.launches == before + 2
+        assert torch.equal(got, again)
+        want = csr_segment_reduce_1d_plain(v, rr, n, op=op)
+        if op == "max":
+            assert torch.equal(got, want)
+            assert torch.all(got[k == 0] == -3.0e38)
+        else:
+            scale = csr_segment_reduce_1d_plain(v.abs(), rr, n)
+            assert_att_close(got, want, scale, k, 0.0)
+            assert torch.all(got[k == 0] == 0)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,e,f", [(300, 2000, 128), (50, 64, 32),
+                                   (1000, 5000, 130), (7, 3, 8),
+                                   (2000, 20000, 33)])
+def test_csr_att_bwd_edges_kernel_matches_plain(dev, dt, n, e, f):
+    rng = np.random.default_rng(n + e + f)
+    rr = torch.as_tensor(sorted_edges(rng, n, e), device=dev)
+    m = len(rr)
+    f32 = dict(dtype=torch.float32, device=dev)
+    dn = torch.as_tensor(rng.standard_normal((n, f + 1)), **f32)
+    h = torch.as_tensor(rng.standard_normal((m, f)), dtype=dt, device=dev)
+    w = torch.as_tensor(rng.random(m) * 3, **f32)
+    w[e:] = 0
+    # bounded logits lie in (-30, 30)
+    lm = torch.as_tensor(rng.standard_normal(m) * 8, **f32).clamp(-29, 29)
+    lm[::50] = 0
+    before = csr_att_bwd_edges.launches
+    got = csr_att_bwd_edges(dn, h, w, lm, rr, None, n, 30.0, 0.2)
+    again = csr_att_bwd_edges(dn, h, w, lm, rr, None, n, 30.0, 0.2)
+    torch.cuda.synchronize()
+    assert csr_att_bwd_edges.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = csr_att_bwd_edges_plain(dn, h, w, lm, rr, n, 30.0, 0.2)
+    sc = csr_att_bwd_edges_plain(dn.abs(), h.abs(), w, lm, rr, n, 30.0, 0.2)
+    k = torch.bincount(rr.long(), minlength=n).float()
+    assert_att_close(got[0], want[0], sc[0], f + 1)
+    assert_att_close(got[1], want[1], sc[1], f + 1 + k)
+    assert torch.all(got[0][e:] == 0)
+
+
+def pair_edges(rng, n, e_half, lo=0, hi=None):
+    """A reversal-closed edge set sorted by (receiver block, sender
+    block), as the cluster split leaves it."""
+    hi = n if hi is None else hi
+    u = rng.integers(lo, hi, e_half)
+    v = rng.integers(0, n, e_half)
+    r, s = np.concatenate([u, v]), np.concatenate([v, u])
+    key = (r // 256) * (n // 256 + 1) + s // 256
+    o = np.lexsort((s, r, key))
+    return r[o].astype(np.int32), s[o].astype(np.int32)
+
+
+# n, edges, f, rows of the first endpoint: (1000, 40000, …, 300, 301) puts
+# 20,000 edges on one row (more than a block stages at once); (1500, 600,
+# …) leaves most rows without an edge
+ATT_CASES = [(700, 4000, 32, 0, 700), (300, 900, 130, 0, 300),
+             (257, 513, 8, 0, 257), (3000, 30000, 128, 0, 3000),
+             (1000, 40000, 33, 300, 301), (1500, 600, 16, 512, 768)]
+
+
+def att_case(rng, dev, dt, n, e, f, lo, hi):
+    r, s = pair_edges(rng, n, e // 2, lo, hi)
+    f32 = dict(dtype=torch.float32, device=dev)
+    h = torch.as_tensor(rng.standard_normal((n, f)), dtype=dt, device=dev)
+    a_s = torch.as_tensor(rng.standard_normal(n) * 0.7, **f32)
+    a_r = torch.as_tensor(rng.standard_normal(n) * 0.7 + 0.3, **f32)
+    g = torch.as_tensor(rng.standard_normal((n, f + 1)), **f32)
+    return (h, a_s, a_r, torch.as_tensor(r, device=dev),
+            torch.as_tensor(s, device=dev), g)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ATT_CASES)
+def test_cluster_att_kernels_match_plain(dev, dt, case):
+    n, e, f, lo, hi = case
+    rng = np.random.default_rng(n + e + f)
+    h, a_s, a_r, r, s, g = att_case(rng, dev, dt, n, e, f, lo, hi)
+    k = torch.bincount(r.long(), minlength=n).float()
+    wulp = 2.0 ** -7 if dt == torch.bfloat16 else 2.0 ** -23
+    before = (cluster_att_fwd.launches, cluster_att_bwd.launches)
+    nd = cluster_att_fwd(h, a_s, a_r, r, s, None, n)
+    nd2 = cluster_att_fwd(h, a_s, a_r, r, s, None, n)
+    bw = cluster_att_bwd(g, h, a_s, a_r, r, s, None, n)
+    bw2 = cluster_att_bwd(g, h, a_s, a_r, r, s, None, n)
+    torch.cuda.synchronize()
+    assert (cluster_att_fwd.launches, cluster_att_bwd.launches) == (
+        before[0] + 2, before[1] + 2)
+    assert torch.equal(nd, nd2)
+    assert all(torch.equal(a, b) for a, b in zip(bw, bw2))
+    want = cluster_att_fwd_plain(h, a_s, a_r, r, s, n)
+    assert_att_close(nd, want, cluster_att_fwd_plain(h.abs(), a_s, a_r, r, s,
+                                                     n), k[:, None], wulp)
+    want_b = cluster_att_bwd_plain(g, h, a_s, a_r, r, s, n)
+    sc = cluster_att_bwd_plain(g.abs(), h.abs(), a_s, a_r, r, s, n)
+    assert_att_close(bw[0], want_b[0], sc[0], k[:, None], wulp)
+    for a, b, c in zip(bw[1:], want_b[1:], sc[1:]):
+        assert_att_close(a, b, c, f + 1 + k)
+    empty = k == 0                      # rows no edge reaches give 0
+    for t in (nd, *bw):
+        assert torch.all(t[empty] == 0)
+    assert bool(empty.any()) or n < e   # fewer edges than rows: some empty
+
+
+def test_attention_kernels_refuse_what_they_do_not_take(dev):
+    ids = torch.zeros(4, dtype=torch.int32, device=dev)
+    v = torch.zeros(4, device=dev)
+    with pytest.raises(ValueError, match="float32"):
+        csr_segment_reduce_1d(v.double(), ids, None, 4)
+    with pytest.raises(ValueError, match="int32"):
+        csr_segment_reduce_1d(v, ids.long(), None, 4)
+    h = torch.zeros((4, 3), device=dev)
+    with pytest.raises(ValueError, match="bfloat16, float32"):
+        csr_att_bwd_edges(torch.zeros((4, 4), device=dev), h.double(), v, v,
+                          ids, None, 4, 30.0, 0.2)
+    with pytest.raises(ValueError, match="float32"):
+        csr_att_bwd_edges(torch.zeros((4, 4), device=dev), h, v.half(), v,
+                          ids, None, 4, 30.0, 0.2)
+    with pytest.raises(ValueError, match="bfloat16, float32"):
+        cluster_att_fwd(h.double(), v, v, ids, ids, None, 4)
+    with pytest.raises(ValueError, match="int32"):
+        cluster_att_bwd(torch.zeros((4, 4), device=dev), h, v, v, ids.long(),
+                        ids, None, 4)
+
+
+def test_att_train_step_on_the_card_matches_the_cpu(dev):
+    """Two attention LP steps at 3,000 nodes with a forced cluster split
+    and the gate open, card against CPU from the same parameters and
+    negatives: f32 lanes within rtol 1e-4 of the loss."""
+    from hyperspace_torch.benchmarks import hgcn_bench as B
+    from hyperspace_torch.kernels.cluster import build_cluster_split
+
+    split, _ = B.arxiv_scale_split(3000, cluster_min_pair=128)
+    g = split.graph
+    g.cluster_split = build_cluster_split(
+        g.senders, g.receivers, g.edge_mask, g.deg, 3000,
+        min_pair_edges=128, rev_perm=g.rev_perm)
+    assert 0.5 < g.cluster_split.frac_clustered < 1.0
+    runs = {}
+    for where in ("cpu", "cuda"):
+        s = B.setup_lp(device=where, split=split, agg_dtype=None,
+                       decoder_dtype=None, use_att=True)
+        s.ga.cluster.use_att_cluster = True
+        gen = torch.Generator().manual_seed(5)
+        losses = []
+        for _ in range(2):
+            neg_v = torch.randint(0, 3000, s.neg_u.shape, generator=gen,
+                                  dtype=torch.int32)
+            losses.append(float(s.step(neg_v.to(s.device))))
+        runs[where] = losses
+    np.testing.assert_allclose(runs["cuda"], runs["cpu"], rtol=1e-4)
 
 
 def test_train_step_on_the_card_matches_the_cpu(dev):

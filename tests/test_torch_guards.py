@@ -15,11 +15,15 @@ from hyperspace_torch.benchmarks import hgcn_bench, workloads_bench
 from hyperspace_torch.cli import train as cli_train
 from hyperspace_torch.kernels import _support
 from hyperspace_torch.kernels import attention as flash
-from hyperspace_torch.kernels.cluster import cluster_aggregate
+from hyperspace_torch.kernels.cluster import (cluster_aggregate,
+                                              cluster_att_bwd,
+                                              cluster_att_fwd)
 from hyperspace_torch.kernels.distmat import pdist
 from hyperspace_torch.kernels.mlr import hyp_mlr
 from hyperspace_torch.kernels.scan_topk import scan_topk
-from hyperspace_torch.kernels.segment import csr_segment_sum
+from hyperspace_torch.kernels.segment import (csr_att_bwd_edges,
+                                              csr_segment_reduce_1d,
+                                              csr_segment_sum)
 from hyperspace_torch.models import hgcn, hybonet
 from hyperspace_torch.serve.engine import QueryEngine
 
@@ -92,6 +96,8 @@ def test_training_without_cuda_raises():
         hgcn_bench.run_hgcn_bench(steps=1, num_nodes=64)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         hgcn_bench.setup_lp(64)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        hgcn_bench.run_hgcn_bench(steps=1, num_nodes=64, use_att=True)
 
 
 def test_hybonet_entry_points_without_cuda_raise():
@@ -121,6 +127,17 @@ def test_wrappers_refuse_other_devices():
         csr_segment_sum(torch.zeros((4, 3), device="meta"), ids, None, 4)
     with pytest.raises(ValueError, match="unsupported device"):
         cluster_aggregate(x, torch.zeros(4, device="meta"), ids, ids, None, 4)
+    v = torch.zeros(4, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        csr_segment_reduce_1d(v, ids, None, 4)
+    with pytest.raises(ValueError, match="unsupported device"):
+        csr_att_bwd_edges(torch.zeros((4, 4), device="meta"), x, v, v, ids,
+                          None, 4, 30.0, 0.2)
+    with pytest.raises(ValueError, match="unsupported device"):
+        cluster_att_fwd(x, v, v, ids, ids, None, 4)
+    with pytest.raises(ValueError, match="unsupported device"):
+        cluster_att_bwd(torch.zeros((4, 4), device="meta"), x, v, v, ids,
+                        ids, None, 4)
     with pytest.raises(ValueError, match="unsupported device"):
         hyp_mlr(x, x, x, 1.0)
     q, b = torch.zeros((2, 5, 4), device="meta"), torch.ones(2, device="meta")

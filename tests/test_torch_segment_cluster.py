@@ -360,12 +360,23 @@ def test_hgcconv_fwd_bwd(graphs, monkeypatch, cluster, dt, rtol, atol, jmode):
 
 
 def test_hgcconv_refuses_unported_options():
-    with pytest.raises(NotImplementedError, match="use_att"):
-        TGCN.HGCConv(4, 4, use_att=True)
+    """Attention is ported (its vectors in JAX's (d_out, 1) layout); learned
+    curvature, the Poincaré manifold and node-sharded graphs still
+    raise."""
+    conv = TGCN.HGCConv(4, 3, use_att=True)
+    assert conv.att_src.shape == conv.att_dst.shape == (3, 1)
     with pytest.raises(NotImplementedError, match="learn_c"):
         TGCN.HGCConv(4, 4, learn_c=True)
     with pytest.raises(NotImplementedError, match="poincare"):
         TGCN.make_manifold("poincare", 1.0)
+
+    class NodeSharded:
+        w_fwd = None
+
+    x = torch.zeros((2, 5))
+    x[:, 0] = 1.0
+    with pytest.raises(NotImplementedError, match="node-sharded"):
+        conv(x, NodeSharded())
 
 
 def test_hgcconv_dropout_uses_its_generator(graphs):
