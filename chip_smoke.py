@@ -68,7 +68,29 @@ prints its seconds):
    the first;
 15. two HyboNet steps on the card against the port on the CPU from the
    same parameters and batches: losses within rel 1e-4 (all f32);
-16. print the kernels line (device times of each kernel and its plain
+16. the approximate serving lanes (run right after phase 4): an
+   82,115 × 10 Poincaré table of 512 clusters (bench.py's IVF
+   generator, from ``--seed``), its IVF index built on the card with the
+   export defaults (``ncells`` auto = 287, 8 iterations, seed 0, balance
+   2) and its PQ payload (m = 3), exported and loaded back; the build
+   seconds;
+17. hold ``scan_topk_cand`` and ``scan_topk_pq`` against their plain
+   versions on the card: the candidate lists of nprobe 1 and 8 at
+   k = 10 and 256, a 37-wide list with pads in mid-list, a query with no
+   candidate and k above the reachable, queries off the table without
+   ``exclude_self``, hyperboloid rows; the ADC scan at the path's m = 3,
+   k = 170, at m = 8, k = 256, and with ``col0`` and ``n`` cut; each
+   launched twice must give the same bits;
+18. the lanes through the ``serve`` loop: f32 exact, nprobe 1, 2, 4, 8,
+   PQ, and PQ with nprobe 8, each under ``two_stage`` and ``fused``,
+   the counts set to 0 before each run and read after: exactly one
+   ``scan_topk_cand`` a batch under IVF fused, one ``scan_topk_pq`` a
+   batch under PQ fused, none under two-stage; the two modes
+   rank-identical; every PQ distance the f32 distance of its id;
+   recall@10 of each lane against the f32 exact answers;
+19. queries/s and batch latency at bucket 1024, k = 10, for each lane
+   but PQ with IVF, both modes, with the card's busy time and idle share;
+20. print the kernels line (device times of each kernel and its plain
    version at the main paths' shapes, bounds, launches, the library
    call's time), the top-k throughput at bucket 1024 (batches of cold ids
    through the batcher, the engine call alone, and the card's busy
@@ -1282,6 +1304,391 @@ def hybonet_kernel_entries(torch, hb: dict, card: dict) -> list:
     return entries
 
 
+# --- the approximate serving lanes: IVF probing and PQ codes -----------------
+
+IVF_CLUSTERS = 512                 # bench.py's IVF-leg generator
+NPROBES = (1, 2, 4, 8)
+# PQ distances served against the f32 distance of the same id, both on
+# the card: the same function on the same rows, reduced in another shape
+PQ_F32_RTOL = PQ_F32_ATOL = 1e-6
+LANE_RUNS = ([("f32", 0)] + [("f32", p) for p in NPROBES]
+             + [("pq", 0), ("pq", 8)])
+
+
+def lane_counts() -> dict:
+    from hyperspace_torch.kernels import scan_topk as S
+    from hyperspace_torch.kernels.distmat import pdist
+
+    return {"pdist": pdist.launches, "scan_topk": S.scan_topk.launches,
+            "scan_topk_cand": S.scan_topk_cand.launches,
+            "scan_topk_pq": S.scan_topk_pq.launches}
+
+
+def lane_reset() -> None:
+    from hyperspace_torch.kernels import scan_topk as S
+    from hyperspace_torch.kernels.distmat import pdist
+
+    pdist.launches = S.scan_topk.launches = 0
+    S.scan_topk_cand.launches = S.scan_topk_pq.launches = 0
+
+
+def expected_lane_launches(prec: str, nprobe: int, mode: str,
+                           batches: int) -> dict:
+    """Exact launches of the new kernels (and of pdist and scan_topk
+    where the lane fixes them) for ``batches`` top-k batches."""
+    fused = mode == "fused"
+    want = {"scan_topk_cand": batches if fused and nprobe and prec == "f32"
+            else 0,
+            "scan_topk_pq": batches if fused and prec == "pq" and not nprobe
+            else 0}
+    if nprobe:                     # the centroid pass; no slab scan
+        want.update(pdist=batches, scan_topk=0)
+    elif prec == "pq":             # the coded scan replaces both
+        want.update(pdist=0, scan_topk=0)
+    elif fused:
+        want.update(scan_topk=batches)
+    return want
+
+
+def clustered_table(torch, rng) -> np.ndarray:
+    """82,115 rows in the 10-dim ball (c = 1): 512 clusters at moderate
+    radii, as bench.py's IVF leg makes them — an isotropic blob admits
+    no sub-linear index."""
+    from hyperspace_torch.manifolds import PoincareBall
+
+    centers = rng.standard_normal((IVF_CLUSTERS, DIM)) * 0.25
+    vv = (centers[rng.integers(0, IVF_CLUSTERS, size=ROWS)]
+          + rng.standard_normal((ROWS, DIM)) * 0.05)
+    return PoincareBall(C).expmap0(
+        torch.as_tensor(vv, dtype=torch.float32)).numpy()
+
+
+def cand_cost(b: int, n: int, d: int, cand: int, valid: int,
+              k: int) -> tuple[float, float]:
+    """(bytes, operations) of a candidate top-k: the table, the candidate
+    ids, the queries and their ids read once, the [b, k] answer written
+    once; the distances to the ``valid`` candidates (id >= 0) only."""
+    return (4.0 * (n * d + b * cand + b * d + b) + 8.0 * b * k,
+            float(valid) * (2 * d + _CLOSED_FORM_FLOPS))
+
+
+def pq_cost(b: int, m_rows: int, n: int, m: int,
+            k: int) -> tuple[float, float]:
+    """(bytes, operations) of an ADC top-k: the codes, the lookup tables
+    and the query ids read once, the answer written once; m adds and the
+    closing transform for each real row."""
+    return (float(m_rows * m) + 4.0 * (b * m * 256 + b) + 8.0 * b * k,
+            float(b) * min(n, m_rows) * (m + _CLOSED_FORM_FLOPS))
+
+
+def check_topk(torch, kernel, label, got, again, want, *, lorentz_rows=None):
+    """Kernel against plain: ids equal outside near-ties (distances within
+    rtol/atol; for hyperboloid rows, arcosh arguments within twice the
+    Gram form's forward-error bound (D + 2)·2^-24·c·Σ|x_i y_i|, taken at
+    the largest Σ|x_i|), and a second launch bitwise equal to the
+    first."""
+    from hyperspace_torch.kernels import _support
+
+    (gd, gi), (ad, ai), (wd, wi) = got, again, want
+    torch.cuda.synchronize()
+    fin = torch.isfinite(wd)
+    worst = float((gd - wd).abs()[fin].max()) if bool(fin.any()) else 0.0
+    if lorentz_rows is None:
+        a, b, rt, at = gd, wd, RTOL, ATOL
+    else:
+        x0 = float(lorentz_rows.abs().sum(dim=1).max())
+        # the arcosh arguments u = cosh(√c·d) − 1, in float64 (c = 1)
+        a, b = (2.0 * torch.sinh(t.double() / 2.0) ** 2 for t in (gd, wd))
+        rt = RTOL
+        at = 2.0 * (lorentz_rows.shape[1] + 2) * 2.0 ** -24 * x0 * x0
+    bad = _support.topk_disagreements(
+        gi.cpu().numpy(), a.cpu().numpy(), wi.cpu().numpy(),
+        b.cpu().numpy(), rtol=rt, atol=at)
+    same = bool(torch.equal(gd, ad) and torch.equal(gi, ai))
+    emit({"phase": "check", "kernel": kernel, "case": label,
+          "max_abs_err": worst, "rows_disagreeing": bad,
+          "ids_equal": bool(torch.equal(gi, wi)), "repeat_bitwise": same})
+    if bad or not same:
+        raise AssertionError(f"{kernel} {label}: {bad} rows disagree, "
+                             f"repeat bitwise {same}")
+    return worst
+
+
+def ivf_pq_path(torch, args, card: dict, table_l, fresh) -> dict:
+    from hyperspace_torch.cli import serve as cli
+    from hyperspace_torch.kernels import _support
+    from hyperspace_torch.kernels import scan_topk as S
+    from hyperspace_torch.kernels.distmat import pdist
+    from hyperspace_torch.manifolds import PoincareBall
+    from hyperspace_torch.serve import (QueryEngine, RequestBatcher,
+                                        export_artifact, load_artifact)
+    from hyperspace_torch.serve.artifact import build_quant_payload
+    from hyperspace_torch.serve.index import (_lift, auto_ncells,
+                                              build_index)
+
+    dev = table_l.device
+    rng = np.random.default_rng([args.seed, 16])
+    spec = ("poincare", C)
+
+    # --- phase 16: the clustered table, its index and PQ payload -----------
+    table = clustered_table(torch, rng)
+    t0 = time.perf_counter()
+    index = build_index(table, spec, auto_ncells(ROWS), iters=8, seed=0,
+                        balance=2.0)
+    index_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    quant = build_quant_payload(table, spec, "pq")
+    pq_s = time.perf_counter() - t0
+    work = os.path.join(REPO, "build", "chip_smoke")
+    os.makedirs(work, exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=work)
+    path = os.path.join(tmp, "ivf_pq")
+    written = export_artifact(path, table, spec, index=index, quant=quant)
+    art = load_artifact(path)
+    if art.fingerprint != written.fingerprint:
+        raise AssertionError("the IVF/PQ artifact did not load back")
+    emit({"phase": "ivf_pq_setup", "rows": ROWS, "dim": DIM,
+          "clusters": IVF_CLUSTERS, "ncells": index.ncells,
+          "max_cell": index.max_cell, "min_cell": int(index.counts.min()),
+          "index_build_s": index_s, "pq_build_s": pq_s,
+          "pq_m": quant.params["m"], **card})
+
+    # --- phase 17: both kernels against their plain versions ---------------
+    t0 = time.perf_counter()
+    err = {"scan_topk_cand": 0.0, "scan_topk_pq": 0.0}
+    ids = rng.choice(ROWS, BATCH, replace=False)
+    eng = QueryEngine.from_artifact(art, nprobe=8, scan_mode="fused",
+                                    precision="pq")
+    qi = torch.as_tensor(ids, dtype=torch.int32, device=dev)
+    q = eng.table[qi.long()]
+    dc = pdist(q, eng._centroids, C, manifold="poincare")
+    order = torch.sort(dc, dim=1, stable=True)[1]
+    cands = {p: eng._cells[order[:, :p]].reshape(BATCH, -1).contiguous()
+             for p in NPROBES}
+
+    def cand_case(label, table_, cand, qq, qid, k, ex, kind="poincare"):
+        run = lambda: S.scan_topk_cand(table_, cand, qq, qid,  # noqa: E731
+                                       spec=(kind, C), k=k, exclude_self=ex)
+        got, again = run(), run()
+        want = S.scan_topk_cand_plain(table_, cand, qq, qid, kind=kind, c=C,
+                                      k=k, exclude_self=ex)
+        err["scan_topk_cand"] = max(err["scan_topk_cand"], check_topk(
+            torch, "scan_topk_cand", label, got, again, want,
+            lorentz_rows=table_ if kind == "lorentz" else None))
+
+    for p in (1, 8):
+        for k in (10, 256):
+            cand_case(f"nprobe {p}, C {cands[p].shape[1]}, k {k}",
+                      eng.table, cands[p], q, qi, k, True)
+    odd = cands[1][:, :37].clone()               # C not a multiple of 32
+    odd[:, 5:9] = -1                             # pads in mid-list
+    odd[7] = -1                                  # a query with no candidate
+    cand_case("C 37, mid-list pads, an empty query, k 64 > reachable",
+              eng.table, odd, q, qi, 64, True)
+    # queries off the table: at d = 0 the two sides' Gram noise differs
+    cand_case("C 37, k 10, exclude_self off, queries off the table",
+              eng.table, odd, fresh, qi, 10, False)
+    lq = table_l[qi.long()]
+    lcand = torch.as_tensor(rng.integers(0, ROWS, (BATCH, 600)),
+                            dtype=torch.int32, device=dev)
+    cand_case("lorentz, C 600, k 10", table_l, lcand, lq, qi, 10, True,
+              kind="lorentz")
+
+    q_lift = _lift(spec, q).float()
+    lut3 = S.pq_lut(q_lift, eng.pq_codebooks, kind="poincare")
+    k_scan = eng._k_scan(K, ROWS)
+    # m = 8 codebooks from lifted table rows (2 lanes a subspace, 5 pad)
+    lifted = torch.nn.functional.pad(_lift(spec, eng.table[:ROWS]), (0, 5))
+    pick = torch.as_tensor(rng.integers(0, ROWS, (8, 256)), device=dev)
+    cb8 = torch.stack([lifted[pick[s], 2 * s:2 * s + 2] for s in range(8)])
+    codes8 = torch.as_tensor(rng.integers(0, 256, (ROWS, 8)),
+                             dtype=torch.uint8, device=dev)
+    lut8 = S.pq_lut(q_lift, cb8, kind="poincare")
+    cases = (("m 3, k 170 (the path)", eng.scan_table, lut3, 0, ROWS,
+              k_scan),
+             ("m 8, k 256", codes8, lut8, 0, ROWS, 256),
+             ("m 3, col0 5000, n < M, k 170", eng.scan_table, lut3, 5000,
+              5000 + ROWS - 115, k_scan))
+    for label, codes, lut, col0, n, k in cases:
+        qid = qi + col0 if col0 else qi
+        run = lambda: S.scan_topk_pq(codes, lut, qid, col0,  # noqa: E731
+                                     spec=spec, k=k, n=n, exclude_self=True)
+        got, again = run(), run()
+        want = S.scan_topk_pq_plain(codes, lut, qid, col0, kind="poincare",
+                                    c=C, k=k, n=n, exclude_self=True)
+        err["scan_topk_pq"] = max(err["scan_topk_pq"], check_topk(
+            torch, "scan_topk_pq", label, got, again, want))
+    emit({"phase": "ivf_pq_checks", "seconds": time.perf_counter() - t0})
+
+    # --- phase 18: the lanes through the serve loop ------------------------
+    ids8 = rng.choice(np.setdiff1d(np.arange(ROWS), ids), 8,
+                      replace=False).tolist()
+    lines = "\n".join(json.dumps(r) for r in (
+        {"op": "topk", "ids": ids.tolist(), "k": K},
+        {"op": "topk", "ids": ids8, "k": K},
+        {"op": "stats"})) + "\n"
+    answers, launches = {}, {}
+    for prec, npb in LANE_RUNS:
+        for mode in ("two_stage", "fused"):
+            lane_reset()
+            out = io.StringIO()
+            closing = cli.run_serve(cli.ServeConfig(
+                artifact=path, scan_mode=mode, precision=prec, nprobe=npb),
+                stdin=io.StringIO(lines), stdout=out)
+            got = lane_counts()
+            resp = [json.loads(s) for s in out.getvalue().splitlines()]
+            if len(resp) != 3 or any("error" in r for r in resp):
+                raise AssertionError(f"{prec}/{npb}/{mode}: {resp}")
+            want = expected_lane_launches(prec, npb, mode, 2)
+            if any(got[name] != c for name, c in want.items()):
+                raise AssertionError(f"{prec}/{npb}/{mode}: launches {got}, "
+                                     f"want {want}")
+            st = resp[2]
+            if (st["scan_strategy"] != ("ivf" if npb else "exact")
+                    or st["precision"] != prec):
+                raise AssertionError(f"{prec}/{npb}/{mode}: stats {st}")
+            answers[prec, npb, mode] = resp[0]
+            launches[prec, npb, mode] = got
+            emit({"phase": "lane_serve", "precision": prec, "nprobe": npb,
+                  "scan_mode": mode, "launches": got,
+                  "served": closing["served"]})
+    exact_ids = np.asarray(answers["f32", 0, "two_stage"]["neighbors"])
+    recall, tab = {}, torch.as_tensor(table, device=dev)
+    for prec, npb in LANE_RUNS:
+        ts, fu = answers[prec, npb, "two_stage"], answers[prec, npb, "fused"]
+        nb = np.asarray(ts["neighbors"])
+        ds = np.asarray(ts["dists"], np.float64)
+        if nb.shape != (BATCH, K) or not np.all(np.isfinite(ds)) \
+                or np.any(np.diff(ds, axis=1) < 0):
+            raise AssertionError(f"{prec}/{npb}: bad answers")
+        bad = _support.topk_disagreements(
+            nb, ds, np.asarray(fu["neighbors"]),
+            np.asarray(fu["dists"], np.float64), rtol=RTOL, atol=ATOL)
+        if bad:
+            raise AssertionError(f"{prec}/{npb}: two_stage and fused "
+                                 f"disagree on {bad} rows")
+        recall[f"{prec}_nprobe{npb}"] = float(np.mean(
+            [len(set(a) & set(b)) / K for a, b in zip(nb, exact_ids)]))
+        if prec == "pq":           # served distances are f32 distances
+            for ans in (ts, fu):
+                nbt = torch.as_tensor(ans["neighbors"], device=dev).long()
+                want = PoincareBall(C).dist(tab[torch.as_tensor(
+                    ids, device=dev).long()][:, None, :], tab[nbt])
+                got = torch.as_tensor(ans["dists"], dtype=torch.float32,
+                                      device=dev)
+                over = int(((got - want).abs()
+                            > PQ_F32_ATOL + PQ_F32_RTOL * want.abs()).sum())
+                if over:
+                    raise AssertionError(f"pq/{npb}: {over} served distances "
+                                         "differ from their f32 distance")
+    emit({"phase": "lane_recall", "k": K, "reference": "f32 exact",
+          "recall_at_10": recall})
+
+    # --- phase 19: queries/s at bucket 1024 --------------------------------
+    cold = rng.permutation(ROWS)[:40 * BATCH].reshape(40, BATCH)
+    throughput = {}
+    for prec, npb in LANE_RUNS[:-1]:
+        for mode in ("two_stage", "fused"):
+            e = QueryEngine.from_artifact(art, scan_mode=mode,
+                                          precision=prec, nprobe=npb)
+            throughput[f"{prec}_nprobe{npb}_{mode}"] = batch_throughput(
+                torch, e, RequestBatcher(e), cold)
+    emit({"phase": "lane_throughput", "bucket": BATCH, "k": K, "rows": ROWS,
+          **throughput, **card})
+    shutil.rmtree(tmp, ignore_errors=True)
+    fused = {name: sum(launches[prec, npb, "fused"][name]
+                       for prec, npb in LANE_RUNS)
+             for name in ("scan_topk_cand", "scan_topk_pq")}
+    return {"err": err, "launches": fused, "table": eng.table, "q": q,
+            "qi": qi, "cands": cands, "lut3": lut3, "codes": eng.scan_table,
+            "k_scan": k_scan, "index_build_s": index_s, "pq_build_s": pq_s}
+
+
+def batch_throughput(torch, eng, batcher, cold) -> dict:
+    """Batches of distinct cold ids through ``batcher`` at bucket 1024,
+    and the engine call alone on the same ids, taken in turns; host
+    clock, each ending in the copy of the answer to the host; medians
+    after one warm-up, then the card's busy time and idle share."""
+    walls = {"engine": [], "batcher": []}
+    for j, ids in enumerate(cold[:21]):
+        t0 = time.perf_counter()
+        i, d = eng.topk_neighbors(ids.astype(np.int32), K)
+        i.cpu(), d.cpu()
+        t1 = time.perf_counter()
+        batcher.topk(ids.tolist(), K)
+        t2 = time.perf_counter()
+        if j:                                          # after a warm-up
+            walls["engine"].append(t1 - t0)
+            walls["batcher"].append(t2 - t1)
+    if batcher.stats()["cache_hit"]:
+        raise AssertionError("a throughput batch hit the cache")
+    med = float(np.median(walls["batcher"])) * 1e3
+    more = iter(cold[21:])
+    return {"batch_ms": med, "batches_per_s": 1e3 / med,
+            "queries_per_s": BATCH * 1e3 / med,
+            "engine_ms": float(np.median(walls["engine"])) * 1e3,
+            **device_share(torch, lambda: batcher.topk(next(more).tolist(),
+                                                       K), med)}
+
+
+def ivf_pq_kernel_entries(torch, ip: dict, card: dict) -> list:
+    """Device times of the two approximate-lane kernels and their plain
+    versions at the path's shapes: the candidate scan at nprobe 8 (and
+    1), the ADC scan at m = 3, k = 170."""
+    from hyperspace_torch.kernels import scan_topk as S
+
+    tab, q, qi = ip["table"], ip["q"], ip["qi"]
+    spec = ("poincare", C)
+
+    def cand(p):
+        return lambda: S.scan_topk_cand(tab, ip["cands"][p], q, qi,
+                                        spec=spec, k=K, exclude_self=True)
+
+    c8 = ip["cands"][8]
+    valid = int((c8 >= 0).sum())
+    cb, cby = bound_ms(*cand_cost(BATCH, ROWS, DIM, c8.shape[1], valid, K))
+    codes, lut, ks = ip["codes"], ip["lut3"], ip["k_scan"]
+
+    def pq():
+        return S.scan_topk_pq(codes, lut, qi, 0, spec=spec, k=ks, n=ROWS,
+                              exclude_self=True)
+
+    pb, pby = bound_ms(*pq_cost(BATCH, codes.shape[0], ROWS,
+                                codes.shape[1], ks))
+    return [
+        {"name": "scan_topk_cand", "route": "cuda",
+         "source": "hyperspace_torch/kernels/csrc/scan_topk.cu",
+         "entry": "hs_scan_topk_cand",
+         "replaces": "hyperspace_tpu/kernels/scan_topk.py:1087",
+         "launches": ip["launches"]["scan_topk_cand"],
+         "launches_per_batch": "1 under IVF fused (f32)",
+         "max_abs_err": ip["err"]["scan_topk_cand"],
+         "shape": [BATCH, c8.shape[1], DIM, K], "valid_candidates": valid,
+         "ms": device_ms(torch, cand(8)),
+         "plain_ms": device_ms(torch, lambda: S.scan_topk_cand_plain(
+             tab, c8, q, qi, kind="poincare", c=C, k=K, exclude_self=True),
+             reps=3),
+         "bound_ms": cb, "bound_by": cby, "library_ms": None,
+         "call_ms": timed_ms(torch, cand(8)),
+         "ms_nprobe1": device_ms(torch, cand(1)),
+         "shape_nprobe1": list(ip["cands"][1].shape), **card},
+        {"name": "scan_topk_pq", "route": "cuda",
+         "source": "hyperspace_torch/kernels/csrc/scan_topk.cu",
+         "entry": "hs_scan_topk_pq",
+         "replaces": "hyperspace_tpu/kernels/scan_topk.py:872",
+         "launches": ip["launches"]["scan_topk_pq"],
+         "launches_per_batch": "1 under PQ fused",
+         "max_abs_err": ip["err"]["scan_topk_pq"],
+         "shape": [BATCH, codes.shape[0], codes.shape[1], ks],
+         "ms": device_ms(torch, pq),
+         "plain_ms": device_ms(torch, lambda: S.scan_topk_pq_plain(
+             codes, lut, qi, 0, kind="poincare", c=C, k=ks, n=ROWS,
+             exclude_self=True), reps=3),
+         "bound_ms": pb, "bound_by": pby, "library_ms": None,
+         "call_ms": timed_ms(torch, pq), **card},
+    ]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1470,6 +1877,9 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    # --- phases 16-19: the IVF and PQ serving lanes -------------------------
+    ip = ivf_pq_path(torch, args, card, table_l, fresh_b)
+
     # --- phases 5-8: the training path ----------------------------------
     tr = train_path(torch, args, card)
 
@@ -1479,7 +1889,7 @@ def main(argv=None) -> int:
     # --- phases 12-15: the HyboNet path -----------------------------------
     hb = hybonet_path(torch, args, card)
 
-    # --- phase 16: times ---------------------------------------------------
+    # --- phase 20: times ---------------------------------------------------
     # kernel and plain times are device times from the profiler at the
     # main path's shapes; call_ms adds the host's launch path (CUDA
     # events around back-to-back calls)
@@ -1527,7 +1937,8 @@ def main(argv=None) -> int:
          "bound_ms": sb, "bound_by": sby, "library_ms": None,
          "call_ms": timed_ms(torch, run_scan(BATCH)),
          "ms_bucket8": device_ms(torch, run_scan(8)), **card},
-    ] + train_kernel_entries(torch, tr, card) + att_kernel_entries(
+    ] + ivf_pq_kernel_entries(torch, ip, card) + train_kernel_entries(
+        torch, tr, card) + att_kernel_entries(
         torch, at, card) + hybonet_kernel_entries(torch, hb, card)
     for entry in kernels:      # the mean path's kernels on the attention arm
         if entry["name"] in ("csr_segment_sum", "cluster_aggregate"):
@@ -1542,28 +1953,8 @@ def main(argv=None) -> int:
     for mode in ("two_stage", "fused"):
         eng = QueryEngine(table.cpu().numpy(), ("poincare", C),
                           scan_mode=mode)
-        batcher = RequestBatcher(eng)
-        walls = {"engine": [], "batcher": []}
-        for j, ids in enumerate(cold[:21]):
-            t0 = time.perf_counter()
-            i, d = eng.topk_neighbors(ids.astype(np.int32), K)
-            i.cpu(), d.cpu()
-            t1 = time.perf_counter()
-            batcher.topk(ids.tolist(), K)
-            t2 = time.perf_counter()
-            if j:                                      # after a warm-up
-                walls["engine"].append(t1 - t0)
-                walls["batcher"].append(t2 - t1)
-        if batcher.stats()["cache_hit"]:
-            raise AssertionError("a throughput batch hit the cache")
-        med = float(np.median(walls["batcher"])) * 1e3
-        more = iter(cold[21:])
-        throughput[mode] = {
-            "batch_ms": med, "batches_per_s": 1e3 / med,
-            "queries_per_s": BATCH * 1e3 / med,
-            "engine_ms": float(np.median(walls["engine"])) * 1e3,
-            **device_share(torch, lambda: batcher.topk(next(more).tolist(),
-                                                       K), med)}
+        throughput[mode] = batch_throughput(torch, eng, RequestBatcher(eng),
+                                            cold)
     emit({"phase": "throughput", "bucket": BATCH, "k": K,
           "manifold": "poincare", "rows": ROWS, **throughput, **card})
     print(smi, flush=True)

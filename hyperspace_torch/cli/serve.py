@@ -8,6 +8,11 @@
     # stdin/JSONL loop: one request per line, one JSON response per line
     python -m hyperspace_torch.cli.serve serve artifact=DIR
 
+    # the approximate lanes: IVF probing (an artifact with an index) and
+    # PQ codes (a shipped payload, else codebooks trained at start-up)
+    python -m hyperspace_torch.cli.serve serve artifact=DIR nprobe=4 \
+        precision=pq scan_mode=fused
+
 Loop requests and responses have the JAX CLI's shapes:
 
     {"op": "topk",  "ids": [0, 1, 2], "k": 5}  -> {"neighbors": ..., "dists": ...}
@@ -48,6 +53,14 @@ class ServeConfig:
     cache_size: int = 65536
     chunk_rows: int = 0           # 0 = auto from the tile budget
     scan_mode: str = "two_stage"  # two_stage | fused
+    # table-scan precision: f32 (exact) | pq (product-quantized codes,
+    # k + max(16k, 128) coarse candidates rescored in f32; an artifact
+    # exported with a PQ payload serves its shipped codes and codebooks)
+    precision: str = "f32"
+    # IVF probing: cells probed per query.  0 = exact scan; needs an
+    # artifact exported with an index.  nprobe >= ncells or a table under
+    # IVF_MIN_TABLE_ROWS falls back to the exact scan.
+    nprobe: int = 0
 
 
 def _coerce(old: Any, s: str) -> Any:
@@ -109,6 +122,8 @@ def _build(cfg: ServeConfig):
     try:
         eng = QueryEngine.from_artifact(art, chunk_rows=cfg.chunk_rows,
                                         scan_mode=cfg.scan_mode,
+                                        precision=cfg.precision,
+                                        nprobe=cfg.nprobe,
                                         device=cfg.device)
         return RequestBatcher(eng, min_bucket=cfg.min_bucket,
                               max_bucket=cfg.max_bucket,

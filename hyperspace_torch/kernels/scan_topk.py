@@ -12,6 +12,17 @@ lowest global column.
 The kernel picks its own shared-memory tile and splits the table over
 enough blocks to fill the card, so the JAX module's VMEM footprint
 model (``fused_tile_rows``) has no counterpart here.
+
+Two more entry points, each with its plain version and its kernel in
+the same source:
+
+- :func:`scan_topk_cand` — per-query candidate rows (the IVF probing
+  scorer): each query scores its own gathered cells' table rows.  Ties
+  go to the earlier position in the candidate list.
+- :func:`scan_topk_pq` — ADC over a PQ-coded slab: per-query lookup
+  tables (:func:`pq_lut`, plain PyTorch as in JAX) summed over the
+  ``m`` subspace codes of each row in subspace order, then closed into
+  a distance of the reconstructed row.
 """
 
 from __future__ import annotations
@@ -28,6 +39,10 @@ from hyperspace_torch.manifolds import smath
 FUSED_MAX_K = 256
 # feature-lane cap: the kernel's tile of table rows must fit shared memory
 FUSED_MAX_DIM = 1024
+# PQ subspace cap: eight query warps' [m*256] f32 lookup tables must fit
+# the block's shared memory
+FUSED_MAX_PQ_M = 8
+PQ_CENTERS = 256
 
 _KINDS = ("poincare", "lorentz", "euclidean")
 _WARPS_PER_SM = 32    # resident query warps per SM the split aims for
@@ -44,6 +59,25 @@ def supports(spec: tuple, *, k: int, dim: int) -> bool:
     """Can :func:`scan_topk` serve this (spec, k, dim)?"""
     return (kind_supported(spec) and 1 <= int(k) <= FUSED_MAX_K
             and int(dim) <= FUSED_MAX_DIM)
+
+
+def supports_pq(spec: tuple, *, k: int, m: int) -> bool:
+    """Can :func:`scan_topk_pq` serve this (spec, k, m)?  Product specs
+    never can: their distance is not additive over subspaces."""
+    return (kind_supported(spec) and 1 <= int(k) <= FUSED_MAX_K
+            and 1 <= int(m) <= FUSED_MAX_PQ_M)
+
+
+def supports_cand(spec: tuple, *, k: int, dim: int, cand: int) -> bool:
+    """Can :func:`scan_topk_cand` serve this shape?  The :func:`supports`
+    rules; ``cand`` (the candidates a query) sets no limit.  The JAX
+    module also caps the pre-gathered ``[B, C, 128-lane]`` candidate
+    block its TPU kernel streams (``CAND_GATHER_BUDGET``, C <= 512 at
+    D = 10); the CUDA kernel gathers each row by id from the table and
+    builds no such block, so the cap has no counterpart.  Answers are
+    rank-identical to the two-stage candidate scan either way."""
+    del cand
+    return supports(spec, k=k, dim=dim)
 
 
 def _dist_plain(kind: str, c: float, q: torch.Tensor,
@@ -147,3 +181,257 @@ def scan_topk(slab: torch.Tensor, q: torch.Tensor, q_idx: torch.Tensor,
 
 
 scan_topk.launches = 0
+
+
+# --- per-query candidate variant (the IVF probing scorer) --------------------
+
+
+def _topk_of(d: torch.Tensor, ids: torch.Tensor, k: int):
+    """Stable ascending top-k of masked distances ``d`` [B, C] with
+    their ids [B, C]: equal distances keep their column order; slots
+    past the candidates, and +inf ones, are ``(+inf, -1)``."""
+    b, cc = d.shape
+    if cc < k:
+        d = torch.cat([d, d.new_full((b, k - cc), float("inf"))], dim=1)
+        ids = torch.cat([ids, ids.new_full((b, k - cc), -1)], dim=1)
+    dist, order = torch.sort(d, dim=1, stable=True)
+    dist, out = dist[:, :k], torch.gather(ids, 1, order[:, :k])
+    out = torch.where(torch.isinf(dist), torch.full_like(out, -1), out)
+    return dist, out.to(torch.int32)
+
+
+def _cand_dist_plain(kind: str, c: float, q: torch.Tensor,
+                     rows: torch.Tensor) -> torch.Tensor:
+    """[B, D] queries × per-query rows [B, C, D] → [B, C]: the JAX
+    kernel's ``_pair_dist_b`` closed forms (elementwise products summed
+    over the lane axis)."""
+    cc = torch.as_tensor(c, dtype=torch.float32, device=q.device)
+    sc = torch.clamp_min(torch.sqrt(cc), 1e-12)
+    if kind == "lorentz":
+        y_flip = torch.cat([-rows[..., :1], rows[..., 1:]], dim=-1)
+        gram = torch.sum(q[:, None, :] * y_flip, dim=-1)
+        u = torch.clamp_min(-cc * gram - 1.0, 0.0)
+        return smath.arcosh1p(u) / sc
+    gram = torch.sum(q[:, None, :] * rows, dim=-1)
+    xx = torch.sum(q * q, dim=-1, keepdim=True)
+    yy = torch.sum(rows * rows, dim=-1)
+    d2 = torch.clamp_min(xx - 2.0 * gram + yy, 0.0)
+    if kind == "euclidean":
+        return torch.sqrt(d2)
+    den = torch.clamp_min((1.0 - cc * xx) * (1.0 - cc * yy), 1e-7)
+    return smath.arcosh1p(2.0 * cc * d2 / den) / sc
+
+
+def scan_topk_cand_plain(table: torch.Tensor, cand: torch.Tensor,
+                         q: torch.Tensor, q_idx: torch.Tensor, *, kind: str,
+                         c: float, k: int, exclude_self: bool):
+    """Gather every candidate row, the closed-form distances, mask
+    ``id < 0`` and (under ``exclude_self``) ``id == q_idx``, then a
+    stable ascending sort over the candidate positions."""
+    cand = cand.to(torch.int64)
+    rows = table.to(torch.float32)[torch.clamp_min(cand, 0)]   # [B, C, D]
+    d = _cand_dist_plain(kind, c, q.to(torch.float32), rows)
+    mask = cand < 0
+    if exclude_self:
+        mask = mask | (cand == q_idx.to(torch.int64)[:, None])
+    d = torch.where(mask, torch.full_like(d, float("inf")), d)
+    return _topk_of(d, cand, k)
+
+
+def _launch_cand(table, cand, q, q_idx, *, kind, c, k, exclude_self):
+    S.check_cuda("scan_topk_cand", (torch.float32,), table, q)
+    S.check_cuda("scan_topk_cand", (torch.int32,), cand, q_idx)
+    if cand.device != q.device or q_idx.device != q.device:
+        raise ValueError("scan_topk_cand: tensors on different devices")
+    b, dim = q.shape
+    cc = cand.shape[1]
+    od = torch.empty((b, k), dtype=torch.float32, device=q.device)
+    oi = torch.empty((b, k), dtype=torch.int32, device=q.device)
+    splits = _splits(b, cc, q.device)
+    pd = pi = None
+    if splits > 1:
+        pd = torch.empty((b, splits, k), dtype=torch.float32, device=q.device)
+        pi = torch.empty((b, splits, k), dtype=torch.int32, device=q.device)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn = S.function("scan_topk", "hs_scan_topk_cand",
+                    [P, P, P, P, P, P, P, P, I, I, I, I, I, I,
+                     ctypes.c_float, I, I, P])
+    S.check(fn(table.data_ptr(), cand.data_ptr(), q.data_ptr(),
+               q_idx.data_ptr(),
+               None if pd is None else pd.data_ptr(),
+               None if pi is None else pi.data_ptr(),
+               od.data_ptr(), oi.data_ptr(), b, cc, table.shape[0], dim, k,
+               int(exclude_self), float(c), _KINDS.index(kind), splits,
+               S.stream_ptr(q)), "scan_topk_cand")
+    scan_topk_cand.launches += 1
+    return od, oi
+
+
+def scan_topk_cand(table: torch.Tensor, cand: torch.Tensor, q: torch.Tensor,
+                   q_idx: torch.Tensor, *, spec: tuple, k: int,
+                   exclude_self: bool = False, scale=None):
+    """Per-query candidate top-k: ``cand`` [B, C] int32 row ids into
+    ``table`` [N, D] (``-1`` = padding, anywhere in the list), ``q``
+    [B, D] → ``(dists ascending float32 [B, k], table ids int32
+    [B, k])``.  Padding and, under ``exclude_self``, each query's own
+    row (``q_idx`` [B] int32) are masked; ties go to the earlier
+    candidate position; slots beyond the reachable candidates are
+    ``(+inf, -1)``.  ``scale`` (the int8 lane) is not ported."""
+    if scale is not None:
+        raise ValueError("scan_topk_cand: the int8 scale= lane is not "
+                         "ported yet")
+    dim = q.shape[1]
+    if table.ndim != 2 or table.shape[1] != dim or cand.ndim != 2 \
+            or cand.shape[0] != q.shape[0]:
+        raise ValueError(
+            f"scan_topk_cand: want table [N, {dim}], cand [B, C] and q "
+            f"[B, {dim}]; got {tuple(table.shape)}, {tuple(cand.shape)}, "
+            f"{tuple(q.shape)}")
+    if not supports_cand(spec, k=k, dim=dim, cand=cand.shape[1]):
+        raise ValueError(
+            f"scan_topk_cand: unsupported (spec={spec[0]!r}, k={k}, "
+            f"dim={dim}) — gate on scan_topk.supports_cand() and use the "
+            "two-stage candidate scan")
+    kind = spec[0]
+    c = 0.0 if kind == "euclidean" else float(spec[1])
+    kw = dict(kind=kind, c=c, k=int(k), exclude_self=bool(exclude_self))
+    if q.device.type == "cpu" and table.device.type == "cpu":
+        return scan_topk_cand_plain(table, cand, q, q_idx, **kw)
+    if q.device.type != "cuda":
+        raise ValueError(f"scan_topk_cand: unsupported device {q.device}")
+    return _launch_cand(table, cand, q, q_idx, **kw)
+
+
+scan_topk_cand.launches = 0
+
+
+# --- PQ slab variant (ADC over coded rows) -----------------------------------
+
+
+def pq_lut(q_lift: torch.Tensor, codebooks: torch.Tensor, *,
+           kind: str) -> torch.Tensor:
+    """Per-query ADC lookup table [B, m*256] f32 from lifted queries
+    [B, >=m*ds] and codebooks [m, 256, ds] (``serve/quant.py``).
+
+    Lorentz-gram families: ``LUT[b, s*256+j] = <q_s ⊙ flip_s, cb[s, j]>``
+    with the global time lane's sign folded into subspace 0, so the sum
+    over subspaces is the Lorentz inner product of q with the
+    reconstruction.  Euclidean: ``‖q_s − cb[s, j]‖²``, whose sum is the
+    squared distance.  Plain PyTorch, as the JAX package computes it
+    outside its kernel."""
+    m, ncent, ds = codebooks.shape
+    b = q_lift.shape[0]
+    q_lift = q_lift.to(torch.float32)
+    if q_lift.shape[1] < m * ds:
+        # the codebooks' pad lanes are exactly zero, so zero query pad
+        # lanes are exact no-ops
+        q_lift = torch.cat([q_lift, q_lift.new_zeros(
+            (b, m * ds - q_lift.shape[1]))], dim=1)
+    qs = q_lift[:, :m * ds].reshape(b, m, ds)
+    cb = codebooks.to(torch.float32)
+    if kind == "euclidean":
+        diff = qs[:, :, None, :] - cb[None]               # [B, m, 256, ds]
+        lut = torch.sum(diff * diff, dim=-1)
+    else:
+        sign = torch.ones((m, ds), dtype=torch.float32, device=qs.device)
+        sign[0, 0] = -1.0
+        lut = torch.einsum("bmd,mjd->bmj", qs * sign[None], cb)
+    return lut.reshape(b, m * ncent)
+
+
+def _pq_dist_from_sum(kind: str, c: float, ssum: torch.Tensor):
+    """Close the ADC sums into distances of the reconstructed rows,
+    with the clamps of the JAX kernel's ``_pq_dist_from_sum``."""
+    if kind == "euclidean":
+        return torch.sqrt(torch.clamp_min(ssum, 0.0))
+    cc = torch.as_tensor(c, dtype=torch.float32, device=ssum.device)
+    u = torch.clamp_min(-cc * ssum - 1.0, 0.0)
+    return smath.arcosh1p(u) / torch.clamp_min(torch.sqrt(cc), 1e-12)
+
+
+def scan_topk_pq_plain(codes: torch.Tensor, lut: torch.Tensor,
+                       q_idx: torch.Tensor, col0: int, *, kind: str,
+                       c: float, k: int, n: int, exclude_self: bool):
+    """The ADC sums added in subspace order ``s = 0…m−1`` (as the kernel
+    adds them), closed into distances, masked by ``n`` and
+    ``exclude_self``, then a stable ascending sort — the
+    :func:`scan_topk` contract."""
+    b, (mrows, m) = lut.shape[0], codes.shape
+    cod = codes.to(torch.int64)
+    ssum = lut[:, cod[:, 0]]
+    for s in range(1, m):
+        ssum = ssum + lut[:, s * PQ_CENTERS + cod[:, s]]
+    d = _pq_dist_from_sum(kind, c, ssum)                   # [B, M]
+    gcol = col0 + torch.arange(mrows, device=lut.device, dtype=torch.int64)
+    mask = (gcol >= n)[None, :].expand(b, mrows)
+    if exclude_self:
+        mask = mask | (gcol[None, :] == q_idx.to(torch.int64)[:, None])
+    d = torch.where(mask, torch.full_like(d, float("inf")), d)
+    return _topk_of(d, gcol[None, :].expand(b, mrows), k)
+
+
+def _launch_pq(codes, lut, q_idx, col0, *, kind, c, k, n, exclude_self):
+    S.check_cuda("scan_topk_pq", (torch.uint8,), codes)
+    S.check_cuda("scan_topk_pq", (torch.float32,), lut)
+    S.check_cuda("scan_topk_pq", (torch.int32,), q_idx)
+    if codes.device != lut.device or q_idx.device != lut.device:
+        raise ValueError("scan_topk_pq: tensors on different devices")
+    b = lut.shape[0]
+    mrows, m = codes.shape
+    od = torch.empty((b, k), dtype=torch.float32, device=lut.device)
+    oi = torch.empty((b, k), dtype=torch.int32, device=lut.device)
+    splits = _splits(b, mrows, lut.device)
+    pd = pi = None
+    if splits > 1:
+        pd = torch.empty((b, splits, k), dtype=torch.float32,
+                         device=lut.device)
+        pi = torch.empty((b, splits, k), dtype=torch.int32,
+                         device=lut.device)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn = S.function("scan_topk", "hs_scan_topk_pq",
+                    [P, P, P, P, P, P, P, I, I, I, I, I, I, I,
+                     ctypes.c_float, I, I, P])
+    S.check(fn(codes.data_ptr(), lut.data_ptr(), q_idx.data_ptr(),
+               None if pd is None else pd.data_ptr(),
+               None if pi is None else pi.data_ptr(),
+               od.data_ptr(), oi.data_ptr(), b, mrows, m, k, int(col0),
+               int(n), int(exclude_self), float(c), _KINDS.index(kind),
+               splits, S.stream_ptr(lut)), "scan_topk_pq")
+    scan_topk_pq.launches += 1
+    return od, oi
+
+
+def scan_topk_pq(codes: torch.Tensor, lut: torch.Tensor,
+                 q_idx: torch.Tensor, col0: int, *, spec: tuple, k: int,
+                 n: int, exclude_self: bool = False):
+    """Streaming top-k over a PQ-coded slab by ADC: ``codes`` [M, m]
+    uint8 subspace codes, ``lut`` [B, m*256] f32 (:func:`pq_lut`) → the
+    :func:`scan_topk` output contract (global ids ``col0 + local``,
+    masking by ``n`` and ``exclude_self``, ``(+inf, -1)`` beyond the
+    reachable rows, ties to the lowest column).  Distances are those of
+    the reconstructed rows: callers over-fetch and rescore in f32."""
+    if codes.ndim != 2:
+        raise ValueError(f"scan_topk_pq: codes must be [M, m]; got "
+                         f"{tuple(codes.shape)}")
+    m = int(codes.shape[1])
+    if not supports_pq(spec, k=k, m=m):
+        raise ValueError(
+            f"scan_topk_pq: unsupported (spec={spec[0]!r}, k={k}, m={m}) "
+            "— gate on scan_topk.supports_pq() and use the two-stage "
+            "decode scan")
+    if lut.ndim != 2 or lut.shape[1] != m * PQ_CENTERS:
+        raise ValueError(
+            f"scan_topk_pq: lut width {tuple(lut.shape)} != m*256 = "
+            f"{m * PQ_CENTERS}")
+    kind = spec[0]
+    c = 0.0 if kind == "euclidean" else float(spec[1])
+    kw = dict(kind=kind, c=c, k=int(k), n=int(n),
+              exclude_self=bool(exclude_self))
+    if lut.device.type == "cpu" and codes.device.type == "cpu":
+        return scan_topk_pq_plain(codes, lut, q_idx, int(col0), **kw)
+    if lut.device.type != "cuda":
+        raise ValueError(f"scan_topk_pq: unsupported device {lut.device}")
+    return _launch_pq(codes, lut, q_idx, col0, **kw)
+
+
+scan_topk_pq.launches = 0

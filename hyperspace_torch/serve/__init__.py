@@ -1,5 +1,7 @@
-"""Exact k-NN / edge-score serving (counterpart of ``hyperspace_tpu.serve``):
-artifact → :class:`QueryEngine` → :class:`RequestBatcher` → ``cli.serve``."""
+"""k-NN / edge-score serving (counterpart of ``hyperspace_tpu.serve``):
+artifact → :class:`QueryEngine` (exact, IVF-probed or PQ-coded scans) →
+:class:`RequestBatcher` → ``cli.serve``; ``serve.index`` and
+``serve.quant`` build the IVF index and the PQ codes."""
 
 from hyperspace_torch.serve.artifact import (ServingArtifact, export_artifact,
                                              fingerprint_of, load_artifact)

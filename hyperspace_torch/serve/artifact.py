@@ -6,16 +6,21 @@ package and read by either:
 - ``table.npy``     — the [N, D] embedding table, bit-exact;
 - ``artifact.json`` — manifold spec, model config, table shape/dtype,
   content fingerprint, source checkpoint step;
+- ``index.npz``     — optional: an IVF index (``serve/index.py``:
+  centroids, dense cell layout, counts) with a meta block; its content
+  hash folds into the artifact fingerprint;
+- ``quant.npz``     — optional: a packed scan lane (:class:`QuantPayload`,
+  PQ codes and trained codebooks, or int4 nibbles and scales), hashed
+  and folded in the same way;
 - ``COMMITTED``     — the commit marker, written last.
 
 Writes are atomic: everything lands in a staging directory beside the
 target, the marker goes in last, and one ``os.rename`` commits.  The
-fingerprint (sha256 over the canonical spec/shape/dtype JSON and the
-table bytes) is byte-identical to the JAX package's, so the same table
-and spec name the same content in both.
-
-Artifacts carrying an IVF index (``index.npz``) or a packed scan lane
-(``quant.npz``) are refused: those lanes are not ported yet.
+fingerprint (sha256 over the canonical spec/shape/dtype JSON, the
+attached index's and payload's hashes, and the table bytes) is
+byte-identical to the JAX package's, so an artifact written by either
+package loads in the other under the same name.  An int4 payload loads
+(the engine does not serve that lane yet); building one is not ported.
 """
 
 from __future__ import annotations
@@ -33,6 +38,8 @@ ARTIFACT_VERSION = 1
 COMMIT_MARKER = "COMMITTED"
 META_FILE = "artifact.json"
 TABLE_FILE = "table.npy"
+INDEX_FILE = "index.npz"  # optional IVF index (serve/index.py)
+QUANT_FILE = "quant.npz"  # optional packed scan lane (serve/quant.py)
 
 
 def spec_to_json(spec: tuple) -> dict:
@@ -53,17 +60,98 @@ def spec_from_json(doc: dict) -> tuple:
     return (kind, float(doc.get("c", 0.0)))
 
 
-def fingerprint_of(table: np.ndarray, spec: tuple) -> str:
+def spec_dim(spec: tuple) -> int:
+    """Ambient width the spec expects of a table row (-1: any)."""
+    if spec[0] == "product":
+        return sum(int(d) for _k, d, _c in spec[1])
+    return -1
+
+
+def fingerprint_of(table: np.ndarray, spec: tuple,
+                   index_fingerprint: Optional[str] = None,
+                   quant_fingerprint: Optional[str] = None) -> str:
     """sha256 over the canonical spec/shape/dtype JSON and the table
-    bytes — the same content gets the same name wherever it lives."""
+    bytes — the same content gets the same name wherever it lives.  An
+    attached IVF index or packed lane folds its own hash into the JSON,
+    so an artifact carrying either is a different artifact than the
+    bare table; without them the hash is the table-only one."""
     table = np.ascontiguousarray(table)
     doc = {"spec": spec_to_json(spec),
            "shape": list(table.shape),
            "dtype": str(table.dtype)}
+    if index_fingerprint is not None:
+        doc["index"] = index_fingerprint
+    if quant_fingerprint is not None:
+        doc["quant"] = quant_fingerprint
     h = hashlib.sha256()
     h.update(json.dumps(doc, sort_keys=True).encode())
     h.update(table.tobytes())
     return h.hexdigest()
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantPayload:
+    """A packed scan-lane copy shipped inside an artifact.
+
+    ``lane`` names the precision ("int4" | "pq"), ``arrays`` the packed
+    content (pq: ``codes`` uint8 [N, m] + ``codebooks`` f32
+    [m, 256, ds]; int4: ``packed`` uint8 [N, ceil(D/2)] + ``scale`` f16
+    [N, 1]), ``params`` the geometry needed to decode (pq:
+    ``m``/``lift_dim``/``iters``/``seed``; int4: ``dim``), and
+    ``fingerprint`` the content hash :func:`load_artifact` re-verifies.
+    PQ codebooks are trained, so shipping them pins which centers every
+    serving replica ranks through."""
+
+    lane: str
+    arrays: dict
+    params: dict
+    fingerprint: str
+
+    @property
+    def num_nodes(self) -> int:
+        key = "packed" if "packed" in self.arrays else "codes"
+        return int(self.arrays[key].shape[0])
+
+
+def quant_fingerprint_of(lane: str, arrays: dict, params: dict) -> str:
+    """sha256 over the lane tag, the decode params, every array's
+    shape/dtype and its bytes, arrays in sorted-key order
+    (byte-identical to the JAX package's)."""
+    doc = {"lane": str(lane),
+           "params": {k: params[k] for k in sorted(params)},
+           "arrays": {k: [list(arrays[k].shape), str(arrays[k].dtype)]
+                      for k in sorted(arrays)}}
+    h = hashlib.sha256()
+    h.update(json.dumps(doc, sort_keys=True).encode())
+    for k in sorted(arrays):
+        h.update(np.ascontiguousarray(arrays[k]).tobytes())
+    return h.hexdigest()
+
+
+def build_quant_payload(table, spec: tuple, lane: str, *,
+                        pq_m: int = 0, pq_iters: int = 6,
+                        pq_seed: int = 0) -> QuantPayload:
+    """Pack ``table`` for ``lane`` as a live engine would: ``"pq"``
+    trains lifted-subspace codebooks (``serve/quant.py:build_pq``,
+    deterministic in ``pq_seed``) and encodes every row.  The int4
+    packing is not ported yet."""
+    table = np.ascontiguousarray(np.asarray(table, np.float32))
+    if table.ndim != 2:
+        raise ValueError(f"table must be [N, D]; got {table.shape}")
+    if lane == "int4":
+        raise ValueError("the int4 quant payload is not ported yet")
+    if lane != "pq":
+        raise ValueError(
+            f"quant payloads cover lanes ('int4', 'pq'); got {lane!r}")
+    from hyperspace_torch.serve.quant import build_pq
+
+    codes, cb = build_pq(table, spec, m=pq_m, iters=pq_iters, seed=pq_seed)
+    arrays = {"codes": codes, "codebooks": cb.codebooks}
+    params = {"m": int(cb.m), "lift_dim": int(cb.lift_dim),
+              "iters": int(cb.iters), "seed": int(cb.seed)}
+    return QuantPayload(lane=lane, arrays=arrays, params=params,
+                        fingerprint=quant_fingerprint_of(
+                            lane, arrays, params))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,6 +161,8 @@ class ServingArtifact:
     model_config: dict
     fingerprint: str
     step: Optional[int] = None  # source checkpoint step, if any
+    index: Optional[object] = None   # ServingIndex (serve/index.py)
+    quant: Optional[QuantPayload] = None  # packed scan lane
 
     @property
     def num_nodes(self) -> int:
@@ -83,23 +173,52 @@ class ServingArtifact:
         return int(self.table.shape[1])
 
 
-def export_artifact(directory: str, table, manifold_spec: tuple, *,
-                    model_config: Optional[dict] = None,
-                    step: Optional[int] = None,
-                    overwrite: bool = False) -> ServingArtifact:
-    """Write a serving artifact atomically; returns the artifact written.
-
-    An existing artifact at ``directory`` is an error unless
-    ``overwrite=True``; the replace is rename-then-delete, and an
-    interrupt between the renames puts the old artifact back."""
+def _make_artifact(table, spec, model_config, step, index=None,
+                   quant=None) -> ServingArtifact:
     table = np.ascontiguousarray(np.asarray(table))
     if table.ndim != 2:
         raise ValueError(f"serving table must be [N, D]; got {table.shape}")
-    art = ServingArtifact(
-        table=table, manifold_spec=tuple(manifold_spec),
+    spec = tuple(spec)
+    want = spec_dim(spec)
+    if want >= 0 and table.shape[1] != want:
+        raise ValueError(
+            f"table width {table.shape[1]} != product spec width {want}")
+    if index is not None:
+        if int(index.num_nodes) != table.shape[0]:
+            raise ValueError(
+                f"index covers {index.num_nodes} rows; table has "
+                f"{table.shape[0]} — rebuild the index for THIS table")
+        if int(index.centroids.shape[1]) != table.shape[1]:
+            raise ValueError(
+                f"index centroid width {index.centroids.shape[1]} != "
+                f"table width {table.shape[1]}")
+    if quant is not None and int(quant.num_nodes) != table.shape[0]:
+        raise ValueError(
+            f"quant payload covers {quant.num_nodes} rows; table has "
+            f"{table.shape[0]} — re-pack for THIS table")
+    return ServingArtifact(
+        table=table, manifold_spec=spec,
         model_config=dict(model_config or {}),
-        fingerprint=fingerprint_of(table, manifold_spec),
-        step=None if step is None else int(step))
+        fingerprint=fingerprint_of(
+            table, spec, None if index is None else index.fingerprint,
+            None if quant is None else quant.fingerprint),
+        step=None if step is None else int(step), index=index, quant=quant)
+
+
+def export_artifact(directory: str, table, manifold_spec: tuple, *,
+                    model_config: Optional[dict] = None,
+                    step: Optional[int] = None,
+                    overwrite: bool = False,
+                    index=None, quant=None) -> ServingArtifact:
+    """Write a serving artifact atomically; returns the artifact written.
+
+    ``index`` (a :class:`~hyperspace_torch.serve.index.ServingIndex`)
+    and ``quant`` (a :class:`QuantPayload`) ship inside the artifact.
+    An existing artifact at ``directory`` is an error unless
+    ``overwrite=True``; the replace is rename-then-delete, and an
+    interrupt between the renames puts the old artifact back."""
+    art = _make_artifact(table, manifold_spec, model_config, step, index,
+                         quant)
     directory = os.path.abspath(directory)
     parent = os.path.dirname(directory)
     os.makedirs(parent, exist_ok=True)
@@ -123,6 +242,24 @@ def export_artifact(directory: str, table, manifold_spec: tuple, *,
             "fingerprint": art.fingerprint,
             "step": art.step,
         }
+        if art.index is not None:
+            np.savez(os.path.join(staging, INDEX_FILE),
+                     centroids=art.index.centroids, cells=art.index.cells,
+                     counts=art.index.counts)
+            meta["index"] = {
+                "ncells": art.index.ncells, "max_cell": art.index.max_cell,
+                "num_nodes": art.index.num_nodes, "iters": art.index.iters,
+                "seed": art.index.seed,
+                "fingerprint": art.index.fingerprint,
+            }
+        if art.quant is not None:
+            np.savez(os.path.join(staging, QUANT_FILE), **art.quant.arrays)
+            meta["quant"] = {
+                "lane": art.quant.lane,
+                "params": dict(art.quant.params),
+                "arrays": sorted(art.quant.arrays),
+                "fingerprint": art.quant.fingerprint,
+            }
         with open(os.path.join(staging, META_FILE), "w") as f:
             json.dump(meta, f, indent=2, sort_keys=True)
         # marker LAST: everything before it is on disk when it appears
@@ -155,11 +292,12 @@ def is_committed(directory: str) -> bool:
 
 
 def load_artifact(directory: str) -> ServingArtifact:
-    """Load a committed artifact and verify its content fingerprint.
+    """Load a committed artifact and verify its content fingerprint,
+    and those of its index and packed lane.
 
     Raises ``FileNotFoundError`` for a missing or uncommitted directory
     and ``ValueError`` for a fingerprint mismatch, an unknown version,
-    or an artifact that carries an IVF index or a packed scan lane."""
+    or a meta block naming a payload that is missing."""
     directory = os.path.abspath(directory)
     if not is_committed(directory):
         raise FileNotFoundError(
@@ -170,14 +308,72 @@ def load_artifact(directory: str) -> ServingArtifact:
         raise ValueError(
             f"artifact version {meta.get('version')!r} != "
             f"{ARTIFACT_VERSION} at {directory}")
-    for key in ("index", "quant"):
-        if meta.get(key) is not None:
-            raise ValueError(
-                f"artifact at {directory} carries a {key!r} payload; "
-                "IVF indexes and packed scan lanes are not ported yet")
     table = np.load(os.path.join(directory, TABLE_FILE))
     spec = spec_from_json(meta["manifold"])
-    fp = fingerprint_of(table, spec)
+    index = None
+    if meta.get("index") is not None:
+        from hyperspace_torch.serve.index import (ServingIndex,
+                                                  index_fingerprint_of)
+
+        ipath = os.path.join(directory, INDEX_FILE)
+        if not os.path.isfile(ipath):
+            raise ValueError(
+                f"artifact meta names an index but {INDEX_FILE} is "
+                f"missing at {directory}")
+        with np.load(ipath) as z:
+            centroids = np.ascontiguousarray(z["centroids"])
+            cells = np.ascontiguousarray(z["cells"])
+            counts = np.ascontiguousarray(z["counts"])
+        try:
+            imeta = {k: meta["index"][k] for k in
+                     ("num_nodes", "iters", "seed", "fingerprint")}
+        except KeyError as e:
+            raise ValueError(
+                f"artifact index meta at {directory} is missing {e}") from None
+        ifp = index_fingerprint_of(
+            centroids, cells, counts, num_nodes=int(imeta["num_nodes"]),
+            iters=int(imeta["iters"]), seed=int(imeta["seed"]))
+        if ifp != imeta["fingerprint"]:
+            raise ValueError(
+                f"index fingerprint mismatch at {directory}: meta says "
+                f"{imeta['fingerprint'][:12]}…, content is {ifp[:12]}…")
+        index = ServingIndex(
+            centroids=centroids, cells=cells, counts=counts,
+            num_nodes=int(imeta["num_nodes"]), iters=int(imeta["iters"]),
+            seed=int(imeta["seed"]), fingerprint=ifp)
+    quant = None
+    if meta.get("quant") is not None:
+        qpath = os.path.join(directory, QUANT_FILE)
+        if not os.path.isfile(qpath):
+            raise ValueError(
+                f"artifact meta names a quant lane but {QUANT_FILE} is "
+                f"missing at {directory}")
+        try:
+            lane = meta["quant"]["lane"]
+            params = dict(meta["quant"]["params"])
+            names = list(meta["quant"]["arrays"])
+            qfp_meta = meta["quant"]["fingerprint"]
+        except KeyError as e:
+            raise ValueError(
+                f"artifact quant meta at {directory} is missing {e}") \
+                from None
+        with np.load(qpath) as z:
+            missing = sorted(set(names) - set(z.files))
+            if missing:
+                raise ValueError(
+                    f"quant payload at {directory} is missing arrays "
+                    f"{missing}")
+            arrays = {k: np.ascontiguousarray(z[k]) for k in names}
+        qfp = quant_fingerprint_of(lane, arrays, params)
+        if qfp != qfp_meta:
+            raise ValueError(
+                f"quant fingerprint mismatch at {directory}: meta says "
+                f"{qfp_meta[:12]}…, content is {qfp[:12]}…")
+        quant = QuantPayload(lane=lane, arrays=arrays, params=params,
+                             fingerprint=qfp)
+    fp = fingerprint_of(table, spec,
+                        None if index is None else index.fingerprint,
+                        None if quant is None else quant.fingerprint)
     if fp != meta["fingerprint"]:
         raise ValueError(
             f"artifact fingerprint mismatch at {directory}: "
@@ -185,4 +381,4 @@ def load_artifact(directory: str) -> ServingArtifact:
     return ServingArtifact(
         table=table, manifold_spec=spec,
         model_config=meta.get("model_config") or {},
-        fingerprint=fp, step=meta.get("step"))
+        fingerprint=fp, step=meta.get("step"), index=index, quant=quant)

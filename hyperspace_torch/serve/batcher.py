@@ -10,7 +10,10 @@
 - **Result cache.**  An LRU keyed by (artifact fingerprint, query id, k,
   exclude_self, precision, scan signature) holding per-query top-k
   rows; a request mixing hot and cold ids computes only the cold ones.
-  Edge scoring is uncached.
+  The scan signature names the exact scan, or the IVF probe with its
+  width and index fingerprint, plus the fused marker and the PQ lane
+  with its codebooks' fingerprint, so exact, probed (per width) and PQ
+  rows never answer for one another.  Edge scoring is uncached.
 
 Counters live on the batcher (``stats()``).  Deadlines, admission
 control, the degradation ladder, access logs and spans are not ported
@@ -241,4 +244,5 @@ class RequestBatcher:
             "precision": self.engine.precision,
             "scan_strategy": self.engine.scan_strategy,
             "scan_mode": self.engine.scan_mode,
+            "nprobe": self.engine.nprobe,
         }

@@ -1,5 +1,5 @@
-"""Batched exact k-NN and edge scoring over a frozen embedding table
-(counterpart of ``hyperspace_tpu/serve/engine.py``, single device, f32).
+"""Batched k-NN and edge scoring over a frozen embedding table
+(counterpart of ``hyperspace_tpu/serve/engine.py``, single device).
 
 - ``topk_neighbors(q_idx, k)`` — the k nearest table rows to each query
   row under the hyperbolic metric (Poincaré-embedding retrieval);
@@ -20,10 +20,30 @@ scan strategies (``scan_mode``), rank-identical:
   over the padded table; the distance matrix never reaches memory.  k
   above ``FUSED_MAX_K`` uses the two-stage scan.
 
+Two approximate lanes compose with both modes:
+
+- **PQ** (``precision="pq"``): one uint8 code a subspace of each row's
+  lift (``serve/quant.py``; ``quant=`` takes a payload shipped in an
+  artifact).  The coarse scan keeps ``k + max(16k, 128)`` candidates —
+  by ADC in the ``scan_topk_pq`` kernel under ``fused``, by decoding
+  chunks to the lift under ``two_stage`` — and rescores them against
+  the f32 master table, so every returned distance is an f32 manifold
+  distance.
+- **IVF probing** (``index=`` + ``nprobe=``; ``serve/index.py``): the
+  queries are scored against the index's centroids (``pdist``), the
+  nearest ``nprobe`` cells' row ids are gathered (nearest cell first,
+  ``-1`` pads inside each cell's row), and only those candidates are
+  scanned — by the ``scan_topk_cand`` kernel under ``fused``, by
+  chunked gathers and plain distances under ``two_stage``; ties go to
+  the earlier candidate position.  Under PQ the candidate scan decodes
+  codes and the rescore follows.  Exact fallbacks (the engine then is
+  the exact engine): ``nprobe=0``, ``nprobe >= ncells``, tables under
+  ``IVF_MIN_TABLE_ROWS``.
+
 Everything runs on ``device`` — CUDA unless the caller asks for the CPU,
 where the kernels' plain versions answer.  Not ported yet (they raise):
-the ``carry`` scan, the bf16/int8/int4/PQ lanes, IVF probing, mesh
-sharding, and product / sphere / euclidean specs.
+the ``carry`` scan, the bf16/int8/int4 lanes, mesh sharding, and
+product / sphere / euclidean specs.
 """
 
 from __future__ import annotations
@@ -36,7 +56,7 @@ import torch
 from hyperspace_torch.kernels import _support
 from hyperspace_torch.kernels import scan_topk as fused_kernel
 from hyperspace_torch.kernels.distmat import pdist
-from hyperspace_torch.manifolds import Lorentz, PoincareBall
+from hyperspace_torch.manifolds import Lorentz, PoincareBall, smath
 from hyperspace_torch.serve.artifact import ServingArtifact, fingerprint_of
 
 # f32 bytes one [B, chunk] distance tile may occupy at the nominal batch
@@ -45,7 +65,15 @@ NOMINAL_BATCH = 1024  # the batcher's default max bucket
 _ROW_ALIGN = 128
 
 SCAN_MODES = ("two_stage", "fused")
+QUANT_PRECISIONS = ("int8", "int4", "pq")
+PRECISIONS = ("f32", "bf16") + QUANT_PRECISIONS
+_SERVED_PRECISIONS = ("f32", "pq")
 _MANIFOLDS = {"poincare": PoincareBall, "lorentz": Lorentz}
+
+# the PQ lane's over-fetch: k + max(16k, 128) coarse candidates, so the
+# f32 rescore can repair the coarse ranking's k-th-boundary mistakes
+_PQ_RESCORE_MIN = 128
+_PQ_RESCORE_MULT = 16
 
 
 def _round_up(n: int, m: int) -> int:
@@ -62,9 +90,104 @@ def auto_chunk_rows(n: int) -> int:
     return min(chunk, _round_up(max(n, 1), _ROW_ALIGN))
 
 
+def cand_chunk_rows(dim: int, capacity: int) -> int:
+    """Candidate columns a two-stage IVF tile takes: the [B, chunk, D]
+    gathered rows under four tile budgets at the nominal batch (the JAX
+    engine's ``_cand_chunk``)."""
+    per_row = 4 * NOMINAL_BATCH * dim
+    chunk = max(_ROW_ALIGN,
+                (4 * TILE_BUDGET // per_row) // _ROW_ALIGN * _ROW_ALIGN)
+    return min(chunk, _round_up(max(capacity, 1), _ROW_ALIGN))
+
+
 def _fermi_dirac(d: torch.Tensor, r: float, t: float) -> torch.Tensor:
     """The HGCN LP head's link decoder."""
     return 1.0 / (torch.exp((torch.square(d) - r) / t) + 1.0)
+
+
+def _arcosh_close(c: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """arcosh(1 + u)/√c for a clamped argument ``u``."""
+    return smath.arcosh1p(u) / smath.clamp_min(smath.sqrt_c(c, u),
+                                               smath.min_norm(u.dtype))
+
+
+def _cand_dist(spec: tuple, q: torch.Tensor,
+               rows: torch.Tensor) -> torch.Tensor:
+    """[B, D] queries × per-query candidate rows [B, C, D] → [B, C]: the
+    closed forms with one batched Gram."""
+    c = torch.as_tensor(spec[1], dtype=q.dtype, device=q.device)
+    if spec[0] == "lorentz":
+        gram = (torch.einsum("bd,bcd->bc", q[:, 1:], rows[..., 1:])
+                - q[:, :1] * rows[..., 0])                # ⟨x, y⟩_L
+        return _arcosh_close(c, smath.clamp_min(-c * gram - 1.0, 0.0))
+    gram = torch.einsum("bd,bcd->bc", q, rows)
+    xx = smath.sq_norm(q)                                 # [B, 1]
+    yy = smath.sq_norm(rows)[..., 0]                      # [B, C]
+    d2 = smath.clamp_min(xx - 2.0 * gram + yy, 0.0)
+    den = smath.clamp_min((1.0 - c * xx) * (1.0 - c * yy),
+                          smath.eps_for(q.dtype))
+    return _arcosh_close(c, 2.0 * c * d2 / den)
+
+
+def _pq_decode_rows(cb: torch.Tensor, codes: torch.Tensor,
+                    lift_dim: int) -> torch.Tensor:
+    """PQ codes [..., m] uint8 + codebooks [m, 256, ds] → reconstructed
+    lifted rows [..., lift_dim] (the codebooks' pad lanes sliced off)."""
+    m = cb.shape[0]
+    sel = cb[torch.arange(m, device=cb.device), codes.long()]  # [..., m, ds]
+    return sel.reshape(codes.shape[:-1] + (m * cb.shape[2],))[..., :lift_dim]
+
+
+def _pq_lift_dist(spec: tuple, q_lift: torch.Tensor,
+                  rows_lift: torch.Tensor) -> torch.Tensor:
+    """Coarse distances in the lift (Lorentz coordinates at the spec's
+    curvature): lifted queries [B, DL] × reconstructions ([M, DL] shared
+    or [B, C, DL] per query) → [B, M] / [B, C], with the clamps the PQ
+    kernel applies (the reconstructions sit off the hyperboloid)."""
+    c = torch.as_tensor(spec[1], dtype=q_lift.dtype, device=q_lift.device)
+    if rows_lift.ndim == 2:
+        gram = (q_lift[:, 1:] @ rows_lift[:, 1:].T
+                - q_lift[:, :1] * rows_lift[None, :, 0])
+    else:
+        gram = (torch.einsum("bd,bcd->bc", q_lift[:, 1:], rows_lift[..., 1:])
+                - q_lift[:, :1] * rows_lift[..., 0])
+    return _arcosh_close(c, smath.clamp_min(-c * gram - 1.0, 0.0))
+
+
+def _rescore_f32(spec: tuple, rows: torch.Tensor, q: torch.Tensor,
+                 idx: torch.Tensor, scan_d: torch.Tensor) -> torch.Tensor:
+    """f32 manifold distances of gathered candidate rows [B, K, D] to the
+    f32 queries [B, D]; slots the coarse scan left at -1 or +inf stay
+    +inf, so they never outrank a real candidate."""
+    d = _MANIFOLDS[spec[0]](float(spec[1])).dist(q[:, None, :], rows)
+    return torch.where((idx < 0) | ~torch.isfinite(scan_d),
+                       torch.full_like(d, float("inf")), d)
+
+
+def _merge_rescored(d32: torch.Tensor, idx: torch.Tensor, k: int):
+    """Final ranking: the stable top-k of the rescored candidates →
+    ``(ids, dists)``."""
+    dist, out = _stable_topk(d32, idx, k)
+    return out, dist
+
+
+def _stable_topk(d: torch.Tensor, ids: torch.Tensor, k: int):
+    """The k smallest of ``d`` [B, W] with their ids, equal distances in
+    column order (``lax.top_k``'s rule; ``torch.topk`` is not stable)."""
+    top, order = torch.sort(d, dim=1, stable=True)
+    return top[:, :k], torch.gather(ids, 1, order[:, :k])
+
+
+def _two_stage_core(tiles, k: int):
+    """Per-tile stable top-k over each ``(d [B, w], ids [B, w])`` of
+    ``tiles`` (masked slots +inf), then one stable merge of the kept
+    candidates → ``(dists ascending, ids)`` [B, min(k, Σw)]."""
+    cand_d, cand_i = [], []
+    for d, ids in tiles:
+        top, sel = _stable_topk(d, ids, min(k, d.shape[1]))
+        cand_d.append(top)
+        cand_i.append(sel)
+    return _stable_topk(torch.cat(cand_d, dim=1), torch.cat(cand_i, dim=1), k)
 
 
 class QueryEngine:
@@ -76,7 +199,8 @@ class QueryEngine:
                  scan_mode: str = "two_stage",
                  precision: str = "f32",
                  device="cuda",
-                 mesh=None, index=None, nprobe: int = 0):
+                 mesh=None, index=None, nprobe: int = 0,
+                 quant=None, pq_m: int = 0):
         table = np.ascontiguousarray(np.asarray(table))
         if table.ndim != 2:
             raise ValueError(f"table must be [N, D]; got {table.shape}")
@@ -86,13 +210,15 @@ class QueryEngine:
         if scan_mode not in SCAN_MODES:
             raise ValueError(
                 f"scan_mode must be one of {SCAN_MODES}; got {scan_mode!r}")
-        if precision != "f32":
+        if precision not in PRECISIONS:
+            raise ValueError(
+                f"precision must be one of {PRECISIONS}; got {precision!r}")
+        if precision not in _SERVED_PRECISIONS:
             raise ValueError(f"precision={precision!r} is not ported yet "
-                             "(only the f32 scan is)")
+                             f"(the {' and '.join(_SERVED_PRECISIONS)} "
+                             "lanes are)")
         if mesh is not None:
             raise ValueError("mesh sharding is not ported yet")
-        if index is not None or nprobe:
-            raise ValueError("IVF probing is not ported yet")
         self.spec = tuple(manifold_spec)
         if self.spec[0] not in _MANIFOLDS:
             raise ValueError(f"{self.spec[0]!r} specs are not ported yet "
@@ -101,10 +227,27 @@ class QueryEngine:
         if chunk_rows < 0:
             raise ValueError(f"chunk_rows must be >= 0 (0 = auto); "
                              f"got {chunk_rows}")
-        self.device = _support.resolve_device(device)
         self.num_nodes, self.dim = (int(s) for s in table.shape)
+        self.nprobe = int(nprobe)
+        if self.nprobe < 0:
+            raise ValueError(f"nprobe must be >= 0; got {nprobe}")
+        if self.nprobe > 0 and index is None:
+            raise ValueError(
+                "nprobe > 0 needs an IVF index (build one with "
+                "serve.index.build_index, or export with index=)")
+        if index is not None:
+            if int(index.num_nodes) != self.num_nodes:
+                raise ValueError(
+                    f"index was built over {index.num_nodes} rows; "
+                    f"table has {self.num_nodes}")
+            if int(index.centroids.shape[1]) != self.dim:
+                raise ValueError(
+                    f"index centroid width {index.centroids.shape[1]} "
+                    f"!= table width {self.dim}")
+        self.device = _support.resolve_device(device)
         self.scan_mode = scan_mode
         self.precision = precision
+        self.index = index
         self.manifold = _MANIFOLDS[self.spec[0]](float(self.spec[1]))
         self.fingerprint = fingerprint or fingerprint_of(table, self.spec)
         self.chunk_rows = chunk_rows or auto_chunk_rows(self.num_nodes)
@@ -118,29 +261,104 @@ class QueryEngine:
         self.table[:self.num_nodes] = src.to(self.device)
         self._cols = torch.arange(padded, dtype=torch.int32,
                                   device=self.device)
+        self._pq = precision == "pq"
+        if self._pq:
+            self._init_pq(table, quant, int(pq_m), padded)
+
+        from hyperspace_torch.serve.index import IVF_MIN_TABLE_ROWS
+
+        self._ivf = (index is not None and 0 < self.nprobe < index.ncells
+                     and self.num_nodes >= IVF_MIN_TABLE_ROWS)
+        if self._ivf:
+            self._centroids = torch.as_tensor(
+                np.asarray(index.centroids, np.float32), device=self.device)
+            self._cells = torch.as_tensor(
+                np.asarray(index.cells, np.int32), device=self.device)
+            self._cand_chunk = cand_chunk_rows(
+                self.dim, self.nprobe * index.max_cell)
+
+    def _init_pq(self, table: np.ndarray, quant, pq_m: int,
+                 padded: int) -> None:
+        """The PQ scan copy: the payload's codes and codebooks when it
+        is a PQ payload for this table, else codebooks trained here."""
+        from hyperspace_torch.serve.index import _lift_dim
+        from hyperspace_torch.serve.quant import (build_pq, default_pq_m,
+                                                  pq_fingerprint_of)
+
+        payload = None
+        if quant is not None and getattr(quant, "lane", None) == "pq":
+            if int(quant.num_nodes) != self.num_nodes:
+                raise ValueError(
+                    f"quant payload covers {quant.num_nodes} rows; table "
+                    f"has {self.num_nodes} — re-export for THIS table")
+            payload = quant
+        self._lift_dim = _lift_dim(self.spec, self.dim)
+        if payload is not None:
+            pp = payload.params
+            codes = payload.arrays["codes"]
+            cb = np.asarray(payload.arrays["codebooks"], np.float32)
+            self._pq_fp = pq_fingerprint_of(
+                cb, lift_dim=int(pp["lift_dim"]), iters=int(pp["iters"]),
+                seed=int(pp["seed"]))
+        else:
+            # train on the unpadded rows; padding rows get code 0 and
+            # are masked by index
+            codes, cbk = build_pq(table, self.spec, m=(
+                pq_m or default_pq_m(self._lift_dim)))
+            cb, self._pq_fp = cbk.codebooks, cbk.fingerprint
+        self._pq_m = int(cb.shape[0])
+        if self._fused:
+            self._fused = self._pq_m <= fused_kernel.FUSED_MAX_PQ_M
+        self.scan_table = torch.zeros((padded, self._pq_m),
+                                      dtype=torch.uint8, device=self.device)
+        self.scan_table[:self.num_nodes] = torch.as_tensor(
+            np.ascontiguousarray(codes), device=self.device)
+        self.pq_codebooks = torch.as_tensor(cb, device=self.device)
 
     @classmethod
     def from_artifact(cls, art: ServingArtifact, **kw) -> "QueryEngine":
+        kw.setdefault("index", art.index)
+        kw.setdefault("quant", art.quant)
         return cls(art.table, art.manifold_spec,
                    fingerprint=art.fingerprint, **kw)
 
     @property
     def scan_strategy(self) -> str:
-        return "exact"
+        """``"ivf"`` when queries probe the index, else ``"exact"``."""
+        return "ivf" if self._ivf else "exact"
 
     @property
     def scan_signature(self) -> tuple:
         """Result identity of the scan path (a batcher cache-key part):
-        fused answers are rank-identical to two-stage ones but only
-        ulp-close in distance, so they are keyed apart."""
-        return ("exact",) + (("fused",) if self._fused else ())
+        ``("exact",)`` or ``("ivf", nprobe, index fingerprint)``, then
+        ``"fused"`` (rank-identical to two-stage but only ulp-close in
+        distance) and the PQ lane with its codebooks' fingerprint."""
+        sig = (("ivf", self.nprobe, self.index.fingerprint) if self._ivf
+               else ("exact",))
+        return sig + self._lane_markers()
+
+    def scan_signature_for(self, nprobe: int) -> tuple:
+        """The signature at an overridden probe width."""
+        return ("ivf", int(nprobe), self.index.fingerprint) \
+            + self._lane_markers()
+
+    def _lane_markers(self) -> tuple:
+        return ((("fused",) if self._fused else ())
+                + (("pq", self._pq_fp) if self._pq else ()))
+
+    def _k_scan(self, k: int, cap: int) -> int:
+        """Over-fetch width of the PQ coarse scan, at most ``cap``."""
+        return min(k + max(_PQ_RESCORE_MULT * k, _PQ_RESCORE_MIN), cap)
 
     # --- queries --------------------------------------------------------------
 
-    def topk_neighbors(self, q_idx, k: int, *, exclude_self: bool = True):
+    def topk_neighbors(self, q_idx, k: int, *, exclude_self: bool = True,
+                       nprobe: Optional[int] = None):
         """``(neighbors [B, k] int32, dists [B, k])`` tensors on the
         engine's device, ascending by distance.  ``k`` must leave room
-        in the table (``k <= N - exclude_self``)."""
+        in the table (``k <= N - exclude_self``).  ``nprobe`` (probing
+        engines only) narrows the probe for this call, within
+        ``[1, self.nprobe]``."""
         q_idx = self._check_ids(q_idx, "q_idx")
         k = int(k)
         limit = self.num_nodes - (1 if exclude_self else 0)
@@ -148,35 +366,156 @@ class QueryEngine:
             raise ValueError(
                 f"k={k} out of range [1, {limit}] for a {self.num_nodes}-row "
                 f"table (exclude_self={exclude_self})")
+        if nprobe is not None and not self._ivf:
+            raise ValueError(
+                "nprobe override needs a probing engine (this one "
+                "answers by exact scan)")
         q = self.table[q_idx.long()]                       # [B, D]
+        if self._ivf:
+            return self._probe_topk(q, q_idx, k, exclude_self=exclude_self,
+                                    nprobe=nprobe)
+        if self._pq:
+            sd, sidx = self._scan_pq(q, q_idx, self._k_scan(
+                k, self.num_nodes), exclude_self)
+            return self._rescore(q, sidx, sd, k)
         if self._fused and fused_kernel.supports(self.spec, k=k,
                                                  dim=self.dim):
             d, i = fused_kernel.scan_topk(
                 self.table, q, q_idx, 0, spec=self.spec, k=k,
                 n=self.num_nodes, exclude_self=exclude_self)
             return i, d
-        return self._two_stage(q, q_idx, k, exclude_self)
+        d, i = self._two_stage(lambda s: pdist(
+            q, self.table[s:s + self.chunk_rows], self.spec[1],
+            manifold=self.spec[0]), q_idx, k, exclude_self)
+        return i, d
 
-    def _two_stage(self, q: torch.Tensor, q_idx: torch.Tensor, k: int,
+    def _two_stage(self, dist_of, q_idx: torch.Tensor, k: int,
                    exclude_self: bool):
-        chunk = self.chunk_rows
-        kc = min(k, chunk)
-        cand_d, cand_i = [], []
-        for s in range(0, self.table.shape[0], chunk):
-            d = pdist(q, self.table[s:s + chunk], self.spec[1],
-                      manifold=self.spec[0])               # [B, chunk]
-            cols = self._cols[s:s + chunk]
-            if s + chunk > self.num_nodes:                 # zero padding
-                d.masked_fill_((cols >= self.num_nodes)[None, :],
-                               float("inf"))
-            if exclude_self:
-                d.masked_fill_(cols[None, :] == q_idx[:, None], float("inf"))
-            top, order = torch.sort(d, dim=1, stable=True)
-            cand_d.append(top[:, :kc])
-            cand_i.append(cols[order[:, :kc]])
-        top, order = torch.sort(torch.cat(cand_d, dim=1), dim=1, stable=True)
-        return (torch.gather(torch.cat(cand_i, dim=1), 1, order[:, :k]),
-                top[:, :k])
+        """The chunked slab scan: ``dist_of(s)`` gives the [B, chunk]
+        distances of the chunk at row ``s``; zero-padding rows and,
+        under ``exclude_self``, each query's own row are masked."""
+        def tiles():
+            for s in range(0, self.table.shape[0], self.chunk_rows):
+                d = dist_of(s)
+                cols = self._cols[s:s + self.chunk_rows]
+                if s + self.chunk_rows > self.num_nodes:   # zero padding
+                    d.masked_fill_((cols >= self.num_nodes)[None, :],
+                                   float("inf"))
+                if exclude_self:
+                    d.masked_fill_(cols[None, :] == q_idx[:, None],
+                                   float("inf"))
+                yield d, cols[None, :].expand(d.shape[0], -1)
+
+        return _two_stage_core(tiles(), k)
+
+    def _scan_pq(self, q: torch.Tensor, q_idx: torch.Tensor, k_scan: int,
+                 exclude_self: bool):
+        """The exact PQ coarse scan: ``scan_topk_pq`` under ``fused``,
+        else the two-stage walk decoding each chunk to the lift."""
+        from hyperspace_torch.serve.index import _lift
+
+        q_lift = _lift(self.spec, q).to(torch.float32)
+        if self._fused and fused_kernel.supports_pq(self.spec, k=k_scan,
+                                                    m=self._pq_m):
+            lut = fused_kernel.pq_lut(q_lift, self.pq_codebooks,
+                                      kind=self.spec[0])
+            return fused_kernel.scan_topk_pq(
+                self.scan_table, lut, q_idx, 0, spec=self.spec, k=k_scan,
+                n=self.num_nodes, exclude_self=exclude_self)
+        return self._two_stage(lambda s: _pq_lift_dist(
+            self.spec, q_lift, _pq_decode_rows(
+                self.pq_codebooks, self.scan_table[s:s + self.chunk_rows],
+                self._lift_dim)), q_idx, k_scan, exclude_self)
+
+    def _rescore(self, q: torch.Tensor, sidx: torch.Tensor,
+                 sd: torch.Tensor, k: int):
+        """The coarse candidates rescored against the f32 master table,
+        then the final ranking → ``(ids, dists)``."""
+        rows = self.table[torch.clamp_min(sidx, 0).long()]  # [B, K, D]
+        return _merge_rescored(_rescore_f32(self.spec, rows, q, sidx, sd),
+                               sidx, k)
+
+    def _probe_topk(self, q: torch.Tensor, q_idx: torch.Tensor, k: int, *,
+                    exclude_self: bool, nprobe: Optional[int]):
+        """The probing path: validate the width and the capacity, run
+        :meth:`_topk_ivf`, and raise when some query's probed cells held
+        fewer than ``k`` reachable rows (filler is not an answer)."""
+        p = self.nprobe if nprobe is None else int(nprobe)
+        if not 1 <= p <= self.nprobe:
+            raise ValueError(
+                f"nprobe override {p} out of range [1, {self.nprobe}] "
+                "(wider than configured would gather rows the resident "
+                "chunking was not sized for)")
+        capacity = p * self.index.max_cell
+        if capacity < k:
+            raise ValueError(
+                f"k={k} exceeds the probe capacity nprobe×max_cell = "
+                f"{p}×{self.index.max_cell} = {capacity}; raise nprobe=")
+        k_scan = self._k_scan(k, capacity) if self._pq else k
+        idx, dist = self._topk_ivf(q, q_idx, k, k_scan, p, exclude_self)
+        if bool(torch.isinf(dist).any()):
+            raise ValueError(
+                f"IVF probe under-filled: some query's {p} "
+                f"nearest cell(s) hold fewer than k={k} reachable rows "
+                "(sparse/empty cells, or exclude_self masking one) — "
+                "raise nprobe= or rebuild the index with more balance")
+        return idx, dist
+
+    def _topk_ivf(self, q: torch.Tensor, q_idx: torch.Tensor, k: int,
+                  k_scan: int, nprobe: int, exclude_self: bool):
+        """Centroid scoring (``pdist``) → the nearest ``nprobe`` cells'
+        row ids, nearest cell first → the candidate scan (+ the PQ
+        rescore) → ``(ids, dists)``.  The cells partition the table, so
+        a candidate appears at most once."""
+        dc = pdist(q, self._centroids, self.spec[1],
+                   manifold=self.spec[0])                   # [B, ncells]
+        # the nearest cells, ties to the lower cell (lax.top_k's rule)
+        cell_sel = torch.sort(dc, dim=1, stable=True)[1][:, :nprobe]
+        cand = self._cells[cell_sel].reshape(q.shape[0], -1)
+        sd, sidx = self._scan_topk_cand(q, cand, q_idx, k_scan,
+                                        exclude_self)
+        if self._pq:
+            return self._rescore(q, sidx, sd, k)
+        return sidx, sd
+
+    def _scan_topk_cand(self, q: torch.Tensor, cand: torch.Tensor,
+                        q_idx: torch.Tensor, k: int, exclude_self: bool):
+        """Top-k over each query's own candidates ``cand`` [B, C] (-1 =
+        padding) → ``(dists, table ids)`` [B, min(k, C)]: the
+        ``scan_topk_cand`` kernel under ``fused`` (f32), else chunked
+        gathers and plain distances (PQ codes decode to the lift)."""
+        ctot = cand.shape[1]
+        ko = min(k, ctot)
+        if (self._fused and not self._pq
+                and fused_kernel.supports_cand(self.spec, k=k, dim=self.dim,
+                                               cand=ctot)):
+            d, i = fused_kernel.scan_topk_cand(
+                self.table, cand, q, q_idx, spec=self.spec, k=k,
+                exclude_self=exclude_self)
+            return d[:, :ko], i[:, :ko]
+        q_lift = None
+        if self._pq:
+            from hyperspace_torch.serve.index import _lift
+
+            q_lift = _lift(self.spec, q).to(torch.float32)
+        chunk = self._cand_chunk
+
+        def tiles():
+            for s in range(0, ctot, chunk):
+                ids = cand[:, s:s + chunk]
+                safe = torch.clamp_min(ids, 0).long()
+                if self._pq:
+                    d = _pq_lift_dist(self.spec, q_lift, _pq_decode_rows(
+                        self.pq_codebooks, self.scan_table[safe],
+                        self._lift_dim))
+                else:
+                    d = _cand_dist(self.spec, q, self.table[safe])
+                mask = ids < 0
+                if exclude_self:
+                    mask = mask | (ids == q_idx[:, None])
+                yield d.masked_fill(mask, float("inf")), ids
+
+        return _two_stage_core(tiles(), ko)
 
     def score_edges(self, u_idx, v_idx, *, prob: bool = False,
                     fd_r: float = 2.0, fd_t: float = 1.0) -> torch.Tensor:

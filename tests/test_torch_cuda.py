@@ -36,7 +36,12 @@ from hyperspace_torch.kernels.segment import (csr_att_bwd_edges,
                                               csr_segment_reduce_1d_plain,
                                               csr_segment_sum,
                                               csr_segment_sum_plain)
-from hyperspace_torch.kernels.scan_topk import scan_topk, scan_topk_plain
+from hyperspace_torch.kernels.scan_topk import (pq_lut, scan_topk,
+                                                scan_topk_cand,
+                                                scan_topk_cand_plain,
+                                                scan_topk_plain,
+                                                scan_topk_pq,
+                                                scan_topk_pq_plain)
 from hyperspace_torch.manifolds.maps import ball_to_lorentz
 from hyperspace_torch.serve.engine import QueryEngine
 
@@ -127,6 +132,152 @@ def test_engine_scan_modes_agree_on_cuda(dev, kind):
         i, d = eng.topk_neighbors(q, 10)
         out[mode] = (i.cpu().numpy(), d.cpu().numpy())
     cpu = QueryEngine(table, (kind, 1.0), device="cpu", chunk_rows=1024)
+    ci, cd = (a.numpy() for a in cpu.topk_neighbors(q, 10))
+    for i, d in out.values():
+        assert topk_disagreements(i, d, ci, cd, rtol=RTOL, atol=ATOL) == 0
+
+
+def assert_cand_close(kind, table, got, want):
+    """Ids equal outside near-ties; distances within RTOL/ATOL, or for
+    hyperboloid rows the arcosh arguments u = cosh(d) − 1 within twice
+    the Gram form's forward-error bound (D + 2)·2^-24·Σ|x_i y_i|, taken
+    at the table's largest Σ|x_i| (rows lifted from radius 0.9 have
+    x_0 up to 9.5, where an ulp of the Gram is 1e-4 of a near d)."""
+    (gd, gi), (wd, wi) = got, want
+    if kind == "lorentz":
+        x1 = float(table.abs().sum(dim=1).max())
+        tol = dict(rtol=RTOL,
+                   atol=2.0 * (table.shape[1] + 2) * 2.0 ** -24 * x1 * x1)
+        gd, wd = (2.0 * torch.sinh(t.double() / 2.0) ** 2 for t in (gd, wd))
+    else:
+        tol = dict(rtol=RTOL, atol=ATOL)
+    assert topk_disagreements(gi.cpu().numpy(), gd.cpu().numpy(),
+                              wi.cpu().numpy(), wd.cpu().numpy(),
+                              **tol) == 0
+
+
+@pytest.mark.parametrize("kind,d", [("poincare", 10), ("lorentz", 11),
+                                    ("euclidean", 3)])
+@pytest.mark.parametrize("k", [10, 256])
+def test_scan_topk_cand_kernel_matches_plain(dev, kind, d, k):
+    """B = 1024, C = 4,600 (no multiple of 32) with pads in mid-list, a
+    query with no candidate, exclude_self; twice, bitwise."""
+    rng = np.random.default_rng(7)
+    table = rows(rng, 20000, d, kind, dev)
+    q = rows(rng, 1024, d, kind, dev)
+    cand = torch.as_tensor(rng.integers(0, 20000, (1024, 4600)),
+                           dtype=torch.int32, device=dev)
+    cand[:, 1000:1033] = -1
+    cand[9] = -1
+    qi = cand[:, 17].clone()
+    spec = (kind, 0.0 if kind == "euclidean" else 1.0)
+    before = scan_topk_cand.launches
+    got = scan_topk_cand(table, cand, q, qi, spec=spec, k=k,
+                         exclude_self=True)
+    again = scan_topk_cand(table, cand, q, qi, spec=spec, k=k,
+                           exclude_self=True)
+    torch.cuda.synchronize()
+    assert scan_topk_cand.launches == before + 2
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    want = scan_topk_cand_plain(table, cand, q, qi, kind=kind, c=spec[1],
+                                k=k, exclude_self=True)
+    assert_cand_close(kind, table, got, want)
+    assert torch.all(got[1][9] == -1) and torch.all(torch.isinf(got[0][9]))
+    assert not torch.any((got[1] == qi[:, None]) & (qi[:, None] >= 0))
+
+
+def test_scan_topk_cand_kernel_narrow_lists(dev):
+    """k above the reachable candidates: (+inf, -1) past them."""
+    rng = np.random.default_rng(8)
+    table = rows(rng, 500, 10, "poincare", dev)
+    q = rows(rng, 40, 10, "poincare", dev)
+    cand = torch.as_tensor(rng.integers(0, 500, (40, 37)),
+                           dtype=torch.int32, device=dev)
+    cand[:, 3:8] = -1
+    qi = torch.full((40,), -1, dtype=torch.int32, device=dev)
+    got = scan_topk_cand(table, cand, q, qi, spec=("poincare", 1.0), k=64)
+    want = scan_topk_cand_plain(table, cand, q, qi, kind="poincare", c=1.0,
+                                k=64, exclude_self=False)
+    assert_cand_close("poincare", table, got, want)
+    assert torch.all(torch.isinf(got[0][:, 32:])) and torch.all(
+        got[1][:, 32:] == -1)
+
+
+@pytest.mark.parametrize("kind,d", [("poincare", 10), ("lorentz", 11),
+                                    ("euclidean", 3)])
+@pytest.mark.parametrize("m,k", [(3, 170), (8, 256)])
+def test_scan_topk_pq_kernel_matches_plain(dev, kind, d, m, k):
+    """Lookup tables from lifted queries and codebooks of lifted table
+    rows; col0 and n cut; the kernel adds the terms in the plain
+    version's order, so ids and distances agree to an ulp of log1p."""
+    from hyperspace_torch.serve.index import _lift
+
+    rng = np.random.default_rng(9)
+    spec = (kind, 0.0 if kind == "euclidean" else 1.0)
+    table = rows(rng, 30000, d, kind, dev)
+    lift = _lift(spec, table)
+    ds = -(-lift.shape[1] // m)
+    lift = torch.nn.functional.pad(lift, (0, m * ds - lift.shape[1]))
+    pick = torch.as_tensor(rng.integers(0, 30000, (m, 256)), device=dev)
+    cb = torch.stack([lift[pick[s], s * ds:(s + 1) * ds]
+                      for s in range(m)])
+    codes = torch.as_tensor(rng.integers(0, 256, (30000, m)),
+                            dtype=torch.uint8, device=dev)
+    q = rows(rng, 1024, d, kind, dev)
+    lut = pq_lut(_lift(spec, q), cb, kind=kind)
+    qi = torch.as_tensor(rng.integers(400, 30400, 1024), dtype=torch.int32,
+                         device=dev)
+    before = scan_topk_pq.launches
+    got = scan_topk_pq(codes, lut, qi, 400, spec=spec, k=k, n=30300,
+                       exclude_self=True)
+    again = scan_topk_pq(codes, lut, qi, 400, spec=spec, k=k, n=30300,
+                         exclude_self=True)
+    torch.cuda.synchronize()
+    assert scan_topk_pq.launches == before + 2
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    wd, wi = scan_topk_pq_plain(codes, lut, qi, 400, kind=kind, c=spec[1],
+                                k=k, n=30300, exclude_self=True)
+    assert torch.equal(got[1], wi)
+    torch.testing.assert_close(got[0], wd, rtol=1e-6, atol=1e-6)
+
+
+def test_build_index_on_cuda_repeats(dev):
+    """The build on the card: k = 1 ``scan_topk`` assignment and one-hot
+    cell sums (no float atomics) give the same index twice."""
+    from hyperspace_torch.serve.index import build_index
+
+    rng = np.random.default_rng(11)
+    table = rows(rng, 5000, 10, "poincare", dev).cpu().numpy()
+    before = scan_topk.launches
+    a = build_index(table, ("poincare", 1.0), 50, iters=4)
+    b = build_index(table, ("poincare", 1.0), 50, iters=4)
+    assert scan_topk.launches > before
+    assert a.fingerprint == b.fingerprint
+    assert sorted(a.cells[a.cells >= 0].tolist()) == list(range(5000))
+
+
+@pytest.mark.parametrize("precision,nprobe", [("f32", 2), ("pq", 0),
+                                              ("pq", 2)])
+def test_engine_ivf_pq_modes_agree_on_cuda(dev, precision, nprobe):
+    """The index built on the card; fused and two-stage rank-identical
+    and equal to the CPU engine on the same index and payload."""
+    from hyperspace_torch.serve.artifact import build_quant_payload
+    from hyperspace_torch.serve.index import build_index
+
+    rng = np.random.default_rng(10)
+    table = rows(rng, 6000, 10, "poincare", dev).cpu().numpy()
+    spec = ("poincare", 1.0)
+    index = build_index(table, spec, 40)
+    quant = build_quant_payload(table, spec, "pq")
+    q = np.arange(0, 6000, 41)
+    out = {}
+    for mode in ("two_stage", "fused"):
+        eng = QueryEngine(table, spec, scan_mode=mode, precision=precision,
+                          index=index, nprobe=nprobe, quant=quant)
+        i, d = eng.topk_neighbors(q, 10)
+        out[mode] = (i.cpu().numpy(), d.cpu().numpy())
+    cpu = QueryEngine(table, spec, device="cpu", precision=precision,
+                      index=index, nprobe=nprobe, quant=quant)
     ci, cd = (a.numpy() for a in cpu.topk_neighbors(q, 10))
     for i, d in out.values():
         assert topk_disagreements(i, d, ci, cd, rtol=RTOL, atol=ATOL) == 0

@@ -127,9 +127,17 @@ def test_artifact_overwrite_and_refusals(tmp_path, tables):
         json.dump({**meta, "fingerprint": "0" * 64}, f)
     with pytest.raises(ValueError, match="fingerprint mismatch"):
         tart.load_artifact(path)
-    with open(meta_path, "w") as f:
-        json.dump({**meta, "index": {"ncells": 4}}, f)
-    with pytest.raises(ValueError, match="not ported yet"):
+    # an artifact with an IVF index loads; a meta block naming an index
+    # whose file is missing does not
+    from hyperspace_torch.serve.index import build_index
+
+    index = build_index(table, ("poincare", C), 8, iters=2, device="cpu")
+    art = tart.export_artifact(path, table, ("poincare", C), index=index,
+                               overwrite=True)
+    got = tart.load_artifact(path)
+    assert got.fingerprint == art.fingerprint and got.index.ncells == 8
+    os.remove(os.path.join(path, tart.INDEX_FILE))
+    with pytest.raises(ValueError, match="index.npz is missing"):
         tart.load_artifact(path)
 
 
@@ -230,7 +238,8 @@ def test_engine_pads_table_to_chunk_multiple(tables):
     (dict(scan_mode="bogus"), "scan_mode"),
     (dict(precision="bf16"), "not ported"),
     (dict(precision="int8"), "not ported"),
-    (dict(nprobe=4), "not ported"),
+    (dict(precision="int4"), "not ported"),
+    (dict(nprobe=4), "needs an IVF index"),
     (dict(mesh=object()), "not ported"),
     (dict(chunk_rows=-1), "chunk_rows")])
 def test_engine_refuses_unported_options(tables, kw, match):
