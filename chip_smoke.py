@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving and training paths on one GPU
-and check them.
+"""Drive the PyTorch/CUDA port's serving and training paths and its
+Poincaré ops on one GPU and check them.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -8,7 +8,7 @@ Phases (any failure raises and exits non-zero; nothing is caught; each
 prints its seconds):
 
 1. require CUDA; print the card's name and power limit;
-2. build every kernel of both paths from ``hyperspace_torch/kernels/csrc``
+2. build every kernel of the paths from ``hyperspace_torch/kernels/csrc``
    (one ``nvcc`` per source, all started together);
 3. hold each serving kernel against its plain PyTorch version on the
    card, at the shapes the serving path gives it and at the full table;
@@ -90,7 +90,32 @@ prints its seconds):
    recall@10 of each lane against the f32 exact answers;
 19. queries/s and batch latency at bucket 1024, k = 10, for each lane
    but PQ with IVF, both modes, with the card's busy time and idle share;
-20. print the kernels line (device times of each kernel and its plain
+20. hold the Poincaré ball's seven row-wise ops and ``hyp_linear``
+   against their plain versions on the card: the ops at the path shapes
+   ([82,115, 10], [169,343, 128], [256, 48]) with c 1, 0.5 and 2.3, at
+   d = 7, 130 and 200, leading dims [3, 8, 48], bf16 inputs (within one
+   bf16 ulp of the f32 plain version), r ∈ {−1.5, 0, 0.5, 3}, points at
+   the proj margin, zero rows, a bias [d] broadcast against [n, d];
+   ``hyp_linear`` at [169,343, 128] × [128, 128] and × [128, 32],
+   [256, 48] × [48, 32], odd widths, 1000 → 700 (many tiles), Mx = 0
+   rows, zero bias, bf16, leading dims; rtol 2e-4, atol 2e-5 (2e-4 for
+   ``hyp_linear``); each launched twice must give the same bits, and the
+   gradients through each Function must equal autograd of the plain
+   version (to a device tensor c and r too);
+21. the op path: a Riemannian update through the public ops
+   (``logmap``, ``expmap``, ``ptransp``, ``expmap0``,
+   ``mobius_scalar_mul``, ``mobius_add``, ``logmap0``) at each path
+   shape, the counts set to 0 before and read after (exactly one launch
+   of each op a shape); points stay in the ball, and the chain matches
+   the plain versions on the CPU on 2,000 rows;
+22. the layer path at arxiv width: HypLinear(128) → HypAct(ball c = 1 →
+   ball c = 0.5, relu) → HypLinear(32) on 169,343 ball points, loss the
+   mean squared distance to targets; card against the port on the CPU
+   on 20,000 rows from the same parameters (loss and gradients within
+   rel 1e-4, all f32); one warm-up and 10 AdamW steps: losses finite
+   and falling, exactly 2 ``hyp_linear`` launches a forward; step ms,
+   device busy time, idle share and peak memory;
+23. print the kernels line (device times of each kernel and its plain
    version at the main paths' shapes, bounds, launches, the library
    call's time), the top-k throughput at bucket 1024 (batches of cold ids
    through the batcher, the engine call alone, and the card's busy
@@ -1689,6 +1714,472 @@ def ivf_pq_kernel_entries(torch, ip: dict, card: dict) -> list:
     ]
 
 
+# --- the Poincaré ball's primitive ops and the gyro-linear layer -----------
+
+# the row-wise ops' path shapes: the WordNet-noun table (BASELINE.json
+# configs[0], the RSGD/RAdam update's shape), arxiv nodes at HGCN's
+# feature width (configs[1]), the TPU smoke's own (B 256, D 48)
+ROW_SHAPES = {"wordnet": (ROWS, DIM), "arxiv": (169343, 128),
+              "smoke": (256, 48)}
+# hyp_linear's: arxiv rows through 128 → 128 and HGCN's hidden 128 → 32,
+# and the TPU smoke's 48 → 32
+LINEAR_SHAPES = {"arxiv_128": (169343, 128, 128),
+                 "arxiv_32": (169343, 128, 32), "smoke": (256, 48, 32)}
+ROW_OPS = ("mobius_add", "mobius_scalar_mul", "expmap", "logmap", "expmap0",
+           "logmap0", "ptransp")
+ROW_ENTRY = {"mobius_add": "hs_mobius_add",
+             "mobius_scalar_mul": "hs_mobius_scalar_mul",
+             "expmap": "hs_expmap", "logmap": "hs_logmap",
+             "expmap0": "hs_expmap0", "logmap0": "hs_logmap0",
+             "ptransp": "hs_ptransp"}
+# how many [n, d] tensors each op reads (the output adds one write)
+ROW_TENSORS = {"mobius_add": 2, "mobius_scalar_mul": 1, "expmap": 2,
+               "logmap": 2, "expmap0": 1, "logmap0": 1, "ptransp": 3}
+# float32 operations an element: the dot products (2 each) and the
+# combinations of each sweep (the transcendentals are per row)
+ROW_FLOPS = {"mobius_add": 10, "mobius_scalar_mul": 4, "expmap": 20,
+             "logmap": 18, "expmap0": 8, "logmap0": 3, "ptransp": 16}
+# kernel against plain version (f32): the JAX package's tier for these
+# kernels (tests/kernels/test_pointwise.py:25, test_hyplinear.py:29)
+ROW_RTOL, ROW_ATOL, LIN_ATOL = 2e-4, 2e-5, 2e-4
+GYRO_STEPS = 10
+GYRO_CARD_CPU_ROWS = 20_000
+GYRO_CARD_CPU_RTOL = 1e-4          # all f32: loss and gradients
+
+
+def row_cost(op: str, n: int, d: int) -> tuple[float, float]:
+    """(bytes, operations) of a row-wise op on [n, d] float32 rows: each
+    input read once, the output written once."""
+    return (4.0 * n * d * (ROW_TENSORS[op] + 1),
+            float(ROW_FLOPS[op]) * n * d)
+
+
+def linear_cost(n: int, d_in: int, d_out: int) -> tuple[float, float]:
+    """(bytes, operations) of hyp_linear: x, M and b read once, the
+    output written once; the product's 2·n·d_in·d_out, ‖x‖², and about
+    8 operations an output for the rescale, ⊕ b and proj."""
+    return (4.0 * (n * d_in + d_in * d_out + d_out + n * d_out),
+            2.0 * n * d_in * d_out + 2.0 * n * d_in + 8.0 * n * d_out)
+
+
+def gyro_counts() -> dict:
+    from hyperspace_torch import kernels as K
+
+    return {op: getattr(K, op).launches for op in ROW_OPS + ("hyp_linear",)}
+
+
+def gyro_reset() -> None:
+    from hyperspace_torch import kernels as K
+
+    for op in ROW_OPS + ("hyp_linear",):
+        getattr(K, op).launches = 0
+
+
+def ball_tensor(torch, gen, shape, c, dev, radius=0.5):
+    """Ball points from the seed: expmap0 (the port's plain method) of an
+    origin tangent of norm about ``radius``/√c."""
+    from hyperspace_torch.manifolds import PoincareBall
+
+    v = torch.randn(shape, generator=gen, device=dev) * (
+        radius / np.sqrt(shape[-1] * c))
+    return PoincareBall(c).expmap0(v).contiguous()
+
+
+def row_inputs(torch, gen, op, shape, c, dev):
+    x = ball_tensor(torch, gen, shape, c, dev, 0.8)
+    y = ball_tensor(torch, gen, shape, c, dev, 0.5)
+    v = torch.randn(shape, generator=gen, device=dev) * (0.6 / np.sqrt(
+        shape[-1]))
+    return {"mobius_add": (x, y), "mobius_scalar_mul": (x,),
+            "expmap": (x, v), "logmap": (x, y), "expmap0": (v,),
+            "logmap0": (y,), "ptransp": (x, y, v)}[op]
+
+
+def row_call(op, tensors, c, r=0.7, plain=False):
+    from hyperspace_torch.kernels import pointwise as PW
+
+    fn = getattr(PW, op + "_plain" if plain else op)
+    return fn(r, *tensors, c) if op == "mobius_scalar_mul" else fn(*tensors,
+                                                                   c)
+
+
+def check_gyro(torch, kernel, label, got, again, want, rtol, atol) -> float:
+    """Hold a kernel's output against its plain version's: f32 within
+    ``atol + rtol·|want|``; a bf16 output within one bf16 ulp of the f32
+    plain result on the same inputs plus that (the output rounds once, a
+    flip moves it one ulp).  The repeat must give the same bits."""
+    if got.shape != want.shape:
+        raise AssertionError(f"{kernel} {label}: {got.shape} vs "
+                             f"{want.shape}")
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    tol = atol + rtol * w.abs()
+    if got.dtype == torch.bfloat16:
+        tol = tol + bf16_ulp(torch, w)
+    over = int((diff > tol).sum()) + int(not bool(torch.isfinite(g).all()))
+    same = bool(torch.equal(got, again))
+    worst = float(diff.max()) if diff.numel() else 0.0
+    emit({"phase": "check", "kernel": kernel, "case": label,
+          "shape": list(got.shape), "dtype": str(got.dtype),
+          "max_abs_err": worst, "over_tolerance": over, "repeat_equal": same})
+    if over or not same:
+        raise AssertionError(f"{kernel} {label}: {over} entries beyond "
+                             f"tolerance, repeat equal {same}")
+    return worst
+
+
+def check_grads(torch, kernel, label, got, want) -> float:
+    """Gradients through a Function against autograd of its plain version
+    (the backward recomputes the plain version: the same arithmetic, so
+    within rtol 1e-6 of the largest entry)."""
+    worst = 0.0
+    for a, b in zip(got, want):
+        if b is None:
+            continue
+        d = float((a - b).abs().max())
+        worst = max(worst, d)
+        if not d <= 1e-6 * float(b.abs().max()) + 1e-12:
+            raise AssertionError(f"{kernel} {label}: gradient off by {d}")
+    emit({"phase": "check", "kernel": kernel, "case": label,
+          "grad_max_abs_diff": worst})
+    return worst
+
+
+def gyro_stack(torch, gen, d_in, width, out, dev):
+    """The slice's layer stack: HypLinear(width) on the ball c = 1 →
+    HypAct(ball c = 1 → ball c = 0.5, relu) → HypLinear(out) on c = 0.5;
+    glorot kernels and small origin-tangent biases from ``gen``."""
+    from hyperspace_torch.manifolds import PoincareBall
+    from hyperspace_torch.nn import HypAct, HypLinear
+
+    b1, b2 = PoincareBall(1.0), PoincareBall(0.5)
+    stack = torch.nn.Sequential(HypLinear(d_in, width, b1, generator=gen),
+                                HypAct(b1, b2, torch.relu),
+                                HypLinear(width, out, b2, generator=gen))
+    with torch.no_grad():
+        for layer in (stack[0], stack[2]):
+            layer.bias.copy_(torch.randn(layer.bias.shape, generator=gen)
+                             * 0.05)
+    return stack.to(dev)
+
+
+def gyro_path(torch, args, card: dict) -> dict:
+    """Phases 20–22; returns what the kernels line needs."""
+    from hyperspace_torch import kernels as K
+    from hyperspace_torch.kernels.hyplinear import hyp_linear_plain
+    from hyperspace_torch.manifolds import PoincareBall
+    from hyperspace_torch.optim.adamw import AdamW
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 20)
+    err = {op: 0.0 for op in ROW_OPS + ("hyp_linear",)}
+
+    # --- phase 20: the kernels against their plain versions -------------
+    t0 = time.perf_counter()
+    cases = [(f"{name} c={c}", shape, c) for name, shape in
+             ROW_SHAPES.items() for c in (1.0, 0.5, 2.3)]
+    cases += [(f"d={d}", (1000, d), 1.0) for d in (7, 130, 200)]
+    cases += [("lead [3, 8, 48]", (3, 8, 48), 0.7)]
+    for op in ROW_OPS:
+        for label, shape, c in cases:
+            ts = row_inputs(torch, gen, op, shape, c, dev)
+            got, again = row_call(op, ts, c), row_call(op, ts, c)
+            err[op] = max(err[op], check_gyro(
+                torch, op, label, got, again, row_call(op, ts, c, plain=True),
+                ROW_RTOL, ROW_ATOL))
+        ts = [t.to(torch.bfloat16) for t in row_inputs(
+            torch, gen, op, ROW_SHAPES["arxiv"], 1.0, dev)]
+        check_gyro(torch, op, "bf16 arxiv", row_call(op, ts, 1.0),
+                   row_call(op, ts, 1.0),
+                   row_call(op, [t.float() for t in ts], 1.0, plain=True),
+                   ROW_RTOL, ROW_ATOL)
+        # gradients to every tensor and to device tensors c and r
+        ts = [t.requires_grad_() for t in row_inputs(
+            torch, gen, op, ROW_SHAPES["smoke"], 0.8, dev)]
+        cc = torch.tensor(0.8, device=dev, requires_grad=True)
+        rr = torch.tensor(1.3, device=dev, requires_grad=True)
+        w = torch.randn(ROW_SHAPES["smoke"], generator=gen, device=dev)
+        wrt = ts + [cc, rr]
+        check_grads(torch, op, "grads c=tensor", torch.autograd.grad(
+            (row_call(op, ts, cc, rr) * w).sum(), wrt, allow_unused=True),
+            torch.autograd.grad((row_call(op, ts, cc, rr, plain=True)
+                                 * w).sum(), wrt, allow_unused=True))
+    x = ball_tensor(torch, gen, ROW_SHAPES["arxiv"], 1.0, dev, 0.8)
+    for r in (-1.5, 0.0, 0.5, 3.0):
+        err["mobius_scalar_mul"] = max(err["mobius_scalar_mul"], check_gyro(
+            torch, "mobius_scalar_mul", f"r={r}",
+            row_call("mobius_scalar_mul", (x,), 1.0, r),
+            row_call("mobius_scalar_mul", (x,), 1.0, r),
+            row_call("mobius_scalar_mul", (x,), 1.0, r, plain=True),
+            ROW_RTOL, ROW_ATOL))
+    # the proj margin (tangents of norm about 40), zero rows, a bias [d]
+    # broadcast against [n, d]
+    big = torch.randn(ROW_SHAPES["arxiv"], generator=gen, device=dev) * (
+        40.0 / np.sqrt(128))
+    xz = x.clone()
+    xz[::7] = 0.0
+    big[::11] = 0.0
+    bias = ball_tensor(torch, gen, (128,), 1.0, dev, 0.3)
+    for op, ts, label in (("expmap", (xz, big), "margin, zero rows"),
+                          ("expmap0", (big,), "margin, zero rows"),
+                          ("logmap0", (xz,), "zero rows"),
+                          ("logmap", (xz, xz), "x = y, zero rows"),
+                          ("ptransp", (xz, x, big), "zero rows"),
+                          ("mobius_add", (xz, bias), "bias [d], zero rows"),
+                          ("mobius_add", (bias, xz), "[d] first"),
+                          ("expmap", (xz, bias), "tangent [d]")):
+        err[op] = max(err[op], check_gyro(
+            torch, op, label, row_call(op, ts, 1.3), row_call(op, ts, 1.3),
+            row_call(op, ts, 1.3, plain=True), ROW_RTOL, ROW_ATOL))
+    lin_cases = [(f"{name} c={c}", shp, c) for name, shp in
+                 LINEAR_SHAPES.items() for c in (1.0, 0.5, 2.3)]
+    lin_cases += [("7→130", (1000, 7, 130), 1.0),
+                  ("130→200", (1000, 130, 200), 1.0),
+                  ("200→7", (1000, 200, 7), 1.0),
+                  ("tiles 1000→700", (2000, 1000, 700), 1.0)]
+    for label, (n, di, do), c in lin_cases:
+        xl = ball_tensor(torch, gen, (n, di), c, dev, 0.8)
+        xl[::5] = 0.0                                   # M x = 0 rows
+        m = torch.randn((di, do), generator=gen, device=dev) / np.sqrt(di)
+        b = ball_tensor(torch, gen, (do,), c, dev, 0.3)
+        for bl, bb in (("", b), (" b=0", torch.zeros_like(b))):
+            err["hyp_linear"] = max(err["hyp_linear"], check_gyro(
+                torch, "hyp_linear", label + bl, K.hyp_linear(xl, m, bb, c),
+                K.hyp_linear(xl, m, bb, c), hyp_linear_plain(xl, m, bb, c),
+                ROW_RTOL, LIN_ATOL))
+    n, di, do = LINEAR_SHAPES["arxiv_128"]
+    xl = ball_tensor(torch, gen, (n, di), 1.0, dev, 0.8)
+    m = torch.randn((di, do), generator=gen, device=dev) / np.sqrt(di)
+    b = ball_tensor(torch, gen, (do,), 1.0, dev, 0.3)
+    xb = xl.to(torch.bfloat16)
+    check_gyro(torch, "hyp_linear", "bf16 arxiv_128",
+               K.hyp_linear(xb, m, b, 1.0), K.hyp_linear(xb, m, b, 1.0),
+               hyp_linear_plain(xb.float(), m, b, 1.0), ROW_RTOL, LIN_ATOL)
+    for label, mm in (("margin (30·M)", 30.0 * m),
+                      ("Mx = 0 everywhere", torch.zeros_like(m))):
+        check_gyro(torch, "hyp_linear", label, K.hyp_linear(xl, mm, b, 1.0),
+                   K.hyp_linear(xl, mm, b, 1.0),
+                   hyp_linear_plain(xl, mm, b, 1.0), ROW_RTOL, LIN_ATOL)
+    x3 = xl[:24].reshape(3, 8, di)
+    check_gyro(torch, "hyp_linear", "lead [3, 8, 128]",
+               K.hyp_linear(x3, m, b, 1.0), K.hyp_linear(x3, m, b, 1.0),
+               hyp_linear_plain(x3, m, b, 1.0), ROW_RTOL, LIN_ATOL)
+    ins = [xl[:256].clone().requires_grad_(), m.clone().requires_grad_(),
+           b.clone().requires_grad_()]
+    cc = torch.tensor(0.9, device=dev, requires_grad=True)
+    w = torch.randn((256, do), generator=gen, device=dev)
+    check_grads(torch, "hyp_linear", "grads c=tensor", torch.autograd.grad(
+        (K.hyp_linear(*ins, cc) * w).sum(), ins + [cc]),
+        torch.autograd.grad((hyp_linear_plain(*ins, cc) * w).sum(),
+                            ins + [cc]))
+    emit({"phase": "gyro_checks", "seconds": time.perf_counter() - t0,
+          **card})
+
+    # --- phase 21: the op path: a Riemannian update through the public
+    # ops at each path shape ----------------------------------------------
+    t0 = time.perf_counter()
+    inputs = {}
+    for name, shape in ROW_SHAPES.items():
+        inputs[name] = {
+            "x": ball_tensor(torch, gen, shape, 1.0, dev, 0.8),
+            "y": ball_tensor(torch, gen, shape, 1.0, dev, 0.5),
+            "g": torch.randn(shape, generator=gen, device=dev) * (
+                0.3 / np.sqrt(shape[-1]))}
+    gyro_reset()
+    outs = {}
+    for name, z in inputs.items():
+        x, y, g = z["x"], z["y"], z["g"]
+        u = K.logmap(x, y, 1.0)                 # the direction to y
+        x1 = K.expmap(x, 0.5 * u + g, 1.0)      # a step
+        m1 = K.ptransp(x, x1, g, 1.0)           # a moment carried along
+        h = K.mobius_scalar_mul(0.5, K.expmap0(m1, 1.0), 1.0)
+        x2 = K.mobius_add(x1, h, 1.0)
+        outs[name] = (x1, m1, x2, K.logmap0(x2, 1.0))
+    torch.cuda.synchronize()
+    counts = gyro_counts()
+    emit({"phase": "gyro_op_path", "shapes": ROW_SHAPES, "launches": counts,
+          "seconds": time.perf_counter() - t0, **card})
+    for op in ROW_OPS:
+        if counts[op] != len(ROW_SHAPES):
+            raise AssertionError(f"op path: {op} launched {counts[op]} "
+                                 f"times, want {len(ROW_SHAPES)}")
+    if counts["hyp_linear"]:
+        raise AssertionError("op path: hyp_linear launched")
+    ball = PoincareBall(1.0)
+    for name, (x1, m1, x2, v2) in outs.items():
+        z = inputs[name]
+        for t in (x1, m1, x2, v2):
+            if not bool(torch.isfinite(t).all()):
+                raise AssertionError(f"op path {name}: non-finite values")
+        for t in (x1, x2):
+            if not float(torch.linalg.norm(t, dim=-1).max()) < 1.0:
+                raise AssertionError(f"op path {name}: a point left the "
+                                     "ball")
+        # the same chain by the plain versions on the CPU, first 2,000 rows
+        xs, ys, gs = (z[k][:2000].cpu() for k in ("x", "y", "g"))
+        u = ball.logmap(xs, ys)
+        p1 = ball.expmap(xs, 0.5 * u + gs)
+        q1 = ball.ptransp(xs, p1, gs)
+        p2 = ball.mobius_add(p1, ball.mobius_scalar_mul(0.5,
+                                                        ball.expmap0(q1)))
+        gap = max(float((a[:2000].cpu() - b).abs().max()) for a, b in
+                  ((x1, p1), (m1, q1), (x2, p2), (v2, ball.logmap0(p2))))
+        emit({"phase": "gyro_op_path_vs_cpu", "shape": list(x1.shape),
+              "rows": 2000, "max_abs_diff": gap})
+        if not gap <= 1e-4:
+            raise AssertionError(f"op path {name}: card and CPU differ by "
+                                 f"{gap}")
+    row_launches = {op: counts[op] for op in ROW_OPS}
+
+    # --- phase 22: the layer path at arxiv width -------------------------
+    t0 = time.perf_counter()
+    n, di, _ = LINEAR_SHAPES["arxiv_128"]
+    xs = ball_tensor(torch, gen, (n, di), 1.0, dev, 0.8)
+    tgt = ball_tensor(torch, gen, (n, 32), 0.5, dev, 0.5)
+    stack = gyro_stack(torch, torch.Generator().manual_seed(args.seed),
+                       di, 128, 32, dev)
+    init = {k: v.detach().clone() for k, v in stack.state_dict().items()}
+    b2 = PoincareBall(0.5)
+
+    def loss_of(model, x, t):
+        return torch.mean(b2.sqdist(model(x), t))
+
+    # card against the CPU from the same parameters, 20,000 rows
+    rows = GYRO_CARD_CPU_ROWS
+    res = {}
+    for where in ("cuda", "cpu"):
+        model = gyro_stack(torch, torch.Generator().manual_seed(0), di, 128,
+                           32, where)
+        model.load_state_dict({k: v.to(where) for k, v in init.items()})
+        loss = loss_of(model, xs[:rows].to(where), tgt[:rows].to(where))
+        loss.backward()
+        res[where] = (float(loss.detach()), {
+            k: p.grad.detach().cpu() for k, p in model.named_parameters()})
+    rel_loss = abs(res["cuda"][0] - res["cpu"][0]) / abs(res["cpu"][0])
+    rel_grad = max(float((res["cuda"][1][k] - g).abs().max())
+                   / float(g.abs().max()) for k, g in res["cpu"][1].items())
+    emit({"phase": "gyro_card_vs_cpu", "rows": rows,
+          "loss_cuda": res["cuda"][0], "loss_cpu": res["cpu"][0],
+          "rel_loss_diff": rel_loss, "max_rel_grad_diff": rel_grad})
+    if not (rel_loss <= GYRO_CARD_CPU_RTOL
+            and rel_grad <= GYRO_CARD_CPU_RTOL):
+        raise AssertionError(f"layer path: card and CPU differ (loss "
+                             f"{rel_loss}, gradients {rel_grad})")
+
+    opt = AdamW(dict(stack.named_parameters()), lr=1e-2, weight_decay=1e-4)
+
+    def step():
+        for p in stack.parameters():
+            p.grad = None
+        loss = loss_of(stack, xs, tgt)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    gyro_reset()
+    torch.cuda.reset_peak_memory_stats()
+    losses = [float(step())]                   # warm-up
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    timed = [step() for _ in range(GYRO_STEPS)]
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t1) * 1e3 / GYRO_STEPS
+    losses += [float(v) for v in timed]
+    counts = gyro_counts()
+    peak = torch.cuda.max_memory_allocated()
+    emit({"phase": "gyro_layers", "rows": n, "stack": "HypLinear(128) → "
+          "HypAct(c 1 → 0.5, relu) → HypLinear(32)", "steps": GYRO_STEPS,
+          "warmup": 1, "losses": losses, "step_ms": step_ms,
+          "rows_per_s": n / step_ms * 1e3, "launches": counts,
+          "peak_device_memory_bytes": peak,
+          "seconds": time.perf_counter() - t0, **card})
+    if counts["hyp_linear"] != 2 * (GYRO_STEPS + 1):
+        raise AssertionError(f"layer path: hyp_linear launched "
+                             f"{counts['hyp_linear']} times in "
+                             f"{GYRO_STEPS + 1} forwards, want 2 each")
+    if not np.all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"layer path: the loss did not fall: {losses}")
+    share = device_share(torch, step, step_ms, reps=3, top_n=8)
+    emit({"phase": "gyro_layers_profile", "step_ms": step_ms, **share,
+          **card})
+    return {"err": err, "row_launches": row_launches,
+            "lin_launches": counts["hyp_linear"]}
+
+
+def side_ms(torch, e: dict, key: str, fn) -> None:
+    """``e[key]``: the device time of ``fn`` at a path's other shape, or
+    None where the profiler recorded nothing; then ``e["call_" + key]``
+    holds the time on the card's clock (CUDA events, launch gaps
+    included) instead."""
+    items = device_items(torch, fn, 20)
+    e[key] = sum(items.values()) if items else None
+    if not items:
+        e["call_" + key] = timed_ms(torch, fn)
+
+
+def gyro_kernel_entries(torch, gp: dict, card: dict) -> list:
+    """The eight launchers' entries of the kernels line: device times at
+    each path shape (the arxiv shape first), the plain version's at the
+    arxiv shape."""
+    from hyperspace_torch import kernels as K
+    from hyperspace_torch.kernels.hyplinear import hyp_linear_plain
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    entries = []
+    for op in ROW_OPS:
+        runs = {}
+        for name, shape in ROW_SHAPES.items():
+            ts = row_inputs(torch, gen, op, shape, 1.0, dev)
+            runs[name] = ((lambda ts=ts: row_call(op, ts, 1.0)),
+                          (lambda ts=ts: row_call(op, ts, 1.0, plain=True)))
+        n, d = ROW_SHAPES["arxiv"]
+        bd, bby = bound_ms(*row_cost(op, n, d))
+        e = {"name": op, "route": "cuda",
+             "source": "hyperspace_torch/kernels/csrc/pointwise.cu",
+             "entry": ROW_ENTRY[op],
+             "replaces": "hyperspace_tpu/kernels/pointwise.py:50",
+             "launches": gp["row_launches"][op], "launches_per_shape": 1,
+             "max_abs_err": gp["err"][op], "shape": [n, d],
+             "ms": device_ms(torch, runs["arxiv"][0]),
+             "plain_ms": device_ms(torch, runs["arxiv"][1], reps=5),
+             "bound_ms": bd, "bound_by": bby, "library_ms": None,
+             "call_ms": timed_ms(torch, runs["arxiv"][0])}
+        for name in ("wordnet", "smoke"):
+            side_ms(torch, e, f"ms_{name}", runs[name][0])
+            e[f"bound_ms_{name}"] = bound_ms(*row_cost(op,
+                                                       *ROW_SHAPES[name]))[0]
+            e[f"shape_{name}"] = list(ROW_SHAPES[name])
+        entries.append({**e, **card})
+    runs = {}
+    for name, (n, di, do) in LINEAR_SHAPES.items():
+        x = ball_tensor(torch, gen, (n, di), 1.0, dev, 0.8)
+        m = torch.randn((di, do), generator=gen, device=dev) / np.sqrt(di)
+        b = ball_tensor(torch, gen, (do,), 1.0, dev, 0.3)
+        runs[name] = ((lambda a=(x, m, b): K.hyp_linear(*a, 1.0)),
+                      (lambda a=(x, m, b): hyp_linear_plain(*a, 1.0)))
+    bd, bby = bound_ms(*linear_cost(*LINEAR_SHAPES["arxiv_128"]))
+    e = {"name": "hyp_linear", "route": "cuda",
+         "source": "hyperspace_torch/kernels/csrc/hyplinear.cu",
+         "entry": "hs_hyp_linear",
+         "replaces": "hyperspace_tpu/kernels/hyplinear.py:69",
+         "launches": gp["lin_launches"], "launches_per_step": 2,
+         "max_abs_err": gp["err"]["hyp_linear"],
+         "shape": list(LINEAR_SHAPES["arxiv_128"]),
+         "ms": device_ms(torch, runs["arxiv_128"][0]),
+         "plain_ms": device_ms(torch, runs["arxiv_128"][1], reps=5),
+         "bound_ms": bd, "bound_by": bby, "library_ms": None,
+         "call_ms": timed_ms(torch, runs["arxiv_128"][0])}
+    for name in ("arxiv_32", "smoke"):
+        side_ms(torch, e, f"ms_{name}", runs[name][0])
+        side_ms(torch, e, f"plain_ms_{name}", runs[name][1])
+        e[f"bound_ms_{name}"] = bound_ms(*linear_cost(
+            *LINEAR_SHAPES[name]))[0]
+        e[f"shape_{name}"] = list(LINEAR_SHAPES[name])
+    entries.append({**e, **card})
+    return entries
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1724,7 +2215,7 @@ def main(argv=None) -> int:
     # --- phase 2: build ----------------------------------------------------
     t0 = time.perf_counter()
     _support.build_all(["pdist", "scan_topk", "segment", "cluster",
-                        "attention", "mlr"])
+                        "attention", "mlr", "pointwise", "hyplinear"])
     emit({"phase": "build", "seconds": time.perf_counter() - t0, **card})
 
     # --- data from the seed ------------------------------------------------
@@ -1889,7 +2380,10 @@ def main(argv=None) -> int:
     # --- phases 12-15: the HyboNet path -----------------------------------
     hb = hybonet_path(torch, args, card)
 
-    # --- phase 20: times ---------------------------------------------------
+    # --- phases 20-22: the Poincaré ops and the gyro-linear layer ----------
+    gp = gyro_path(torch, args, card)
+
+    # --- phase 23: times ---------------------------------------------------
     # kernel and plain times are device times from the profiler at the
     # main path's shapes; call_ms adds the host's launch path (CUDA
     # events around back-to-back calls)
@@ -1939,7 +2433,8 @@ def main(argv=None) -> int:
          "ms_bucket8": device_ms(torch, run_scan(8)), **card},
     ] + ivf_pq_kernel_entries(torch, ip, card) + train_kernel_entries(
         torch, tr, card) + att_kernel_entries(
-        torch, at, card) + hybonet_kernel_entries(torch, hb, card)
+        torch, at, card) + hybonet_kernel_entries(
+        torch, hb, card) + gyro_kernel_entries(torch, gp, card)
     for entry in kernels:      # the mean path's kernels on the attention arm
         if entry["name"] in ("csr_segment_sum", "cluster_aggregate"):
             entry["launches_attention"] = at["launches"][entry["name"]]

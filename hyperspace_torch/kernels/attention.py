@@ -334,8 +334,15 @@ def flash_attention(q, k, v, c, *, beta=0.0, tau=1.0, mask=None):
     q [..., Nq, D], k and v [..., Nk, D] hyperboloid points; β and τ
     numbers or per-(batch, head) [..., 1, 1] tensors; mask bool or float
     broadcastable to [..., Nq, Nk], > 0 attends.  Returns hyperboloid
-    points [..., Nq, D].  Per-position β or τ run the dense twin."""
+    points [..., Nq, D].  Per-position β or τ run the dense twin on CPU
+    tensors and raise on CUDA tensors: the kernels take β and τ per
+    (batch, head) only."""
     if _per_position(beta) or _per_position(tau):
+        if q.device.type != "cpu":
+            raise ValueError(
+                "flash_attention: the CUDA kernels take beta and tau per "
+                "(batch, head) only ([..., 1, 1]); per-position values run "
+                "on CPU tensors alone")
         return flash_attention_plain(q, k, v, c, beta, tau, mask)
     lead = tuple(q.shape[:-2])
     nq, nk = q.shape[-2], k.shape[-2]

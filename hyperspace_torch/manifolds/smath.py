@@ -187,3 +187,24 @@ def sinhc(x: torch.Tensor) -> torch.Tensor:
     xs = torch.where(small, torch.ones_like(x), x)
     return torch.where(small, 1.0 + x * x / 6.0,
                        safe_sinh(xs) / clip(xs, -m, m))
+
+
+def arcsin_safe(x: torch.Tensor) -> torch.Tensor:
+    """arcsin with the argument clamped into the open interval (-1, 1), so
+    the gradient stays bounded."""
+    e = _artanh_eps(x.dtype)
+    return torch.asin(clip(x, -1.0 + e, 1.0 - e))
+
+
+def sinc_(x: torch.Tensor) -> torch.Tensor:
+    """sin(x)/x, smooth at x = 0."""
+    small = torch.abs(x) < 1e-3
+    xs = torch.where(small, torch.ones_like(x), x)
+    return torch.where(small, 1.0 - x * x / 6.0, torch.sin(xs) / xs)
+
+
+def artanc(x: torch.Tensor) -> torch.Tensor:
+    """artanh(x)/x, smooth at x = 0 (x clamped inside (-1, 1))."""
+    small = torch.abs(x) < 1e-3
+    xs = torch.where(small, torch.ones_like(x), x)
+    return torch.where(small, 1.0 + x * x / 3.0, artanh(xs) / xs)

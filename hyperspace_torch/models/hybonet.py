@@ -33,7 +33,7 @@ from hyperspace_torch.kernels._support import resolve_device
 from hyperspace_torch.manifolds import Lorentz
 from hyperspace_torch.nn.attention import HypMultiHeadAttention
 from hyperspace_torch.nn.gcn import dropout, from_tangent0_coords
-from hyperspace_torch.nn.layers import LorentzLinear
+from hyperspace_torch.nn.layers import LorentzLinear, params_from_flax
 from hyperspace_torch.nn.mlr import LorentzMLR
 from hyperspace_torch.optim.adamw import AdamW
 from hyperspace_torch.utils import metrics as metrics_lib
@@ -155,18 +155,7 @@ def params_from_jax(tree) -> dict:
     ``beta``, ``tau_raw``, ``mha/out/{kernel,bias}``, ``ffn_in``,
     ``ffn_out``, ``head/{p_tangent,a}``): nested names joined by dots,
     kernels in JAX's (d_in, d_out) layout, every leaf float32."""
-    out = {}
-
-    def walk(prefix, node):
-        for name, sub in node.items():
-            key = f"{prefix}{name}"
-            if isinstance(sub, dict) or hasattr(sub, "items"):
-                walk(key + ".", sub)
-            else:
-                out[key] = torch.as_tensor(np.array(sub, np.float32))
-
-    walk("", tree)
-    return out
+    return params_from_flax(tree, torch.float32)
 
 
 def train_step(model: HyboNetClassifier, opt: AdamW, state: TrainState,

@@ -249,6 +249,25 @@ def test_flash_matches_jax_kernel(interp, case):
         assert np.all(lse_t.numpy().reshape(lead + (nq,))[..., r] == 1e30)
 
 
+def test_flash_per_position_beta_tau_run_the_plain_version_on_the_cpu(
+        interp):
+    """Per-position β and τ (not [..., 1, 1]): JAX routes them to its
+    twin, the port to its plain version on CPU tensors (CUDA tensors
+    raise: the kernels take β and τ per (batch, head) only)."""
+    rng = np.random.default_rng(6)
+    q, k, v, mask = _attn_case(rng, (2, 3), 10, 14, 5, masked=True)
+    beta = rng.standard_normal((2, 3, 10, 14)) * 0.3
+    tau = 1.0 + rng.random((2, 3, 10, 1))
+    J = [jnp.asarray(np.asarray(z, np.float32)) for z in (q, k, v, beta,
+                                                           tau)]
+    want = np.asarray(JA.flash_attention(*J[:3], 1.0, beta=J[3], tau=J[4],
+                                         mask=jnp.asarray(mask)))
+    T = [t32(z) for z in (q, k, v, beta, tau)]
+    got = TA.flash_attention(*T[:3], 1.0, beta=T[3], tau=T[4],
+                             mask=torch.as_tensor(mask))
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+
+
 @pytest.mark.parametrize("masked", [True, False])
 def test_flash_gradients_match_jax_kernel(interp, masked):
     """The Function's backward (the plain dq and dk/dv kernels) against

@@ -18,6 +18,8 @@ are rounded to bf16; a max exactly.  The HyboNet kernels' tolerances stand above
 their tests.
 """
 
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -763,3 +765,250 @@ def test_hybonet_step_on_the_card_matches_the_cpu(dev):
             losses.append(float(loss))
         runs[where] = losses
     np.testing.assert_allclose(runs["cuda"], runs["cpu"], rtol=1e-4)
+
+
+# --- the Poincaré row-wise ops and hyp_linear ---------------------------------
+# f32 kernel against the f32 plain version: rtol 2e-4, atol 2e-5 (the
+# JAX package's tier for these kernels: log-form transcendentals, other
+# summation orders); hyp_linear atol 2e-4 (its tier).  bf16: within one
+# bf16 ulp of the f32 plain version on the same (bf16) inputs, plus the
+# f32 tier (the output rounds once; a rounding flip moves it one ulp).
+
+ROW_OPS = ("mobius_add", "mobius_scalar_mul", "expmap", "logmap", "expmap0",
+           "logmap0", "ptransp")
+
+
+def ball_rows(rng, shape, c, dev, scale=0.8):
+    v = rng.standard_normal(shape)
+    v = v / (1.0 + np.linalg.norm(v, axis=-1, keepdims=True))
+    return torch.as_tensor(v * scale / np.sqrt(c), dtype=torch.float32,
+                           device=dev)
+
+
+def row_args(rng, op, shape, c, dev):
+    x = ball_rows(rng, shape, c, dev)
+    y = ball_rows(rng, shape, c, dev, 0.5)
+    v = torch.as_tensor(rng.standard_normal(shape) * 0.3,
+                        dtype=torch.float32, device=dev)
+    return {"mobius_add": (x, y), "mobius_scalar_mul": (x,),
+            "expmap": (x, v), "logmap": (x, y), "expmap0": (v,),
+            "logmap0": (y,), "ptransp": (x, y, v)}[op]
+
+
+def call_row(op, tensors, c, r=0.7, plain=False):
+    from hyperspace_torch.kernels import pointwise as PW
+
+    fn = getattr(PW, op + "_plain" if plain else op)
+    return fn(r, *tensors, c) if op == "mobius_scalar_mul" else fn(*tensors,
+                                                                   c)
+
+
+def assert_bf16_close(got, want32, rtol, atol):
+    assert got.dtype == torch.bfloat16
+    g = got.float()
+    _, e = torch.frexp(want32)
+    ulp = torch.ldexp(torch.ones_like(want32), (e - 8).to(torch.int32))
+    tol = ulp + atol + rtol * want32.abs()
+    assert bool(((g - want32).abs() <= tol).all()), float(
+        (g - want32).abs().max())
+
+
+@pytest.mark.parametrize("c", [1.0, 0.5, 2.3])
+@pytest.mark.parametrize("shape", [(40, 10), (130, 7), (9, 128), (17, 200),
+                                   (3, 8, 48), (2, 1)])
+@pytest.mark.parametrize("op", ROW_OPS)
+def test_rowwise_kernels_match_plain(dev, op, shape, c):
+    from hyperspace_torch.kernels import pointwise as PW
+
+    rng = np.random.default_rng(sum(shape))
+    ts = row_args(rng, op, shape, c, dev)
+    fn = getattr(PW, op)
+    before = fn.launches
+    got = call_row(op, ts, c)
+    again = call_row(op, ts, c)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 2
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, call_row(op, ts, c, plain=True),
+                               rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("r", [-1.5, 0.0, 0.5, 3.0])
+def test_mobius_scalar_mul_kernel_r(dev, r):
+    rng = np.random.default_rng(1)
+    x = ball_rows(rng, (300, 10), 0.7, dev)
+    torch.testing.assert_close(call_row("mobius_scalar_mul", (x,), 0.7, r),
+                               call_row("mobius_scalar_mul", (x,), 0.7, r,
+                                        plain=True), rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("op", ROW_OPS)
+def test_rowwise_kernels_bf16(dev, op):
+    rng = np.random.default_rng(2)
+    ts = [t.to(torch.bfloat16) for t in row_args(rng, op, (500, 48), 1.0,
+                                                    dev)]
+    got = call_row(op, ts, 1.0)
+    want = call_row(op, [t.float() for t in ts], 1.0, plain=True)
+    assert_bf16_close(got, want, 2e-4, 2e-5)
+
+
+def test_rowwise_kernels_broadcast_margin_and_zero_rows(dev):
+    from hyperspace_torch.kernels import pointwise as PW
+
+    rng = np.random.default_rng(3)
+    x = ball_rows(rng, (64, 10), 1.0, dev)
+    b = ball_rows(rng, (10,), 1.0, dev, 0.3)
+    for y in (b, b[None, None, :].expand(2, 64, 10)):
+        torch.testing.assert_close(PW.mobius_add(x, y, 1.0),
+                                   PW.mobius_add_plain(x, y, 1.0),
+                                   rtol=2e-4, atol=2e-5)
+    big = torch.as_tensor(rng.standard_normal((64, 10)) * 40.0,
+                          dtype=torch.float32, device=dev)
+    x[3] = 0.0
+    big[5] = 0.0
+    for op, ts in (("expmap", (x, big)), ("expmap0", (big,)),
+                   ("logmap0", (x,)), ("mobius_add", (x, x)),
+                   ("ptransp", (x, x, big))):
+        got = call_row(op, ts, 1.3)
+        torch.testing.assert_close(got, call_row(op, ts, 1.3, plain=True),
+                                   rtol=2e-4, atol=2e-5)
+    edge = PW.expmap0(big, 1.3)
+    assert float(torch.linalg.norm(edge, dim=-1).max()) < 1 / np.sqrt(1.3)
+
+
+@pytest.mark.parametrize("op", ROW_OPS)
+def test_rowwise_gradients_match_plain_autograd(dev, op):
+    """The Function's backward (autograd of the plain version) to every
+    tensor, a device tensor c and a device tensor r."""
+    rng = np.random.default_rng(4)
+    ts = [t.requires_grad_() for t in row_args(rng, op, (50, 12), 0.8, dev)]
+    c = torch.tensor(0.8, device=dev, requires_grad=True)
+    r = torch.tensor(1.3, device=dev, requires_grad=True)
+    w = torch.randn((50, 12), device=dev)
+    got = torch.autograd.grad((call_row(op, ts, c, r) * w).sum(),
+                              ts + [c, r], allow_unused=True)
+    want = torch.autograd.grad((call_row(op, ts, c, r, plain=True)
+                                * w).sum(), ts + [c, r], allow_unused=True)
+    for a, b in zip(got, want):
+        if b is None:
+            assert a is None or float(a.abs().max()) == 0.0
+            continue
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+def linear_args(rng, n, d_in, d_out, dev):
+    x = ball_rows(rng, (n, d_in), 1.0, dev)
+    m = torch.as_tensor(rng.standard_normal((d_in, d_out)) * 0.3,
+                        dtype=torch.float32, device=dev)
+    b = ball_rows(rng, (d_out,), 1.0, dev, 0.3)
+    return x, m, b
+
+
+@pytest.mark.parametrize("n,d_in,d_out", [(256, 48, 32), (1000, 128, 128),
+                                          (777, 130, 200), (5, 7, 3),
+                                          (300, 1000, 700)])
+@pytest.mark.parametrize("c", [1.0, 0.5])
+def test_hyp_linear_kernel_matches_plain(dev, n, d_in, d_out, c):
+    from hyperspace_torch.kernels.hyplinear import hyp_linear, hyp_linear_plain
+
+    rng = np.random.default_rng(n + d_in)
+    x, m, b = linear_args(rng, n, d_in, d_out, dev)
+    m = m / np.sqrt(d_in / 16.0)
+    x[1] = 0.0                      # ‖x‖ = 0 → M x = 0 → b
+    before = hyp_linear.launches
+    got = hyp_linear(x, m, b, c)
+    again = hyp_linear(x, m, b, c)
+    torch.cuda.synchronize()
+    assert hyp_linear.launches == before + 2
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, hyp_linear_plain(x, m, b, c), rtol=2e-4,
+                               atol=2e-4)
+    torch.testing.assert_close(got[1], b, rtol=1e-5, atol=1e-6)
+    zero = torch.zeros(d_out, device=dev)
+    torch.testing.assert_close(hyp_linear(x, m, zero, c),
+                               hyp_linear_plain(x, m, zero, c), rtol=2e-4,
+                               atol=2e-4)
+
+
+def test_hyp_linear_kernel_bf16_margin_and_leading_dims(dev):
+    from hyperspace_torch.kernels.hyplinear import hyp_linear, hyp_linear_plain
+
+    rng = np.random.default_rng(5)
+    x, m, b = linear_args(rng, 600, 128, 32, dev)
+    xb = x.to(torch.bfloat16)
+    assert_bf16_close(hyp_linear(xb, m, b, 1.0),
+                      hyp_linear_plain(xb.float(), m, b, 1.0), 2e-4, 2e-4)
+    big = hyp_linear(x, 30.0 * m, b, 1.0)       # rows pinned at the margin
+    torch.testing.assert_close(big, hyp_linear_plain(x, 30.0 * m, b, 1.0),
+                               rtol=2e-4, atol=2e-4)
+    x3 = x[:24].reshape(3, 8, 128)
+    got = hyp_linear(x3, m, b, 1.0)
+    assert got.shape == (3, 8, 32)
+    torch.testing.assert_close(got, hyp_linear_plain(x3, m, b, 1.0),
+                               rtol=2e-4, atol=2e-4)
+    zm = torch.zeros_like(m)                   # M x = 0 on every row
+    torch.testing.assert_close(hyp_linear(x, zm, b, 1.0),
+                               b.expand(600, 32), rtol=1e-5, atol=1e-6)
+
+
+def test_hyp_linear_gradients_match_plain_autograd(dev):
+    from hyperspace_torch.kernels.hyplinear import hyp_linear, hyp_linear_plain
+
+    rng = np.random.default_rng(6)
+    ins = [t.requires_grad_() for t in linear_args(rng, 200, 40, 24, dev)]
+    c = torch.tensor(0.9, device=dev, requires_grad=True)
+    w = torch.randn((200, 24), device=dev)
+    got = torch.autograd.grad((hyp_linear(*ins, c) * w).sum(), ins + [c])
+    want = torch.autograd.grad((hyp_linear_plain(*ins, c) * w).sum(),
+                               ins + [c])
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+def test_poincare_kernels_refuse_what_they_do_not_take(dev):
+    from hyperspace_torch.kernels import flash_attention
+    from hyperspace_torch.kernels import pointwise as PW
+    from hyperspace_torch.kernels.hyplinear import hyp_linear
+
+    x = torch.zeros((4, 3), dtype=torch.float64, device=dev)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        PW.mobius_add(x, x, 1.0)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        hyp_linear(x, torch.zeros((3, 2), device=dev),
+                   torch.zeros(2, device=dev), 1.0)
+    with pytest.raises(ValueError, match="scalar"):
+        PW.expmap0(x.float(), torch.ones(2, device=dev))
+    q = torch.ones((2, 5, 4), device=dev)
+    with pytest.raises(ValueError, match="per \\(batch, head\\) only"):
+        flash_attention(q, q, q, 1.0, beta=torch.zeros((2, 5, 5),
+                                                      device=dev))
+    with pytest.raises(ValueError, match="per \\(batch, head\\) only"):
+        flash_attention(q, q, q, 1.0, tau=torch.ones((2, 5, 1), device=dev))
+
+
+def test_gyro_stack_on_the_card_matches_the_cpu(dev):
+    """HypLinear → HypAct(c 1 → 0.5) → HypLinear from the same parameters,
+    card against CPU, f32: loss and gradients within rel 1e-4."""
+    from hyperspace_torch.manifolds import PoincareBall
+    from hyperspace_torch.nn import HypAct, HypLinear
+
+    rng = np.random.default_rng(7)
+    x = ball_rows(rng, (500, 64), 1.0, "cpu", 0.5)
+    tgt = ball_rows(rng, (500, 16), 0.5, "cpu", 0.5)
+    g = torch.Generator().manual_seed(0)
+    stack = torch.nn.Sequential(HypLinear(64, 64, PoincareBall(1.0),
+                                          generator=g),
+                                HypAct(PoincareBall(1.0), PoincareBall(0.5)),
+                                HypLinear(64, 16, PoincareBall(0.5),
+                                          generator=g))
+    res = {}
+    for where in ("cpu", "cuda"):
+        model = copy.deepcopy(stack).to(where)
+        loss = torch.mean(PoincareBall(0.5).sqdist(model(x.to(where)),
+                                                   tgt.to(where)))
+        loss.backward()
+        res[where] = [float(loss.detach())] + [
+            p.grad.detach().cpu().clone() for p in model.parameters()]
+    np.testing.assert_allclose(res["cuda"][0], res["cpu"][0], rtol=1e-4)
+    for a, b in zip(res["cuda"][1:], res["cpu"][1:]):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())

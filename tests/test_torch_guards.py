@@ -18,7 +18,9 @@ from hyperspace_torch.kernels import attention as flash
 from hyperspace_torch.kernels.cluster import (cluster_aggregate,
                                               cluster_att_bwd,
                                               cluster_att_fwd)
+from hyperspace_torch.kernels import pointwise as rowwise
 from hyperspace_torch.kernels.distmat import pdist
+from hyperspace_torch.kernels.hyplinear import hyp_linear
 from hyperspace_torch.kernels.mlr import hyp_mlr
 from hyperspace_torch.kernels.scan_topk import scan_topk
 from hyperspace_torch.kernels.segment import (csr_att_bwd_edges,
@@ -71,7 +73,10 @@ def test_port_imports_no_jax():
                  "hyperspace_torch.optim.adamw", "hyperspace_torch.cli.train",
                  "hyperspace_torch.benchmarks.workloads_bench",
                  "hyperspace_torch.serve.index",
-                 "hyperspace_torch.serve.quant"):
+                 "hyperspace_torch.serve.quant",
+                 "hyperspace_torch.manifolds.base",
+                 "hyperspace_torch.kernels.pointwise",
+                 "hyperspace_torch.kernels.hyplinear"):
         assert name in res["modules"]
 
 
@@ -150,6 +155,15 @@ def test_wrappers_refuse_other_devices():
             fn(q, q, q, 1.0, b, b, None, 1, *extra)
     with pytest.raises(ValueError, match="unsupported device"):
         flash.flash_attention(q, q, q, 1.0)
+    for op, args in (("mobius_add", (x, x)), ("mobius_scalar_mul", (0.5, x)),
+                     ("expmap", (x, x)), ("logmap", (x, x)),
+                     ("expmap0", (x,)), ("logmap0", (x,)),
+                     ("ptransp", (x, x, x))):
+        with pytest.raises(ValueError, match="unsupported device"):
+            getattr(rowwise, op)(*args, 1.0)
+    with pytest.raises(ValueError, match="unsupported device"):
+        hyp_linear(x, torch.zeros((3, 2), device="meta"),
+                   torch.zeros(2, device="meta"), 1.0)
 
 
 def test_hybonet_wrappers_check_shapes():
@@ -190,7 +204,7 @@ def test_kernels_line_names_every_cuda_entry():
         for entry in entries:
             found += 1
             assert f'"{entry}"' in smoke, entry
-    assert found >= 14
+    assert found >= 22
 
 
 def test_missing_compiler_raises(monkeypatch, tmp_path):
