@@ -484,8 +484,8 @@ def train_kernel_entries(torch, tr: dict, card: dict) -> list:
     vals = {f: rand(r.shape[0], f) for f in (128, 32)}
     u = setup.pos.u
     vals_u = rand(u.shape[0], 33)
-    v32 = vals[128].float()
-    r64 = r.long()
+    v32, v32_32, vu32 = vals[128].float(), vals[32].float(), vals_u.float()
+    r64, u64 = r.long(), u.long()
 
     def seg(v, rr):
         return lambda: csr_segment_sum(v, rr, None, n)
@@ -510,9 +510,13 @@ def train_kernel_entries(torch, tr: dict, card: dict) -> list:
         "call_ms": timed_ms(torch, seg(vals[128], r)),
         "ms_F32": device_ms(torch, seg(vals[32], r)),
         "bound_ms_F32": bound_ms(*segment_cost(r.shape[0], 32, n, 2))[0],
+        "library_ms_F32": device_ms(torch, lambda: torch.zeros(
+            (n, 32), device=dev).index_add_(0, r64, v32_32)),
         "ms_decoder_F33": device_ms(torch, seg(vals_u, u)),
         "bound_ms_decoder_F33": bound_ms(*segment_cost(u.shape[0], 33, n,
                                                        2))[0],
+        "library_ms_decoder_F33": device_ms(torch, lambda: torch.zeros(
+            (n, 33), device=dev).index_add_(0, u64, vu32)),
         **card}
     e = agg.c_recv.shape[0]
     h = {f: rand(n, f) for f in (128, 32)}
@@ -842,6 +846,9 @@ def att_kernel_entries(torch, at: dict, card: dict) -> list:
             v, "sum", lengths=lengths)),
         "ms_max": device_ms(torch, lambda: KS.csr_segment_reduce_1d(
             v, r, None, n, "max")),
+        "library_ms_max": device_ms(torch, lambda: torch.full(
+            (n,), KS.NEG_FILL, device=dev).scatter_reduce_(0, r64, v,
+                                                           "amax")),
         "call_ms": timed_ms(torch, lambda: KS.csr_segment_reduce_1d(
             v, r, None, n)), **card}]
 
@@ -1250,25 +1257,28 @@ def hybonet_kernel_entries(torch, hb: dict, card: dict) -> list:
     # (q·2/τ, Jk, v) with the boolean mask (the score's constant (2/c +
     # β)/τ cancels in the softmax), D zero-padded to 40, then the
     # elementwise Lorentz epilogue
-    x = hb["inputs"]["bench"]
-    bsz, h = x["batch"], x["heads"]
-    d = x["q"].shape[-1]
+    def library(x):
+        bsz, h = x["batch"], x["heads"]
+        d = x["q"].shape[-1]
 
-    def pad40(t):
-        return torch.nn.functional.pad(t, (0, 40 - d)).reshape(
-            bsz, h, t.shape[1], 40)
+        def pad40(t):
+            return torch.nn.functional.pad(t, (0, 40 - d)).reshape(
+                bsz, h, t.shape[1], 40)
 
-    qs = pad40(x["q"] * (2.0 / x["tau_b"])[:, None, None])
-    kf = pad40(torch.cat([-x["k"][..., :1], x["k"][..., 1:]], dim=-1))
-    vs = pad40(x["v"])
-    mb = x["mask"].bool()[:, None]
+        qs = pad40(x["q"] * (2.0 / x["tau_b"])[:, None, None])
+        kf = pad40(torch.cat([-x["k"][..., :1], x["k"][..., 1:]], dim=-1))
+        vs = pad40(x["v"])
+        mb = x["mask"].bool()[:, None]
 
-    def library():
-        s = torch.nn.functional.scaled_dot_product_attention(
-            qs, kf, vs, attn_mask=mb, scale=1.0)[..., :d]
-        return A._epilogue(s, C)
+        def run():
+            s = torch.nn.functional.scaled_dot_product_attention(
+                qs, kf, vs, attn_mask=mb, scale=1.0)[..., :d]
+            return A._epilogue(s, C)
+        return run
 
-    library_ms = device_ms(torch, library)
+    library_ms = {src: device_ms(torch, library(x),
+                                 reps=5 if src == "long" else 20)
+                  for src, x in hb["inputs"].items()}
     names = {"fwd": ("flash_attention_fwd", "hs_flash_fwd", ":199"),
              "dq": ("flash_attention_dq", "hs_flash_dq", ":410"),
              "dkv": ("flash_attention_dkv", "hs_flash_dkv", ":461")}
@@ -1288,18 +1298,20 @@ def hybonet_kernel_entries(torch, hb: dict, card: dict) -> list:
              "ms": device_ms(torch, kern),
              "plain_ms": device_ms(torch, plain, reps=5),
              "bound_ms": bd, "bound_by": bby,
-             "library_ms": library_ms if kind == "fwd" else None,
+             "library_ms": library_ms["bench"] if kind == "fwd" else None,
              "library_call": ("scaled_dot_product_attention on (q·2/τ, Jk, "
                               "v), D padded to 40, bool mask, + epilogue"
                               if kind == "fwd" else None),
              "mask": "uint8 [B, Nq, Nk] shared by the heads",
              "call_ms": timed_ms(torch, kern)}
-        for src in ("long", "cli"):
+        for src, reps in (("long", 5), ("cli", 20)):
             k2, _ = runs[src][kind]
-            e[f"ms_{src}"] = device_ms(torch, k2, reps=5)
+            e[f"ms_{src}"] = device_ms(torch, k2, reps=reps)
             e[f"bound_ms_{src}"] = bound_ms(*flash_cost(hb["inputs"][src],
                                                         kind))[0]
             e[f"shape_{src}"] = list(hb["inputs"][src]["q"].shape)
+            if kind == "fwd":
+                e[f"library_ms_{src}"] = library_ms[src]
         entries.append({**e, **card})
     gen = torch.Generator(device=dev).manual_seed(12)
     mlr_args = {}

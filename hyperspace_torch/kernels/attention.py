@@ -192,15 +192,20 @@ def flash_fwd(q, k, v, c: float, beta_b, tau_b, mask3=None, group: int = 1):
     if not _check("flash_fwd", q, k, v, beta_b, tau_b, mask3, group):
         return flash_fwd_plain(q, k, v, c, beta_b, tau_b, mask3, group)
     b, nq, d = q.shape
+    nk = k.shape[1]
     out = torch.empty_like(q)
     lse = torch.empty((b, nq), dtype=torch.float32, device=q.device)
     nrm = torch.empty_like(lse)
+    # scratch for the mask as bits, one int32 word per 32 keys of a row
+    bits = None if mask3 is None else torch.empty(
+        mask3.shape[0] * nq * -(-nk // 32), dtype=torch.int32,
+        device=q.device)
     fn = S.function("attention", "hs_flash_fwd",
-                    [_P, _P, _P, _P, _I, _P, _P, _F, _I, _I, _I, _I, _P, _P,
-                     _P, _P])
+                    [_P, _P, _P, _P, _I, _P, _P, _P, _F, _I, _I, _I, _I, _P,
+                     _P, _P, _P])
     S.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask3), group,
-               beta_b.data_ptr(), tau_b.data_ptr(), c, b, nq, k.shape[1], d,
-               out.data_ptr(), lse.data_ptr(), nrm.data_ptr(),
+               _ptr(bits), beta_b.data_ptr(), tau_b.data_ptr(), c, b, nq, nk,
+               d, out.data_ptr(), lse.data_ptr(), nrm.data_ptr(),
                S.stream_ptr(q)), "flash_fwd")
     flash_fwd.launches += 1
     return out, lse, nrm

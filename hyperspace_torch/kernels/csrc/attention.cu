@@ -1,5 +1,6 @@
 // Hyperbolic flash attention (HyboNet, Chen et al. 2022) for sm_90a:
-// forward, dq and dk/dv, f32 in and out, f32 FMA arithmetic.
+// forward, dq and dk/dv, f32 in and out; the forward on the tensor cores
+// (3×TF32), dq and dk/dv in f32 FMA arithmetic.
 //
 // Replaces hyperspace_tpu/kernels/attention.py: the forward `_attn_body`
 // (pallas_call at :199), the dq kernel `_dq_body` (:410) and the dk/dv
@@ -16,35 +17,73 @@
 // does 2·Nq·Nk·D multiply-adds (the Gram and p·v), dq 3·Nq·Nk·D (Gram,
 // ⟨dsp, v⟩, dσ·Jk) and dk/dv 4·Nq·Nk·D (Gram, p·dsp, ⟨dsp, v⟩, dσ·Jq),
 // against D·(Nq + Nk) values read.  At HyboNet's D = 33 that is about
-// 16 operations per byte, so float32 FMA throughput (67 TFLOP/s) is the
-// bound, not the 3.35 TB/s of device memory.
+// 16 operations per byte, so arithmetic, not the 3.35 TB/s of device
+// memory, is the bound.
 //
-// Design (a simple, right kernel; tensor cores, TMA and warp
-// specialisation are later work):
-//   - one thread owns one row: a query row in the forward and in dq, a
-//     key row in dk/dv.  Its operand row and its f32 accumulators live in
-//     registers, zero-padded from D to DP (a multiple of 8);
+// The forward runs on the tensor cores at f32 accuracy:
+//   - a block of four warps owns 64 query rows, 16 a warp; the Gram
+//     Q·(JK)ᵀ and the average P·V are `mma.sync.m16n8k8` TF32 products
+//     with f32 accumulation, D zero-padded to DP (a multiple of 8);
+//   - TF32 keeps 10 mantissa bits, far coarser than the JAX kernel's
+//     Precision.HIGHEST, so every operand x is split into hi (x rounded
+//     to TF32, to nearest, ties away from zero, as `cvt.rna`) and lo
+//     (x − hi, exact, truncated to TF32), and each product is taken as
+//     lo·hi' + hi·lo' + hi·hi' (3×TF32, CUTLASS's OpMultiplyAddFastF32):
+//     near f32 accuracy (tests/test_torch_tf32_split.py holds the scheme
+//     against float64 on HyboNet-like rows).  The split is integer and
+//     f32 arithmetic: `cvt` issues at a quarter of their rate;
+//   - J, the flip of lane 0, is applied to the query rows (⟨q, Jk⟩ =
+//     ⟨Jq, k⟩ term by term), so K and V tiles are copied unchanged: 64
+//     keys a tile, double-buffered in shared memory by 4-byte `cp.async`
+//     (a row of D = 33 floats is 132 bytes, so neither 16-byte copies nor
+//     a TMA tensor map fit its stride), rows padded to DP + 4 floats so
+//     the fragment reads hit 32 distinct banks; the next tile's copy
+//     overlaps this tile's products;
+//   - the mask is uint8 [B/group, Nq, Nk], shared by `group` consecutive
+//     batch·head rows (the heads of one sequence).  A pre-pass packs it
+//     into one bit a (query, key) pair, once a launch rather than at
+//     every tile of every head, so a lane reads four words a tile for
+//     its two rows, a tile ahead; a warp skips a tile in which none of
+//     its rows has a valid key (that leaves every bit of the result as it
+//     was: the tile would add exact zeros);
+//   - σ comes from the accumulator fragments through `score_rcp` (the
+//     bits of `score`, the division by τ taken through its correctly
+//     rounded reciprocal, as are the epilogue's), the online softmax
+//     keeps each row's max and sum per fragment row (sums combined
+//     across the quad at the end) with no branch a weight, and P goes from the score fragment (columns 2t, 2t+1) straight into
+//     the A operand of P·V (which wants k = t, t+4) by reading V's rows in
+//     the order 2t, 2t+1 of each 8-key slice: a sum over keys does not
+//     care for their order.
+//
+// dq and dk/dv (a simple, right design; tensor cores for them are later
+// work):
+//   - one thread owns one row: a query row in dq, a key row in dk/dv.
+//     Its operand row and its f32 accumulators live in registers,
+//     zero-padded from D to DP;
 //   - a block of 64 threads streams the other side through shared memory
 //     in tiles of 64 rows (k with lane 0 negated, v; or q, dsp, lse, di),
 //     read back as float4 broadcasts: every thread of a warp reads the
 //     same word, so there are no bank conflicts;
-//   - the mask is uint8 [B/group, Nq, Nk], shared by `group` consecutive
-//     batch·head rows (the heads of one sequence), staged per tile;
-//   - σ is computed by one routine in all three kernels, with explicitly
-//     rounded operations in the JAX kernel's order, so the backward's
-//     recomputed weights see the forward's bits;
-//   - the forward carries (running max, denominator, numerator) through
-//     16-key chunks (one rescale per chunk); dq writes each query block's
-//     partial of Σ dσ·σ (the τ gradient), summed in a fixed order by the
-//     caller: no atomics anywhere, every result is deterministic.
+//   - σ is recomputed with `score` on an ascending-d FMA Gram, so it
+//     agrees with the forward's tensor-core σ to rounding (about 1e-6
+//     relative), not bit for bit.  The backward takes the forward's lse,
+//     and `chip_smoke.py` (`check_flash`) holds dq, dk, dv and dτ of the
+//     whole Function against autograd of the dense twin and float64;
+//   - dq writes each query block's partial of Σ dσ·σ (the τ gradient),
+//     summed in a fixed order by the caller: no atomics anywhere, every
+//     result is deterministic.
+
+#include <cmath>
+#include <cstdint>
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int ROWS = 64;    // threads per block = rows owned per block
-constexpr int TILE = 64;    // rows of the other side per shared tile
-constexpr int CHUNK = 16;   // keys per online-softmax rescale (forward)
+constexpr unsigned FULL = 0xffffffffu;
+
+constexpr int ROWS = 64;    // dq, dk/dv: threads a block = rows it owns
+constexpr int TILE = 64;    // dq, dk/dv: rows of the other side a tile
 constexpr float NEG = -1e30f;
 constexpr float LSE_EMPTY = 1e30f;
 constexpr float EPS_F32 = 1e-7f;
@@ -135,86 +174,390 @@ __device__ __forceinline__ void load_valid(unsigned char* t, int ni, int nj,
   }
 }
 
-// ---- forward ---------------------------------------------------------------
+// ---- forward: tensor cores -------------------------------------------------
+
+constexpr int FWD_WARPS = 4;
+constexpr int FWD_THREADS = 32 * FWD_WARPS;
+constexpr int FWD_ROWS = 16 * FWD_WARPS;  // query rows a block
+constexpr int KT = 64;                    // keys a tile
+
+constexpr unsigned TF32_MASK = 0xffffe000u;  // sign, exponent, 10 bits
+
+// x = hi + lo + (a remainder below 2^-21·|x|), both TF32: hi is
+// `cvt.rna.tf32.f32` of x (round to nearest, ties away from zero) and lo
+// is x − hi (exact) with its 13 low bits dropped.  Integer and f32 ops
+// only: a `cvt` runs at a quarter of their rate, and the split is taken
+// for every key and value a warp reads.
+__device__ __forceinline__ void split_tf32(float x, unsigned& hi,
+                                           unsigned& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & TF32_MASK;
+  lo = __float_as_uint(__fsub_rn(x, __uint_as_float(hi))) & TF32_MASK;
+}
+
+// x / y from r, the correctly rounded 1/y: q0 = x·r, then q0 + (x −
+// y·q0)·r.  Markstein's theorem makes that the correctly rounded quotient
+// (for quotients in the normal range), the bits of `x / y`, without the
+// division's branch to a slow path, which keeps a row of divisions from
+// interleaving
+__device__ __forceinline__ float div_rcp(float x, float y, float r) {
+  const float q0 = __fmul_rn(x, r);
+  return __fmaf_rn(__fmaf_rn(-q0, y, x), r, q0);
+}
+
+// σ as `score` computes it, the division by τ through its reciprocal
+__device__ __forceinline__ float score_rcp(float gram, float two_c,
+                                           float beta, float tau,
+                                           float rcp_tau) {
+  return div_rcp(
+      __fadd_rn(__fadd_rn(two_c, __fmul_rn(2.0f, gram)), beta), tau,
+      rcp_tau);
+}
+
+// c += a·b for one m16n8k8 tile (A row-major, B column-major)
+__device__ __forceinline__ void mma_tf32(float (&c)[4],
+                                         const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a·b at near f32 accuracy: lo·hi + hi·lo, then hi·hi
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4],
+                                           const unsigned (&ah)[4],
+                                           const unsigned (&al)[4], float b0,
+                                           float b1) {
+  unsigned bh0, bl0, bh1, bl1;
+  split_tf32(b0, bh0, bl0);
+  split_tf32(b1, bh1, bl1);
+  mma_tf32(c, al, bh0, bh1);
+  mma_tf32(c, ah, bl0, bl1);
+  mma_tf32(c, ah, bh0, bh1);
+}
+
+// a 4-byte copy from device memory to the shared address `dst`; with
+// `bytes` 0 it reads nothing and writes 0
+__device__ __forceinline__ void cp_async4(unsigned dst, const float* src,
+                                          int bytes = 4) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;"
+               :: "r"(dst), "l"(src), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
+}
+
+// rows [j0, j0 + KT) of a [nk, d] matrix, columns < d, into a shared
+// [KT][DP + 4] tile: a warp copies a row at a time, a lane a column; rows
+// past nk are written as 0 (the products read them; only masked keys meet
+// them, but a weight of 0 times a stale NaN is NaN).  The columns past d
+// are never written.  `dst` is the tile's shared address, taken once: a
+// generic-to-shared conversion at each copy costs a special-register read.
+template <int DP>
+__device__ __forceinline__ void stage_rows(unsigned dst, const float* src,
+                                           int j0, int nk, int d) {
+  constexpr int S = DP + 4;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const float* base = src;
+  dst += 4u * (warp * S + lane);
+  src += (size_t)(j0 + warp) * d + lane;
+  if (j0 + KT <= nk) {  // a whole tile: no row past nk
+#pragma unroll
+    for (int rr = 0; rr < KT / FWD_WARPS; ++rr) {
+#pragma unroll
+      for (int c0 = 0; c0 < DP; c0 += 32)
+        if (c0 + lane < d) cp_async4(dst + 4u * c0, src + c0);
+      dst += 4u * FWD_WARPS * S;
+      src += (size_t)FWD_WARPS * d;
+    }
+    return;
+  }
+#pragma unroll
+  for (int rr = 0; rr < KT / FWD_WARPS; ++rr) {
+    const bool in = j0 + warp + FWD_WARPS * rr < nk;
+#pragma unroll
+    for (int c0 = 0; c0 < DP; c0 += 32)
+      if (c0 + lane < d)
+        cp_async4(dst + 4u * c0, in ? src + c0 : base, in ? 4 : 0);
+    dst += 4u * FWD_WARPS * S;
+    src += (size_t)FWD_WARPS * d;
+  }
+}
+
+// one bit a byte: byte k of x non-zero -> bit k; the multiply moves bit
+// 8k of the 0/1 bytes to bit 21 + k without carries
+__device__ __forceinline__ unsigned nonzero_bits4(unsigned x) {
+  const unsigned t = __vcmpne4(x, 0u) & 0x01010101u;
+  return (t * 0x00204081u >> 21) & 0xfu;
+}
+
+// bits[i][w] for each query row i of the [rows, nk] masks: bit j is
+// valid(i, 32w + j), the key in range and mask > 0.  When every row
+// starts on 16 bytes (nk a multiple of 16, an aligned base), a thread
+// reads a word's 32 bytes with two 16-byte loads; otherwise a warp reads
+// 32 consecutive bytes and ballots them into one word.
+__global__ void __launch_bounds__(256)
+pack_mask_kernel(const unsigned char* __restrict__ mask, long rows, int nk,
+                 int words, unsigned* __restrict__ bits) {
+  const long total = rows * words;
+  if (nk % 16 == 0 && (reinterpret_cast<uintptr_t>(mask) & 15) == 0) {
+    const long step = (long)gridDim.x * blockDim.x;
+    for (long wi = (long)blockIdx.x * blockDim.x + threadIdx.x; wi < total;
+         wi += step) {
+      const long i = wi / words;
+      const int j0 = 32 * (int)(wi - i * words);
+      const uint4* src = reinterpret_cast<const uint4*>(mask + i * nk + j0);
+      unsigned word = 0;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (j0 + 16 * h >= nk) break;
+        const uint4 x = src[h];
+        word |= (nonzero_bits4(x.x) | nonzero_bits4(x.y) << 4 |
+                 nonzero_bits4(x.z) << 8 | nonzero_bits4(x.w) << 12)
+                << (16 * h);
+      }
+      bits[wi] = word;
+    }
+    return;
+  }
+  const int lane = threadIdx.x & 31;
+  const long step = ((long)gridDim.x * blockDim.x) >> 5;
+  for (long wi = ((long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+       wi < total; wi += step) {
+    const long i = wi / words;
+    const int j = 32 * (int)(wi - i * words) + lane;
+    const unsigned word = __ballot_sync(FULL, j < nk && mask[i * nk + j]);
+    if (lane == 0) bits[wi] = word;
+  }
+}
+
+// valid bits of key tile jt (keys 64jt..64jt + 63) for the lane's rows
+// row0 and row0 + 8: vb[r][w] covers keys 64jt + 32w + 0..31.  From the
+// packed mask, or, with no mask, the keys below nk.
+__device__ __forceinline__ void tile_bits(unsigned (&vb)[2][2],
+                                          const unsigned* mbits, int words,
+                                          int row0, int nq, int nk, int jt) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+#pragma unroll
+    for (int w = 0; w < 2; ++w) {
+      const int wi = 2 * jt + w, left = nk - 32 * wi;
+      unsigned bits = left >= 32 ? ~0u : left <= 0 ? 0u : (1u << left) - 1u;
+      if (mbits != nullptr)
+        bits = row < nq && wi < words ? mbits[(size_t)row * words + wi] : 0u;
+      vb[r][w] = row < nq ? bits : 0u;
+    }
+  }
+}
 
 template <int DP>
-__global__ void __launch_bounds__(ROWS)
+__global__ void __launch_bounds__(FWD_THREADS)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v,
-                 const unsigned char* __restrict__ mask, int group,
+                 const unsigned* __restrict__ mask_bits, int group,
                  const float* __restrict__ beta,
                  const float* __restrict__ tau, float c, int nq, int nk,
                  int d, float* __restrict__ out, float* __restrict__ lse,
                  float* __restrict__ nrm) {
-  __shared__ __align__(16) float ks[TILE][DP];
-  __shared__ __align__(16) float vs[TILE][DP];
-  __shared__ unsigned char ok[TILE * ROWS];  // ok[j][i]
-  const int b = blockIdx.y, i0 = blockIdx.x * ROWS, i = i0 + threadIdx.x;
-  const bool row_ok = i < nq;
+  constexpr int S = DP + 4, KD = DP / 8;
+  extern __shared__ __align__(16) float smem[];  // [2][K tile, V tile]
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int b = blockIdx.y;
+  const int r0 = blockIdx.x * FWD_ROWS + 16 * (threadIdx.x >> 5);
   const float two_c = __fdiv_rn(2.0f, c), be = beta[b], ta = tau[b];
+  const float rta = __frcp_rn(ta);
   const float* kb = k + (size_t)b * nk * d;
   const float* vb = v + (size_t)b * nk * d;
-  const unsigned char* mb =
-      mask == nullptr ? nullptr : mask + (size_t)(b / group) * nq * nk;
-  float qr[DP], acc[DP];
-  load_row(qr, q + ((size_t)b * nq + i) * d, row_ok, d, false);
+  const int words = (nk + 31) / 32;
+  const unsigned* mb = mask_bits == nullptr
+                           ? nullptr
+                           : mask_bits + (size_t)(b / group) * nq * words;
+
+  // the warp's rows of Jq as A fragments (a0: (g, t), a1: (g + 8, t),
+  // a2: (g, t + 4), a3: (g + 8, t + 4) of each 8-column slice), split
+  unsigned qh[KD][4], ql[KD][4];
+  const float* qb = q + (size_t)b * nq * d;
 #pragma unroll
-  for (int t = 0; t < DP; ++t) acc[t] = 0.0f;
-  float m = NEG, l = 0.0f;
-  for (int j0 = 0; j0 < nk; j0 += TILE) {
-    __syncthreads();  // the previous tile is consumed
-    load_tile<DP>(ks, kb, j0, nk, d, true);
-    load_tile<DP>(vs, vb, j0, nk, d, false);
-    load_valid(ok, ROWS, TILE, mb, i0, j0, nq, nk, true);
-    __syncthreads();
-    const int rows = min(TILE, nk - j0);
-    for (int jc = 0; jc < rows; jc += CHUNK) {
-      float s[CHUNK];
-      float cmax = NEG;
+  for (int kd = 0; kd < KD; ++kd) {
 #pragma unroll
-      for (int u = 0; u < CHUNK; ++u) {
-        const int j = jc + u;
-        s[u] = NEG;
-        if (ok[j * ROWS + threadIdx.x])
-          s[u] = score(dot_rs<DP>(qr, ks[j]), two_c, be, ta);
-        cmax = fmaxf(cmax, s[u]);
-      }
-      const float m_new = fmaxf(m, cmax);
-      const float alpha = expf(m - m_new);
-      float psum = 0.0f;
-#pragma unroll
-      for (int u = 0; u < CHUNK; ++u) {
-        s[u] = ok[(jc + u) * ROWS + threadIdx.x] ? expf(s[u] - m_new) : 0.0f;
-        psum += s[u];
-      }
-      l = alpha * l + psum;
-#pragma unroll
-      for (int t = 0; t < DP; ++t) acc[t] *= alpha;
-#pragma unroll
-      for (int u = 0; u < CHUNK; ++u) axpy_rs<DP>(acc, s[u], vs[jc + u]);
-      m = m_new;
+    for (int h = 0; h < 4; ++h) {
+      const int row = r0 + g + 8 * (h & 1), col = 8 * kd + t + 4 * (h >> 1);
+      float x = row < nq && col < d ? qb[(size_t)row * d + col] : 0.0f;
+      if (col == 0) x = -x;
+      split_tf32(x, qh[kd][h], ql[kd][h]);
     }
   }
-  if (!row_ok) return;
+  // o[n]: columns 8n + 2t, + 1 of rows g (o[n][0..1]) and g + 8 ([2..3])
+  float o[KD][4];
+#pragma unroll
+  for (int n = 0; n < KD; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
+  float m[2] = {NEG, NEG}, l[2] = {0.0f, 0.0f};  // l: this lane's columns
+
+  // the columns past d stay 0 in all four tiles; the copies never touch
+  // them (rows past nk are zeroed where a tile is staged)
+  for (int e = threadIdx.x; e < 4 * KT * (DP - d); e += FWD_THREADS) {
+    const int r = e / (DP - d);
+    smem[r * S + d + (e - r * (DP - d))] = 0.0f;
+  }
+  __syncthreads();
+  const int tiles = (nk + KT - 1) / KT;
+  const unsigned sbase = (unsigned)__cvta_generic_to_shared(smem);
+  constexpr unsigned TILE_BYTES = 4u * KT * S;
+  unsigned nbits[2][2];  // the valid bits of the tile to come
+  if (tiles > 0) {
+    stage_rows<DP>(sbase, kb, 0, nk, d);
+    stage_rows<DP>(sbase + TILE_BYTES, vb, 0, nk, d);
+    tile_bits(nbits, mb, words, r0 + g, nq, nk, 0);
+  }
+  cp_async_commit();
+  for (int jt = 0; jt < tiles; ++jt) {
+    unsigned vbits[2][2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      vbits[r][0] = nbits[r][0];
+      vbits[r][1] = nbits[r][1];
+    }
+    if (jt + 1 < tiles) {  // the next tile's copy overlaps this one
+      const unsigned nxt = sbase + ((jt + 1) & 1) * 2 * TILE_BYTES;
+      stage_rows<DP>(nxt, kb, (jt + 1) * KT, nk, d);
+      stage_rows<DP>(nxt + TILE_BYTES, vb, (jt + 1) * KT, nk, d);
+      tile_bits(nbits, mb, words, r0 + g, nq, nk, jt + 1);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const float* ks = smem + (jt & 1) * 2 * KT * S;
+    const float* vs = ks + KT * S;
+    if (__any_sync(FULL, (vbits[0][0] | vbits[0][1] | vbits[1][0] |
+                          vbits[1][1]) != 0)) {
+      // the lane's keys 8n + 2t + e sit at bit 8(n mod 4) + e of its
+      // words shifted by 2t
+      unsigned sb[2][2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        sb[r][0] = vbits[r][0] >> (2 * t);
+        sb[r][1] = vbits[r][1] >> (2 * t);
+      }
+      // Gram of the warp's 16 rows and the 64 keys: s[n] holds keys
+      // 8n + 2t, + 1 of rows g ([0..1]) and g + 8 ([2..3])
+      float s[8][4];
+#pragma unroll
+      for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
+#pragma unroll
+      for (int kd = 0; kd < KD; ++kd) {
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          const float* kr = ks + (8 * n + g) * S + 8 * kd + t;
+          mma_3xtf32(s[n], qh[kd], ql[kd], kr[0], kr[4]);
+        }
+      }
+      float tmax[2] = {NEG, NEG};
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+#pragma unroll
+        for (int h = 0; h < 4; ++h) {
+          const bool ok = (sb[h >> 1][n >> 2] >> (8 * (n & 3) + (h & 1))) & 1u;
+          const float sig = score_rcp(s[n][h], two_c, be, ta, rta);
+          s[n][h] = ok ? sig : NEG;
+          tmax[h >> 1] = fmaxf(tmax[h >> 1], s[n][h]);
+        }
+      }
+      // an invalid key's σ is NEG, whose weight underflows to 0 against
+      // any row max but NEG itself: a row with no valid key yet subtracts
+      // +inf instead, so every weight of the tile is exp(−inf) = 0 with no
+      // branch (a branch a weight would keep the exps from interleaving)
+      float alpha[2], shift[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(FULL, tmax[r], 1));
+        tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(FULL, tmax[r], 2));
+        const float m_new = fmaxf(m[r], tmax[r]);
+        alpha[r] = expf(m[r] - m_new);
+        m[r] = m_new;
+        shift[r] = m_new == NEG ? INFINITY : m_new;
+        l[r] *= alpha[r];
+      }
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+#pragma unroll
+        for (int h = 0; h < 4; ++h) {
+          s[n][h] = expf(s[n][h] - shift[h >> 1]);
+          l[h >> 1] += s[n][h];
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < KD; ++n) {
+        o[n][0] *= alpha[0];
+        o[n][1] *= alpha[0];
+        o[n][2] *= alpha[1];
+        o[n][3] *= alpha[1];
+      }
+      // P·V over each 8-key slice, its keys taken in the order 2t, 2t + 1
+      // (k = t, t + 4 of the A fragment), which is where s holds them
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        unsigned ph[4], pl[4];
+        split_tf32(s[n][0], ph[0], pl[0]);
+        split_tf32(s[n][2], ph[1], pl[1]);
+        split_tf32(s[n][1], ph[2], pl[2]);
+        split_tf32(s[n][3], ph[3], pl[3]);
+        const float* vr = vs + (8 * n + 2 * t) * S + g;
+#pragma unroll
+        for (int dn = 0; dn < KD; ++dn)
+          mma_3xtf32(o[dn], ph, pl, vr[8 * dn], vr[S + 8 * dn]);
+      }
+    }
+    __syncthreads();  // the tile is consumed before its buffer refills
+  }
+  cp_async_wait<0>();
+
   // epilogue (kernels/attention.py:116-135): s = acc/l, rescaled onto the
   // hyperboloid with the kernel's clamps; rows with no valid key give 0
-  const float l_den = fmaxf(l, MIN_NORM_F32);
-  float sp = 0.0f;
-#pragma unroll
-  for (int t = 0; t < DP; ++t) {
-    acc[t] /= l_den;
-    sp = fmaf(t == 0 ? -acc[t] : acc[t], acc[t], sp);
-  }
-  const float nv = sqrtf(fmaxf(fmaxf(-sp, EPS_F32), 0.0f));
   const float sc = fmaxf(sqrtf(fmaxf(c, 0.0f)), MIN_NORM_F32);
-  const float scale = sc * nv;
-  float* o = out + ((size_t)b * nq + i) * d;
 #pragma unroll
-  for (int t = 0; t < DP; ++t)
-    if (t < d) o[t] = acc[t] / scale;
-  lse[(size_t)b * nq + i] =
-      l > 0.0f ? m + logf(fmaxf(l, 1e-38f)) : LSE_EMPTY;
-  nrm[(size_t)b * nq + i] = nv;
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(FULL, l[r], 1);
+    l[r] += __shfl_xor_sync(FULL, l[r], 2);
+    const float l_den = fmaxf(l[r], MIN_NORM_F32);
+    const float rcp_l = __frcp_rn(l_den);
+    float sp = 0.0f;
+#pragma unroll
+    for (int n = 0; n < KD; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float a = div_rcp(o[n][2 * r + e], l_den, rcp_l);
+        o[n][2 * r + e] = a;
+        sp = fmaf(n == 0 && t == 0 && e == 0 ? -a : a, a, sp);
+      }
+    }
+    sp += __shfl_xor_sync(FULL, sp, 1);
+    sp += __shfl_xor_sync(FULL, sp, 2);
+    const float nv = sqrtf(fmaxf(fmaxf(-sp, EPS_F32), 0.0f));
+    const float scale = sc * nv, rcp_s = __frcp_rn(scale);
+    const int row = r0 + g + 8 * r;
+    if (row >= nq) continue;
+    float* orow = out + ((size_t)b * nq + row) * d;
+#pragma unroll
+    for (int n = 0; n < KD; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * n + 2 * t + e;
+        if (col < d) orow[col] = div_rcp(o[n][2 * r + e], scale, rcp_s);
+      }
+    }
+    if (t == 0) {
+      lse[(size_t)b * nq + row] =
+          l[r] > 0.0f ? m[r] + logf(fmaxf(l[r], 1e-38f)) : LSE_EMPTY;
+      nrm[(size_t)b * nq + row] = nv;
+    }
+  }
 }
 
 // ---- dq --------------------------------------------------------------------
@@ -345,13 +688,17 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int DP>
 int launch_fwd(const float* q, const float* k, const float* v,
-               const unsigned char* mask, int group, const float* beta,
+               const unsigned* mask_bits, int group, const float* beta,
                const float* tau, float c, int b, int nq, int nk, int d,
                float* out, float* lse, float* nrm, cudaStream_t s) {
-  const dim3 grid((nq + ROWS - 1) / ROWS, b);
-  flash_fwd_kernel<DP><<<grid, ROWS, 0, s>>>(q, k, v, mask, group, beta,
-                                             tau, c, nq, nk, d, out, lse,
-                                             nrm);
+  const int smem = 2 * 2 * KT * (DP + 4) * (int)sizeof(float);
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((nq + FWD_ROWS - 1) / FWD_ROWS, b);
+  flash_fwd_kernel<DP><<<grid, FWD_THREADS, smem, s>>>(
+      q, k, v, mask_bits, group, beta, tau, c, nq, nk, d, out, lse, nrm);
   return 0;
 }
 
@@ -397,17 +744,27 @@ constexpr int MAX_DP = 72;
 
 // q [b, nq, d], k and v [b, nk, d], mask null or uint8 [b/group, nq, nk],
 // beta and tau [b]; writes out [b, nq, d], lse and nrm [b, nq].  All f32
-// and contiguous; 1 ≤ d ≤ 72.
+// and contiguous; 1 ≤ d ≤ 72.  With a mask, mask_bits is scratch of
+// (b/group)·nq·ceil(nk/32) words, which first receives the mask as bits.
 extern "C" int hs_flash_fwd(const float* q, const float* k, const float* v,
                             const unsigned char* mask, int group,
-                            const float* beta, const float* tau, float c,
-                            int b, int nq, int nk, int d, float* out,
-                            float* lse, float* nrm, void* stream) {
+                            unsigned* mask_bits, const float* beta,
+                            const float* tau, float c, int b, int nq, int nk,
+                            int d, float* out, float* lse, float* nrm,
+                            void* stream) {
   if (d < 1 || d > MAX_DP) return (int)cudaErrorInvalidValue;
   if (b > 0 && nq > 0) {
     cudaStream_t s = (cudaStream_t)stream;
     const int dp = (d + 7) / 8 * 8;
-#define HS_FWD(DPV) launch_fwd<DPV>(q, k, v, mask, group, beta, tau, c, b, \
+    const unsigned* bits = nullptr;
+    if (mask != nullptr && nk > 0) {
+      const long words = (long)(b / group) * nq * ((nk + 31) / 32);
+      const long blocks = (words + 7) / 8;  // a warp a word at most
+      pack_mask_kernel<<<(int)(blocks < 4096 ? blocks : 4096), 256, 0, s>>>(
+          mask, (long)(b / group) * nq, nk, (nk + 31) / 32, mask_bits);
+      bits = mask_bits;
+    }
+#define HS_FWD(DPV) launch_fwd<DPV>(q, k, v, bits, group, beta, tau, c, b, \
                                     nq, nk, d, out, lse, nrm, s)
     HS_DISPATCH(dp, HS_FWD)
 #undef HS_FWD

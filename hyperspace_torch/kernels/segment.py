@@ -13,10 +13,13 @@ For tensors on a CUDA device each launches its hand-written kernel in
 version.
 
 The JAX kernel walks a host-built plan of (node block × edge chunk)
-items; the CUDA kernel needs none (a warp owns a receiver row and walks
-its contiguous edge range).  :func:`build_csr_plan` is ported all the
-same, array-equal to the JAX one, because the JAX function and the
-graph layout carry it; the wrapper takes it and ignores it.
+items; the CUDA kernels need none (``csr_segment_sum`` and
+``csr_att_bwd_edges`` give a warp each receiver row's contiguous edge
+range; ``csr_segment_reduce_1d`` walks the edges in tiles, a row owned
+by the tile that holds its first edge).  :func:`build_csr_plan` is
+ported all the same, array-equal to the JAX one, because the JAX
+function and the graph layout carry it; the wrapper takes it and
+ignores it.
 """
 
 from __future__ import annotations
@@ -185,16 +188,14 @@ def csr_segment_reduce_1d(values: torch.Tensor, receivers: torch.Tensor, plan,
     if receivers.device != values.device:
         raise ValueError("csr_segment_reduce_1d: values and receivers on "
                          f"{values.device} and {receivers.device}")
-    dev = values.device
-    rowptr = torch.empty(num_segments + 1, dtype=torch.int32, device=dev)
-    out = torch.empty(num_segments, dtype=torch.float32, device=dev)
+    out = torch.empty(num_segments, dtype=torch.float32,
+                      device=values.device)
     P, I = ctypes.c_void_p, ctypes.c_int
     fn = S.function("segment", "hs_csr_segment_reduce_1d",
-                    [P, P, P, P, I, I, I, P])
-    S.check(fn(values.data_ptr(), receivers.data_ptr(), rowptr.data_ptr(),
-               out.data_ptr(), values.shape[0], num_segments,
-               int(op == "max"), S.stream_ptr(values)),
-            "csr_segment_reduce_1d")
+                    [P, P, P, I, I, I, P])
+    S.check(fn(values.data_ptr(), receivers.data_ptr(), out.data_ptr(),
+               values.shape[0], num_segments, int(op == "max"),
+               S.stream_ptr(values)), "csr_segment_reduce_1d")
     csr_segment_reduce_1d.launches += 1
     return out
 

@@ -397,14 +397,66 @@ def sorted_edges(rng, n, e):
     return np.concatenate([r, np.full(37, n - 1)]).astype(np.int32)
 
 
-@pytest.mark.parametrize("n,e", [(300, 2000), (7, 3), (2000, 200000),
-                                 (64, 0)])
-def test_csr_segment_reduce_1d_kernel_matches_plain(dev, n, e):
+def reduce_1d_case(rng, n, e, kind, dev):
+    """(values, receivers) of a B3 case; ``e`` counts the real edges
+    and a padding tail of 0s (``random``, ``offset``) or all edges (the
+    others).  The kernel takes tiles of 1024 edges:
+    ``hub`` puts one row across many tiles, ``boundary`` ends rows
+    exactly at tile ends, ``crossing`` runs rows over them, ``offset``
+    hands both arrays over as views 4 bytes off 16-byte alignment,
+    ``gaps`` leaves most rows between two edges empty (more long runs of
+    empty rows in a tile than the block queues), ``short`` leaves a long
+    empty range mid-way and stops far short of ``n - 1``, and ``none``
+    has no edge at all."""
+    if kind in ("random", "offset"):
+        r = sorted_edges(rng, n, e)         # e real edges, 37 padding
+    elif kind == "hub":
+        r = np.sort(np.concatenate([np.full(9000, n // 2),
+                                    rng.integers(0, n, e)]))
+    elif kind == "boundary":
+        r = np.repeat(np.arange(4), [1024, 1024, 512, 512])
+    elif kind == "crossing":
+        r = np.repeat(np.arange(5), [1000, 100, 2000, 5, 3])
+    elif kind == "gaps":
+        r = np.sort(rng.choice(n, e, replace=False))
+    elif kind == "short":
+        r = np.sort(np.concatenate([rng.integers(0, 500, e // 2),
+                                    rng.integers(n // 2, n // 2 + 500,
+                                                 e - e // 2)]))
+    else:
+        r = np.zeros(0)
+    r = r.astype(np.int32)
+    v = rng.standard_normal(len(r))
+    if kind in ("random", "offset"):
+        v[e:] = 0
+    if kind == "offset":
+        rb = torch.zeros(len(r) + 1, dtype=torch.int32, device=dev)
+        vb = torch.zeros(len(r) + 1, dtype=torch.float32, device=dev)
+        rb[1:] = torch.as_tensor(r, device=dev)
+        vb[1:] = torch.as_tensor(v, dtype=torch.float32, device=dev)
+        return vb[1:], rb[1:]
+    return (torch.as_tensor(v, dtype=torch.float32, device=dev),
+            torch.as_tensor(r, device=dev))
+
+
+@pytest.mark.parametrize("n,e,kind", [
+    pytest.param(300, 2000, "random", id="300-2000"),
+    pytest.param(7, 3, "random", id="7-3"),
+    pytest.param(2000, 200000, "random", id="2000-200000"),
+    pytest.param(64, 0, "random", id="64-0"),
+    pytest.param(500, 3000, "hub", id="hub-over-tiles"),
+    pytest.param(6, 3072, "boundary", id="rows-end-at-tile-ends"),
+    pytest.param(7, 3108, "crossing", id="rows-cross-tile-ends"),
+    pytest.param(3000, 50000, "offset", id="unaligned-views"),
+    pytest.param(900, 300, "random", id="under-one-tile"),
+    pytest.param(169343, 2000, "gaps", id="many-long-gaps"),
+    pytest.param(169343, 5000, "short", id="receivers-stop-short"),
+    pytest.param(50, 0, "none", id="no-edges")])
+def test_csr_segment_reduce_1d_kernel_matches_plain(dev, n, e, kind):
     rng = np.random.default_rng(n + e)
-    rr = torch.as_tensor(sorted_edges(rng, n, e), device=dev)
-    v = torch.as_tensor(rng.standard_normal(len(rr)), dtype=torch.float32,
-                        device=dev)
-    v[e:] = 0
+    v, rr = reduce_1d_case(rng, n, e, kind, dev)
+    if kind == "offset":
+        assert v.data_ptr() % 16 and rr.data_ptr() % 16
     k = torch.bincount(rr.long(), minlength=n).float()
     for op in ("sum", "max"):
         before = csr_segment_reduce_1d.launches
@@ -628,12 +680,21 @@ def scaled_err(got, want) -> float:
                                                   1e-3)
 
 
-# b, group, nq, nk, d, masked, empty query rows
+# b, group, nq, nk, d, masked, empty query rows ("all": every row of the
+# first sequence); D from 1 to 72, ragged Nq (not a multiple of 16) and
+# Nk (not a multiple of 8), a mask over an odd Nk
 FLASH_SHAPES = [(8, 4, 128, 128, 33, True, (100, 127)),
                 (6, 2, 70, 130, 9, True, (0, 69)),
                 (3, 1, 1, 200, 33, False, ()),
                 (2, 1, 65, 33, 72, True, (64,)),
-                (4, 4, 31, 257, 16, True, ())]
+                (4, 4, 31, 257, 16, True, ()),
+                (2, 1, 40, 50, 1, True, ()),
+                (2, 2, 64, 64, 8, False, ()),
+                (4, 2, 96, 150, 40, True, (5,)),
+                (2, 1, 17, 70, 33, True, ()),
+                (3, 1, 40, 9, 33, True, ()),
+                (4, 2, 50, 33, 33, True, (3,)),
+                (4, 2, 48, 100, 33, True, "all")]
 
 
 @pytest.mark.parametrize("shape", FLASH_SHAPES)
@@ -642,19 +703,26 @@ def test_flash_kernels_match_plain(dev, shape):
 
     b, group, nq, nk, d, masked, empty = shape
     rng = np.random.default_rng(nq + nk + d)
+    rows_out = () if empty == "all" else empty
     q, k, v, beta, tau, mask = attention_case(rng, dev, b, group, nq, nk, d,
-                                              masked, empty)
+                                              masked, rows_out)
+    if empty == "all":
+        mask[0] = 0                 # every head of the first sequence
     before = (A.flash_fwd.launches, A.flash_dq.launches,
               A.flash_dkv.launches)
     out, lse, nrm = A.flash_fwd(q, k, v, 1.0, beta, tau, mask, group)
+    out2, lse2, _ = A.flash_fwd(q, k, v, 1.0, beta, tau, mask, group)
     torch.cuda.synchronize()
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
     w_out, w_lse, w_nrm = A.flash_fwd_plain(q, k, v, 1.0, beta, tau, mask,
                                             group)
     torch.testing.assert_close(out, w_out, rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(lse, w_lse, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(nrm, w_nrm, rtol=1e-4, atol=1e-6)
-    for r in empty:
+    for r in rows_out:
         assert torch.all(out[:, r] == 0) and torch.all(lse[:, r] == 1e30)
+    if empty == "all":
+        assert torch.all(out[:group] == 0) and torch.all(lse[:group] == 1e30)
     dsp = torch.randn(out.shape, device=dev)
     di = torch.sum(dsp * out, dim=-1)
     got = (*A.flash_dq(q, k, v, 1.0, beta, tau, mask, group, dsp, lse, di),
@@ -668,7 +736,8 @@ def test_flash_kernels_match_plain(dev, shape):
         assert torch.all(torch.isfinite(g))
         assert scaled_err(g, w) < 1e-4
     assert (A.flash_fwd.launches, A.flash_dq.launches,
-            A.flash_dkv.launches) == tuple(x + 1 for x in before)
+            A.flash_dkv.launches) == (before[0] + 2, before[1] + 1,
+                                      before[2] + 1)
 
 
 def test_flash_attention_gradients_match_dense_twin(dev):
