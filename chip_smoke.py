@@ -117,7 +117,9 @@ prints its seconds):
    device busy time, idle share and peak memory;
 23. print the kernels line (device times of each kernel and its plain
    version at the main paths' shapes, bounds, launches, the library
-   call's time), the top-k throughput at bucket 1024 (batches of cold ids
+   call's time: for flash dq and dk/dv together, the one backward call
+   of ``scaled_dot_product_attention``; their blocks an SM and parts),
+   the top-k throughput at bucket 1024 (batches of cold ids
    through the batcher, the engine call alone, and the card's busy
    share), the ``nvidia-smi`` line, and finally
    ``{"ok": true, "device": {...}}``.
@@ -180,6 +182,12 @@ def device_items(torch, fn, reps: int) -> dict:
     launch times its launches per call (its count over ``reps``, rounded
     up): a dropped event does not read as a faster call.  A window with
     no device event is profiled once more, and else ``{}`` is returned."""
+    return profile_items(torch, fn, reps)[0]
+
+
+def profile_items(torch, fn, reps: int) -> tuple[dict, list]:
+    """(:func:`device_items`, the names of the host operators ``fn``
+    ran in the same window)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -191,14 +199,16 @@ def device_items(torch, fn, reps: int) -> dict:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
+        events = prof.key_averages()
         items = {e.key: e.self_device_time_total / 1e3 / e.count
                  * -(-e.count // reps)
-                 for e in prof.key_averages()
+                 for e in events
                  if e.device_type == DeviceType.CUDA
                  and e.self_device_time_total > 0}
         if items:
-            return items
-    return {}
+            return items, sorted({e.key for e in events
+                                  if e.device_type == DeviceType.CPU})
+    return {}, []
 
 
 def device_ms(torch, fn, reps: int = 20) -> float:
@@ -1253,11 +1263,13 @@ def hybonet_kernel_entries(torch, hb: dict, card: dict) -> list:
                    lambda ba=ba: A.flash_dq_plain(*ba)),
             "dkv": (lambda ba=ba: A.flash_dkv(*ba),
                     lambda ba=ba: A.flash_dkv_plain(*ba))}
-    # the library yardstick: one scaled_dot_product_attention call on
-    # (q·2/τ, Jk, v) with the boolean mask (the score's constant (2/c +
-    # β)/τ cancels in the softmax), D zero-padded to 40, then the
-    # elementwise Lorentz epilogue
-    def library(x):
+    # the library yardsticks, on (q·2/τ, Jk, v) with the boolean mask (the
+    # score's constant (2/c + β)/τ cancels in the softmax), D zero-padded
+    # to 40: one scaled_dot_product_attention call and the elementwise
+    # Lorentz epilogue for the forward; for dq and dk/dv together, the one
+    # backward call that its autograd makes (its forward and the epilogue
+    # outside the timed window)
+    def sdpa_inputs(x):
         bsz, h = x["batch"], x["heads"]
         d = x["q"].shape[-1]
 
@@ -1265,10 +1277,13 @@ def hybonet_kernel_entries(torch, hb: dict, card: dict) -> list:
             return torch.nn.functional.pad(t, (0, 40 - d)).reshape(
                 bsz, h, t.shape[1], 40)
 
-        qs = pad40(x["q"] * (2.0 / x["tau_b"])[:, None, None])
-        kf = pad40(torch.cat([-x["k"][..., :1], x["k"][..., 1:]], dim=-1))
-        vs = pad40(x["v"])
-        mb = x["mask"].bool()[:, None]
+        return (pad40(x["q"] * (2.0 / x["tau_b"])[:, None, None]),
+                pad40(torch.cat([-x["k"][..., :1], x["k"][..., 1:]], dim=-1)),
+                pad40(x["v"]), x["mask"].bool()[:, None])
+
+    def library(x):
+        qs, kf, vs, mb = sdpa_inputs(x)
+        d = x["q"].shape[-1]
 
         def run():
             s = torch.nn.functional.scaled_dot_product_attention(
@@ -1276,9 +1291,34 @@ def hybonet_kernel_entries(torch, hb: dict, card: dict) -> list:
             return A._epilogue(s, C)
         return run
 
+    def library_bwd(x):
+        qs, kf, vs, mb = sdpa_inputs(x)
+        leaves = [t.detach().requires_grad_() for t in (qs, kf, vs)]
+        o = torch.nn.functional.scaled_dot_product_attention(
+            *leaves, attn_mask=mb, scale=1.0)
+        go = torch.randn_like(o)
+
+        def run():
+            return torch.autograd.grad(o, leaves, go, retain_graph=True)
+        return run
+
     library_ms = {src: device_ms(torch, library(x),
                                  reps=5 if src == "long" else 20)
                   for src, x in hb["inputs"].items()}
+    library_bwd_ms, bwd_call = {}, "not recorded"
+    for src, x in hb["inputs"].items():
+        fn = library_bwd(x)
+        items, ops = profile_items(torch, fn, 5 if src == "long" else 20)
+        library_bwd_ms[src] = (sum(items.values()) if items
+                               else timed_ms(torch, fn))
+        if src == "bench" and items:
+            ops = [o for o in ops if "backward" in o and "aten::" in o]
+            bwd_call = (f"{', '.join(ops)}; largest kernel "
+                        f"{max(items, key=items.get)[:100]}")
+        del fn
+    bwd_library = ("one backward of scaled_dot_product_attention on (q·2/τ, "
+                   "Jk, v), D padded to 40, bool mask, computing dq, dk and "
+                   f"dv together (compare with dq + dk/dv): {bwd_call}")
     names = {"fwd": ("flash_attention_fwd", "hs_flash_fwd", ":199"),
              "dq": ("flash_attention_dq", "hs_flash_dq", ":410"),
              "dkv": ("flash_attention_dkv", "hs_flash_dkv", ":461")}
@@ -1298,20 +1338,34 @@ def hybonet_kernel_entries(torch, hb: dict, card: dict) -> list:
              "ms": device_ms(torch, kern),
              "plain_ms": device_ms(torch, plain, reps=5),
              "bound_ms": bd, "bound_by": bby,
-             "library_ms": library_ms["bench"] if kind == "fwd" else None,
+             "library_ms": (library_ms if kind == "fwd"
+                            else library_bwd_ms)["bench"],
              "library_call": ("scaled_dot_product_attention on (q·2/τ, Jk, "
                               "v), D padded to 40, bool mask, + epilogue"
-                              if kind == "fwd" else None),
+                              if kind == "fwd" else bwd_library),
              "mask": "uint8 [B, Nq, Nk] shared by the heads",
              "call_ms": timed_ms(torch, kern)}
+        if kind != "fwd":        # the parts the wrapper cut each launch into
+            which = 0 if kind == "dq" else 1
+            qb = hb["inputs"]["bench"]["q"]
+            e["blocks_per_sm"] = A._blocks_per_sm(qb.device.index, which,
+                                                  qb.shape[2])
+            e["blocks_per_sm_from"] = "hs_flash_bwd_blocks_per_sm"
+            e["parts"] = {}
+            for src, x in hb["inputs"].items():
+                b_, nq_, d_ = x["q"].shape
+                nk_ = x["k"].shape[1]
+                e["parts"][src] = A._splits(
+                    x["q"].device, which, b_, nq_ if kind == "dq" else nk_,
+                    nk_ if kind == "dq" else nq_, d_)
         for src, reps in (("long", 5), ("cli", 20)):
             k2, _ = runs[src][kind]
             e[f"ms_{src}"] = device_ms(torch, k2, reps=reps)
             e[f"bound_ms_{src}"] = bound_ms(*flash_cost(hb["inputs"][src],
                                                         kind))[0]
             e[f"shape_{src}"] = list(hb["inputs"][src]["q"].shape)
-            if kind == "fwd":
-                e[f"library_ms_{src}"] = library_ms[src]
+            e[f"library_ms_{src}"] = (library_ms if kind == "fwd"
+                                      else library_bwd_ms)[src]
         entries.append({**e, **card})
     gen = torch.Generator(device=dev).manual_seed(12)
     mlr_args = {}

@@ -29,6 +29,7 @@ heads of a sequence), not as JAX's dense f32 [B·h, Nq, Nk]; its meaning
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional
 
@@ -184,6 +185,58 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def _bits_scratch(mask3, rows: int, cols: int):
+    """Scratch for the mask as bits, one int32 word per 32 columns of
+    each of a sequence's ``rows`` rows; None without a mask."""
+    if mask3 is None:
+        return None
+    return torch.empty(mask3.shape[0] * rows * -(-cols // 32),
+                       dtype=torch.int32, device=mask3.device)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _blocks_per_sm(index: int, which: int, d: int) -> int:
+    """Blocks of the dq (``which`` 0) or dk/dv (1) kernel at width d
+    resident on one streaming multiprocessor of device ``index``."""
+    fn = S.function("attention", "hs_flash_bwd_blocks_per_sm", [_I, _I])
+    with torch.cuda.device(index):
+        n = fn(which, d)
+    if n < 1:
+        raise RuntimeError(f"flash backward: occupancy query failed ({n})")
+    return n
+
+
+def split_count(blocks: int, tiles: int, sms: int, per_sm: int) -> int:
+    """Parts a backward kernel cuts the other side into: a launch of
+    ``blocks`` blocks a part, each part ``tiles``/parts of the other
+    side's 64-row tiles (the parts differ by one at most), ``per_sm``
+    blocks resident on each of ``sms`` SMs.  From the fewest parts that
+    put two blocks on every SM, the count that needs the fewest rounds of
+    resident blocks × (tiles of the longest part + 1, its set-up) wins,
+    the fewer parts on a tie; never more parts than tiles, so none is
+    empty."""
+    if tiles <= 1:
+        return 1
+    lo = min(tiles, -(-2 * sms // max(blocks, 1)))
+    return min(range(lo, min(tiles, lo + 8) + 1),
+               key=lambda s: (-(-blocks * s // (sms * per_sm))
+                              * (-(-tiles // s) + 1), s))
+
+
+def _splits(device, which: int, b: int, rows: int, other: int,
+            d: int) -> int:
+    """:func:`split_count` for a launch on ``device`` with b·ceil(rows/64)
+    blocks a part and the kernel's occupancy at width d."""
+    return split_count(b * -(-rows // 64), -(-other // 64),
+                       _sm_count(device.index),
+                       _blocks_per_sm(device.index, which, d))
+
+
 def flash_fwd(q, k, v, c: float, beta_b, tau_b, mask3=None, group: int = 1):
     """Forward kernel: (out [B, Nq, D], lse [B, Nq], nrm [B, Nq]) for q
     [B, Nq, D], k and v [B, Nk, D], β and τ [B], mask3 None or uint8
@@ -196,10 +249,7 @@ def flash_fwd(q, k, v, c: float, beta_b, tau_b, mask3=None, group: int = 1):
     out = torch.empty_like(q)
     lse = torch.empty((b, nq), dtype=torch.float32, device=q.device)
     nrm = torch.empty_like(lse)
-    # scratch for the mask as bits, one int32 word per 32 keys of a row
-    bits = None if mask3 is None else torch.empty(
-        mask3.shape[0] * nq * -(-nk // 32), dtype=torch.int32,
-        device=q.device)
+    bits = _bits_scratch(mask3, nq, nk)
     fn = S.function("attention", "hs_flash_fwd",
                     [_P, _P, _P, _P, _I, _P, _P, _P, _F, _I, _I, _I, _I, _P,
                      _P, _P, _P])
@@ -214,25 +264,30 @@ def flash_fwd(q, k, v, c: float, beta_b, tau_b, mask3=None, group: int = 1):
 def flash_dq(q, k, v, c: float, beta_b, tau_b, mask3, group, dsp, lse, di):
     """dq kernel: (dq [B, Nq, D], dst [B]) from the epilogue's cotangent
     dsp [B, Nq, D], lse and di = Σ dsp·s_pre [B, Nq].  The kernel writes
-    one partial of Σ dσ·σ per 64-query block; they are summed here in a
-    fixed order."""
+    one partial of Σ dσ·σ per 64-query block and part of the keys; they
+    are summed here in a fixed order."""
     if not _check("flash_dq", q, k, v, beta_b, tau_b, mask3, group, dsp,
                   lse, di):
         return flash_dq_plain(q, k, v, c, beta_b, tau_b, mask3, group, dsp,
                               lse, di)
     b, nq, d = q.shape
+    nk = k.shape[1]
+    splits = _splits(q.device, 0, b, nq, nk, d)
     dq = torch.empty_like(q)
-    part = torch.empty((b, -(-nq // 64)), dtype=torch.float32,
+    dq_part = None if splits == 1 else q.new_empty((splits,) + q.shape)
+    part = torch.empty((b, splits * -(-nq // 64)), dtype=torch.float32,
                        device=q.device)
+    bits = _bits_scratch(mask3, nq, nk)
     fn = S.function("attention", "hs_flash_dq",
-                    [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _F, _I, _I, _I,
-                     _I, _P, _P, _P])
+                    [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _F, _I, _I,
+                     _I, _I, _I, _P, _P, _P, _P])
     S.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dsp.data_ptr(),
-               lse.data_ptr(), di.data_ptr(), _ptr(mask3), group,
-               beta_b.data_ptr(), tau_b.data_ptr(), c, b, nq, k.shape[1], d,
-               dq.data_ptr(), part.data_ptr(), S.stream_ptr(q)), "flash_dq")
+               lse.data_ptr(), di.data_ptr(), _ptr(mask3), group, _ptr(bits),
+               beta_b.data_ptr(), tau_b.data_ptr(), c, b, nq, nk, d, splits,
+               dq.data_ptr(), _ptr(dq_part), part.data_ptr(),
+               S.stream_ptr(q)), "flash_dq")
     flash_dq.launches += 1
-    return dq, part.sum(dim=1)
+    return dq, part[:, 0] if part.shape[1] == 1 else part.sum(dim=1)
 
 
 def flash_dkv(q, k, v, c: float, beta_b, tau_b, mask3, group, dsp, lse, di):
@@ -242,14 +297,19 @@ def flash_dkv(q, k, v, c: float, beta_b, tau_b, mask3, group, dsp, lse, di):
         return flash_dkv_plain(q, k, v, c, beta_b, tau_b, mask3, group, dsp,
                                lse, di)
     b, nq, d = q.shape
+    nk = k.shape[1]
+    splits = _splits(q.device, 1, b, nk, nq, d)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    dkv_part = None if splits == 1 else k.new_empty((2, splits) + k.shape)
+    bits_t = _bits_scratch(mask3, nk, nq)   # the mask transposed, as bits
     fn = S.function("attention", "hs_flash_dkv",
-                    [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _F, _I, _I, _I,
-                     _I, _P, _P, _P])
+                    [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _F, _I, _I,
+                     _I, _I, _I, _P, _P, _P, _P])
     S.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dsp.data_ptr(),
                lse.data_ptr(), di.data_ptr(), _ptr(mask3), group,
-               beta_b.data_ptr(), tau_b.data_ptr(), c, b, nq, k.shape[1], d,
-               dk.data_ptr(), dv.data_ptr(), S.stream_ptr(q)), "flash_dkv")
+               _ptr(bits_t), beta_b.data_ptr(), tau_b.data_ptr(), c, b, nq,
+               nk, d, splits, dk.data_ptr(), dv.data_ptr(), _ptr(dkv_part),
+               S.stream_ptr(q)), "flash_dkv")
     flash_dkv.launches += 1
     return dk, dv
 

@@ -682,7 +682,9 @@ def scaled_err(got, want) -> float:
 
 # b, group, nq, nk, d, masked, empty query rows ("all": every row of the
 # first sequence); D from 1 to 72, ragged Nq (not a multiple of 16) and
-# Nk (not a multiple of 8), a mask over an odd Nk
+# Nk (not a multiple of 8), a mask over an odd Nk; the last two launch too
+# few blocks to fill the card, so the backward kernels cut the other side
+# into parts (ragged ones in the last)
 FLASH_SHAPES = [(8, 4, 128, 128, 33, True, (100, 127)),
                 (6, 2, 70, 130, 9, True, (0, 69)),
                 (3, 1, 1, 200, 33, False, ()),
@@ -694,7 +696,9 @@ FLASH_SHAPES = [(8, 4, 128, 128, 33, True, (100, 127)),
                 (2, 1, 17, 70, 33, True, ()),
                 (3, 1, 40, 9, 33, True, ()),
                 (4, 2, 50, 33, 33, True, (3,)),
-                (4, 2, 48, 100, 33, True, "all")]
+                (4, 2, 48, 100, 33, True, "all"),
+                (2, 2, 2048, 2048, 33, True, (5,)),
+                (2, 1, 700, 2100, 33, True, (3, 699))]
 
 
 @pytest.mark.parametrize("shape", FLASH_SHAPES)
@@ -738,6 +742,29 @@ def test_flash_kernels_match_plain(dev, shape):
     assert (A.flash_fwd.launches, A.flash_dq.launches,
             A.flash_dkv.launches) == (before[0] + 2, before[1] + 1,
                                       before[2] + 1)
+
+
+@pytest.mark.parametrize("shape", [FLASH_SHAPES[0], FLASH_SHAPES[-2],
+                                   FLASH_SHAPES[-1]])
+def test_flash_backward_kernels_repeat_bitwise(dev, shape):
+    """dq, dτ's partials, dk and dv of two launches on the same inputs
+    are equal bit for bit, with the other side cut into parts or not."""
+    from hyperspace_torch.kernels import attention as A
+
+    b, group, nq, nk, d, masked, empty = shape
+    rng = np.random.default_rng(nq + nk + d + 1)
+    q, k, v, beta, tau, mask = attention_case(rng, dev, b, group, nq, nk, d,
+                                              masked, empty)
+    out, lse, _ = A.flash_fwd(q, k, v, 1.0, beta, tau, mask, group)
+    dsp = torch.as_tensor(rng.standard_normal(tuple(out.shape)),
+                          dtype=torch.float32, device=dev)
+    di = torch.sum(dsp * out, dim=-1)
+    args = (q, k, v, 1.0, beta, tau, mask, group, dsp, lse, di)
+    first = (*A.flash_dq(*args), *A.flash_dkv(*args))
+    again = (*A.flash_dq(*args), *A.flash_dkv(*args))
+    torch.cuda.synchronize()
+    for a, b_ in zip(first, again):
+        assert torch.equal(a, b_)
 
 
 def test_flash_attention_gradients_match_dense_twin(dev):

@@ -12,6 +12,14 @@ chip smoke's ``hb_inputs``: spatial parts of std 0.5, and wider radii up
 to 3) and held against a float64 reference with the kernel's own
 tolerances (out rtol 1e-4 / atol 1e-5, lse 1e-5·(1 + |lse|)).  A single
 TF32 product per pair is shown to miss them.
+
+The backward kernels take their products the same way: the Grams again,
+dsp·Vᵀ and dσ·K (dq), Pᵀ·dsp, V·dspᵀ and dσᵀ·Q (dk/dv), with P and dσ
+split into hi and lo before they are multiplied.  dq, dk and dv are held
+against float64 at the kernels' tolerance (largest error over the
+largest entry below 1e-4, as ``tests/test_torch_cuda.py`` holds the
+kernels against their plain versions), and a single TF32 product is
+shown to miss it.
 """
 
 import numpy as np
@@ -20,6 +28,7 @@ import torch
 
 OUT_RTOL, OUT_ATOL = 1e-4, 1e-5
 LSE_TOL = 1e-5
+GRAD_TOL = 1e-4
 
 
 def tf32(x: torch.Tensor) -> torch.Tensor:
@@ -143,3 +152,71 @@ def test_three_term_split_meets_the_kernel_tolerances(d, radius):
 def test_one_tf32_product_misses_them(d, radius):
     out_bad, lse_bad = misses(d, radius, 1)
     assert out_bad + lse_bad > 0
+
+
+def flip(x: torch.Tensor) -> torch.Tensor:
+    """J x: lane 0 negated."""
+    return torch.cat([-x[..., :1], x[..., 1:]], dim=-1)
+
+
+def backward(q, k, v, dsp, beta, tau, valid, lse, di, prod):
+    """The backward kernels' arithmetic (``flash_dq_plain`` and
+    ``flash_dkv_plain``, c = 1) as the kernels order it, with every
+    product supplied: (dq, dk, dv).  J and 2/τ are applied after the
+    sums, as the kernels apply them at the store, and dP − di is taken
+    about the first value row, as the kernels take it."""
+    t = (lambda x: x.transpose(-1, -2))
+    m = v[:, :1, :]                  # dP − di = ⟨dsp, v − m⟩ − (di − ⟨dsp, m⟩)
+    dic = di - torch.sum(dsp * m, dim=-1)
+    sigma = (2.0 + 2.0 * prod(q, t(flip(k))) + beta) / tau
+    p = torch.where(valid, torch.exp(sigma - lse[..., None]), 0.0)
+    dsig = p * (prod(dsp, t(v - m)) - dic[..., None])
+    dq = (2.0 / tau) * flip(prod(dsig, k))
+    sigma_t = (2.0 + 2.0 * prod(flip(k), t(q)) + beta) / tau
+    p_t = torch.where(t(valid), torch.exp(sigma_t - lse[:, None, :]), 0.0)
+    dv = prod(p_t, dsp)
+    dsig_t = p_t * (prod(v - m, t(dsp)) - dic[:, None, :])
+    dk = (2.0 / tau) * flip(prod(dsig_t, q))
+    return dq, dk, dv
+
+
+def backward_case(d, radius):
+    """``case``'s rows with a cotangent dsp of the pre-normalisation
+    average s, and lse and di = Σ dsp·s from the float64 forward."""
+    (q, k, v), valid, beta, tau = case(d, radius)
+    rng = np.random.default_rng(7 + 97 * d + int(10 * (radius or 0)))
+    dsp = torch.as_tensor(rng.standard_normal(tuple(q.shape)))
+    sigma = (2.0 + 2.0 * q @ flip(k).transpose(-1, -2) + beta) / tau
+    logits = torch.where(valid, sigma, -torch.inf)
+    lse = torch.logsumexp(logits, dim=-1)
+    s = torch.exp(logits - lse[..., None]) @ v
+    di = torch.sum(dsp * s, dim=-1)
+    return q, k, v, dsp, beta, tau, valid, lse, di
+
+
+def backward_errors(d, radius, terms):
+    """Largest error over the largest entry of dq, dk and dv when every
+    product takes ``terms`` TF32 products (f32 inputs), against float64."""
+    args = backward_case(d, radius)
+    want = backward(*args, torch.matmul)
+    f32 = [a.float() if a.is_floating_point() else a for a in args]
+
+    def emulated(a, b_):
+        return product(a, b_, terms)
+
+    got = backward(*f32, emulated)
+    return [float((g.double() - w).abs().max()) / max(float(w.abs().max()),
+                                                      1e-3)
+            for g, w in zip(got, want)]
+
+
+@pytest.mark.parametrize("radius", [None, 1.0, 2.0, 3.0])
+@pytest.mark.parametrize("d", [9, 17, 33, 72])
+def test_backward_three_term_split_meets_the_kernel_tolerance(d, radius):
+    assert max(backward_errors(d, radius, 3)) < GRAD_TOL
+
+
+@pytest.mark.parametrize("radius", [None, 3.0])
+@pytest.mark.parametrize("d", [9, 33, 72])
+def test_backward_one_tf32_product_misses_it(d, radius):
+    assert max(backward_errors(d, radius, 1)) > GRAD_TOL
