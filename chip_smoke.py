@@ -58,7 +58,10 @@ prints its seconds):
    config), with padded sequences (query rows with no valid key) and an
    extra case whose lengths are not a tile multiple: forward output and
    lse; dq, dk, dv and dτ of the whole Function against autograd of the
-   dense twin; MLR logits;
+   dense twin (dτ against its float64 twin), for an output cotangent
+   drawn from a generator seeded from ``--seed``, each held norm-wise
+   (largest error over the case's largest entry) as the JAX package
+   holds its own kernel; MLR logits;
 13. the HyboNet bench legs (``workloads_bench``: ``hybonet`` and
    ``hybonet_long``): step ms, tokens/s, device busy ms and idle share,
    peak memory, the largest device items, and each kernel's launch count
@@ -79,7 +82,10 @@ prints its seconds):
    k = 10 and 256, a 37-wide list with pads in mid-list, a query with no
    candidate and k above the reachable, queries off the table without
    ``exclude_self``, hyperboloid rows; the ADC scan at the path's m = 3,
-   k = 170, at m = 8, k = 256, and with ``col0`` and ``n`` cut; each
+   k = 170, at m = 8, k = 256, and with ``col0`` and ``n`` cut; both
+   slab scans at the path's shapes on an insertion storm (every row
+   nearer than all before it) and on identical rows or codes, whose ids
+   must equal the plain version's and be the lowest k columns; each
    launched twice must give the same bits;
 18. the lanes through the ``serve`` loop: f32 exact, nprobe 1, 2, 4, 8,
    PQ, and PQ with nprobe 8, each under ``two_stage`` and ``fused``,
@@ -118,7 +124,8 @@ prints its seconds):
 23. print the kernels line (device times of each kernel and its plain
    version at the main paths' shapes, bounds, launches, the library
    call's time: for flash dq and dk/dv together, the one backward call
-   of ``scaled_dot_product_attention``; their blocks an SM and parts),
+   of ``scaled_dot_product_attention``; their blocks an SM and parts;
+   for the two slab scans the scan kernel and the split merge apart),
    the top-k throughput at bucket 1024 (batches of cold ids
    through the batcher, the engine call alone, and the card's busy
    share), the ``nvidia-smi`` line, and finally
@@ -175,40 +182,27 @@ def timed_ms(torch, fn, reps: int = 20) -> float:
 
 def device_items(torch, fn, reps: int) -> dict:
     """Device time per call of ``fn`` by item (kernel, copy, fill) under
-    ``torch.profiler``: only the events that ran on the card, so a host
-    operator and the kernels it launched are not counted twice.  Late in
-    a long process the profiler drops some device events, so an
-    item's time per call is its mean time per recorded
-    launch times its launches per call (its count over ``reps``, rounded
-    up): a dropped event does not read as a faster call.  A window with
-    no device event is profiled once more, and else ``{}`` is returned."""
+    ``torch.profiler`` (``benchmarks/devtime.py``): only the events that
+    ran on the card, a dropped launch not read as a faster call, and a
+    window whose timestamps disagree with CUDA events (a calibration
+    spin timed both ways) profiled again.  ``{}`` when no window
+    recorded a device event."""
     return profile_items(torch, fn, reps)[0]
 
 
 def profile_items(torch, fn, reps: int) -> tuple[dict, list]:
     """(:func:`device_items`, the names of the host operators ``fn``
-    ran in the same window)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    ran in the same window).  Each window refused because the profiler's
+    timestamps disagree with the card's clock is reported on a line of
+    its own."""
+    from hyperspace_torch.benchmarks.devtime import profile_window
 
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(2):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        events = prof.key_averages()
-        items = {e.key: e.self_device_time_total / 1e3 / e.count
-                 * -(-e.count // reps)
-                 for e in events
-                 if e.device_type == DeviceType.CUDA
-                 and e.self_device_time_total > 0}
-        if items:
-            return items, sorted({e.key for e in events
-                                  if e.device_type == DeviceType.CPU})
-    return {}, []
+    items, ops, windows = profile_window(torch, fn, reps)
+    for win in windows:
+        if items and not win["accepted"]:
+            emit({"phase": "profiler_window_refused",
+                  "item": max(items, key=items.get)[:80], **win})
+    return items, ops
 
 
 def device_ms(torch, fn, reps: int = 20) -> float:
@@ -244,6 +238,19 @@ def device_share(torch, fn, wall_ms: float, reps: int = 5,
             "device_idle_share": 1.0 - busy / wall_ms,
             "hand_kernels_ms": hand, "device_items": len(items),
             "top_device_ms": named}
+
+
+def scan_parts(torch, fn, reps: int = 20) -> dict:
+    """Device ms of one slab top-k call (``ms``: every item it runs on
+    the card) and of its scan kernel and its split merge apart."""
+    items = device_items(torch, fn, reps)
+    if not items:
+        emit({"phase": "profiler_fallback", "reps": reps})
+        return {"ms": timed_ms(torch, fn, reps), "scan_ms": None,
+                "merge_ms": None}
+    return {"ms": sum(items.values()),
+            "scan_ms": sum(v for k, v in items.items() if "scan_" in k),
+            "merge_ms": sum(v for k, v in items.items() if "merge" in k)}
 
 
 def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
@@ -950,9 +957,10 @@ FLASH_RTOL, FLASH_ATOL = 1e-4, 1e-5
 LSE_TOL = 1e-5
 MLR_RTOL, MLR_ATOL = 1e-4, 1e-5
 # the whole Function against autograd of the dense twin: largest error
-# over the largest entry, as the JAX package holds its own kernel; dτ
-# (a sum with cancellation over every pair) against the float64 twin,
-# within FLASH_GRAD_TOL of it plus 4× the f32 twin's own error
+# over the largest entry, as the JAX package holds its own kernel
+# (tests/kernels/test_attention.py, test_flash_backward_matches_twin);
+# dτ the same way against the float64 twin, over the case: a head's dτ
+# sums every pair's dσ·σ in f32 and may cancel far below its terms
 FLASH_GRAD_TOL = 2e-3
 HB_CARD_CPU_RTOL = 1e-4
 HB_CLI_YAML = os.path.join("configs", "hybonet_textclf.yaml")
@@ -1006,10 +1014,11 @@ def hb_inputs(torch, rng, dev, batch, heads, length, dim, min_len):
             "valid_pairs": int(att.sum()) * heads}
 
 
-def check_flash(torch, label, x) -> dict:
+def check_flash(torch, label, x, gen) -> dict:
     """Forward (out, lse) against the forward kernel's plain version; dq,
     dk, dv and dτ of the whole Function against the dense twin's
-    autograd.  Returns the largest errors."""
+    autograd, for an output cotangent drawn from ``gen``.  Returns the
+    largest errors."""
     from hyperspace_torch.kernels import attention as A
 
     q, k, v, mask, g = x["q"], x["k"], x["v"], x["mask"], x["group"]
@@ -1027,7 +1036,7 @@ def check_flash(torch, label, x) -> dict:
     b4 = (x["batch"], x["heads"])
     shape4 = b4 + tuple(q.shape[1:])
     mask4 = mask.bool()[:, None]
-    g_out = torch.randn(shape4, device=q.device)
+    g_out = torch.randn(shape4, generator=gen, device=q.device)
     grads = {}
     for kind in ("kernel", "twin", "twin64"):
         dt = torch.float64 if kind == "twin64" else torch.float32
@@ -1048,9 +1057,8 @@ def check_flash(torch, label, x) -> dict:
         errs[name] = float((got - want).abs().max()) / max(
             float(want.abs().max()), 1e-3)
     t64 = grads["twin64"][3]
-    t_err = (grads["kernel"][3] - t64).abs()
-    t_lim = FLASH_GRAD_TOL * t64.abs() + 4 * (grads["twin"][3] - t64).abs()
-    errs["dtau"] = float(t_err.max())
+    t_err = float((grads["kernel"][3] - t64).abs().max())
+    errs["dtau"] = t_err / max(float(t64.abs().max()), 1e-3)
     dbeta_zero = bool((grads["kernel"][4] == 0).all())
     emit({"phase": "check", "kernel": "flash_attention", "case": label,
           "shape": list(q.shape), "mask_group": g,
@@ -1060,8 +1068,8 @@ def check_flash(torch, label, x) -> dict:
           "over_tolerance": over, **{f"{k}_err": e for k, e in errs.items()},
           "dtau_kernel": grads["kernel"][3].flatten().tolist(),
           "dtau_f64_twin": t64.flatten().tolist(), "dbeta_zero": dbeta_zero})
-    if over or max(errs["dq"], errs["dk"], errs["dv"]) > FLASH_GRAD_TOL or (
-            bool((t_err > t_lim).any())) or not dbeta_zero:
+    if over or max(errs["dq"], errs["dk"], errs["dv"],
+                   errs["dtau"]) > FLASH_GRAD_TOL or not dbeta_zero:
         raise AssertionError(f"flash {label}: kernels disagree with their "
                              "plain versions")
     return {"fwd": float((out - w_out).abs().max()),
@@ -1114,8 +1122,9 @@ def hybonet_path(torch, args, card: dict) -> dict:
     tails["k"] = tails["k"][:, :45].contiguous()     # Nk = 45 keys
     tails["v"] = tails["v"][:, :45].contiguous()
     tails["mask"] = tails["mask"][:, :, :45].contiguous()
+    g_out = torch.Generator(device=dev).manual_seed(args.seed + 3)
     for label, x in (*inputs.items(), ("tails", tails)):
-        e = check_flash(torch, label, x)
+        e = check_flash(torch, label, x, g_out)
         err["flash_fwd"] = max(err["flash_fwd"], e["fwd"])
         err["flash_dq"] = max(err["flash_dq"], e["dq"])
         err["flash_dkv"] = max(err["flash_dkv"], e["dkv"])
@@ -1505,6 +1514,66 @@ def check_topk(torch, kernel, label, got, again, want, *, lorentz_rows=None):
     return worst
 
 
+def storm_and_tie_checks(torch, table, qi, k_scan) -> dict:
+    """Phase 17's cases for the two slab scans at the serving path's
+    shapes (83,968 slab rows, 82,115 of them real, 1,024 queries; k 10
+    dense, k_scan PQ m = 3): an insertion storm, where every row is
+    nearer than all before it, and a slab of identical rows, whose
+    answer must be exactly the plain version's ids, the lowest k columns
+    but the query's own.  Returns the largest distance errors."""
+    from hyperspace_torch.kernels import scan_topk as S
+
+    dev = table.device
+    padded = -(-ROWS // 2048) * 2048
+    spec = ("poincare", C)
+    # storm rows along one axis, their radius falling with the index
+    storm = torch.zeros((padded, DIM), device=dev)
+    storm[:, 0] = torch.tanh(torch.linspace(0.9, 0.01, padded,
+                                            device=dev))
+    # one point off the table, so no query sits on it (at d = 0 the two
+    # versions' Gram forms round apart)
+    tied = storm[:1].expand(padded, DIM).contiguous()
+    origin = torch.zeros((BATCH, DIM), device=dev)
+    # ADC sums −1 − v·2^-12, v = 256·code0 + code1 (exact), v falling
+    v = torch.arange(padded - 1, -1, -1, device=dev) % 65536
+    pq_storm = torch.stack([v // 256, v % 256, v * 0], 1).to(torch.uint8)
+    j = torch.arange(256, dtype=torch.float32, device=dev)
+    lut = torch.zeros((BATCH, 768), device=dev)
+    lut[:, :256] = -1.0 - j * 256 * 2.0 ** -12
+    lut[:, 256:512] = -j * 2.0 ** -12
+    pq_tied = torch.full((padded, 3), 77, dtype=torch.uint8, device=dev)
+    lut_t = lut.flip(1).contiguous()
+    dense = (("dense storm, k 10", storm, origin, K),
+             ("dense identical rows, k 10", tied, table[:BATCH], K))
+    pq = (("pq storm, k 170", pq_storm, lut, k_scan),
+          ("pq identical codes, k 170", pq_tied, lut_t, k_scan))
+    err = {"scan_topk": 0.0, "scan_topk_pq": 0.0}
+    for name, cases in (("scan_topk", dense), ("scan_topk_pq", pq)):
+        for label, slab, x, k in cases:
+            kw = dict(k=k, n=ROWS, exclude_self=True)
+            if name == "scan_topk":
+                run = lambda: S.scan_topk(slab, x, qi, 0,  # noqa: E731
+                                          spec=spec, **kw)
+                want = S.scan_topk_plain(slab, x, qi, 0, kind="poincare",
+                                         c=C, **kw)
+            else:
+                run = lambda: S.scan_topk_pq(slab, x, qi, 0,  # noqa: E731
+                                             spec=spec, **kw)
+                want = S.scan_topk_pq_plain(slab, x, qi, 0, kind="poincare",
+                                            c=C, **kw)
+            got, again = run(), run()
+            err[name] = max(err[name], check_topk(torch, name, label, got,
+                                                  again, want))
+            if "identical" in label:
+                cols = torch.arange(k, device=dev)[None, :]
+                lowest = cols + (cols >= qi.long()[:, None]).long()
+                if not (torch.equal(got[1], want[1])
+                        and torch.equal(got[1].long(), lowest)):
+                    raise AssertionError(f"{name} {label}: ids are not the "
+                                         "lowest k columns")
+    return err
+
+
 def ivf_pq_path(torch, args, card: dict, table_l, fresh) -> dict:
     from hyperspace_torch.cli import serve as cli
     from hyperspace_torch.kernels import _support
@@ -1609,6 +1678,7 @@ def ivf_pq_path(torch, args, card: dict, table_l, fresh) -> dict:
                                     c=C, k=k, n=n, exclude_self=True)
         err["scan_topk_pq"] = max(err["scan_topk_pq"], check_topk(
             torch, "scan_topk_pq", label, got, again, want))
+    err.update(storm_and_tie_checks(torch, eng.table[:ROWS], qi, k_scan))
     emit({"phase": "ivf_pq_checks", "seconds": time.perf_counter() - t0})
 
     # --- phase 18: the lanes through the serve loop ------------------------
@@ -1771,7 +1841,7 @@ def ivf_pq_kernel_entries(torch, ip: dict, card: dict) -> list:
          "launches_per_batch": "1 under PQ fused",
          "max_abs_err": ip["err"]["scan_topk_pq"],
          "shape": [BATCH, codes.shape[0], codes.shape[1], ks],
-         "ms": device_ms(torch, pq),
+         **scan_parts(torch, pq),
          "plain_ms": device_ms(torch, lambda: S.scan_topk_pq_plain(
              codes, lut, qi, 0, kind="poincare", c=C, k=ks, n=ROWS,
              exclude_self=True), reps=3),
@@ -2436,6 +2506,7 @@ def main(argv=None) -> int:
 
     # --- phases 16-19: the IVF and PQ serving lanes -------------------------
     ip = ivf_pq_path(torch, args, card, table_l, fresh_b)
+    err["scan_topk"] = max(err["scan_topk"], ip["err"]["scan_topk"])
 
     # --- phases 5-8: the training path ----------------------------------
     tr = train_path(torch, args, card)
@@ -2490,13 +2561,14 @@ def main(argv=None) -> int:
          "launches": launches["scan_topk"],
          "max_abs_err": err["scan_topk"],
          "shape": [BATCH, padded, DIM, K],
-         "ms": device_ms(torch, run_scan(BATCH)),
+         **scan_parts(torch, run_scan(BATCH)),
          "plain_ms": device_ms(torch, lambda: scan_topk_plain(
              slab, q, qi, 0, kind="poincare", c=C, k=K, n=ROWS,
              exclude_self=True), reps=3),
          "bound_ms": sb, "bound_by": sby, "library_ms": None,
          "call_ms": timed_ms(torch, run_scan(BATCH)),
-         "ms_bucket8": device_ms(torch, run_scan(8)), **card},
+         **{f"{key}_bucket8": v
+            for key, v in scan_parts(torch, run_scan(8)).items()}, **card},
     ] + ivf_pq_kernel_entries(torch, ip, card) + train_kernel_entries(
         torch, tr, card) + att_kernel_entries(
         torch, at, card) + hybonet_kernel_entries(

@@ -33,6 +33,7 @@ import subprocess
 import numpy as np
 import torch
 
+from hyperspace_torch.benchmarks.devtime import profile_window, ptxas_usage
 from hyperspace_torch.kernels import _support as S
 from hyperspace_torch.kernels import attention as A
 
@@ -76,23 +77,13 @@ def emit(obj: dict) -> None:
 def registers() -> None:
     os.makedirs(OUT, exist_ok=True)
     so = os.path.join(OUT, "attention_v.so")
-    r = subprocess.run([S._nvcc(), *S.NVCC_FLAGS, "-Xptxas", "-v", "-o", so,
-                        os.path.join(S.CSRC, "attention.cu")],
-                       capture_output=True, text=True, check=True)
-    regs, name = {}, None
-    for line in (r.stdout + r.stderr).splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            k = re.search(r"flash_(fwd|dq|dkv)_kernelILi(\d+)E", m.group(1))
-            name = f"{k.group(1)}{k.group(2)}" if k else None
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if name and m:
-            regs.setdefault(name, {})["spill_bytes"] = [int(m.group(1)),
-                                                        int(m.group(2))]
-        m = re.search(r"Used (\d+) registers", line)
-        if name and m:
-            regs.setdefault(name, {})["registers"] = int(m.group(1))
+
+    def name_of(sym):
+        k = re.search(r"flash_(fwd|dq|dkv)_kernelILi(\d+)E", sym)
+        return f"{k.group(1)}{k.group(2)}" if k else None
+
+    regs = ptxas_usage(S._nvcc(), S.NVCC_FLAGS,
+                       os.path.join(S.CSRC, "attention.cu"), so, name_of)
     sass = subprocess.run(
         [os.path.join(os.path.dirname(S._nvcc()), "cuobjdump"), "-sass", so],
         capture_output=True, text=True).stdout
@@ -145,18 +136,7 @@ def mma_rate() -> None:
 
 
 def device_ms(fn, reps: int = 20) -> float:
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / 1e3 / reps
+    return sum(profile_window(torch, fn, reps)[0].values())
 
 
 def widths() -> None:

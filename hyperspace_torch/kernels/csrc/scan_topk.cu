@@ -1,52 +1,82 @@
-// Streaming k-NN scans (k <= 256), float32, for sm_90a.  Three entries
-// share the warp's sorted top-k list (`insert`) and the split merge:
+// Streaming k-NN scans (k <= 256), float32, for sm_90a.  Three entries:
 //
-//  - hs_scan_topk: the exact scan over a table slab (below);
-//  - hs_scan_topk_cand: per-query candidate rows, the IVF probing
-//    scorer (after the merge kernel);
-//  - hs_scan_topk_pq: ADC over a PQ-coded slab (after that).
+//  - hs_scan_topk: the exact scan over a table slab;
+//  - hs_scan_topk_pq: ADC over a PQ-coded slab;
+//  - hs_scan_topk_cand: per-query candidate rows, the IVF probing scorer
+//    (at the end, with its own sorted insert and split merge).
 //
-// hs_scan_topk replaces hyperspace_tpu/kernels/scan_topk.py `_slab_body`
-// (launched by `_launch_slab`), with the tile math of `_slab_tile`, the
-// running top-k of `_merge` and the threshold test of `_prune`.
+// Contract of every entry (identical to the Pallas kernels'): for each
+// query row b, the k smallest distances, ascending, with global ids;
+// rows at global id >= n are masked, and so is the query's own row under
+// exclude_self; unreachable slots are (+inf, -1); ties go to the lowest
+// global column (for the candidate scan: the earlier candidate position).
 //
-// Contract (identical to the Pallas kernel's): for each query row b,
-// the k smallest distances to slab rows, ascending, with global ids
-// col0 + local row; rows at global id >= n are masked, and so is the
-// query's own row under exclude_self; unreachable slots are (+inf, -1);
-// ties go to the lowest global column.
+// The two slab scans share one selection machine, built for this card:
 //
-// What bounds it on an H100: the distance math.  Each of the B·M
-// distances costs ~2D multiply-adds plus log1p and sqrt, while the
-// bytes are one read of the table per query block plus 2·B·k·4 result
-// bytes — at D = 10 the table is 3.3 MB and lives in the 50 MB L2.
-// The design keeps the [B, M] distance matrix out of memory entirely:
-//  - one warp per query row, WARPS query rows per block; the block
-//    stages a tile of table rows in shared memory once for all of them;
-//  - each lane computes one table row's distance per step, so a warp
-//    tests 32 candidates at a time against its running k-th distance
-//    (the threshold prune: once the list is full almost every
-//    candidate fails that one comparison and costs nothing more);
-//  - the running top-k is a sorted list in shared memory; the rare
-//    candidate that beats the k-th is inserted by the whole warp (a
-//    counted position, then a shift of at most k/32 entries a lane).
-//    Candidates are visited in column order and an equal distance
-//    never displaces an earlier entry, which is the lowest-column rule;
-//  - the table is split over blockIdx.y so that small batches still
-//    fill the card; each split keeps its own top-k and a second kernel
-//    merges the splits, preferring the lower split (lower columns) on
-//    equal distances.
+//  - One total order.  A candidate is the 64-bit key (distance bits,
+//    global column): distances are >= +0 (every closed form clamps
+//    before its last step), so their bits order as the floats do, and
+//    the lowest-column tie rule is the key's low word.  Lists, buffers
+//    and merges compare keys only, so the answer is the k smallest keys
+//    of the slab whatever order the work runs in.
+//  - A warp owns one query's list of k keys, sorted, in shared memory.
+//    Each lane scores R rows a step (independent chains, 32 rows apart).
+//    A candidate that passes the threshold test is ballot-compacted into
+//    the warp's 32-entry buffer with the closed form's last argument
+//    (not yet the distance), in column order.  When the buffer is full,
+//    and at the end, the warp flushes it: each lane closes one entry
+//    into its distance (the first version's arithmetic, bit for bit)
+//    and applies the exact test, the 32 keys are sorted bitonically
+//    across the lanes, and merged into the list by merge path (each lane
+//    writes ceil(k/32) outputs).  The test between flushes uses the k-th
+//    as it stood at the last flush: stale, so it lets more through,
+//    never less.
+//  - The slab is split over blockIdx.y so that small batches fill the
+//    card.  The splits of one query share a threshold: one 32-bit word a
+//    query in global memory (the float bits of a distance, +inf at
+//    start, filled by the caller).  A warp whose list is full lowers the
+//    word to its k-th by atomicMin after a flush, and rereads it once a
+//    tile.  A full list's k-th bounds the query's global k-th from above,
+//    so a key whose distance is strictly above the word is not in the
+//    answer; an equal distance may be (a lower column), so it is kept
+//    and the merge decides.  Which candidates reach a list then depends
+//    on the atomics' timing; the answer does not.
+//  - The threshold test runs on the closed form's argument, before the
+//    transcendental (arg_bound below derives the margin).  A survivor
+//    gets the exact distance and the exact test at its flush.
+//  - A second kernel merges a query's split lists: one warp a query,
+//    pairs of lists merged by merge path in rounds, in shared memory.
+//
+// What bounds the slab scans on an H100: latency more than any unit.
+// At D = 10 a pair costs 10 shared loads (the row; the query sits in
+// registers) and 20 FMAs in two dependent chains, the threshold test a
+// compare and a ballot; almost no pair reaches a flush.  The dense scan
+// holds about 100 registers a thread (two blocks an SM), so a warp's
+// chains must overlap: on an H100 80GB HBM3 at the serving shape one
+// row a lane a step took 0.70 ms, four rows a lane 0.44.
+// The table (3.3 MB at the serving shape) lives in the 50 MB L2; each
+// block stages its tiles once for its 8 query warps.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include <initializer_list>
 
 namespace {
 
 constexpr int WARPS = 8;
+constexpr int NT = WARPS * 32;
 constexpr int KMAX = 256;
 constexpr int KREG = KMAX / 32;
 constexpr int MAX_SPLITS = 64;
+// a merge warp holds two buffers of S·k keys in SMEM_BUDGET
+constexpr int MERGE_KEYS = 12800;
+constexpr size_t SMEM_BUDGET = 200 * 1024;
 constexpr unsigned FULL = 0xffffffffu;
+
+typedef unsigned long long u64;
+constexpr u64 EMPTY = (0x7f800000ull << 32) | 0xffffffffull;  // (+inf, -1)
 
 enum Kind { POINCARE = 0, LORENTZ = 1, EUCLIDEAN = 2 };
 
@@ -66,6 +96,663 @@ __device__ __forceinline__ int warp_sum(int v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
   return v;
 }
+
+__device__ __forceinline__ u64 pack(float d, int col) {
+  return ((u64)__float_as_uint(d) << 32) | (unsigned)col;
+}
+
+__device__ __forceinline__ float key_dist(u64 x) {
+  return __uint_as_float((unsigned)(x >> 32));
+}
+
+// --- the threshold test's margin ------------------------------------------
+//
+// A hyperbolic distance is computed as F(u) = fl(log1pf(a)/sc) with
+// a = fl(u + sqrtf(fl(u·fl(u + 2)))), u >= 0 the closed form's argument
+// (arcosh1p).  Against f(u) = arcosh(1 + u)/sc in exact arithmetic on
+// the same float u and sc, to first order in 2^-24:
+//   fl(u + 2), fl(u·(u + 2)): 2 roundings, halved by the sqrt  -> 1
+//   sqrtf (correctly rounded), the sum u + s (both terms >= 0)  -> 2
+//   log1p(a) has relative condition a/((1 + a)·log1p(a)) <= 1, and
+//   log1pf itself is within 1 ulp (2·2^-24) of log1p           -> 2
+//   the division by sc (correctly rounded)                      -> 1
+// so |F(u)/f(u) - 1| <= 6·2^-24 (second-order terms are below 2^-40).
+// This bounds F on each side of f, so it holds whether or not log1pf is
+// monotone: F(u) <= T implies f(u) <= T/(1 - 6·2^-24) < T·(1 + EPS_D)
+// with EPS_D = 16·2^-24, which also covers a log1pf off by 2 ulp
+// (3 + 4 + 1 = 8 <= 16, and 1/(1 - x) < 1 + 2x).  f is increasing, so
+//   u <= cosh(sc·T·(1 + EPS_D)) - 1 = 2·sinh²(sc·T·(1 + EPS_D)/2) = U(T)
+// evaluated in double (error ~1e-16) and rounded up to float.  The ball's
+// argument is a quotient num/den' tested as num <= U·den' (no division):
+// fl(num/den') <= U implies num <= U·den'·(1 + 2^-24), and fl(U'·den')
+// >= U·den'·(1 + 2^-24) when U' = U·(1 + EPS_Q), EPS_Q = 2^-22, which U
+// carries for every kind.  Below u = 2^-126 the roundings are absolute,
+// not relative, so U is at least 2^-96 (every such u passes).  Euclidean
+// distances are sqrtf (correctly rounded, monotone): the test on d² is
+// exact, against the largest float x with sqrtf(x) <= T.
+constexpr double EPS_D = 16.0 / 16777216.0;
+constexpr double EPS_Q = 1.0 / 4194304.0;
+
+__device__ float arg_bound(float T, int kind, float sc) {
+  if (!(T < INFINITY)) return INFINITY;
+  if (kind == EUCLIDEAN) {
+    float x = __fmul_ru(T, T);
+    while (x > 0.0f && sqrtf(x) > T) x = __int_as_float(__float_as_int(x) - 1);
+    for (;;) {
+      const float up = __int_as_float(__float_as_int(x) + 1);
+      if (up < INFINITY && sqrtf(up) <= T) x = up; else break;
+    }
+    return x;
+  }
+  const double s = sinh(0.5 * (double)sc * (double)T * (1.0 + EPS_D));
+  return fmaxf(__double2float_ru(2.0 * s * s * (1.0 + EPS_Q)), 0x1p-96f);
+}
+
+// --- the selection machine ------------------------------------------------
+
+// The i for which the first `diag` outputs of merge(A, B) are A[0..i)
+// and B[0..diag-i); A's entry goes first on equal keys.
+__device__ __forceinline__ int merge_path(const u64* A, int na, const u64* B,
+                                          int nb, int diag) {
+  int lo = max(0, diag - nb), hi = min(diag, na);
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (A[mid] <= B[diag - 1 - mid]) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+// Ascending bitonic sort of one key a lane across the warp.
+__device__ __forceinline__ u64 sort32(u64 x, int lane) {
+#pragma unroll
+  for (int size = 2; size <= 32; size <<= 1) {
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      const u64 y = __shfl_xor_sync(FULL, x, stride);
+      const bool keep_min = ((lane & size) == 0) == ((lane & stride) == 0);
+      x = keep_min ? (y < x ? y : x) : (y < x ? x : y);
+    }
+  }
+  return x;
+}
+
+// The k smallest of list A (k, sorted) and B (nb, sorted) into A: each
+// lane stages its ceil(k/32) outputs in registers, then writes them.
+__device__ void merge_list(u64* A, int k, const u64* B, int nb, int lane) {
+  const int P = (k + 31) >> 5;
+  const int diag = min(lane * P, k);
+  int i = merge_path(A, k, B, nb, diag), j = diag - i;
+  u64 out[KREG];
+#pragma unroll
+  for (int t = 0; t < KREG; ++t) {
+    if (t < P && diag + t < k) {       // i + j < k, so A[i] is in range
+      const bool ta = j >= nb || A[i] <= B[j];
+      out[t] = ta ? A[i] : B[j];
+      i += ta;
+      j += !ta;
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int t = 0; t < KREG; ++t)
+    if (t < P && diag + t < k) A[diag + t] = out[t];
+  __syncwarp();
+}
+
+// One warp's state: its list and buffer in shared memory, its query's
+// shared threshold word, and the threshold test it applies.
+struct Sel {
+  u64* list;        // [k] keys, ascending
+  u64* bk;          // [32] sorted keys of a flush
+  float* ba;        // [32] closed-form argument (ball: numerator)
+  float* bb;        // [32] ball: the clamped denominator
+  int* bc;          // [32] global column
+  unsigned* word;   // the query's shared threshold, or null (one split)
+  unsigned wnext;   // lane 0: the word as loaded at the last tile
+  int k, lane, cnt, kind;
+  float sc;
+  float seen;       // the lowest word value this warp has seen
+  float T;          // min(k-th distance, seen): what U bounds
+  float U;          // arg_bound(T)
+  u64 kth;          // list[k - 1]
+};
+
+__device__ __forceinline__ void sel_init(Sel& s, unsigned char* base,
+                                         int warp, int k, int lane,
+                                         int kind, float sc,
+                                         unsigned* word) {
+  u64* lists = reinterpret_cast<u64*>(base);
+  u64* bks = lists + WARPS * k;
+  float* bas = reinterpret_cast<float*>(bks + WARPS * 32);
+  s.list = lists + warp * k;
+  s.bk = bks + warp * 32;
+  s.ba = bas + warp * 32;
+  s.bb = bas + WARPS * 32 + warp * 32;
+  s.bc = reinterpret_cast<int*>(bas + 2 * WARPS * 32) + warp * 32;
+  s.word = word;
+  s.wnext = 0x7f800000u;
+  s.k = k;
+  s.lane = lane;
+  s.cnt = 0;
+  s.kind = kind;
+  s.sc = sc;
+  s.seen = s.T = s.U = INFINITY;
+  s.kth = EMPTY;
+  for (int i = lane; i < k; i += 32) s.list[i] = EMPTY;
+}
+
+// Shared memory of the selection machine for a block of WARPS warps.
+__host__ __device__ constexpr size_t sel_bytes(int k) {
+  return (size_t)WARPS * k * 8 + (size_t)WARPS * 32 * (8 + 12);
+}
+
+__device__ __forceinline__ void retarget(Sel& s) {
+  const float t = fminf(key_dist(s.kth), s.seen);
+  if (t != s.T) {
+    s.T = t;
+    s.U = arg_bound(t, s.kind, s.sc);
+  }
+}
+
+// Once a tile: take the word loaded at the previous tile and load it
+// again, so the warp never waits for the load.
+__device__ __forceinline__ void reread(Sel& s) {
+  if (s.word == nullptr) return;
+  const float wf = __uint_as_float(__shfl_sync(FULL, s.wnext, 0));
+  if (s.lane == 0) s.wnext = *reinterpret_cast<volatile unsigned*>(s.word);
+  if (wf < s.seen) {
+    s.seen = wf;
+    retarget(s);
+  }
+}
+
+// Close the buffered candidates into keys, keep those that beat the
+// list's k-th and are not above the word, sort them, merge them in,
+// publish a full list's k-th.
+__device__ void flush(Sel& s) {
+  const int lane = s.lane;
+  u64 key = EMPTY;
+  if (lane < s.cnt) {
+    const float a = s.ba[lane];
+    float d;
+    if (s.kind == EUCLIDEAN) {
+      d = sqrtf(a);
+    } else {
+      d = arcosh1p(s.kind == POINCARE ? a / s.bb[lane] : a) / s.sc;
+    }
+    // the list's entries all have lower columns, so this is the key
+    // test; +inf never enters (the plain version's (+inf, -1))
+    if (d < key_dist(s.kth) && d <= s.seen) key = pack(d, s.bc[lane]);
+  }
+  s.cnt = 0;
+  const unsigned live = __ballot_sync(FULL, key != EMPTY);
+  if (live) {
+    key = sort32(key, lane);
+    s.bk[lane] = key;
+    __syncwarp();
+    merge_list(s.list, s.k, s.bk, __popc(live), lane);
+    s.kth = s.list[s.k - 1];
+    const float kd = key_dist(s.kth);
+    if (s.word != nullptr && kd < s.seen) {   // the list is full
+      unsigned old = 0;
+      if (lane == 0) old = atomicMin(s.word, __float_as_uint(kd));
+      s.seen = fminf(kd, __uint_as_float(__shfl_sync(FULL, old, 0)));
+    }
+    retarget(s);
+  }
+  __syncwarp();
+}
+
+// Each lane offers one candidate (pass: it passed the threshold test).
+__device__ __forceinline__ void push(Sel& s, bool pass, float a, float b,
+                                     int col) {
+  unsigned hit = __ballot_sync(FULL, pass);
+  while (hit) {
+    const int room = 32 - s.cnt;
+    const int rank = __popc(hit & ((1u << s.lane) - 1u));
+    const bool take = ((hit >> s.lane) & 1u) && rank < room;
+    if (take) {
+      const int at = s.cnt + rank;
+      s.ba[at] = a;
+      s.bb[at] = b;
+      s.bc[at] = col;
+    }
+    const int nhit = __popc(hit);
+    if (nhit < room) {
+      s.cnt += nhit;
+      return;
+    }
+    hit &= ~__ballot_sync(FULL, take);
+    s.cnt = 32;
+    __syncwarp();
+    flush(s);
+  }
+}
+
+__device__ __forceinline__ void sel_finish(Sel& s, float* out_d, int* out_i,
+                                           size_t base) {
+  if (s.cnt) {
+    __syncwarp();
+    flush(s);
+  }
+  for (int i = s.lane; i < s.k; i += 32) {
+    const u64 x = s.list[i];
+    out_d[base + i] = key_dist(x);
+    out_i[base + i] = (int)(unsigned)x;
+  }
+}
+
+// --- copies into shared memory -------------------------------------------
+
+__device__ __forceinline__ void cp_async4(unsigned dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
+               "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(unsigned dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// rows × D floats from src (any float alignment) into a tile of row
+// stride ds at shared address dst, one 4-byte cp.async an element.  The
+// block walks the elements in order (coalesced reads); (r0, k0) is this
+// thread's first (row, lane) and (sr, sk) the step of NT elements.
+__device__ __forceinline__ void stage_rows(unsigned dst, const float* src,
+                                           int rows, int D, int ds, int r0,
+                                           int k0, int sr, int sk) {
+  const int total = rows * D;
+  int r = r0, kk = k0;
+  for (int e = threadIdx.x; e < total; e += NT) {
+    cp_async4(dst + 4u * (unsigned)(r * ds + kk), src + e);
+    kk += sk;
+    r += sr;
+    if (kk >= D) {
+      kk -= D;
+      ++r;
+    }
+  }
+  cp_commit();
+}
+
+// len bytes from src (any alignment) into buf so that byte i lands at
+// buf[o + i], o = src mod 16: 16-byte cp.async for the aligned middle,
+// plain byte copies for the head and tail.  Returns o.
+__device__ __forceinline__ int stage_codes(unsigned char* buf, unsigned sbuf,
+                                           const unsigned char* src,
+                                           int len) {
+  const int o = (int)((uintptr_t)src & 15);
+  const int h = min((16 - o) & 15, len);
+  const int nch = (len - h) >> 4;
+  const int tail = h + (nch << 4);
+  for (int i = threadIdx.x; i < h; i += NT) buf[o + i] = src[i];
+  for (int ch = threadIdx.x; ch < nch; ch += NT)
+    cp_async16(sbuf + (unsigned)(o + h + 16 * ch), src + h + 16 * ch);
+  for (int i = tail + (int)threadIdx.x; i < len; i += NT) buf[o + i] = src[i];
+  cp_commit();
+  return o;
+}
+
+// --- the exact scan ---------------------------------------------------------
+//
+// Replaces hyperspace_tpu/kernels/scan_topk.py `_slab_body` (launched by
+// `_launch_slab`), with the tile math of `_slab_tile`, the running top-k
+// of `_merge` and the threshold test of `_prune`.
+//
+// One warp a query row, WARPS query rows a block; the block stages tiles
+// of `tm` table rows in shared memory (odd row stride ds: a lane reads
+// its own row, conflict-free), double-buffered by cp.async when two fit
+// (`stages`); each lane scores one row a step.  DQ > 0 holds the query
+// in DQ registers (D <= DQ); DQ = 0 is the general width, the query in
+// shared memory.  Every distance keeps the first version's arithmetic:
+// the same fmaf chains for g and yy, the same clamps.  The threshold
+// test: Lorentz on u = max(-c·g - 1, 0), the ball on 2c·d2 against
+// U·max(den, 1e-7), Euclidean exactly on d2.
+template <int KIND, int DQ, int R>
+__global__ void __launch_bounds__(NT)
+scan_topk_kernel(const float* __restrict__ slab, const float* __restrict__ q,
+                 const int* __restrict__ q_idx, unsigned* __restrict__ thr,
+                 float* __restrict__ out_d, int* __restrict__ out_i, int B,
+                 int M, int D, int ds, int k, int col0, int n,
+                 int exclude_self, float c, int rows_per_split, int tm,
+                 int stages) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* qs = reinterpret_cast<float*>(smem + sel_bytes(k));  // [WARPS][D]
+  float* tiles = qs + (DQ == 0 ? WARPS * D : 0);         // [stages][tm][ds]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int b = blockIdx.x * WARPS + warp;
+  const bool active = b < B;
+  const int split = blockIdx.y, splits = gridDim.y;
+  const int lo = split * rows_per_split;
+  const int hi = min(M, lo + rows_per_split);
+  const float sc = fmaxf(sqrtf(fmaxf(c, 0.0f)), 1e-12f);
+  Sel s;
+  sel_init(s, smem, warp, k, lane, KIND, sc,
+           (thr != nullptr && active) ? thr + b : nullptr);
+  float* qv = qs + warp * D;
+  float qr[DQ > 0 ? DQ : 1];
+
+  float xx = 0.0f;
+  int qi = -1;
+  if (active) {
+    float acc = 0.0f;
+    for (int kk = lane; kk < D; kk += 32) {
+      const float v = q[(size_t)b * D + kk];
+      acc = fmaf(v, v, acc);
+      if (DQ == 0) qv[kk] = (KIND == LORENTZ && kk == 0) ? -v : v;
+    }
+    xx = warp_sum(acc);
+    if constexpr (DQ > 0) {
+#pragma unroll
+      for (int kk = 0; kk < DQ; ++kk) {
+        const float v = kk < D ? q[(size_t)b * D + kk] : 0.0f;
+        qr[kk] = (KIND == LORENTZ && kk == 0) ? -v : v;  // Minkowski
+      }
+    }
+    qi = q_idx[b];
+  }
+  __syncwarp();
+  const float xm = 1.0f - c * xx;
+
+  const unsigned tbase = (unsigned)__cvta_generic_to_shared(tiles);
+  const unsigned tstride = (unsigned)tm * (unsigned)ds * 4u;
+  const int r0 = (int)threadIdx.x / D, k0 = (int)threadIdx.x % D;
+  const int sr = NT / D, sk = NT % D;
+  const int nt = hi > lo ? (hi - lo + tm - 1) / tm : 0;
+  if (stages == 2 && nt > 0)
+    stage_rows(tbase, slab + (size_t)lo * D, min(tm, hi - lo), D, ds, r0, k0,
+               sr, sk);
+  for (int t = 0; t < nt; ++t) {
+    const int t0 = lo + t * tm;
+    const int rows = min(tm, hi - t0);
+    if (stages == 1) {
+      __syncthreads();                 // the tile is free again
+      stage_rows(tbase, slab + (size_t)t0 * D, rows, D, ds, r0, k0, sr, sk);
+    }
+    cp_wait_all();
+    __syncthreads();                   // tile t landed; t - 1 was read
+    if (stages == 2 && t + 1 < nt) {
+      const int t1 = t0 + tm;
+      stage_rows(tbase + ((t + 1) & 1) * tstride, slab + (size_t)t1 * D,
+                 min(tm, hi - t1), D, ds, r0, k0, sr, sk);
+    }
+    if (!active) continue;
+    reread(s);
+    const float* tile = tiles + (size_t)(stages == 2 ? (t & 1) : 0) * tm * ds;
+    for (int rs = 0; rs < rows; rs += 32 * R) {
+      // R rows a lane, 32 apart: R independent chains, pushed in
+      // column order
+      const float* row[R];
+      int gcol[R];
+      bool ok[R];
+      float g[R], yy[R];
+#pragma unroll
+      for (int rr = 0; rr < R; ++rr) {
+        const int r = rs + 32 * rr + lane;
+        gcol[rr] = col0 + t0 + r;
+        ok[rr] = r < rows && gcol[rr] < n &&
+                 !(exclude_self && gcol[rr] == qi);
+        row[rr] = tile + (r < rows ? r : 0) * ds;
+        g[rr] = yy[rr] = 0.0f;
+      }
+      if constexpr (DQ > 0) {
+#pragma unroll
+        for (int c4 = 0; c4 < DQ; c4 += 4) {
+          if (c4 < D) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              if (c4 + j < D) {
+#pragma unroll
+                for (int rr = 0; rr < R; ++rr) {
+                  const float yv = row[rr][c4 + j];
+                  g[rr] = fmaf(qr[c4 + j], yv, g[rr]);
+                  yy[rr] = fmaf(yv, yv, yy[rr]);
+                }
+              }
+            }
+          }
+        }
+      } else {
+        for (int kk = 0; kk < D; ++kk) {
+          const float qk = qv[kk];
+#pragma unroll
+          for (int rr = 0; rr < R; ++rr) {
+            const float yv = row[rr][kk];
+            g[rr] = fmaf(qk, yv, g[rr]);
+            yy[rr] = fmaf(yv, yv, yy[rr]);
+          }
+        }
+      }
+      float a[R], bq[R];
+      bool pass[R];
+#pragma unroll
+      for (int rr = 0; rr < R; ++rr) {
+        bq[rr] = 1.0f;
+        if constexpr (KIND == LORENTZ) {
+          a[rr] = fmaxf(-c * g[rr] - 1.0f, 0.0f);
+          pass[rr] = a[rr] <= s.U;
+        } else {
+          const float d2 = fmaxf(xx - 2.0f * g[rr] + yy[rr], 0.0f);
+          if constexpr (KIND == EUCLIDEAN) {
+            a[rr] = d2;
+            pass[rr] = d2 <= s.U;
+          } else {
+            const float den = xm * (1.0f - c * yy[rr]);
+            a[rr] = 2.0f * c * d2;
+            bq[rr] = fmaxf(den, 1e-7f);
+            pass[rr] = a[rr] <= s.U * bq[rr];
+          }
+        }
+      }
+#pragma unroll
+      for (int rr = 0; rr < R; ++rr)
+        push(s, ok[rr] && pass[rr], a[rr], bq[rr], gcol[rr]);
+    }
+  }
+  if (active) sel_finish(s, out_d, out_i, ((size_t)b * splits + split) * k);
+}
+
+// --- PQ scan by ADC ----------------------------------------------------------
+//
+// Replaces hyperspace_tpu/kernels/scan_topk.py `_pq_body` (launched by
+// `_launch_pq`), with the tile math of `_pq_tile`/`_pq_dist_from_sum`.
+// Contract: hs_scan_topk's, over codes [M, m] uint8 and per-query lookup
+// tables lut [B, m*256]: a row's score is the sum of lut[s*256 + code[s]]
+// over s = 0..m-1, in that order (__fadd_rn), closed into the distance of
+// the reconstructed row with the TPU kernel's clamps.
+//
+// What bounds it on an H100: the table lookups.  A row costs m bytes of
+// code and m shared-memory reads at data-dependent addresses (about
+// 3-way bank conflicts for random codes); no pair computes a logarithm
+// unless it passes the test on u = max(-c·ssum - 1, 0) (Euclidean: on
+// max(ssum, 0), exactly).  Eight query warps a block, each with its
+// m*256-float LUT in shared memory; one tile of code rows, copied by
+// 16-byte cp.async (any base alignment: byte copies for the head and the
+// tail), double-buffered, serves all eight.  MM is m.
+template <int MM, int R>
+__global__ void __launch_bounds__(NT)
+scan_pq_kernel(const unsigned char* __restrict__ codes,
+               const float* __restrict__ lut, const int* __restrict__ q_idx,
+               unsigned* __restrict__ thr, float* __restrict__ out_d,
+               int* __restrict__ out_i, int B, int M, int k, int col0, int n,
+               int exclude_self, float c, int kind, int rows_per_split,
+               int tm) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int LW = MM * 256;
+  float* luts = reinterpret_cast<float*>(smem + sel_bytes(k));  // [WARPS][LW]
+  unsigned char* tiles = reinterpret_cast<unsigned char*>(luts + WARPS * LW);
+  const int tb = ((tm * MM + 16) + 15) & ~15;             // bytes a tile
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int b = blockIdx.x * WARPS + warp;
+  const bool active = b < B;
+  const int split = blockIdx.y, splits = gridDim.y;
+  const int lo = split * rows_per_split;
+  const int hi = min(M, lo + rows_per_split);
+  const float sc = fmaxf(sqrtf(fmaxf(c, 0.0f)), 1e-12f);
+  Sel s;
+  // the flush closes u with arcosh1p (no quotient) or sqrtf
+  sel_init(s, smem, warp, k, lane, kind == EUCLIDEAN ? EUCLIDEAN : LORENTZ,
+           sc, (thr != nullptr && active) ? thr + b : nullptr);
+  float* lv = luts + warp * LW;
+
+  int qi = -1;
+  if (active) {
+    for (int i = lane; i < LW; i += 32) lv[i] = lut[(size_t)b * LW + i];
+    qi = q_idx[b];
+  }
+  __syncwarp();
+
+  const unsigned tbase = (unsigned)__cvta_generic_to_shared(tiles);
+  const int nt = hi > lo ? (hi - lo + tm - 1) / tm : 0;
+  int o_next = 0;
+  if (nt > 0)
+    o_next = stage_codes(tiles, tbase, codes + (size_t)lo * MM,
+                         min(tm, hi - lo) * MM);
+  for (int t = 0; t < nt; ++t) {
+    const int t0 = lo + t * tm;
+    const int rows = min(tm, hi - t0);
+    const int o = o_next;
+    cp_wait_all();
+    __syncthreads();                   // tile t landed; t - 1 was read
+    if (t + 1 < nt) {
+      const int t1 = t0 + tm, nb = (t + 1) & 1;
+      o_next = stage_codes(tiles + nb * tb, tbase + (unsigned)(nb * tb),
+                           codes + (size_t)t1 * MM, min(tm, hi - t1) * MM);
+    }
+    if (!active) continue;
+    reread(s);
+    const unsigned char* tile = tiles + (t & 1) * tb + o;
+    for (int rs = 0; rs < rows; rs += 32 * R) {
+      // R rows a lane, 32 apart, as in the exact scan
+      float ssum[R];
+      int gcol[R];
+      bool ok[R];
+      const unsigned char* code[R];
+#pragma unroll
+      for (int rr = 0; rr < R; ++rr) {
+        const int r = rs + 32 * rr + lane;
+        gcol[rr] = col0 + t0 + r;
+        ok[rr] = r < rows && gcol[rr] < n &&
+                 !(exclude_self && gcol[rr] == qi);
+        code[rr] = tile + (r < rows ? r : 0) * MM;
+        ssum[rr] = 0.0f;
+      }
+#pragma unroll
+      for (int j = 0; j < MM; ++j)
+#pragma unroll
+        for (int rr = 0; rr < R; ++rr)
+          ssum[rr] = __fadd_rn(ssum[rr], lv[j * 256 + code[rr][j]]);
+#pragma unroll
+      for (int rr = 0; rr < R; ++rr) {
+        float a;
+        if (kind == EUCLIDEAN) {
+          a = fmaxf(ssum[rr], 0.0f);
+        } else {
+          // the plain version's rounding: no contraction into an FMA
+          a = fmaxf(__fsub_rn(__fmul_rn(-c, ssum[rr]), 1.0f), 0.0f);
+        }
+        push(s, ok[rr] && a <= s.U, a, 1.0f, gcol[rr]);
+      }
+    }
+  }
+  if (active) sel_finish(s, out_d, out_i, ((size_t)b * splits + split) * k);
+}
+
+// --- the split merge of the two slab scans -----------------------------
+//
+// One warp a query: its S sorted lists ([B, S, k]) are read once into
+// shared memory as keys (one coalesced pass with no branch on the data,
+// so the loads overlap), then merged in rounds, pairs of lists into the
+// k smallest of each pair (merge path; 32/pairs lanes a pair, each lane
+// writing its share of the outputs into the other buffer; an odd list
+// is carried).  A round costs O(k·pairs/32 + log k) dependent steps, so
+// 64 lists of 10 take 6 short rounds and 5 lists of 170 three.  (Reading
+// only each list's prefix at or below the threshold word, found by
+// binary searches, was slower at every shape measured.)
+__global__ void merge_tree_kernel(const float* __restrict__ pd,
+                                  const int* __restrict__ pi,
+                                  float* __restrict__ od,
+                                  int* __restrict__ oi, int B, int S, int k) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int wm = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int b = blockIdx.x * wm + warp;
+  if (b >= B) return;                 // no block-wide barrier below
+  const int sk = S * k;
+  u64* src = reinterpret_cast<u64*>(smem) + (size_t)warp * 2 * sk;
+  u64* dst = src + sk;
+  const size_t base = (size_t)b * sk;
+#pragma unroll 4
+  for (int i = lane; i < sk; i += 32)
+    src[i] = pack(pd[base + i], pi[base + i]);
+  __syncwarp();
+  int L = S;
+  while (L > 1) {
+    const int pairs = L >> 1;
+    const int G = pairs >= 32 ? 1 : 32 / pairs;
+    const int p = lane / G, gl = lane - p * G;
+    if (p < pairs) {
+      const u64* A = src + (size_t)(2 * p) * k;
+      const u64* Bl = A + k;
+      u64* O = dst + (size_t)p * k;
+      const int P = (k + G - 1) / G;
+      const int diag = min(gl * P, k), end = min(diag + P, k);
+      int i = merge_path(A, k, Bl, k, diag), j = diag - i;
+      for (int o = diag; o < end; ++o) {   // i + j < k
+        const bool ta = j >= k || A[i] <= Bl[j];
+        O[o] = ta ? A[i] : Bl[j];
+        i += ta;
+        j += !ta;
+      }
+    }
+    if (L & 1)
+      for (int i = lane; i < k; i += 32)
+        dst[(size_t)pairs * k + i] = src[(size_t)(L - 1) * k + i];
+    __syncwarp();
+    L = pairs + (L & 1);
+    u64* tmp = src;
+    src = dst;
+    dst = tmp;
+  }
+  for (int i = lane; i < k; i += 32) {
+    const u64 x = src[i];
+    od[(size_t)b * k + i] = key_dist(x);
+    oi[(size_t)b * k + i] = (int)(unsigned)x;
+  }
+}
+
+// --- per-query candidate scan (the IVF probing scorer) --------------------
+//
+// Replaces hyperspace_tpu/kernels/scan_topk.py `_cand_body` (launched by
+// `_launch_cand`), with the tile math of `_cand_tile`/`_pair_dist_b`.
+// Contract: query row b scores the table rows whose ids stand in
+// cand[b, 0..C) (-1 = padding, anywhere in the list); its own row is
+// masked under exclude_self; ties go to the earlier candidate position;
+// slots beyond the reachable candidates are (+inf, -1).
+//
+// What bounds it on an H100: the gathers.  Each candidate costs one
+// random row read of D floats (the 3.3 MB table of the serving path sits
+// in the 50 MB L2) and ~2D multiply-adds.  The TPU kernel streams a
+// pre-gathered [B, C, 128-lane] block; this one gathers each row by id
+// straight from the table, so no [B, C, D] copy is ever written:
+//  - one warp per query row; each lane takes one candidate position a
+//    step, reads its id and its row, and computes the closed form;
+//  - the warp tests the 32 distances against its running k-th and
+//    inserts the rare winners in position order (`insert` puts an equal
+//    distance after the earlier entry);
+//  - the positions are split over blockIdx.y when the batch is small,
+//    each split with its own list, merged by merge_splits_kernel (the
+//    lower split, earlier positions, wins a tie).
 
 // Insert (d, id) into the warp's sorted list, after every entry <= d.
 __device__ __forceinline__ void insert(float* ld, int* li, int k, int lane,
@@ -89,100 +776,6 @@ __device__ __forceinline__ void insert(float* ld, int* li, int k, int lane,
   __syncwarp();
   if (lane == 0) { ld[pos] = d; li[pos] = id; }
   __syncwarp();
-}
-
-__global__ void __launch_bounds__(WARPS * 32)
-scan_topk_kernel(const float* __restrict__ slab, const float* __restrict__ q,
-                 const int* __restrict__ q_idx, float* __restrict__ out_d,
-                 int* __restrict__ out_i, int B, int M, int D, int ds, int k,
-                 int col0, int n, int exclude_self, float c, int kind,
-                 int rows_per_split, int tm) {
-  extern __shared__ float smem[];
-  float* tile = smem;                                  // [tm][ds]
-  float* qs = tile + (size_t)tm * ds;                  // [WARPS][D]
-  float* lds = qs + (size_t)WARPS * D;                 // [WARPS][k]
-  int* lis = reinterpret_cast<int*>(lds + (size_t)WARPS * k);
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int b = blockIdx.x * WARPS + warp;
-  const bool active = b < B;
-  const int split = blockIdx.y, splits = gridDim.y;
-  const int lo = split * rows_per_split;
-  const int hi = min(M, lo + rows_per_split);
-  float* qv = qs + (size_t)warp * D;
-  float* ld = lds + (size_t)warp * k;
-  int* li = lis + (size_t)warp * k;
-
-  float xx = 0.0f;
-  int qi = -1;
-  if (active) {
-    float s = 0.0f;
-    for (int kk = lane; kk < D; kk += 32) {
-      const float v = q[(size_t)b * D + kk];
-      s = fmaf(v, v, s);
-      qv[kk] = (kind == LORENTZ && kk == 0) ? -v : v;  // Minkowski signature
-    }
-    xx = warp_sum(s);
-    qi = q_idx[b];
-    for (int i = lane; i < k; i += 32) { ld[i] = INFINITY; li[i] = -1; }
-  }
-  __syncwarp();
-  float kth = INFINITY;
-  const float sc = fmaxf(sqrtf(fmaxf(c, 0.0f)), 1e-12f);
-  const float xm = 1.0f - c * xx;
-
-  for (int t0 = lo; t0 < hi; t0 += tm) {
-    const int rows = min(tm, hi - t0);
-    __syncthreads();
-    for (int i = threadIdx.x; i < rows * D; i += WARPS * 32) {
-      const int r = i / D, kk = i % D;
-      tile[r * ds + kk] = slab[(size_t)(t0 + r) * D + kk];
-    }
-    __syncthreads();
-    if (!active) continue;
-    for (int r0 = 0; r0 < rows; r0 += 32) {
-      const int r = r0 + lane;
-      const int gcol = col0 + t0 + r;
-      float d = INFINITY;
-      if (r < rows && gcol < n && !(exclude_self && gcol == qi)) {
-        const float* row = tile + r * ds;
-        float g = 0.0f, yy = 0.0f;
-        for (int kk = 0; kk < D; ++kk) {
-          const float yv = row[kk];
-          g = fmaf(qv[kk], yv, g);
-          yy = fmaf(yv, yv, yy);
-        }
-        if (kind == LORENTZ) {
-          d = arcosh1p(fmaxf(-c * g - 1.0f, 0.0f)) / sc;
-        } else {
-          const float d2 = fmaxf(xx - 2.0f * g + yy, 0.0f);
-          if (kind == EUCLIDEAN) {
-            d = sqrtf(d2);
-          } else {
-            const float den = xm * (1.0f - c * yy);
-            d = arcosh1p(2.0f * c * d2 / fmaxf(den, 1e-7f)) / sc;
-          }
-        }
-      }
-      unsigned hit = __ballot_sync(FULL, d < kth);
-      while (hit) {
-        const int src = __ffs(hit) - 1;
-        hit &= hit - 1;
-        const float dc = __shfl_sync(FULL, d, src);
-        if (dc < kth) {
-          insert(ld, li, k, lane, dc, col0 + t0 + r0 + src);
-          kth = ld[k - 1];
-        }
-      }
-    }
-  }
-  if (active) {
-    const size_t base = ((size_t)b * splits + split) * k;
-    for (int i = lane; i < k; i += 32) {
-      out_d[base + i] = ld[i];
-      out_i[base + i] = li[i];
-    }
-  }
 }
 
 // Merge each query row's per-split sorted lists ([B, S, k]) into [B, k].
@@ -215,36 +808,14 @@ __global__ void merge_splits_kernel(const float* __restrict__ pd,
   }
 }
 
-// --- per-query candidate scan (the IVF probing scorer) --------------------
-//
-// Replaces hyperspace_tpu/kernels/scan_topk.py `_cand_body` (launched by
-// `_launch_cand`), with the tile math of `_cand_tile`/`_pair_dist_b`.
-// Contract: query row b scores the table rows whose ids stand in
-// cand[b, 0..C) (-1 = padding, anywhere in the list); its own row is
-// masked under exclude_self; ties go to the earlier candidate position;
-// slots beyond the reachable candidates are (+inf, -1).
-//
-// What bounds it on an H100: the gathers.  Each candidate costs one
-// random row read of D floats (the 3.3 MB table of the serving path sits
-// in the 50 MB L2) and ~2D multiply-adds.  The TPU kernel streams a
-// pre-gathered [B, C, 128-lane] block; this one gathers each row by id
-// straight from the table, so no [B, C, D] copy is ever written:
-//  - one warp per query row; each lane takes one candidate position a
-//    step, reads its id and its row, and computes the closed form;
-//  - the warp tests the 32 distances against its running k-th and
-//    inserts the rare winners in position order (`insert` puts an equal
-//    distance after the earlier entry);
-//  - the positions are split over blockIdx.y when the batch is small,
-//    each split with its own list, merged by merge_splits_kernel (the
-//    lower split, earlier positions, wins a tie).
 __global__ void __launch_bounds__(WARPS * 32)
 scan_cand_kernel(const float* __restrict__ table, const int* __restrict__ cand,
                  const float* __restrict__ q, const int* __restrict__ q_idx,
                  float* __restrict__ out_d, int* __restrict__ out_i, int B,
                  int C, int N, int D, int k, int exclude_self, float c,
                  int kind, int per_split) {
-  extern __shared__ float smem[];
-  float* qs = smem;                                    // [WARPS][D]
+  extern __shared__ float smem_f[];
+  float* qs = smem_f;                                  // [WARPS][D]
   float* lds = qs + (size_t)WARPS * D;                 // [WARPS][k]
   int* lis = reinterpret_cast<int*>(lds + (size_t)WARPS * k);
 
@@ -316,157 +887,155 @@ scan_cand_kernel(const float* __restrict__ table, const int* __restrict__ cand,
   }
 }
 
-// --- PQ scan by ADC ----------------------------------------------------------
-//
-// Replaces hyperspace_tpu/kernels/scan_topk.py `_pq_body` (launched by
-// `_launch_pq`), with the tile math of `_pq_tile`/`_pq_dist_from_sum`.
-// Contract: hs_scan_topk's, over codes [M, m] uint8 and per-query lookup
-// tables lut [B, m*256]: a row's score is the sum of lut[s*256 + code[s]]
-// over s = 0..m-1, in that order, closed into the distance of the
-// reconstructed row with the TPU kernel's clamps.
-//
-// What bounds it on an H100: the table lookups.  A row costs m bytes of
-// code and m shared-memory reads (at m = 3 the 82,115-row slab is 246 KB,
-// so device memory is nowhere near the limit).  The design:
-//  - eight query warps a block, each with its m*256-float LUT in shared
-//    memory (8 KB at m = 8; the block opts into dynamic shared memory
-//    above 48 KB);
-//  - one tile of code rows is staged in shared memory once for all eight
-//    warps; each lane scores one row a step;
-//  - lanes read their LUT entries at data-dependent addresses, so a
-//    step's 32 reads meet bank conflicts (about 3-way for random codes);
-//    left as is in this first version;
-//  - the threshold test, `insert` and the split merge as hs_scan_topk;
-//    at k = 170 (the engine's over-fetch at k = 10) the list fills over
-//    the first rows and inserts dominate the first tile only.
-__global__ void __launch_bounds__(WARPS * 32)
-scan_pq_kernel(const unsigned char* __restrict__ codes,
-               const float* __restrict__ lut, const int* __restrict__ q_idx,
-               float* __restrict__ out_d, int* __restrict__ out_i, int B,
-               int M, int m, int k, int col0, int n, int exclude_self,
-               float c, int kind, int rows_per_split, int tm) {
-  extern __shared__ float smem[];
-  const int lw = m * 256;
-  float* luts = smem;                                  // [WARPS][m*256]
-  float* lds = luts + (size_t)WARPS * lw;              // [WARPS][k]
-  int* lis = reinterpret_cast<int*>(lds + (size_t)WARPS * k);
-  unsigned char* tile =
-      reinterpret_cast<unsigned char*>(lis + (size_t)WARPS * k);  // [tm][m]
+}  // namespace
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int b = blockIdx.x * WARPS + warp;
-  const bool active = b < B;
-  const int split = blockIdx.y, splits = gridDim.y;
-  const int lo = split * rows_per_split;
-  const int hi = min(M, lo + rows_per_split);
-  float* lv = luts + (size_t)warp * lw;
-  float* ld = lds + (size_t)warp * k;
-  int* li = lis + (size_t)warp * k;
+// --- host side -------------------------------------------------------------
 
-  int qi = -1;
-  if (active) {
-    for (int i = lane; i < lw; i += 32) lv[i] = lut[(size_t)b * lw + i];
-    qi = q_idx[b];
-    for (int i = lane; i < k; i += 32) { ld[i] = INFINITY; li[i] = -1; }
-  }
-  __syncwarp();
-  float kth = INFINITY;
-  const float sc = fmaxf(sqrtf(fmaxf(c, 0.0f)), 1e-12f);
+typedef void (*DenseFn)(const float*, const float*, const int*, unsigned*,
+                        float*, int*, int, int, int, int, int, int, int, int,
+                        float, int, int, int);
 
-  for (int t0 = lo; t0 < hi; t0 += tm) {
-    const int rows = min(tm, hi - t0);
-    __syncthreads();
-    const unsigned char* src = codes + (size_t)t0 * m;
-    for (int i = threadIdx.x; i < rows * m; i += WARPS * 32) tile[i] = src[i];
-    __syncthreads();
-    if (!active) continue;
-    for (int r0 = 0; r0 < rows; r0 += 32) {
-      const int r = r0 + lane;
-      const int gcol = col0 + t0 + r;
-      float d = INFINITY;
-      if (r < rows && gcol < n && !(exclude_self && gcol == qi)) {
-        const unsigned char* code = tile + (size_t)r * m;
-        float ssum = 0.0f;
-        for (int s = 0; s < m; ++s)
-          ssum = __fadd_rn(ssum, lv[s * 256 + code[s]]);
-        if (kind == EUCLIDEAN) {
-          d = sqrtf(fmaxf(ssum, 0.0f));
-        } else {
-          // the plain version's rounding: no contraction into an FMA
-          const float u = fmaxf(__fsub_rn(__fmul_rn(-c, ssum), 1.0f), 0.0f);
-          d = arcosh1p(u) / sc;
-        }
-      }
-      unsigned hit = __ballot_sync(FULL, d < kth);
-      while (hit) {
-        const int srcl = __ffs(hit) - 1;
-        hit &= hit - 1;
-        const float dc = __shfl_sync(FULL, d, srcl);
-        if (dc < kth) {
-          insert(ld, li, k, lane, dc, col0 + t0 + r0 + srcl);
-          kth = ld[k - 1];
-        }
-      }
-    }
-  }
-  if (active) {
-    const size_t base = ((size_t)b * splits + split) * k;
-    for (int i = lane; i < k; i += 32) {
-      out_d[base + i] = ld[i];
-      out_i[base + i] = li[i];
-    }
+// rows a lane a step: independent chains that hide the shared loads'
+// latency (fewer where the query takes many registers; the ADC scan's
+// lookups conflict in the banks and gain less from more in flight)
+constexpr int DENSE_ROWS = 4, PQ_ROWS = 2;
+
+template <int KIND>
+static DenseFn dense_for(int D) {
+  if (D <= 16) return scan_topk_kernel<KIND, 16, DENSE_ROWS>;
+  if (D <= 32) return scan_topk_kernel<KIND, 32, DENSE_ROWS>;
+  if (D <= 64) return scan_topk_kernel<KIND, 64, 2>;
+  return scan_topk_kernel<KIND, 0, DENSE_ROWS>;
+}
+
+typedef void (*PqFn)(const unsigned char*, const float*, const int*,
+                     unsigned*, float*, int*, int, int, int, int, int, int,
+                     float, int, int, int);
+
+static PqFn pq_for(int m) {
+  switch (m) {
+    case 1: return scan_pq_kernel<1, PQ_ROWS>;
+    case 2: return scan_pq_kernel<2, PQ_ROWS>;
+    case 3: return scan_pq_kernel<3, PQ_ROWS>;
+    case 4: return scan_pq_kernel<4, PQ_ROWS>;
+    case 5: return scan_pq_kernel<5, PQ_ROWS>;
+    case 6: return scan_pq_kernel<6, PQ_ROWS>;
+    case 7: return scan_pq_kernel<7, PQ_ROWS>;
+    default: return scan_pq_kernel<8, PQ_ROWS>;
   }
 }
 
-}  // namespace
+// Merge [B, S, k] split lists into [B, k] (merge_tree_kernel).
+static int merge_tree(const float* pd, const int* pi, float* od, int* oi,
+                      int B, int S, int k, cudaStream_t st) {
+  const size_t per_warp = (size_t)16 * S * k;
+  const int wm = (int)(SMEM_BUDGET / per_warp < (size_t)WARPS
+                           ? SMEM_BUDGET / per_warp : (size_t)WARPS);
+  const size_t bytes = per_warp * wm;
+  cudaError_t e = cudaFuncSetAttribute(
+      merge_tree_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (e != cudaSuccess) return (int)e;
+  merge_tree_kernel<<<(B + wm - 1) / wm, wm * 32, bytes, st>>>(
+      pd, pi, od, oi, B, S, k);
+  return (int)cudaGetLastError();
+}
 
-// Shared memory the scan kernel needs for a tile of `tm` rows.
-static size_t smem_bytes(int D, int ds, int k, int tm) {
-  return ((size_t)tm * ds + (size_t)WARPS * D + (size_t)WARPS * k) * 4 +
-         (size_t)WARPS * k * 4;
+// Shared memory of the exact scan: the selection machine, the query
+// (general width only) and `stages` tiles of tm rows of stride ds.
+static size_t dense_bytes(int D, int ds, int k, int tm, int stages,
+                          bool query_in_smem) {
+  return sel_bytes(k) + (query_in_smem ? (size_t)WARPS * D * 4 : 0) +
+         (size_t)stages * tm * ds * 4;
+}
+
+// The split arguments every slab entry checks: splits > 1 needs the
+// part buffers, the threshold words, and a merge that fits.
+static bool bad_split_args(int k, int splits, const void* thr,
+                           const void* part_d, const void* part_i) {
+  return k < 1 || k > KMAX || splits < 1 || splits > MAX_SPLITS ||
+         (splits > 1 && (thr == nullptr || part_d == nullptr ||
+                         part_i == nullptr || splits * k > MERGE_KEYS));
 }
 
 extern "C" int hs_scan_topk(const float* slab, const float* q,
-                            const int* q_idx, float* part_d, int* part_i,
-                            float* od, int* oi, int B, int M, int D, int k,
-                            int col0, int n, int exclude_self, float c,
-                            int kind, int splits, void* stream) {
-  if (k < 1 || k > KMAX || splits < 1 || splits > MAX_SPLITS || D < 1)
+                            const int* q_idx, unsigned* thr, float* part_d,
+                            int* part_i, float* od, int* oi, int B, int M,
+                            int D, int k, int col0, int n, int exclude_self,
+                            float c, int kind, int splits, void* stream) {
+  if (bad_split_args(k, splits, thr, part_d, part_i) || D < 1 || kind < 0 ||
+      kind > 2)
     return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaGetLastError();
   cudaStream_t st = (cudaStream_t)stream;
   const int ds = D | 1;  // odd row stride: lanes read distinct banks
-  const size_t budget = 200 * 1024;
-  int tm = 256;
-  while (tm > 32 && smem_bytes(D, ds, k, tm) > budget) tm -= 32;
-  const size_t bytes = smem_bytes(D, ds, k, tm);
-  if (bytes > 227 * 1024) return (int)cudaErrorInvalidValue;
+  const bool qsm = D > 64;
+  // the widest tile with two stages that leaves several blocks an SM,
+  // else the widest that fits at all, two stages before one
+  int tm = 0, stages = 0;
+  for (size_t budget : {(size_t)56 * 1024, SMEM_BUDGET}) {
+    for (int sg = 2; sg >= 1 && !tm; --sg)
+      for (int t = 512; t >= 32 && !tm; t -= 32)
+        if (dense_bytes(D, ds, k, t, sg, qsm) <= budget) {
+          tm = t;
+          stages = sg;
+        }
+    if (tm) break;
+  }
+  if (!tm) return (int)cudaErrorInvalidValue;
+  const size_t bytes = dense_bytes(D, ds, k, tm, stages, qsm);
+  DenseFn fn = kind == POINCARE  ? dense_for<POINCARE>(D)
+               : kind == LORENTZ ? dense_for<LORENTZ>(D)
+                                 : dense_for<EUCLIDEAN>(D);
   cudaError_t e = cudaFuncSetAttribute(
-      scan_topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return (int)e;
   const int rows_per_split = (M + splits - 1) / splits;
   dim3 grid((B + WARPS - 1) / WARPS, splits);
-  float* sd = splits == 1 ? od : part_d;
-  int* si = splits == 1 ? oi : part_i;
-  scan_topk_kernel<<<grid, WARPS * 32, bytes, st>>>(
-      slab, q, q_idx, sd, si, B, M, D, ds, k, col0, n, exclude_self, c, kind,
-      rows_per_split, tm);
+  fn<<<grid, NT, bytes, st>>>(slab, q, q_idx, splits == 1 ? nullptr : thr,
+                              splits == 1 ? od : part_d,
+                              splits == 1 ? oi : part_i, B, M, D, ds, k, col0,
+                              n, exclude_self, c, rows_per_split, tm, stages);
   e = cudaGetLastError();
   if (e != cudaSuccess || splits == 1) return (int)e;
-  merge_splits_kernel<<<(B + 127) / 128, 128, 0, st>>>(part_d, part_i, od, oi,
-                                                       B, splits, k);
-  return (int)cudaGetLastError();
+  return merge_tree(part_d, part_i, od, oi, B, splits, k, st);
 }
 
-// Merge each row's split lists into [B, k] when the launch used splits.
-static int merge_if_split(float* pd, int* pi, float* od, int* oi, int B,
-                          int splits, int k, cudaStream_t st) {
-  cudaError_t e = cudaGetLastError();
+extern "C" int hs_scan_topk_pq(const unsigned char* codes, const float* lut,
+                               const int* q_idx, unsigned* thr, float* part_d,
+                               int* part_i, float* od, int* oi, int B, int M,
+                               int m, int k, int col0, int n,
+                               int exclude_self, float c, int kind,
+                               int splits, void* stream) {
+  if (bad_split_args(k, splits, thr, part_d, part_i) || m < 1 || m > 8 ||
+      kind < 0 || kind > 2)
+    return (int)cudaErrorInvalidValue;
+  if (B == 0) return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  // the widest code tile that leaves several blocks an SM, else the
+  // widest that fits
+  const size_t fixed = sel_bytes(k) + (size_t)WARPS * m * 256 * 4;
+  int tm = 0;
+  for (size_t budget : {(size_t)56 * 1024, SMEM_BUDGET}) {
+    for (int t = 2048; t >= 32 && !tm; t -= 32)
+      if (fixed + 2 * (size_t)(((t * m + 16) + 15) & ~15) <= budget) tm = t;
+    if (tm) break;
+  }
+  if (!tm) return (int)cudaErrorInvalidValue;
+  const size_t bytes = fixed + 2 * (size_t)(((tm * m + 16) + 15) & ~15);
+  PqFn fn = pq_for(m);
+  cudaError_t e = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e != cudaSuccess) return (int)e;
+  const int rows_per_split = (M + splits - 1) / splits;
+  dim3 grid((B + WARPS - 1) / WARPS, splits);
+  fn<<<grid, NT, bytes, st>>>(codes, lut, q_idx, splits == 1 ? nullptr : thr,
+                              splits == 1 ? od : part_d,
+                              splits == 1 ? oi : part_i, B, M, k, col0, n,
+                              exclude_self, c, kind, rows_per_split, tm);
+  e = cudaGetLastError();
   if (e != cudaSuccess || splits == 1) return (int)e;
-  merge_splits_kernel<<<(B + 127) / 128, 128, 0, st>>>(pd, pi, od, oi, B,
-                                                       splits, k);
-  return (int)cudaGetLastError();
+  return merge_tree(part_d, part_i, od, oi, B, splits, k, st);
 }
 
 extern "C" int hs_scan_topk_cand(const float* table, const int* cand,
@@ -493,31 +1062,9 @@ extern "C" int hs_scan_topk_cand(const float* table, const int* cand,
       table, cand, q, q_idx, splits == 1 ? od : part_d,
       splits == 1 ? oi : part_i, B, C, N, D, k, exclude_self, c, kind,
       per_split);
-  return merge_if_split(part_d, part_i, od, oi, B, splits, k, st);
-}
-
-extern "C" int hs_scan_topk_pq(const unsigned char* codes, const float* lut,
-                               const int* q_idx, float* part_d, int* part_i,
-                               float* od, int* oi, int B, int M, int m, int k,
-                               int col0, int n, int exclude_self, float c,
-                               int kind, int splits, void* stream) {
-  if (k < 1 || k > KMAX || splits < 1 || splits > MAX_SPLITS || m < 1 ||
-      m > 8)
-    return (int)cudaErrorInvalidValue;
-  if (B == 0) return (int)cudaGetLastError();
-  cudaStream_t st = (cudaStream_t)stream;
-  const int tm = 1024;
-  const size_t bytes = ((size_t)WARPS * m * 256 + (size_t)WARPS * k) * 4 +
-                       (size_t)WARPS * k * 4 + (size_t)tm * m;
-  cudaError_t e = cudaFuncSetAttribute(
-      scan_pq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
-  if (e != cudaSuccess) return (int)e;
-  const int rows_per_split = (M + splits - 1) / splits;
-  dim3 grid((B + WARPS - 1) / WARPS, splits);
-  scan_pq_kernel<<<grid, WARPS * 32, bytes, st>>>(
-      codes, lut, q_idx, splits == 1 ? od : part_d,
-      splits == 1 ? oi : part_i, B, M, m, k, col0, n, exclude_self, c, kind,
-      rows_per_split, tm);
-  return merge_if_split(part_d, part_i, od, oi, B, splits, k, st);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || splits == 1) return (int)e;
+  merge_splits_kernel<<<(B + 127) / 128, 128, 0, st>>>(part_d, part_i, od, oi,
+                                                       B, splits, k);
+  return (int)cudaGetLastError();
 }

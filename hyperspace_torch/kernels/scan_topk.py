@@ -11,7 +11,10 @@ lowest global column.
 
 The kernel picks its own shared-memory tile and splits the table over
 enough blocks to fill the card, so the JAX module's VMEM footprint
-model (``fused_tile_rows``) has no counterpart here.
+model (``fused_tile_rows``) has no counterpart here.  A query's splits
+share a threshold word (``_parts``), which the wrapper allocates
+and fills; the kernel reads the slab where it lies, at any alignment,
+and the wrapper copies nothing.
 
 Two more entry points, each with its plain version and its kernel in
 the same source:
@@ -48,6 +51,10 @@ _KINDS = ("poincare", "lorentz", "euclidean")
 _WARPS_PER_SM = 32    # resident query warps per SM the split aims for
 _MAX_SPLITS = 64      # csrc/scan_topk.cu MAX_SPLITS
 _MIN_SPLIT_ROWS = 256
+# csrc/scan_topk.cu MERGE_KEYS: the slab scans' split merge holds
+# splits · k keys twice in one warp's shared memory
+_MERGE_KEYS = 12800
+_INF_BITS = 0x7F800000   # float32 +inf, the threshold words' start
 
 
 def kind_supported(spec: tuple) -> bool:
@@ -120,6 +127,26 @@ def _splits(b: int, m: int, device: torch.device) -> int:
     return max(1, min(want, _MAX_SPLITS, m // _MIN_SPLIT_ROWS))
 
 
+def _slab_splits(b: int, m: int, k: int, device: torch.device) -> int:
+    """:func:`_splits` within the slab merge's shared memory."""
+    return max(1, min(_splits(b, m, device), _MERGE_KEYS // k))
+
+
+def _parts(b: int, splits: int, k: int, device: torch.device):
+    """Per-split lists ``[B, S, k]`` and the queries' threshold words
+    (float32 +inf bits, lowered by the kernel) when the slab is split;
+    three Nones otherwise."""
+    if splits == 1:
+        return None, None, None
+    return (torch.empty((b, splits, k), dtype=torch.float32, device=device),
+            torch.empty((b, splits, k), dtype=torch.int32, device=device),
+            torch.full((b,), _INF_BITS, dtype=torch.int32, device=device))
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def _launch(slab, q, q_idx, col0, *, kind, c, k, n, exclude_self):
     S.check_cuda("scan_topk", (torch.float32,), slab, q)
     if (q_idx.device != q.device or q_idx.dtype != torch.int32
@@ -130,21 +157,16 @@ def _launch(slab, q, q_idx, col0, *, kind, c, k, n, exclude_self):
     m = slab.shape[0]
     od = torch.empty((b, k), dtype=torch.float32, device=q.device)
     oi = torch.empty((b, k), dtype=torch.int32, device=q.device)
-    splits = _splits(b, m, q.device)
-    pd = pi = None
-    if splits > 1:
-        pd = torch.empty((b, splits, k), dtype=torch.float32, device=q.device)
-        pi = torch.empty((b, splits, k), dtype=torch.int32, device=q.device)
+    splits = _slab_splits(b, m, k, q.device)
+    pd, pi, thr = _parts(b, splits, k, q.device)
     P, I = ctypes.c_void_p, ctypes.c_int
     fn = S.function("scan_topk", "hs_scan_topk",
-                    [P, P, P, P, P, P, P, I, I, I, I, I, I, I,
+                    [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I,
                      ctypes.c_float, I, I, P])
-    S.check(fn(slab.data_ptr(), q.data_ptr(), q_idx.data_ptr(),
-               None if pd is None else pd.data_ptr(),
-               None if pi is None else pi.data_ptr(),
-               od.data_ptr(), oi.data_ptr(), b, m, dim, k, int(col0), int(n),
-               int(exclude_self), float(c), _KINDS.index(kind), splits,
-               S.stream_ptr(q)), "scan_topk")
+    S.check(fn(slab.data_ptr(), q.data_ptr(), q_idx.data_ptr(), _ptr(thr),
+               _ptr(pd), _ptr(pi), od.data_ptr(), oi.data_ptr(), b, m, dim,
+               k, int(col0), int(n), int(exclude_self), float(c),
+               _KINDS.index(kind), splits, S.stream_ptr(q)), "scan_topk")
     scan_topk.launches += 1
     return od, oi
 
@@ -380,23 +402,17 @@ def _launch_pq(codes, lut, q_idx, col0, *, kind, c, k, n, exclude_self):
     mrows, m = codes.shape
     od = torch.empty((b, k), dtype=torch.float32, device=lut.device)
     oi = torch.empty((b, k), dtype=torch.int32, device=lut.device)
-    splits = _splits(b, mrows, lut.device)
-    pd = pi = None
-    if splits > 1:
-        pd = torch.empty((b, splits, k), dtype=torch.float32,
-                         device=lut.device)
-        pi = torch.empty((b, splits, k), dtype=torch.int32,
-                         device=lut.device)
+    splits = _slab_splits(b, mrows, k, lut.device)
+    pd, pi, thr = _parts(b, splits, k, lut.device)
     P, I = ctypes.c_void_p, ctypes.c_int
     fn = S.function("scan_topk", "hs_scan_topk_pq",
-                    [P, P, P, P, P, P, P, I, I, I, I, I, I, I,
+                    [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I,
                      ctypes.c_float, I, I, P])
     S.check(fn(codes.data_ptr(), lut.data_ptr(), q_idx.data_ptr(),
-               None if pd is None else pd.data_ptr(),
-               None if pi is None else pi.data_ptr(),
-               od.data_ptr(), oi.data_ptr(), b, mrows, m, k, int(col0),
-               int(n), int(exclude_self), float(c), _KINDS.index(kind),
-               splits, S.stream_ptr(lut)), "scan_topk_pq")
+               _ptr(thr), _ptr(pd), _ptr(pi), od.data_ptr(), oi.data_ptr(),
+               b, mrows, m, k, int(col0), int(n), int(exclude_self),
+               float(c), _KINDS.index(kind), splits, S.stream_ptr(lut)),
+            "scan_topk_pq")
     scan_topk_pq.launches += 1
     return od, oi
 

@@ -243,6 +243,195 @@ def test_scan_topk_pq_kernel_matches_plain(dev, kind, d, m, k):
     torch.testing.assert_close(got[0], wd, rtol=1e-6, atol=1e-6)
 
 
+def assert_slab_close(kind, slab, q, got, want):
+    """:func:`assert_cand_close`; for ball rows the arcosh arguments
+    u = cosh(d) − 1 within twice the Gram form's forward-error bound
+    2c·(D + 2)·2^-24·(|x| + |y|)² / ((1 − c|x|²)(1 − c|y|²)), taken at
+    the case's largest radii (at D = 2 the rows are dense enough that
+    f32 near-ties closer than ATOL fall where the two versions' roundings
+    differ by more, growing as 1/den toward the boundary)."""
+    if kind != "poincare":
+        assert_cand_close(kind, slab, got, want)
+        return
+    (gd, gi), (wd, wi) = got, want
+    rx = float(q.norm(dim=1).max())
+    ry = float(slab.norm(dim=1).max())
+    den = (1.0 - rx * rx) * (1.0 - ry * ry)
+    atol = 2.0 * 2.0 * (slab.shape[1] + 2) * 2.0 ** -24 * (rx + ry) ** 2 / den
+    gu, wu = (2.0 * torch.sinh(t.double() / 2.0) ** 2 for t in (gd, wd))
+    assert topk_disagreements(gi.cpu().numpy(), gu.cpu().numpy(),
+                              wi.cpu().numpy(), wu.cpu().numpy(),
+                              rtol=RTOL, atol=atol) == 0
+
+
+def storm_rows(m, d, kind, dev):
+    """Rows along one direction whose distance to the origin falls with
+    the row index: every row beats every earlier one (an insertion
+    storm for a query at the origin)."""
+    t = torch.linspace(0.9, 0.01, m, dtype=torch.float64)
+    dd = d - 1 if kind == "lorentz" else d
+    x = torch.zeros((m, dd), dtype=torch.float64)
+    x[:, 0] = t if kind == "euclidean" else torch.tanh(t)
+    x = x.to(torch.float32).to(dev)
+    return ball_to_lorentz(x, 1.0).contiguous() if kind == "lorentz" else x
+
+
+def origin(b, d, kind, dev):
+    q = torch.zeros((b, d), dtype=torch.float32, device=dev)
+    if kind == "lorentz":
+        q[:, 0] = 1.0
+    return q
+
+
+def twice_equal(run):
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    return got
+
+
+SLAB_WIDTHS = [("poincare", 2), ("poincare", 10), ("poincare", 17),
+               ("poincare", 130), ("lorentz", 11), ("lorentz", 40),
+               ("euclidean", 10)]
+
+
+@pytest.mark.parametrize("b", [1, 8, 1024])
+@pytest.mark.parametrize("k", [1, 32, 33, 170, 256])
+@pytest.mark.parametrize("kind,d", SLAB_WIDTHS)
+def test_scan_topk_storms_ties_and_unaligned_views(dev, kind, d, k, b):
+    """The redesigned slab scan: random rows read through a view at an
+    odd float offset (col0 and n cut, exclude_self), an insertion storm,
+    and a slab of identical rows, whose answer is exactly the lowest k
+    reachable columns.  Each case launched twice, bitwise equal."""
+    rng = np.random.default_rng(12 + d + k + b)
+    m = 3001
+    spec = (kind, 0.0 if kind == "euclidean" else 1.0)
+    base = rows(rng, m + 1, d, kind, dev)
+    slab = base[1:]                           # 4·d bytes past the start
+    q = rows(rng, b, d, kind, dev)
+    col0, n = 13, 13 + m - 40
+    qi = torch.as_tensor(rng.integers(col0, col0 + m, b), dtype=torch.int32,
+                         device=dev)
+    kw = dict(k=k, n=n, exclude_self=True)
+    got = twice_equal(lambda: scan_topk(slab, q, qi, col0, spec=spec, **kw))
+    want = scan_topk_plain(slab, q, qi, col0, kind=kind, c=spec[1], **kw)
+    assert_slab_close(kind, slab, q, got, want)
+
+    storm = storm_rows(m, d, kind, dev)
+    q0 = origin(b, d, kind, dev)
+    got = twice_equal(lambda: scan_topk(storm, q0, qi, col0, spec=spec,
+                                        **kw))
+    want = scan_topk_plain(storm, q0, qi, col0, kind=kind, c=spec[1], **kw)
+    assert_slab_close(kind, storm, q0, got, want)
+
+    # identical rows: one distance a query, so the lowest k columns.  The
+    # plain version's GEMM need not give identical rows identical bits
+    # (at D = 130 it does not), so it is held by tolerance here.
+    tied = base[:1].expand(m, d).contiguous()
+    got = twice_equal(lambda: scan_topk(tied, q, qi, col0, spec=spec, **kw))
+    want = scan_topk_plain(tied, q, qi, col0, kind=kind, c=spec[1], **kw)
+    assert_slab_close(kind, tied, q, got, want)
+    assert torch.equal(got[0], got[0][:, :1].expand(b, k))
+    cols = torch.arange(col0, n, device=dev)
+    for r in range(b):
+        lowest = cols[cols != qi[r]][:k]
+        assert torch.equal(got[1][r, :lowest.numel()].long(), lowest)
+
+
+def ordered_lut(b, m, kind, dev):
+    """Lookup tables that make a row's ADC sum v·2^-12 (Euclidean) or
+    −1 − v·2^-12 (the hyperbolic closed form) exactly, v = 256·code0 +
+    code1: the codes lay out the distance order."""
+    lut = torch.zeros((b, m * 256), dtype=torch.float32, device=dev)
+    j = torch.arange(256, dtype=torch.float32, device=dev)
+    sign = 1.0 if kind == "euclidean" else -1.0
+    lut[:, :256] = sign * j * 256 * 2.0 ** -12
+    if m > 1:
+        lut[:, 256:512] = sign * j * 2.0 ** -12
+    if kind != "euclidean":
+        lut[:, :256] -= 1.0
+    return lut
+
+
+@pytest.mark.parametrize("b", [1, 8, 1024])
+@pytest.mark.parametrize("k", [1, 32, 33, 170, 256])
+@pytest.mark.parametrize("m", [1, 3, 8])
+@pytest.mark.parametrize("kind", ["poincare", "lorentz", "euclidean"])
+def test_scan_topk_pq_storms_ties_and_unaligned_views(dev, kind, m, k, b):
+    """The redesigned ADC scan: random codes read through a view at an
+    odd byte offset (col0 and n cut, exclude_self), an insertion storm
+    (codes in falling distance order), and identical codes, whose answer
+    is exactly the lowest k reachable columns.  Twice each, bitwise."""
+    rng = np.random.default_rng(40 + m + k + b)
+    rows_ = 9001
+    spec = (kind, 0.0 if kind == "euclidean" else 1.0)
+    base = torch.as_tensor(rng.integers(0, 256, (rows_ + 1, m)),
+                           dtype=torch.uint8, device=dev)
+    codes = base[1:]                          # m bytes past the start
+    lo = 0.1 if kind == "euclidean" else -1.3    # u = -c·ssum - 1 >= 0
+    lut = torch.as_tensor(lo + rng.random((b, m * 256)) * 0.2,
+                          dtype=torch.float32, device=dev)
+    col0, n = 7, 7 + rows_ - 33
+    qi = torch.as_tensor(rng.integers(col0, col0 + rows_, b),
+                         dtype=torch.int32, device=dev)
+    kw = dict(k=k, n=n, exclude_self=True)
+    plain = dict(kind=kind, c=spec[1], **kw)
+    got = twice_equal(lambda: scan_topk_pq(codes, lut, qi, col0, spec=spec,
+                                           **kw))
+    wd, wi = scan_topk_pq_plain(codes, lut, qi, col0, **plain)
+    assert torch.equal(got[1], wi)
+    torch.testing.assert_close(got[0], wd, rtol=1e-6, atol=1e-6)
+
+    v = torch.arange(rows_ - 1, -1, -1, device=dev) % (256 * 256)
+    storm = torch.zeros((rows_, m), dtype=torch.uint8, device=dev)
+    storm[:, 0] = (v // 256 if m > 1 else v % 256).to(torch.uint8)
+    if m > 1:
+        storm[:, 1] = (v % 256).to(torch.uint8)
+    olut = ordered_lut(b, m, kind, dev)
+    got = twice_equal(lambda: scan_topk_pq(storm, olut, qi, col0, spec=spec,
+                                           **kw))
+    wd, wi = scan_topk_pq_plain(storm, olut, qi, col0, **plain)
+    assert torch.equal(got[1], wi)
+    torch.testing.assert_close(got[0], wd, rtol=1e-6, atol=1e-6)
+
+    tied = base[:1].expand(rows_, m).contiguous()
+    got = twice_equal(lambda: scan_topk_pq(tied, lut, qi, col0, spec=spec,
+                                           **kw))
+    wd, wi = scan_topk_pq_plain(tied, lut, qi, col0, **plain)
+    assert torch.equal(got[1], wi)
+    cols = torch.arange(col0, n, device=dev)
+    for r in range(b):
+        lowest = cols[cols != qi[r]][:k]
+        assert torch.equal(got[1][r, :lowest.numel()].long(), lowest)
+
+
+def test_slab_scans_repeat_bitwise_at_the_path_shapes(dev):
+    """20 launches of each slab scan at the serving path's shapes (its
+    splits share a threshold through atomics) give the same bits, one
+    launch counted per call."""
+    rng = np.random.default_rng(13)
+    m, rows_ = 83968, 82115
+    slab = torch.zeros((m, 10), device=dev)
+    slab[:rows_] = rows(rng, rows_, 10, "poincare", dev)
+    q = rows(rng, 1024, 10, "poincare", dev)
+    qi = torch.as_tensor(rng.choice(rows_, 1024, replace=False),
+                         dtype=torch.int32, device=dev)
+    codes = torch.as_tensor(rng.integers(0, 256, (m, 3)), dtype=torch.uint8,
+                            device=dev)
+    lut = torch.as_tensor(rng.standard_normal((1024, 768)) * 0.1 - 1.2,
+                          dtype=torch.float32, device=dev)
+    spec = ("poincare", 1.0)
+    for fn, args, k in ((scan_topk, (slab, q, qi, 0), 10),
+                        (scan_topk_pq, (codes, lut, qi, 0), 170)):
+        before = fn.launches
+        first = fn(*args, spec=spec, k=k, n=rows_, exclude_self=True)
+        for _ in range(19):
+            again = fn(*args, spec=spec, k=k, n=rows_, exclude_self=True)
+            assert torch.equal(first[0], again[0])
+            assert torch.equal(first[1], again[1])
+        assert fn.launches == before + 20
+
+
 def test_build_index_on_cuda_repeats(dev):
     """The build on the card: k = 1 ``scan_topk`` assignment and one-hot
     cell sums (no float atomics) give the same index twice."""

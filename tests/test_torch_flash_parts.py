@@ -1,5 +1,6 @@
 """How the flash backward kernels cut the other side into parts
-(``hyperspace_torch.kernels.attention.split_count``), on the CPU.
+(``hyperspace_torch.kernels.attention.split_count``), and how their dτ is
+held, on the CPU.
 
 A launch of dq (or dk/dv) has ``blocks`` blocks of 64 rows a part and
 streams ``tiles`` 64-row tiles of the other side; the parts differ by one
@@ -8,8 +9,11 @@ every streaming multiprocessor where the tiles allow, and follow the
 kernel's occupancy at the HyboNet shapes of an H100 (132 SMs).
 """
 
+import numpy as np
 import pytest
+import torch
 
+from hyperspace_torch.kernels import attention as A
 from hyperspace_torch.kernels.attention import split_count
 
 SMS = 132
@@ -38,3 +42,54 @@ def test_parts_are_never_empty_and_fill_the_card(blocks, tiles, per_sm):
 ])
 def test_parts_at_the_hybonet_shapes(blocks, tiles, per_sm, want):
     assert split_count(blocks, tiles, SMS, per_sm) == want
+
+
+# chip_smoke.py's FLASH_GRAD_TOL, the JAX package's tier for its kernel
+# (tests/kernels/test_attention.py, test_flash_backward_matches_twin)
+FLASH_GRAD_TOL = 2e-3
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_dtau_of_a_cancelling_head_needs_the_normwise_bound(seed):
+    """dτ = −Σ dσ·σ / τ over a head's pairs.  Head 1 has one valid key a
+    row, so its softmax rows are constant and every dσ is 0: its dτ is 0
+    exactly, in the dense twin at float64 and at float32 alike.  The
+    flash backward sums dσ·σ in float32 from σ − lse and the epilogue's
+    rounded s (``flash_dq_plain``, as the kernel does), so its dτ is
+    rounding noise.  That fails a bound relative to the head's own dτ
+    (``FLASH_GRAD_TOL·|dτ₆₄| + 4·|twin₃₂ − dτ₆₄|``, zero here) and
+    passes the JAX package's norm-wise bound over the case."""
+    rng = np.random.default_rng(seed)
+    n, d = 48, 5
+
+    def rows():
+        sp = rng.standard_normal((2, n, d - 1)) * 0.5
+        t = np.sqrt(1.0 + np.sum(sp * sp, axis=-1, keepdims=True))
+        return np.concatenate([t, sp], axis=-1)[None]
+
+    q, k, v = rows(), rows(), rows()
+    g = rng.standard_normal((1, 2, n, d))
+    mask = np.ones((1, 2, n, n), bool)
+    mask[0, 1] = np.eye(n, dtype=bool)
+    beta, tau = np.array([0.3, 30.0]), np.array([1.3, 1.7])
+    dtau = {}
+    for kind in ("flash", "twin", "twin64"):
+        dt = torch.float64 if kind == "twin64" else torch.float32
+        ins = [torch.tensor(x, dtype=dt, requires_grad=True)
+               for x in (q, k, v)]
+        ta = torch.tensor(tau, dtype=dt)[:, None, None].requires_grad_()
+        be = torch.tensor(beta, dtype=dt)[:, None, None].requires_grad_()
+        m = torch.tensor(mask)
+        if kind == "flash":
+            o = A.flash_attention(*ins, 1.0, beta=be, tau=ta, mask=m)
+        else:
+            o = A.flash_attention_plain(*ins, 1.0, be, ta, m)
+        (o * torch.tensor(g, dtype=dt)).sum().backward()
+        dtau[kind] = ta.grad.double().flatten()
+    t64 = dtau["twin64"]
+    assert t64[1] == 0 and dtau["twin"][1] == 0 and dtau["flash"][1] != 0
+    err = (dtau["flash"] - t64).abs()
+    per_head = FLASH_GRAD_TOL * t64.abs() + 4 * (dtau["twin"] - t64).abs()
+    assert bool(err[1] > per_head[1])
+    assert float(err.max()) <= FLASH_GRAD_TOL * max(float(t64.abs().max()),
+                                                   1e-3)
