@@ -24,7 +24,10 @@ prints its seconds):
    split, with its cluster split (host preparation, timed on its own);
 6. hold each scatter kernel against its plain version on the card at the
    training path's shapes (the real straggler, clustered and decoder
-   edge sets), plus an input with empty rows and padding edges;
+   edge sets), plus an input with empty rows and padding edges, the
+   straggler and decoder sets from an unaligned data_ptr, 3,000 edges
+   over all 169,343 rows and no edge at all; ``csr_segment_sum``
+   launched twice must give the same bits;
 7. the training path: ``run_hgcn_bench`` (bf16 edge messages and decoder
    pass, hidden (128, 32), Lorentz) for one warm-up and 10 timed steps;
    every loss finite, the last timed loss below the first, and the
@@ -41,8 +44,10 @@ prints its seconds):
    ``csr_att_bwd_edges``, ``cluster_att_fwd`` and ``cluster_att_bwd``
    against their plain versions on the path's straggler and clustered
    edge sets at F = 128 and 32, bf16 and f32, plus inputs with empty rows
-   and padding edges and with F = 8 and 130; each kernel launched twice
-   must give the same bits;
+   and padding edges and with F = 8 and 130, ``csr_att_bwd_edges`` also
+   on unaligned views of its rows and (d_num | d_den); and
+   ``csr_segment_sum`` at the arm's widths (F + 1 = 129 and 33, bf16) on
+   both edge sets; each kernel launched twice must give the same bits;
 10. the attention training path: ``run_hgcn_bench`` with ``use_att`` (lr
    3e-3, clip 1.0) for one warm-up and 10 timed steps; losses finite and
    falling, and the launch counts exactly steps × 2 for each attention
@@ -123,7 +128,8 @@ prints its seconds):
    device busy time, idle share and peak memory;
 23. print the kernels line (device times of each kernel and its plain
    version at the main paths' shapes, bounds, launches, the library
-   call's time: for flash dq and dk/dv together, the one backward call
+   call's time, ``csr_segment_sum`` also at the attention arm's widths:
+   for flash dq and dk/dv together, the one backward call
    of ``scaled_dot_product_attention``; their blocks an SM and parts;
    for the two slab scans the scan kernel and the split merge apart),
    the top-k throughput at bucket 1024 (batches of cold ids
@@ -297,11 +303,13 @@ def bf16_ulp(torch, x):
     return torch.where(x == 0, torch.zeros_like(x), ulp)
 
 
-def check_scatter(torch, kernel, label, got, want, order_bound) -> float:
+def check_scatter(torch, kernel, label, got, want, order_bound,
+                  again=None) -> float:
     """Hold a scatter kernel's output against its plain version's, both
     in the output type: f32 at rtol = atol = 1e-5; bf16 within one bf16
     ulp of the plain result plus ``order_bound`` (both sum the same f32
-    terms, in other orders: 2·k·2^-24·Σ|term| per row)."""
+    terms, in other orders: 2·k·2^-24·Σ|term| per row).  ``again``, a
+    second launch on the same input, must give the same bits."""
     if got.dtype != want.dtype or got.shape != want.shape:
         raise AssertionError(f"{kernel} {label}: {got.dtype} {got.shape} "
                              f"vs {want.dtype} {want.shape}")
@@ -312,14 +320,40 @@ def check_scatter(torch, kernel, label, got, want, order_bound) -> float:
     else:
         tol = 1e-5 + 1e-5 * w.abs()
     over = int((diff > tol).sum())
-    worst = float(diff.max())
+    worst = float(diff.max()) if diff.numel() else 0.0
+    bitwise = again is None or bool(torch.equal(got, again))
     emit({"phase": "check", "kernel": kernel, "case": label,
           "shape": list(got.shape), "dtype": str(got.dtype),
-          "max_abs_err": worst, "over_tolerance": over})
-    if over:
+          "max_abs_err": worst, "over_tolerance": over,
+          **({} if again is None else {"repeat_bitwise_equal": bitwise})})
+    if over or not bitwise:
         raise AssertionError(f"{kernel} {label}: {over} entries beyond "
-                             "tolerance")
+                             f"tolerance, repeat bitwise equal: {bitwise}")
     return worst
+
+
+def check_segsum(torch, gen, label, recv, n, f, dtype, n_real=None) -> float:
+    """``csr_segment_sum`` on random values over ``recv`` (zero past
+    ``n_real``; a negative ``n_real`` the same from a view one element
+    into its storage, an unaligned data_ptr) against its plain version,
+    launched twice."""
+    from hyperspace_torch.kernels.segment import (csr_segment_sum,
+                                                  csr_segment_sum_plain)
+
+    e, off = recv.shape[0], int(n_real is not None and n_real < 0)
+    flat = torch.randn(e * f + off, generator=gen, device=recv.device)
+    vals = flat.to(dtype)[off:].view(e, f)
+    if n_real is not None:
+        vals[abs(n_real):] = 0         # padding edges carry zero values
+    got = csr_segment_sum(vals, recv, None, n)
+    again = csr_segment_sum(vals, recv, None, n)
+    torch.cuda.synchronize()
+    want = csr_segment_sum_plain(vals, recv, n)
+    k = torch.bincount(recv.long(), minlength=n).float()[:, None]
+    bound = 2.0 * k * F32_EPS * csr_segment_sum_plain(vals.float().abs(),
+                                                      recv, n)
+    return check_scatter(torch, "csr_segment_sum", label, got, want, bound,
+                         again)
 
 
 def segment_cost(e: int, f: int, n: int, size: int) -> tuple[float, float]:
@@ -342,8 +376,7 @@ def train_path(torch, args, card: dict) -> dict:
     from hyperspace_torch.kernels.cluster import (build_cluster_split,
                                                   cluster_aggregate,
                                                   cluster_aggregate_plain)
-    from hyperspace_torch.kernels.segment import (csr_segment_sum,
-                                                  csr_segment_sum_plain)
+    from hyperspace_torch.kernels.segment import csr_segment_sum
     from hyperspace_torch.models import hgcn
 
     dev = torch.device("cuda")
@@ -373,18 +406,8 @@ def train_path(torch, args, card: dict) -> dict:
     err = {"csr_segment_sum": 0.0, "cluster_aggregate": 0.0}
 
     def seg_case(label, recv, f, dtype, n_real=None):
-        e = recv.shape[0]
-        vals = torch.randn(e, f, generator=gen, device=dev).to(dtype)
-        if n_real is not None:
-            vals[n_real:] = 0          # padding edges carry zero values
-        got = csr_segment_sum(vals, recv, None, n)
-        torch.cuda.synchronize()
-        want = csr_segment_sum_plain(vals, recv, n)
-        k = torch.bincount(recv.long(), minlength=n).float()[:, None]
-        bound = 2.0 * k * F32_EPS * csr_segment_sum_plain(
-            vals.float().abs(), recv, n)
-        err["csr_segment_sum"] = max(err["csr_segment_sum"], check_scatter(
-            torch, "csr_segment_sum", label, got, want, bound))
+        err["csr_segment_sum"] = max(err["csr_segment_sum"], check_segsum(
+            torch, gen, label, recv, n, f, dtype, n_real))
 
     bf16, f32 = torch.bfloat16, torch.float32
     seg_case("stragglers", agg.s_recv, 128, bf16, n_strag)
@@ -395,6 +418,16 @@ def train_path(torch, args, card: dict) -> dict:
     seg_case("empty rows + padding", torch.as_tensor(np.concatenate(
         [sparse, np.full(50_000, n - 1)]).astype(np.int32), device=dev),
         33, bf16, 200_000)
+    # the same edge sets from an unaligned data_ptr (a view one element
+    # in), a few thousand edges over all the rows, and no edge at all
+    seg_case("stragglers, unaligned view", agg.s_recv, 128, bf16, -n_strag)
+    seg_case("decoder u, unaligned view", setup.pos.u, 33, bf16, -len(
+        setup.pos.u))
+    few = np.sort(rng.choice(n, 3_000, replace=False)).astype(np.int32)
+    seg_case("3,000 edges over all rows", torch.as_tensor(few, device=dev),
+             128, bf16)
+    seg_case("no edge", torch.zeros(0, dtype=torch.int32, device=dev), 128,
+             bf16)
 
     def cl_case(f, dtype):
         h = torch.randn(n, f, generator=gen, device=dev).to(dtype)
@@ -660,7 +693,7 @@ def att_path(torch, args, card: dict, tr: dict) -> dict:
     gen = torch.Generator(device=dev).manual_seed(args.seed + 2)
     err = {name: 0.0 for name in ("csr_segment_reduce_1d",
                                   "csr_att_bwd_edges", "cluster_att_fwd",
-                                  "cluster_att_bwd")}
+                                  "cluster_att_bwd", "csr_segment_sum")}
 
     def rand(*shape, dtype=f32, scale=1.0):
         return (torch.randn(*shape, generator=gen, device=dev)
@@ -693,10 +726,17 @@ def att_path(torch, args, card: dict, tr: dict) -> dict:
                 err["csr_segment_reduce_1d"], check_att(
                     torch, "csr_segment_reduce_1d", f"{label} {op}", got,
                     again, want, scale, k, 0.0))
-        for f, dt in ((128, bf16), (32, bf16), (128, f32), (8, f32),
-                      (130, bf16)):
-            dn = rand(n, f + 1)
-            h = rand(r.shape[0], f, dtype=dt)
+        # B1 at the attention arm's widths: the (num | den) messages of
+        # the first layer (F + 1 = 129) and of the second (33)
+        for f in (129, 33):
+            err["csr_segment_sum"] = max(err["csr_segment_sum"], check_segsum(
+                torch, gen, f"attention {label}", r, n, f, bf16, n_real))
+        # off: h and dn as views one element into their storage
+        for f, dt, off in ((128, bf16, 0), (32, bf16, 0), (128, f32, 0),
+                           (8, f32, 0), (130, bf16, 0), (128, bf16, 1),
+                           (33, f32, 1)):
+            dn = rand(n * (f + 1) + off)[off:].view(n, f + 1)
+            h = rand(r.shape[0] * f + off, dtype=dt)[off:].view(-1, f)
             w = torch.rand(r.shape[0], generator=gen, device=dev) * 3
             w[n_real:] = 0
             lm = rand(r.shape[0], scale=8.0).clamp(-29.0, 29.0)
@@ -706,7 +746,8 @@ def att_path(torch, args, card: dict, tr: dict) -> dict:
                                               ATT_SLOPE)
             sc = KS.csr_att_bwd_edges_plain(dn.abs(), h.abs(), w, lm, r, n,
                                             ATT_BOUND, ATT_SLOPE)
-            tag = f"{label} F={f} {str(dt)[6:]}"
+            tag = f"{label} F={f} {str(dt)[6:]}" + (", unaligned views"
+                                                     if off else "")
             e0 = check_att(torch, "csr_att_bwd_edges", f"{tag} dpre",
                            got[0], again[0], want[0], sc[0], f + 1)
             e1 = check_att(torch, "csr_att_bwd_edges", f"{tag} d_alpha_r",
@@ -813,6 +854,31 @@ def att_path(torch, args, card: dict, tr: dict) -> dict:
         raise AssertionError(f"attention: card and CPU losses differ by "
                              f"{rel}")
     return {"setup": setup, "launches": launches, "err": err}
+
+
+def att_segsum_times(torch, at: dict) -> dict:
+    """``csr_segment_sum``'s times at the attention arm's two widths: the
+    (num | den) messages of the first layer (F + 1 = 129) and the second
+    (33), bf16, on the attention split's straggler edges, beside their
+    bounds and ``index_add_``'s time."""
+    from hyperspace_torch.kernels.segment import csr_segment_sum
+
+    setup = at["setup"]
+    r, n, dev = setup.ga.cluster.s_recv, setup.num_nodes, setup.device
+    gen = torch.Generator(device=dev).manual_seed(17)
+    r64 = r.long()
+    out = {"shape_att": [r.shape[0], n]}
+    for f in (129, 33):
+        v = torch.randn(r.shape[0], f, generator=gen, device=dev).to(
+            torch.bfloat16)
+        v32 = v.float()
+        out[f"ms_att_F{f}"] = device_ms(
+            torch, lambda: csr_segment_sum(v, r, None, n))
+        out[f"bound_ms_att_F{f}"] = bound_ms(*segment_cost(r.shape[0], f, n,
+                                                           2))[0]
+        out[f"library_ms_att_F{f}"] = device_ms(torch, lambda: torch.zeros(
+            (n, f), device=dev).index_add_(0, r64, v32))
+    return out
 
 
 def att_kernel_entries(torch, at: dict, card: dict) -> list:
@@ -2576,6 +2642,10 @@ def main(argv=None) -> int:
     for entry in kernels:      # the mean path's kernels on the attention arm
         if entry["name"] in ("csr_segment_sum", "cluster_aggregate"):
             entry["launches_attention"] = at["launches"][entry["name"]]
+        if entry["name"] == "csr_segment_sum":
+            entry["max_abs_err"] = max(entry["max_abs_err"],
+                                       at["err"]["csr_segment_sum"])
+            entry.update(att_segsum_times(torch, at))
     # requests through the batcher at bucket 1024 with its default cache,
     # each batch of distinct ids never seen before (all cold, so every id
     # is computed), and the engine call alone on the same ids, the two

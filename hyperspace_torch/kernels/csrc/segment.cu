@@ -1,65 +1,93 @@
-// Sorted segment sum out[r] = Σ_{e: recv_e = r} vals_e, bf16 or f32
-// values, f32 accumulation, for sm_90a.
+// Sorted segment reductions over receiver-sorted edges, for sm_90a: the
+// segment sum of [E, F] rows, the attention backward's fused edge pass
+// and the per-edge scalar sum or max.
 //
-// Replaces hyperspace_tpu/kernels/segment.py `csr_segment_sum` (the
-// Pallas kernel `_pallas_csr`), which turns the scatter into one-hot
-// matrix products over a host-built (node block × edge chunk) plan
-// because the TPU has no atomics and a slow scatter.  On Hopper neither
-// trick is needed: the receivers are sorted, so each row's edges are one
-// contiguous range, and a warp can own a row outright.
+// 1. `segsum_kernel` replaces hyperspace_tpu/kernels/segment.py
+//    `csr_segment_sum` (the Pallas kernel `_pallas_csr`), which turns the
+//    scatter into one-hot matrix products over a host-built (node block ×
+//    edge chunk) plan because the TPU has no atomics and a slow scatter:
+//        out[r] = Σ_{e: recv_e = r} vals_e     (bf16 or f32, f32 sums)
+//    Bytes bound it: every value and receiver read once and each output
+//    row written once, E·F·size + 4E + N·F·size over 3.35 TB/s (0.127 ms
+//    at [1,467,392, 128] bf16, 0.033 at F = 32).
+// 2. `att_edges_kernel` replaces `csr_att_bwd_edges` (segment.py:392,
+//    which picks the receivers' (d_num | d_den) rows by one-hot products
+//    from a VMEM block):
+//        dpre_e = (<d_num[r], h_e> + d_den[r]) · w_e · (1 − (lm_e/B)²)
+//                 · (lm_e ≥ 0 ? 1 : slope),     d_alpha_r[r] = Σ dpre_e,
+//    reading the [E, F] residual rows and adding the d_den term itself
+//    (no ones-column copy).  Bytes: E·(F·size + 16) + N·(4(F + 1) + 4),
+//    0.143 ms at 1.44 M bf16 rows of 128, 0.041 at F = 32.
+// 3. `reduce1d_kernel` replaces `csr_segment_reduce_1d` (segment.py:257,
+//    whose TPU kernel keeps a [bn, 128] lane-partial accumulator per node
+//    block and combines the lanes in XLA): sum, or max from the TPU
+//    kernel's fill -3e38 (so an empty row reads -3e38), in one pass over
+//    the edges with no row pointer.  The mean row holds about 8.5 edges,
+//    so a warp a row would leave most lanes idle; instead a block takes a
+//    tile of 1024 consecutive edges (4 a thread, read with 16-byte loads
+//    when both arrays are 16-byte aligned), reduces runs of equal
+//    receivers in registers and combines runs across threads by a
+//    segmented scan (shuffles with head flags in a warp, shared memory
+//    across warps).  A row belongs to the tile that holds its first edge:
+//    a tile skips its leading edges whose receiver is that of the edge
+//    before it, and when its last row runs past the tile, the whole block
+//    walks the row's further edges (4096 a step, one block-wide sum at the
+//    end), so a hub row is read by a block, never split between owners,
+//    and needs no fix-up pass.  The thread that holds the edge after a gap
+//    of receivers fills the empty rows between, or queues a gap of more
+//    than 64 rows for the whole block to fill; with no edge at all every
+//    row is filled.  Bytes: 8 B an edge and 4 B a row, about 0.004 ms at
+//    1.4 M edges.
 //
-// What bounds it on an H100: bytes.  Every value is read once, each
-// receiver once (to build the row pointer) and each output row written
-// once: E·F·size(in) + 4E + N·F·size(out) over 3.35 TB/s — about
-// 0.13 ms at [1,467,392, 128] bf16.  The design:
-//   1. `rowptr_kernel`: one thread per edge boundary writes the CSR row
-//      pointer of the sorted receivers (rows with no edge get an empty
-//      range, so they come out 0);
-//   2. `segsum_kernel`: one warp per receiver row walks the row's edges
-//      in order with the lanes on feature columns (4 columns per lane,
-//      two edges' loads in flight), summing in f32 registers and
-//      writing the row once, rounded to the values' type.  A row is
-//      owned by one warp: no atomics, and the sum is taken in edge order,
-//      so the result is deterministic.  Any F works: a warp covers 128
-//      columns per pass and masks the tail.
+// What the design has to answer on this card: the mean row holds 8.7
+// edges, and at F = 32 a bf16 row is 64 B, so the bytes in flight (some
+// 16 KB an SM at 3.35 TB/s) must come from many rows at once, not from a
+// row's own edges; the path's pitches (66 B at F = 33 bf16, 258 B at 129,
+// 516 B (d_num | d_den) rows) rule out 16-byte loads row by row; a
+// warp-wide reduction and a division on every lane for each edge cost B5
+// more than its bytes; and a row-pointer pass costs a launch and a
+// scratch buffer a call.  Both kernels stream the edges:
+//   - The edges are cut into as many equal spans of whole chunks as the
+//     card holds blocks at once (the occupancy API), one span a block.  A
+//     block owns every row whose first edge lies in its span and skips
+//     its leading edges that continue the row before; it reads on past
+//     the span until its last row ends (the walk), so a hub row has one
+//     owner and needs no fix-up pass.  The thread that finds a row's
+//     first edge queues the empty rows between the key before it and the
+//     row, zeroed by a warp (the block for a long run); the rows below the
+//     first receiver and above the last are the fill blocks' at the
+//     grid's end.  One launch, no row pointer, no atomics on outputs:
+//     each row is summed by one block in a fixed order, so the result is
+//     bitwise repeatable.
+//   - The block streams its span in chunks of t edges (about TILE_BYTES,
+//     ATT_TILE_BYTES of values) through two shared-memory buffers: the
+//     next chunk's copy is issued before this chunk is summed.  Since the
+//     edges are sorted and the rows row-major, a chunk's values are one
+//     contiguous span: 16-byte `cp.async` for its aligned middle, element
+//     copies for the head and tail (loaded into registers at issue,
+//     stored just before the wait; no byte outside the span is read), so
+//     any row pitch (66 B at F = 33 bf16, 258 B at 129) and any data_ptr
+//     take the same path.  The row that runs into the next chunk is
+//     carried: its partial sums stay in shared memory.
+//   - B1 gives a thread a (row, W columns), consecutive threads on
+//     consecutive columns, and sums the row's edges in edge order after
+//     the carried part; W = 2 (bf16x2 or float2 loads and stores) when F
+//     is even and the rows start pair-aligned, else 1.
+//   - B5 gives an edge a group of G lanes (1, or more when a chunk holds
+//     fewer edges than the block threads, as wide rows do), so the dot
+//     needs no warp-wide reduction and the division and the `edge_dpre`
+//     chain run once an edge.  Each group starts its columns 4 bytes
+//     further than the last (wrapping), so the lanes' reads of h and of
+//     the (d_num | d_den) rows fall in different banks at any pitch.  The
+//     chunk's rows (d_num | d_den) are copied into shared memory once for
+//     all their edges, before the next chunk's copy is issued, so that
+//     waiting for them leaves that copy in flight; w and lm are loaded
+//     before the dot.  A thread a row sums its dpre in edge order after
+//     the carried part.
+//   Registers (nvcc -Xptxas -v, sm_90a): 63-64 for segsum_kernel and
+//   61-63 for att_edges_kernel, no spills.
 
-//
-// The same file holds the two scalar passes of the attention arm:
-//   3. `reduce1d_kernel` (replaces `csr_segment_reduce_1d`, whose TPU
-//      kernel keeps a [bn, 128] lane-partial accumulator per node block
-//      and combines the lanes in XLA): sum, or max from the TPU kernel's
-//      fill -3e38 (so an empty row reads -3e38), in one pass over the
-//      edges with no row pointer.  The mean row holds about 8.5 edges, so
-//      a warp a row would leave most lanes idle; instead a block takes a
-//      tile of 1024 consecutive edges (4 a thread, read with 16-byte loads
-//      when both arrays are 16-byte aligned), reduces runs of equal
-//      receivers in registers and combines runs across threads by a
-//      segmented scan (shuffles with head flags in a warp, shared memory
-//      across warps).  A row belongs to the tile that holds its first
-//      edge: a tile skips its leading edges whose receiver is that of the
-//      edge before it, and when its last row runs past the tile, the
-//      whole block walks the row's further edges (4096 a step, one
-//      block-wide sum at the end), so a hub row is read by a block, never
-//      split between owners, and needs no fix-up pass.  The thread that
-//      holds the edge after a gap of receivers fills the empty rows
-//      between, or queues a gap of more than 64 rows for the whole block
-//      to fill; with no edge at all every row is filled.
-//      Bytes: 8 B an edge and 4 B a row, about 0.004 ms at 1.4 M edges.
-//   4. `att_bwd_edges_kernel` (replaces `csr_att_bwd_edges`, which picks
-//      the receivers' (d_num | d_den) rows by one-hot products from a
-//      VMEM block), on the row pointer: a warp per receiver row holds
-//      the row's d_num in registers (4 columns a lane; wider rows read
-//      the rest from memory), streams the row's residual sender rows,
-//      takes each dot with a butterfly reduction, and writes
-//          dpre_e = (<d_num[r], h_e> + d_den[r]) · w_e · (1 − (lm_e/B)²)
-//                   · (lm_e ≥ 0 ? 1 : slope)
-//      for each edge and the row's Σ dpre (d_alpha_r) once.  It reads the
-//      [E, F] residual rows and adds the d_den term itself, so no
-//      ones-column copy of them is made.  Bytes: E·(F·size(h) + 16) +
-//      N·(4(F+1) + 4), about 0.12 ms at 1.4 M bf16 rows of 128.
-//   Neither uses atomics: each row has one owner and sums in a fixed
-//   order, so both are deterministic.
-
+#include <algorithm>
 #include <climits>
 #include <cstdint>
 
@@ -68,8 +96,6 @@
 
 namespace {
 
-constexpr int ROWS_PER_BLOCK = 4;   // warps per block, one row each
-constexpr int COLS_PER_LANE = 4;    // a warp covers 128 columns per pass
 constexpr unsigned FULL = 0xffffffffu;
 constexpr float NEG_FILL = -3.0e38f;  // the TPU kernel's max fill
 
@@ -82,66 +108,50 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-// rowptr[r] = the first edge whose receiver is >= r, for r in [0, n];
-// thread i fills the rows between receivers i-1 and i.
-__global__ void rowptr_kernel(const int* __restrict__ recv, int e, int n,
-                              int* __restrict__ rowptr) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i > e) return;
-  const int lo = i == 0 ? 0 : max(recv[i - 1] + 1, 0);
-  const int hi = i == e ? n : min(recv[i], n);
-  for (int r = lo; r <= hi; ++r) rowptr[r] = i;
+// W consecutive elements of T as one load and store: the column pairs of
+// an even width whose rows start 2·sizeof(T)-aligned
+template <typename T, int W>
+struct Vec {
+  T x;
+};
+template <>
+struct Vec<float, 2> {
+  float2 x;
+};
+template <>
+struct Vec<__nv_bfloat16, 2> {
+  __nv_bfloat162 x;
+};
+__device__ __forceinline__ void add_to(float (&a)[1], Vec<float, 1> v) {
+  a[0] += v.x;
 }
-
-template <typename T>
-__global__ void __launch_bounds__(32 * ROWS_PER_BLOCK)
-segsum_kernel(const T* __restrict__ vals, const int* __restrict__ rowptr,
-              T* __restrict__ out, int n, int f) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * ROWS_PER_BLOCK + (threadIdx.x >> 5);
-  if (row >= n) return;
-  const int e0 = rowptr[row], e1 = rowptr[row + 1];
-  for (int c0 = 0; c0 < f; c0 += 32 * COLS_PER_LANE) {
-    float acc[COLS_PER_LANE];
-    bool live[COLS_PER_LANE];
-#pragma unroll
-    for (int k = 0; k < COLS_PER_LANE; ++k) {
-      acc[k] = 0.0f;
-      live[k] = c0 + lane + 32 * k < f;
-    }
-    int e = e0;
-    for (; e + 1 < e1; e += 2) {
-      const T* a = vals + (size_t)e * f + c0 + lane;
-      const T* b = a + f;
-      float va[COLS_PER_LANE], vb[COLS_PER_LANE];
-#pragma unroll
-      for (int k = 0; k < COLS_PER_LANE; ++k) {
-        va[k] = live[k] ? to_f32(a[32 * k]) : 0.0f;
-        vb[k] = live[k] ? to_f32(b[32 * k]) : 0.0f;
-      }
-#pragma unroll
-      for (int k = 0; k < COLS_PER_LANE; ++k) {
-        acc[k] += va[k];
-        acc[k] += vb[k];
-      }
-    }
-    if (e < e1) {
-      const T* a = vals + (size_t)e * f + c0 + lane;
-#pragma unroll
-      for (int k = 0; k < COLS_PER_LANE; ++k)
-        if (live[k]) acc[k] += to_f32(a[32 * k]);
-    }
-    T* o = out + (size_t)row * f + c0 + lane;
-#pragma unroll
-    for (int k = 0; k < COLS_PER_LANE; ++k)
-      if (live[k]) store(o + 32 * k, acc[k]);
-  }
+__device__ __forceinline__ void add_to(float (&a)[1],
+                                       Vec<__nv_bfloat16, 1> v) {
+  a[0] += __bfloat162float(v.x);
 }
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(FULL, v, d);
-  return v;
+__device__ __forceinline__ void add_to(float (&a)[2], Vec<float, 2> v) {
+  a[0] += v.x.x;
+  a[1] += v.x.y;
+}
+__device__ __forceinline__ void add_to(float (&a)[2],
+                                       Vec<__nv_bfloat16, 2> v) {
+  const float2 u = __bfloat1622float2(v.x);
+  a[0] += u.x;
+  a[1] += u.y;
+}
+__device__ __forceinline__ void store_vec(float* p, const float (&a)[1]) {
+  *p = a[0];
+}
+__device__ __forceinline__ void store_vec(__nv_bfloat16* p,
+                                          const float (&a)[1]) {
+  *p = __float2bfloat16_rn(a[0]);
+}
+__device__ __forceinline__ void store_vec(float* p, const float (&a)[2]) {
+  *reinterpret_cast<float2*>(p) = make_float2(a[0], a[1]);
+}
+__device__ __forceinline__ void store_vec(__nv_bfloat16* p,
+                                          const float (&a)[2]) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a[0], a[1]);
 }
 
 constexpr int R1D_THREADS = 256;
@@ -318,8 +328,361 @@ reduce1d_kernel(const float* __restrict__ vals, const int* __restrict__ recv,
   }
 }
 
-// dpre of one edge from its dot <d_num[r], h_e> (warp-reduced), computed
-// in the TPU kernel's order with explicitly rounded operations.
+
+// --- the streaming scheme of B1 and B5 ----------------------------------------
+
+constexpr int SEG_NT = 256;        // threads of a segment-sum block
+constexpr int ATT_NT = 128;        // threads of an edge-pass block
+constexpr int TILE_BYTES = 24576;  // a chunk's values, about: B1
+constexpr int ATT_TILE_BYTES = 16384;  // and B5
+constexpr int TILE_MAX = 1024;     // edges a chunk, at most
+constexpr int DN_BYTES = 8192;     // B5's staged (d_num | d_den) rows, about
+constexpr int FILL_ROWS = 2048;    // rows a fill block covers
+constexpr int GAPQ = 64;           // gaps a block queues a chunk
+constexpr int GAP_WARP = 1024;     // a longer gap is zeroed by the block
+constexpr int MAX_SMEM = 232448;   // shared memory a block may use
+
+// shared-memory slots: the count of queued gaps, and B5's carried row
+// sums (two, by chunk parity)
+enum { M_NGAP, M_C0, M_C1, M_SLOTS };
+
+__device__ __forceinline__ void cp_async4(unsigned dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
+               "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(unsigned dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// the keys of edges [i0, i0 + cnt) into keys (shared address skeys): -1
+// before the first edge, NO_ROW past the last
+template <int NT>
+__device__ __forceinline__ void stage_keys(int* keys, unsigned skeys,
+                                           const int* __restrict__ recv,
+                                           long long i0, int cnt, int e) {
+  for (int k = threadIdx.x; k < cnt; k += NT) {
+    const long long i = i0 + k;
+    if (i < 0)
+      keys[k] = -1;
+    else if (i >= e)
+      keys[k] = NO_ROW;
+    else
+      cp_async4(skeys + 4u * k, recv + i);
+  }
+}
+
+// The head and tail elements of a staged span, loaded into registers when
+// the copy is issued and stored into shared memory just before it is
+// waited for, so that no thread stalls on them while it issues copies.
+template <typename T>
+struct Pend {
+  T v[2];
+  T* d[2];
+  __device__ __forceinline__ void flush() {
+#pragma unroll
+    for (int k = 0; k < 2; ++k)
+      if (d[k] != nullptr) *d[k] = v[k];
+  }
+};
+
+// `len` elements from src (any element alignment) into buf (16-byte
+// aligned, shared address sbuf) so that element i lands at byte
+// o + i·sizeof(T), o = src mod 16: 16-byte cp.async for the aligned
+// middle, element copies for the head and tail (held in `pd` until
+// pd.flush()).  No byte outside the span is read.  Returns o.
+template <typename T, int NT>
+__device__ __forceinline__ int stage_span(unsigned char* buf, unsigned sbuf,
+                                          const T* src, int len,
+                                          Pend<T>& pd) {
+  constexpr int S = (int)sizeof(T);
+  const int o = (int)((uintptr_t)src & 15);
+  const int bytes = len * S;
+  const int hb = min((16 - o) & 15, bytes);
+  const int nch = (bytes - hb) >> 4;
+  const int tail = (hb + (nch << 4)) / S;
+  T* dst = reinterpret_cast<T*>(buf + o);
+  const unsigned char* s8 = reinterpret_cast<const unsigned char*>(src) + hb;
+  const unsigned d8 = sbuf + (unsigned)(o + hb);
+  for (int c = threadIdx.x; c < nch; c += NT)
+    cp_async16(d8 + 16u * c, s8 + 16 * c);
+  // at most 15 bytes each: fewer elements than threads
+  const int i = threadIdx.x, j = tail + (int)threadIdx.x;
+  pd.d[0] = i < hb / S ? dst + i : nullptr;
+  pd.d[1] = j < len ? dst + j : nullptr;
+  if (pd.d[0] != nullptr) pd.v[0] = src[i];
+  if (pd.d[1] != nullptr) pd.v[1] = src[j];
+  return o;
+}
+
+// exclusive prefix sum of v over the block, and the block's total
+template <int NT>
+__device__ __forceinline__ int block_scan(int v, int* scratch, int& total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int x = v;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(FULL, x, d);
+    if (lane >= d) x += y;
+  }
+  if (lane == 31) scratch[warp] = x;
+  __syncthreads();
+  int off = 0;
+  total = 0;
+#pragma unroll
+  for (int w = 0; w < NT / 32; ++w) {
+    const int s = scratch[w];
+    off += w < warp ? s : 0;
+    total += s;
+  }
+  return off + x - v;
+}
+
+// A block owns the edges [s_lo, s_hi) and streams them through shared
+// memory in chunks of t edges (values and the chunk's keys, with the key
+// before and after it), double-buffered: the next chunk is copied while
+// this one is summed.  A row the block owns may run past s_hi; the block
+// then reads on (the walk) until it ends.  Across chunks it carries one
+// open row: the last row of a chunk when it runs into the next.
+struct Stream {
+  int cn;     // the chunk's edges
+  bool walk;  // past s_hi: only the open row's edges are the block's
+  bool open;  // it begins with the row carried from the chunk before
+  bool cont;  // its last segment runs into the next chunk
+  bool next;  // the next chunk is needed
+};
+
+// kw[i] is the key of edge p − 1 + i, for i in [0, t + 2).
+__device__ __forceinline__ Stream chunk_state(const int* kw, int p, int t,
+                                              int e, int s_hi, bool open,
+                                              int okey) {
+  Stream c;
+  c.cn = min(t, e - p);
+  c.walk = p >= s_hi;
+  c.open = open;
+  // the chunk's last edge is the block's: the open row's in a walk, else
+  // unless the block has only met an earlier block's row so far
+  const bool last = c.walk ? kw[c.cn] == okey : (open || kw[c.cn] != kw[0]);
+  c.cont = last && c.cn == t && p + t < e && kw[c.cn + 1] == kw[c.cn];
+  c.next = p + t < s_hi || c.cont;
+  return c;
+}
+
+// The chunk's segments: seg[s] is the first edge (chunk-relative) of the
+// s-th row the block sums here, seg[ns] the end of the last.  Segment 0
+// is the open row when the chunk begins with it; the others are the rows
+// whose first edge lies in the chunk (none in a walk, which holds only
+// the open row's edges, a prefix).  Edges before the first segment belong
+// to an earlier block's row.  rowof[i], when given, is the segment of
+// edge i.  The thread that finds a row's first edge queues the empty rows
+// between the key before it and the row for fill_queued (or zeros them
+// itself when the queue is full; rows [lo, hi) are elements [lo·f, hi·f)
+// of out); the rows before the first edge are the fill blocks'.  Returns
+// ns; ends with the block synchronised.
+template <typename T, int NT>
+__device__ __forceinline__ int chunk_segments(const int* kw, const Stream& c,
+                                              int okey, int* seg, int* rowof,
+                                              int* misc, int* scratch,
+                                              int* gq, T* __restrict__ out,
+                                              int f, int n) {
+  constexpr int EPT = TILE_MAX / NT;
+  const int i0 = threadIdx.x * EPT;
+  int cnt = 0;
+  if (threadIdx.x == 0) misc[M_NGAP] = 0;
+#pragma unroll
+  for (int u = 0; u < EPT; ++u) {
+    const int i = i0 + u;
+    if (i < c.cn) cnt += c.walk ? kw[i + 1] == okey : kw[i + 1] != kw[i];
+  }
+  int total;
+  int pos = block_scan<NT>(cnt, scratch, total);
+  const int o = c.open ? 1 : 0;
+  int run = o + pos - 1;
+#pragma unroll
+  for (int u = 0; u < EPT; ++u) {
+    const int i = i0 + u;
+    if (i < c.cn) {
+      if (!c.walk && kw[i + 1] != kw[i]) {
+        seg[o + pos++] = i;
+        ++run;
+        const int lo = kw[i] + 1, hi = min(kw[i + 1], n);
+        if (lo > 0 && hi > lo) {
+          const int q = atomicAdd(&misc[M_NGAP], 1);
+          if (q < GAPQ) {
+            gq[2 * q] = lo;
+            gq[2 * q + 1] = hi;
+          } else {
+            for (size_t x = (size_t)lo * f; x < (size_t)hi * f; ++x)
+              store(out + x, 0.0f);
+          }
+        }
+      }
+      if (rowof != nullptr) rowof[i] = c.walk ? 0 : run;
+    }
+  }
+  const int ns = c.walk ? 1 : o + total;
+  if (threadIdx.x == 0) {
+    if (c.open) seg[0] = 0;
+    seg[ns] = c.walk ? total : c.cn;
+  }
+  __syncthreads();
+  return ns;
+}
+
+// The gaps chunk_segments queued, zeroed a warp a gap, the whole block a
+// gap of more than GAP_WARP elements.
+template <typename T, int NT>
+__device__ __forceinline__ void fill_queued(T* __restrict__ out,
+                                            const int* misc, const int* gq,
+                                            int f) {
+  const int ng = min(misc[M_NGAP], GAPQ), lane = threadIdx.x & 31;
+  for (int g = threadIdx.x >> 5; g < ng; g += NT / 32) {
+    const size_t lo = (size_t)gq[2 * g] * f, hi = (size_t)gq[2 * g + 1] * f;
+    if (hi - lo <= GAP_WARP)
+      for (size_t x = lo + lane; x < hi; x += 32) store(out + x, 0.0f);
+  }
+  for (int g = 0; g < ng; ++g) {
+    const size_t lo = (size_t)gq[2 * g] * f, hi = (size_t)gq[2 * g + 1] * f;
+    if (hi - lo > GAP_WARP)
+      for (size_t x = lo + threadIdx.x; x < hi; x += NT) store(out + x, 0.0f);
+  }
+}
+
+// A fill block: zeros the rows of its FILL_ROWS that lie below the first
+// receiver or above the last (every row when there is no edge).
+template <typename T, int NT>
+__device__ __forceinline__ void fill_outside(T* __restrict__ out,
+                                             const int* __restrict__ recv,
+                                             int e, int f, int n, int b) {
+  const int r0 = b * FILL_ROWS, r1 = min(r0 + FILL_ROWS, n);
+  const int first = e > 0 ? recv[0] : n;
+  const int last = e > 0 ? recv[e - 1] : n;
+  const int spans[2][2] = {{r0, min(r1, first)}, {max(r0, last + 1), r1}};
+#pragma unroll
+  for (int k = 0; k < 2; ++k)
+    for (size_t x = (size_t)spans[k][0] * f + threadIdx.x;
+         x < (size_t)spans[k][1] * f; x += NT)
+      store(out + x, 0.0f);
+}
+
+__host__ __device__ __forceinline__ size_t round16(size_t x) {
+  return (x + 15) & ~(size_t)15;
+}
+
+// bytes of one of a block's two value buffers: a chunk and the slack of
+// its alignment
+__host__ __device__ __forceinline__ size_t chunk_bytes(int t, size_t rowb) {
+  return round16((size_t)t * rowb + 16);
+}
+
+// --- B1: the segment sum --------------------------------------------------
+
+template <typename T, int W>
+__global__ void __launch_bounds__(SEG_NT)
+segsum_kernel(const T* __restrict__ vals, const int* __restrict__ recv,
+              T* __restrict__ out, int e, int f, int n, int t, int span,
+              int nblk) {
+  constexpr int NT = SEG_NT;
+  extern __shared__ __align__(16) unsigned char smem[];
+  if ((int)blockIdx.x >= nblk) {
+    fill_outside<T, NT>(out, recv, e, f, n, (int)blockIdx.x - nblk);
+    return;
+  }
+  const int tk = t + 2;                        // a chunk's keys
+  int* keys = reinterpret_cast<int*>(smem);    // 2 · tk
+  int* seg = keys + 2 * tk;                    // t + 2
+  int* misc = seg + t + 2;                     // M_SLOTS
+  int* scratch = misc + M_SLOTS;               // NT / 32
+  int* gq = scratch + NT / 32;                 // 2 · GAPQ
+  float* wsum = reinterpret_cast<float*>(gq + 2 * GAPQ);   // 2 · f
+  const size_t boff =
+      round16((size_t)(2 * tk + t + 2 + M_SLOTS + NT / 32 + 2 * GAPQ) * 4
+              + (size_t)2 * f * 4);
+  unsigned char* buf = smem + boff;
+  const size_t cb = chunk_bytes(t, (size_t)f * sizeof(T));
+  const unsigned sb = (unsigned)__cvta_generic_to_shared(smem);
+  const unsigned sbuf = sb + (unsigned)boff;
+
+  const int s_lo = blockIdx.x * span, s_hi = min(s_lo + span, e);
+  int oo[2];
+  Pend<T> pv;
+  stage_keys<NT>(keys, sb, recv, (long long)s_lo - 1, tk, e);
+  oo[0] = stage_span<T, NT>(buf, sbuf, vals + (size_t)s_lo * f,
+                            (min(s_lo + t, e) - s_lo) * f, pv);
+  cp_commit();
+  bool open = false;
+  int okey = -1;
+  for (int k = 0, p = s_lo;; ++k, p += t) {
+    const int cur = k & 1, nxt = cur ^ 1;
+    const int* kw = keys + cur * tk;
+    pv.flush();
+    cp_wait<0>();
+    __syncthreads();
+    const Stream c = chunk_state(kw, p, t, e, s_hi, open, okey);
+    if (c.next) {               // the next chunk's copy overlaps this one
+      const int pn = p + t;
+      stage_keys<NT>(keys + nxt * tk, sb + 4u * nxt * tk, recv, pn - 1, tk,
+                     e);
+      oo[nxt] = stage_span<T, NT>(buf + nxt * cb, sbuf + (unsigned)(nxt * cb),
+                                  vals + (size_t)pn * f,
+                                  (min(pn + t, e) - pn) * f, pv);
+      cp_commit();
+    }
+    const int ns = chunk_segments<T, NT>(kw, c, okey, seg, nullptr, misc,
+                                         scratch, gq, out, f, n);
+    fill_queued<T, NT>(out, misc, gq, f);
+    // a thread a (segment, W columns), consecutive threads on
+    // consecutive columns; each segment's edges summed in order after the
+    // carried part of the open row
+    using V = Vec<T, W>;
+    const int fw = f / W;       // W-column groups a row
+    const V* tv = reinterpret_cast<const V*>(buf + cur * cb + oo[cur]);
+    const float* cin = wsum + cur * f;
+    float* cout = wsum + nxt * f;
+    int s = threadIdx.x / fw, col = threadIdx.x - s * fw;
+    const int ds = NT / fw, dc = NT - ds * fw;
+    while (s < ns) {
+      const int a = seg[s], b = seg[s + 1];
+      const V* q = tv + (size_t)a * fw + col;
+      float acc[W];
+#pragma unroll
+      for (int u = 0; u < W; ++u)
+        acc[u] = s == 0 && open ? cin[W * col + u] : 0.0f;
+      for (int i = a; i < b; ++i, q += fw) add_to(acc, *q);
+      const int row = kw[a + 1];
+      if (s == ns - 1 && c.cont) {
+#pragma unroll
+        for (int u = 0; u < W; ++u) cout[W * col + u] = acc[u];
+      } else if ((unsigned)row < (unsigned)n) {
+        store_vec(out + (size_t)row * f + W * col, acc);
+      }
+      col += dc;
+      s += ds;
+      if (col >= fw) {
+        col -= fw;
+        ++s;
+      }
+    }
+    open = c.cont;
+    okey = kw[c.cn];
+    if (!c.next) break;
+  }
+}
+
+// --- B5: the attention backward's edge pass --------------------------------
+
+// dpre of one edge from its dot <d_num[r], h_e>, computed in the TPU
+// kernel's order with explicitly rounded operations.
 __device__ __forceinline__ float edge_dpre(float dot, float dden, float w,
                                            float lm, float bound,
                                            float slope) {
@@ -330,91 +693,290 @@ __device__ __forceinline__ float edge_dpre(float dot, float dden, float w,
   return __fmul_rn(t, lm >= 0.0f ? 1.0f : slope);
 }
 
+// <dr, hr> over f columns from shared memory: lane g of a group of G
+// lanes takes the columns r0 + g, r0 + g + G, ... (wrapping at f, the same
+// trip count on every lane) in four partial sums; the group's lanes are
+// then summed by butterfly, so that each holds the dot.
+template <typename T, int G>
+__device__ __forceinline__ float row_dot(const float* dr, const T* hr, int f,
+                                         int r0, int g) {
+  float a[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  int c = r0 + g;
+  c -= c >= f ? f : 0;
+  int k = g;
+  for (; k + 3 * G < f; k += 4 * G) {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      a[u] = fmaf(dr[c], to_f32(hr[c]), a[u]);
+      c += G;
+      c -= c >= f ? f : 0;
+    }
+  }
+  for (; k < f; k += G) {
+    a[0] = fmaf(dr[c], to_f32(hr[c]), a[0]);
+    c += G;
+    c -= c >= f ? f : 0;
+  }
+  float d = (a[0] + a[1]) + (a[2] + a[3]);
+#pragma unroll
+  for (int m = G / 2; m > 0; m >>= 1) d += __shfl_xor_sync(FULL, d, m);
+  return d;
+}
+
+// the (d_num | d_den) rows of segments [s0, s1) into dns, f1 floats each
+template <int NT>
+__device__ __forceinline__ void stage_dn(unsigned sdns,
+                                         const float* __restrict__ dn,
+                                         const int* kw, const int* seg,
+                                         int s0, int s1, int f1, int n) {
+  for (int it = threadIdx.x; it < (s1 - s0) * f1; it += NT) {
+    const int j = it / f1, c = it - j * f1;
+    const int row = min(max(kw[seg[s0 + j] + 1], 0), n - 1);
+    cp_async4(sdns + 4u * it, dn + (size_t)row * f1 + c);
+  }
+}
+
+// B5's pass with G lanes an edge (G = 1 when a chunk has as many edges
+// as the block threads; more for wide rows, whose chunks are short).
+template <typename T, int G>
+__global__ void __launch_bounds__(ATT_NT)
+att_edges_kernel(const float* __restrict__ dn, const T* __restrict__ h,
+                 const float* __restrict__ w, const float* __restrict__ lm,
+                 const int* __restrict__ recv, float* __restrict__ dpre,
+                 float* __restrict__ dar, int e, int f, int n, int t,
+                 int span, int dnr, int nblk, float bound, float slope) {
+  constexpr int NT = ATT_NT;
+  extern __shared__ __align__(16) unsigned char smem[];
+  if ((int)blockIdx.x >= nblk) {
+    fill_outside<float, NT>(dar, recv, e, 1, n, (int)blockIdx.x - nblk);
+    return;
+  }
+  const int tk = t + 2, f1 = f + 1;
+  int* keys = reinterpret_cast<int*>(smem);    // 2 · tk
+  int* seg = keys + 2 * tk;                    // t + 2
+  int* rowof = seg + t + 2;                    // t
+  int* misc = rowof + t;                       // M_SLOTS
+  int* scratch = misc + M_SLOTS;               // NT / 32
+  int* gq = scratch + NT / 32;                 // 2 · GAPQ
+  float* dp = reinterpret_cast<float*>(gq + 2 * GAPQ);     // t
+  float* dns = dp + t;                         // dnr · f1
+  float* carry = reinterpret_cast<float*>(misc);
+  const size_t boff =
+      round16((size_t)(2 * tk + 2 * t + 2 + M_SLOTS + NT / 32 + 2 * GAPQ)
+              * 4 + (size_t)(t + dnr * f1) * 4);
+  unsigned char* buf = smem + boff;
+  const size_t cb = chunk_bytes(t, (size_t)f * sizeof(T));
+  const unsigned sb = (unsigned)__cvta_generic_to_shared(smem);
+  const unsigned sbuf = sb + (unsigned)boff;
+  const unsigned sdns = sb + (unsigned)((unsigned char*)dns - smem);
+  // lane g of an edge's group; the group's first column is 4 bytes
+  // further than the last group's, so that the lanes' reads of h and of
+  // the dn rows fall in different banks
+  const int g = (int)threadIdx.x % G, slot = (int)threadIdx.x / G;
+  const int r0 = (int)((((threadIdx.x & 31) / G) * (4 / sizeof(T))) % f);
+
+  const int s_lo = blockIdx.x * span, s_hi = min(s_lo + span, e);
+  int oo[2];
+  Pend<T> pv;
+  stage_keys<NT>(keys, sb, recv, (long long)s_lo - 1, tk, e);
+  oo[0] = stage_span<T, NT>(buf, sbuf, h + (size_t)s_lo * f,
+                            (min(s_lo + t, e) - s_lo) * f, pv);
+  cp_commit();
+  bool open = false;
+  int okey = -1;
+  for (int k = 0, p = s_lo;; ++k, p += t) {
+    const int cur = k & 1, nxt = cur ^ 1;
+    const int* kw = keys + cur * tk;
+    pv.flush();
+    cp_wait<0>();
+    __syncthreads();
+    const Stream c = chunk_state(kw, p, t, e, s_hi, open, okey);
+    const int ns = chunk_segments<float, NT>(kw, c, okey, seg, rowof, misc,
+                                             scratch, gq, dar, 1, n);
+    // the first rows' (d_num | d_den) before the next chunk's copy, so
+    // that waiting for them leaves the copy in flight
+    stage_dn<NT>(sdns, dn, kw, seg, 0, min(ns, dnr), f1, n);
+    cp_commit();
+    if (c.next) {
+      const int pn = p + t;
+      stage_keys<NT>(keys + nxt * tk, sb + 4u * nxt * tk, recv, pn - 1, tk,
+                     e);
+      oo[nxt] = stage_span<T, NT>(buf + nxt * cb, sbuf + (unsigned)(nxt * cb),
+                                  h + (size_t)pn * f,
+                                  (min(pn + t, e) - pn) * f, pv);
+      cp_commit();
+    }
+    fill_queued<float, NT>(dar, misc, gq, 1);
+    const T* tv = reinterpret_cast<const T*>(buf + cur * cb + oo[cur]);
+    const float cin = carry[M_C0 + cur];
+    for (int s0 = 0; s0 < ns; s0 += dnr) {
+      const int s1 = min(ns, s0 + dnr);
+      if (s0 > 0) {             // more rows than dns holds: the next batch
+        stage_dn<NT>(sdns, dn, kw, seg, s0, s1, f1, n);
+        cp_commit();
+        cp_wait<0>();
+      } else if (c.next) {
+        cp_wait<1>();
+      } else {
+        cp_wait<0>();
+      }
+      __syncthreads();
+      // an edge a group of G lanes, every lane through the loop (the
+      // group's butterfly needs all of them)
+      for (int i0 = seg[s0]; i0 < seg[s1]; i0 += NT / G) {
+        const int i = min(i0 + slot, seg[s1] - 1);
+        const float wv = w[p + i], lv = lm[p + i];
+        const float* dr = dns + (rowof[i] - s0) * f1;
+        const float dot = row_dot<T, G>(dr, tv + (size_t)i * f, f, r0, g);
+        if (i0 + slot < seg[s1] && g == 0) {
+          const float q = edge_dpre(dot, dr[f], wv, lv, bound, slope);
+          dpre[p + i] = q;
+          dp[i] = q;
+        }
+      }
+      __syncthreads();
+      // a segment's dpre summed in edge order by its thread, after the
+      // carried part of the open row
+      for (int s = s0 + threadIdx.x; s < s1; s += NT) {
+        float sum = s == 0 && open ? cin : 0.0f;
+        for (int i = seg[s]; i < seg[s + 1]; ++i) sum += dp[i];
+        const int row = kw[seg[s] + 1];
+        if (s == ns - 1 && c.cont)
+          carry[M_C0 + nxt] = sum;
+        else if ((unsigned)row < (unsigned)n)
+          dar[row] = sum;
+      }
+      __syncthreads();
+    }
+    open = c.cont;
+    okey = kw[c.cn];
+    if (!c.next) break;
+  }
+}
+
+
+// The launch geometry of a streaming kernel: t edges a chunk (about
+// TILE_BYTES of values), and the edges of [0, e) cut into as many equal
+// spans of whole chunks as the card holds blocks at once; the fill
+// blocks follow.
+struct Geom {
+  int t, span, nblk, nfill;
+};
+
+template <typename K>
+int stream_geom(K kernel, int nt, size_t smem, int e, int n, int t,
+                Geom& g) {
+  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return (int)err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, nt, smem)) != cudaSuccess)
+    return (int)err;
+  const long long chunks = ((long long)e + t - 1) / t;
+  const long long resident = std::max(1LL, (long long)sms * per_sm);
+  const long long per_blk = std::max(1LL, (chunks + resident - 1) / resident);
+  g.t = t;
+  g.span = (int)std::min<long long>(per_blk * t, INT_MAX / 2);
+  g.nblk = (int)((e + (long long)g.span - 1) / g.span);
+  g.nfill = (n + FILL_ROWS - 1) / FILL_ROWS;
+  return 0;
+}
+
+int chunk_edges(size_t rowb, int tile_bytes) {
+  return (int)std::max<size_t>(1, std::min<size_t>(tile_bytes / rowb,
+                                                    TILE_MAX));
+}
+
+template <typename T, int W>
+int launch_segsum(const void* vals, const int* recv, void* out, int e, int f,
+                  int n, cudaStream_t s) {
+  const size_t rowb = (size_t)f * sizeof(T);
+  const int t = chunk_edges(rowb, TILE_BYTES);
+  const size_t smem =
+      round16((size_t)(3 * t + 6 + M_SLOTS + SEG_NT / 32 + 2 * GAPQ) * 4
+              + (size_t)2 * f * 4)
+      + 2 * chunk_bytes(t, rowb);
+  Geom g;
+  const int err =
+      stream_geom(segsum_kernel<T, W>, SEG_NT, smem, e, n, t, g);
+  if (err) return err;
+  segsum_kernel<T, W><<<g.nblk + g.nfill, SEG_NT, smem, s>>>(
+      (const T*)vals, recv, (T*)out, e, f, n, g.t, g.span, g.nblk);
+  return 0;
+}
+
+template <typename T, int G>
+int launch_att_g(const float* dn, const T* h, const float* w,
+                 const float* lm, const int* recv, float* dpre, float* dar,
+                 int e, int f, int n, int t, float bound, float slope,
+                 cudaStream_t s) {
+  const int dnr = (int)std::max<size_t>(
+      1, std::min<size_t>(DN_BYTES / (4 * (size_t)(f + 1)), t + 1));
+  const size_t smem =
+      round16((size_t)(4 * t + 6 + M_SLOTS + ATT_NT / 32 + 2 * GAPQ) * 4
+              + (size_t)(t + dnr * (f + 1)) * 4)
+      + 2 * chunk_bytes(t, (size_t)f * sizeof(T));
+  Geom g;
+  const int err =
+      stream_geom(att_edges_kernel<T, G>, ATT_NT, smem, e, n, t, g);
+  if (err) return err;
+  att_edges_kernel<T, G><<<g.nblk + g.nfill, ATT_NT, smem, s>>>(
+      dn, h, w, lm, recv, dpre, dar, e, f, n, g.t, g.span, dnr, g.nblk,
+      bound, slope);
+  return 0;
+}
+
+// G lanes an edge: the most for which one pass of the block's lanes
+// still covers a chunk
 template <typename T>
-__global__ void __launch_bounds__(32 * ROWS_PER_BLOCK)
-att_bwd_edges_kernel(const float* __restrict__ dn, const T* __restrict__ h,
-                     const float* __restrict__ w,
-                     const float* __restrict__ lm,
-                     const int* __restrict__ rowptr,
-                     float* __restrict__ dpre, float* __restrict__ dar,
-                     int n, int f, float bound, float slope) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * ROWS_PER_BLOCK + (threadIdx.x >> 5);
-  if (row >= n) return;
-  const float* dr = dn + (size_t)row * (f + 1);
-  float d[COLS_PER_LANE];
-  bool live[COLS_PER_LANE];
-#pragma unroll
-  for (int k = 0; k < COLS_PER_LANE; ++k) {
-    live[k] = lane + 32 * k < f;
-    d[k] = live[k] ? dr[lane + 32 * k] : 0.0f;
-  }
-  const float dden = dr[f];
-  const int e1 = rowptr[row + 1];
-  float sum = 0.0f;
-  int e = rowptr[row];
-  for (; e + 1 < e1; e += 2) {  // two sender rows in flight
-    const T* a = h + (size_t)e * f;
-    const T* b = a + f;
-    float pa = 0.0f, pb = 0.0f;
-#pragma unroll
-    for (int k = 0; k < COLS_PER_LANE; ++k) {
-      const float va = live[k] ? to_f32(a[lane + 32 * k]) : 0.0f;
-      const float vb = live[k] ? to_f32(b[lane + 32 * k]) : 0.0f;
-      pa = fmaf(d[k], va, pa);
-      pb = fmaf(d[k], vb, pb);
-    }
-    for (int c = 32 * COLS_PER_LANE + lane; c < f; c += 32) {
-      pa = fmaf(dr[c], to_f32(a[c]), pa);
-      pb = fmaf(dr[c], to_f32(b[c]), pb);
-    }
-    pa = warp_sum(pa);
-    pb = warp_sum(pb);
-    const float qa = edge_dpre(pa, dden, w[e], lm[e], bound, slope);
-    const float qb = edge_dpre(pb, dden, w[e + 1], lm[e + 1], bound, slope);
-    if (lane == 0) {
-      dpre[e] = qa;
-      dpre[e + 1] = qb;
-    }
-    sum += qa;
-    sum += qb;
-  }
-  if (e < e1) {
-    const T* a = h + (size_t)e * f;
-    float pa = 0.0f;
-#pragma unroll
-    for (int k = 0; k < COLS_PER_LANE; ++k)
-      if (live[k]) pa = fmaf(d[k], to_f32(a[lane + 32 * k]), pa);
-    for (int c = 32 * COLS_PER_LANE + lane; c < f; c += 32)
-      pa = fmaf(dr[c], to_f32(a[c]), pa);
-    pa = warp_sum(pa);
-    const float qa = edge_dpre(pa, dden, w[e], lm[e], bound, slope);
-    if (lane == 0) dpre[e] = qa;
-    sum += qa;
-  }
-  if (lane == 0) dar[row] = sum;
+int launch_att_edges(const float* dn, const void* h, const float* w,
+                     const float* lm, const int* recv, float* dpre,
+                     float* dar, int e, int f, int n, float bound,
+                     float slope, cudaStream_t s) {
+  const int t = chunk_edges((size_t)f * sizeof(T), ATT_TILE_BYTES);
+  const T* hh = (const T*)h;
+#define HS_ATT_G(G)                                                        \
+  if (G * t <= ATT_NT)                                                     \
+    return launch_att_g<T, G>(dn, hh, w, lm, recv, dpre, dar, e, f, n, t,  \
+                              bound, slope, s);
+  HS_ATT_G(32)
+  HS_ATT_G(16)
+  HS_ATT_G(8)
+  HS_ATT_G(4)
+  HS_ATT_G(2)
+#undef HS_ATT_G
+  return launch_att_g<T, 1>(dn, hh, w, lm, recv, dpre, dar, e, f, n, t,
+                            bound, slope, s);
 }
 
 }  // namespace
 
 // vals [e, f] (bf16 when `bf16` is non-zero, else f32), recv [e] int32
-// ascending in [0, n), rowptr [n + 1] int32 scratch, out [n, f] of the
-// values' type.
+// ascending in [0, n), out [n, f] of the values' type.  One launch, no
+// scratch.
 extern "C" int hs_csr_segment_sum(const void* vals, const int* recv,
-                                  int* rowptr, void* out, int e, int f,
-                                  int n, int bf16, void* stream) {
+                                  void* out, int e, int f, int n, int bf16,
+                                  void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (n > 0) {
-    rowptr_kernel<<<(e + 1 + 255) / 256, 256, 0, s>>>(recv, e, n, rowptr);
-    if (f > 0) {
-      const int blocks = (n + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK;
-      if (bf16)
-        segsum_kernel<__nv_bfloat16><<<blocks, 32 * ROWS_PER_BLOCK, 0, s>>>(
-            (const __nv_bfloat16*)vals, rowptr, (__nv_bfloat16*)out, n, f);
-      else
-        segsum_kernel<float><<<blocks, 32 * ROWS_PER_BLOCK, 0, s>>>(
-            (const float*)vals, rowptr, (float*)out, n, f);
-    }
+  if (n > 0 && f > 0) {
+    // column pairs when every row starts at a pair boundary
+    const size_t size = bf16 ? 2 : 4;
+    const bool pairs = f % 2 == 0 && ((uintptr_t)vals | (uintptr_t)out)
+                                             % (2 * size) == 0;
+    const int err =
+        bf16 ? (pairs ? launch_segsum<__nv_bfloat16, 2>(vals, recv, out, e,
+                                                        f, n, s)
+                      : launch_segsum<__nv_bfloat16, 1>(vals, recv, out, e,
+                                                        f, n, s))
+             : (pairs ? launch_segsum<float, 2>(vals, recv, out, e, f, n, s)
+                      : launch_segsum<float, 1>(vals, recv, out, e, f, n, s));
+    if (err) return err;
   }
   return (int)cudaGetLastError();
 }
@@ -440,27 +1002,21 @@ extern "C" int hs_csr_segment_reduce_1d(const float* vals, const int* recv,
 
 // dn [n, f + 1] f32 (d_num | d_den), h [e, f] residual sender rows (bf16
 // when `bf16` is non-zero, else f32), w and lm [e] f32, recv [e] int32
-// ascending in [0, n), rowptr [n + 1] int32 scratch; writes dpre [e] and
-// dar [n], both f32.
+// ascending in [0, n); writes dpre [e] and dar [n], both f32.  One
+// launch, no scratch.
 extern "C" int hs_csr_att_bwd_edges(const float* dn, const void* h,
                                     const float* w, const float* lm,
-                                    const int* recv, int* rowptr,
-                                    float* dpre, float* dar, int e, int f,
-                                    int n, int bf16, float bound,
-                                    float slope, void* stream) {
+                                    const int* recv, float* dpre, float* dar,
+                                    int e, int f, int n, int bf16,
+                                    float bound, float slope, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (n > 0) {
-    rowptr_kernel<<<(e + 1 + 255) / 256, 256, 0, s>>>(recv, e, n, rowptr);
-    const int blocks = (n + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK;
-    if (bf16)
-      att_bwd_edges_kernel<__nv_bfloat16>
-          <<<blocks, 32 * ROWS_PER_BLOCK, 0, s>>>(
-              dn, (const __nv_bfloat16*)h, w, lm, rowptr, dpre, dar, n, f,
-              bound, slope);
-    else
-      att_bwd_edges_kernel<float><<<blocks, 32 * ROWS_PER_BLOCK, 0, s>>>(
-          dn, (const float*)h, w, lm, rowptr, dpre, dar, n, f, bound,
-          slope);
+  if (n > 0 && f > 0) {
+    const int err =
+        bf16 ? launch_att_edges<__nv_bfloat16>(dn, h, w, lm, recv, dpre, dar,
+                                               e, f, n, bound, slope, s)
+             : launch_att_edges<float>(dn, h, w, lm, recv, dpre, dar, e, f,
+                                       n, bound, slope, s);
+    if (err) return err;
   }
   return (int)cudaGetLastError();
 }

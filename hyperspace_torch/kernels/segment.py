@@ -13,13 +13,12 @@ For tensors on a CUDA device each launches its hand-written kernel in
 version.
 
 The JAX kernel walks a host-built plan of (node block × edge chunk)
-items; the CUDA kernels need none (``csr_segment_sum`` and
-``csr_att_bwd_edges`` give a warp each receiver row's contiguous edge
-range; ``csr_segment_reduce_1d`` walks the edges in tiles, a row owned
-by the tile that holds its first edge).  :func:`build_csr_plan` is
-ported all the same, array-equal to the JAX one, because the JAX
-function and the graph layout carry it; the wrapper takes it and
-ignores it.
+items; the CUDA kernels need none: each walks the sorted edges in
+tiles or spans, a row owned by the block that holds its first edge
+(``csrc/segment.cu``'s head).  The CUDA path takes rows of at most
+:data:`MAX_CARD_F` columns.  :func:`build_csr_plan` is ported all the same, array-equal to
+the JAX one, because the JAX function and the graph layout carry it;
+the wrapper takes it and ignores it.
 """
 
 from __future__ import annotations
@@ -36,6 +35,10 @@ _BN = 128  # nodes per block of the JAX plan
 _BK = 512  # edges per chunk of the JAX plan
 
 CARD_DTYPES = (torch.bfloat16, torch.float32)
+# the widest rows the CUDA kernels take: a block's two chunk buffers (one
+# row each at this width) and the carried row's f32 sums (two of them) or a
+# (d_num | d_den) row must fit its shared memory, 196 KB at f32
+MAX_CARD_F = 12288
 
 
 def round_up(n: int, m: int) -> int:
@@ -87,6 +90,12 @@ def csr_segment_sum_plain(values: torch.Tensor, receivers: torch.Tensor,
     return out.to(values.dtype)
 
 
+def _check_width(name: str, f: int) -> None:
+    if f > MAX_CARD_F:
+        raise ValueError(f"{name}: rows of {f} columns; the CUDA kernel "
+                         f"takes at most {MAX_CARD_F}")
+
+
 def _launch(values: torch.Tensor, receivers: torch.Tensor,
             num_segments: int) -> torch.Tensor:
     S.check_cuda("csr_segment_sum", CARD_DTYPES, values)
@@ -95,17 +104,15 @@ def _launch(values: torch.Tensor, receivers: torch.Tensor,
         raise ValueError("csr_segment_sum: values and receivers on "
                          f"{values.device} and {receivers.device}")
     e, f = values.shape
-    rowptr = torch.empty(num_segments + 1, dtype=torch.int32,
-                         device=values.device)
+    _check_width("csr_segment_sum", f)
     out = torch.empty((num_segments, f), dtype=values.dtype,
                       device=values.device)
     P, I = ctypes.c_void_p, ctypes.c_int
     fn = S.function("segment", "hs_csr_segment_sum",
-                    [P, P, P, P, I, I, I, I, P])
-    S.check(fn(values.data_ptr(), receivers.data_ptr(), rowptr.data_ptr(),
-               out.data_ptr(), e, f, num_segments,
-               int(values.dtype == torch.bfloat16), S.stream_ptr(values)),
-            "csr_segment_sum")
+                    [P, P, P, I, I, I, I, P])
+    S.check(fn(values.data_ptr(), receivers.data_ptr(), out.data_ptr(), e, f,
+               num_segments, int(values.dtype == torch.bfloat16),
+               S.stream_ptr(values)), "csr_segment_sum")
     csr_segment_sum.launches += 1
     return out
 
@@ -277,16 +284,16 @@ def csr_att_bwd_edges(dn_ext: torch.Tensor, h: torch.Tensor, w: torch.Tensor,
     if dn_ext.shape[0] != num_segments:
         raise ValueError(f"csr_att_bwd_edges: dn_ext has "
                          f"{dn_ext.shape[0]} rows, want {num_segments}")
+    _check_width("csr_att_bwd_edges", f)
     dev = dn_ext.device
-    rowptr = torch.empty(num_segments + 1, dtype=torch.int32, device=dev)
     dpre = torch.empty(e, dtype=torch.float32, device=dev)
     dar = torch.empty(num_segments, dtype=torch.float32, device=dev)
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn = S.function("segment", "hs_csr_att_bwd_edges",
-                    [P, P, P, P, P, P, P, P, I, I, I, I, F, F, P])
+                    [P, P, P, P, P, P, P, I, I, I, I, F, F, P])
     S.check(fn(dn_ext.data_ptr(), h.data_ptr(), w.data_ptr(), lm.data_ptr(),
-               receivers.data_ptr(), rowptr.data_ptr(), dpre.data_ptr(),
-               dar.data_ptr(), e, f, num_segments,
+               receivers.data_ptr(), dpre.data_ptr(), dar.data_ptr(), e, f,
+               num_segments,
                int(h.dtype == torch.bfloat16), bound, negative_slope,
                S.stream_ptr(dn_ext)), "csr_att_bwd_edges")
     csr_att_bwd_edges.launches += 1

@@ -494,29 +494,78 @@ def order_bound(recv, abs_sum, n):
     return 2.0 * k * 2.0 ** -24 * abs_sum
 
 
+def hazard_edges(rng, n, e, kind):
+    """Receiver-sorted edges of a streaming-kernel hazard (real edges
+    only): ``hub`` puts one row over many chunks, ``chunk_ends`` ends
+    every row of 32 edges at a chunk end (a chunk holds a multiple of 32
+    edges at F = 32 and 128), ``sparse`` leaves long runs of empty rows
+    between single edges."""
+    if kind == "hub":
+        r = np.where(rng.random(e) < 0.7, n // 2, rng.integers(0, n, e))
+    elif kind == "chunk_ends":
+        r = np.repeat(np.arange(e // 32 + 1), 32)[:e] * 2
+    else:
+        r = rng.choice(n, e, replace=False)
+    return np.sort(r).astype(np.int32)
+
+
+def offset_view(x):
+    """``x`` as a view one element into a copy of its storage: the same
+    values from an unaligned data_ptr."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    flat[1:] = x.reshape(-1)
+    return flat[1:].view(x.shape)
+
+
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,e,f", [(300, 2000, 17), (50, 64, 128),
-                                   (7, 3, 5), (1000, 5000, 130),
-                                   (500, 4000, 1), (64, 0, 8),
-                                   (2000, 20000, 300)])
-def test_csr_segment_sum_kernel_matches_plain(dev, dt, n, e, f):
+@pytest.mark.parametrize("n,e,f,kind", [
+    pytest.param(300, 2000, 17, "random", id="300-2000-17"),
+    pytest.param(50, 64, 128, "random", id="50-64-128"),
+    pytest.param(7, 3, 5, "random", id="7-3-5"),
+    pytest.param(1000, 5000, 130, "random", id="1000-5000-130"),
+    pytest.param(500, 4000, 1, "random", id="500-4000-1"),
+    pytest.param(64, 0, 8, "random", id="64-0-8"),
+    pytest.param(2000, 20000, 300, "random", id="2000-20000-300"),
+    pytest.param(2000, 20000, 33, "random", id="pitch-F33"),
+    pytest.param(2000, 20000, 129, "random", id="pitch-F129"),
+    pytest.param(3000, 50000, 128, "offset", id="unaligned-views-F128"),
+    pytest.param(2000, 20000, 33, "offset", id="unaligned-views-F33"),
+    pytest.param(300, 30000, 128, "hub", id="hub-over-chunks-F128"),
+    pytest.param(9000, 6144, 128, "chunk_ends", id="rows-end-at-chunk-ends"),
+    pytest.param(9000, 6144, 32, "chunk_ends",
+                 id="rows-end-at-chunk-ends-F32"),
+    pytest.param(169343, 3000, 128, "sparse", id="long-empty-runs"),
+    pytest.param(169343, 3000, 33, "sparse", id="long-empty-runs-F33"),
+    pytest.param(64, 0, 128, "random", id="no-edges-F128")])
+def test_csr_segment_sum_kernel_matches_plain(dev, dt, n, e, f, kind):
     rng = np.random.default_rng(n + e + f)
-    # a hub row, empty rows and a zero-valued padding tail at row n - 1
-    r = np.sort(np.where(rng.random(e) < 0.3, n // 3,
-                         rng.integers(0, max(n // 2, 1), e)))
-    r = np.concatenate([r, np.full(37, n - 1)]).astype(np.int32)
+    if kind in ("random", "offset"):
+        # a hub row, empty rows and a zero-valued padding tail at row n - 1
+        r = np.sort(np.where(rng.random(e) < 0.3, n // 3,
+                             rng.integers(0, max(n // 2, 1), e)))
+        r = np.concatenate([r, np.full(37, n - 1)]).astype(np.int32)
+    else:
+        r = hazard_edges(rng, n, e, kind)
     v = torch.as_tensor(rng.standard_normal((len(r), f)), dtype=dt,
                         device=dev)
     v[e:] = 0
     rr = torch.as_tensor(r, device=dev)
+    if kind == "offset":
+        v, rr = offset_view(v), offset_view(rr)
+        assert v.data_ptr() % 16 and rr.data_ptr() % 16
     before = csr_segment_sum.launches
     got = csr_segment_sum(v, rr, None, n)
+    again = csr_segment_sum(v, rr, None, n)
     torch.cuda.synchronize()
-    assert csr_segment_sum.launches == before + 1
+    assert csr_segment_sum.launches == before + 2
+    assert torch.equal(got, again)
     want = csr_segment_sum_plain(v, rr, n)
     assert_scatter_close(got, want, order_bound(
         rr, csr_segment_sum_plain(v.float().abs(), rr, n), n))
-    assert torch.all(got[n // 2 + 1:n - 1] == 0) or n < 4
+    k = torch.bincount(rr.long(), minlength=n)
+    assert torch.all(got[k == 0] == 0)
+    if kind in ("random", "offset"):
+        assert torch.all(got[n // 2 + 1:n - 1] == 0) or n < 4
 
 
 def _by_pair(r, s, n):
@@ -665,12 +714,23 @@ def test_csr_segment_reduce_1d_kernel_matches_plain(dev, n, e, kind):
 
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,e,f", [(300, 2000, 128), (50, 64, 32),
-                                   (1000, 5000, 130), (7, 3, 8),
-                                   (2000, 20000, 33)])
-def test_csr_att_bwd_edges_kernel_matches_plain(dev, dt, n, e, f):
+@pytest.mark.parametrize("n,e,f,kind", [
+    pytest.param(300, 2000, 128, "random", id="300-2000-128"),
+    pytest.param(50, 64, 32, "random", id="50-64-32"),
+    pytest.param(1000, 5000, 130, "random", id="1000-5000-130"),
+    pytest.param(7, 3, 8, "random", id="7-3-8"),
+    pytest.param(2000, 20000, 33, "random", id="2000-20000-33"),
+    pytest.param(2000, 20000, 129, "random", id="pitch-F129"),
+    pytest.param(3000, 50000, 128, "offset", id="unaligned-views-F128"),
+    pytest.param(2000, 20000, 33, "offset", id="unaligned-views-F33"),
+    pytest.param(300, 30000, 128, "hub", id="hub-over-chunks-F128"),
+    pytest.param(9000, 6144, 128, "chunk_ends", id="rows-end-at-chunk-ends"),
+    pytest.param(169343, 3000, 128, "sparse", id="long-empty-runs"),
+    pytest.param(64, 0, 32, "random", id="no-edges")])
+def test_csr_att_bwd_edges_kernel_matches_plain(dev, dt, n, e, f, kind):
     rng = np.random.default_rng(n + e + f)
-    rr = torch.as_tensor(sorted_edges(rng, n, e), device=dev)
+    rr = torch.as_tensor(sorted_edges(rng, n, e) if kind in (
+        "random", "offset") else hazard_edges(rng, n, e, kind), device=dev)
     m = len(rr)
     f32 = dict(dtype=torch.float32, device=dev)
     dn = torch.as_tensor(rng.standard_normal((n, f + 1)), **f32)
@@ -680,6 +740,9 @@ def test_csr_att_bwd_edges_kernel_matches_plain(dev, dt, n, e, f):
     # bounded logits lie in (-30, 30)
     lm = torch.as_tensor(rng.standard_normal(m) * 8, **f32).clamp(-29, 29)
     lm[::50] = 0
+    if kind == "offset":
+        dn, h, w, lm, rr = (offset_view(x) for x in (dn, h, w, lm, rr))
+        assert all(x.data_ptr() % 16 for x in (dn, h, w, lm, rr))
     before = csr_att_bwd_edges.launches
     got = csr_att_bwd_edges(dn, h, w, lm, rr, None, n, 30.0, 0.2)
     again = csr_att_bwd_edges(dn, h, w, lm, rr, None, n, 30.0, 0.2)
@@ -692,6 +755,36 @@ def test_csr_att_bwd_edges_kernel_matches_plain(dev, dt, n, e, f):
     assert_att_close(got[0], want[0], sc[0], f + 1)
     assert_att_close(got[1], want[1], sc[1], f + 1 + k)
     assert torch.all(got[0][e:] == 0)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_segment_kernels_at_their_widest_rows(dev, dt):
+    """Rows of MAX_CARD_F columns fit the kernels' shared memory (a chunk
+    of one edge); one column more raises."""
+    from hyperspace_torch.kernels.segment import MAX_CARD_F
+
+    rng = np.random.default_rng(7)
+    n, e, f = 12, 40, MAX_CARD_F
+    rr = torch.as_tensor(np.sort(rng.integers(0, n, e)).astype(np.int32),
+                         device=dev)
+    v = torch.as_tensor(rng.standard_normal((e, f)), dtype=dt, device=dev)
+    got = csr_segment_sum(v, rr, None, n)
+    assert_scatter_close(got, csr_segment_sum_plain(v, rr, n), order_bound(
+        rr, csr_segment_sum_plain(v.float().abs(), rr, n), n))
+    f32 = dict(dtype=torch.float32, device=dev)
+    dn = torch.as_tensor(rng.standard_normal((n, f + 1)), **f32)
+    w = torch.as_tensor(rng.random(e) * 3, **f32)
+    lm = torch.as_tensor(rng.standard_normal(e) * 8, **f32).clamp(-29, 29)
+    got = csr_att_bwd_edges(dn, v, w, lm, rr, None, n, 30.0, 0.2)
+    torch.cuda.synchronize()
+    want = csr_att_bwd_edges_plain(dn, v, w, lm, rr, n, 30.0, 0.2)
+    sc = csr_att_bwd_edges_plain(dn.abs(), v.abs(), w, lm, rr, n, 30.0, 0.2)
+    k = torch.bincount(rr.long(), minlength=n).float()
+    assert_att_close(got[0], want[0], sc[0], f + 1)
+    assert_att_close(got[1], want[1], sc[1], f + 1 + k)
+    with pytest.raises(ValueError, match="at most"):
+        csr_segment_sum(torch.zeros(e, f + 1, dtype=dt, device=dev), rr,
+                        None, n)
 
 
 def pair_edges(rng, n, e_half, lo=0, hi=None):
