@@ -157,6 +157,8 @@ ROWS, DIM, C = 82115, 10, 1.0      # BASELINE.json configs[0]: WordNet nouns
 BATCH, K = 1024, 10
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12            # H100 SXM float32 outside tensor cores
+TF32_FLOPS_PER_S = 495e12          # H100 SXM dense TF32 on the tensor cores
+TF32_PASSES = 3                    # a 3×TF32 product: lo·hi + hi·lo + hi·hi
 # kernel vs plain version, both float32: the Gram form
 # cancels near d = 0 and the two sum in different orders
 RTOL, ATOL = 1e-5, 1e-4
@@ -259,8 +261,13 @@ def scan_parts(torch, fn, reps: int = 20) -> dict:
             "merge_ms": sum(v for k, v in items.items() if "merge" in k)}
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
-    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
+def bound_ms(nbytes: float, flops: float,
+             tf32_flops: float = 0.0) -> tuple[float, str]:
+    """The least time the card could take: the bytes over the memory
+    rate or the operations over their peak rates (``flops`` in f32
+    outside the tensor cores, ``tf32_flops`` on them), the larger."""
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    to = (flops / F32_FLOPS_PER_S + tf32_flops / TF32_FLOPS_PER_S) * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -1286,13 +1293,14 @@ def hybonet_path(torch, args, card: dict) -> dict:
             "legs": legs}
 
 
-def flash_cost(x: dict, kind: str) -> tuple[float, float]:
-    """(bytes, operations) of one flash kernel on an entry point's inputs: each
-    input read once and each output written once, the mask as uint8 (one
-    byte per (sequence, query, key), shared by the heads); multiply-adds
-    over the valid (query, key) pairs only: 2·D forward (Gram, p·v), 3·D
-    in dq (Gram, ⟨dsp, v⟩, dσ·Jk), 4·D in dk/dv (Gram, p·dsp, ⟨dsp, v⟩,
-    dσ·Jq)."""
+def flash_cost(x: dict, kind: str) -> tuple[float, float, float]:
+    """(bytes, f32 operations, TF32 operations) of one flash kernel on an
+    entry point's inputs: each input read once and each output written
+    once, the mask as uint8 (one byte per (sequence, query, key), shared
+    by the heads); multiply-adds over the valid (query, key) pairs only:
+    2·D forward (Gram, p·v), 3·D in dq (Gram, ⟨dsp, v⟩, dσ·Jk), 4·D in
+    dk/dv (Gram, p·dsp, ⟨dsp, v⟩, dσ·Jq), every one a 3×TF32 product on
+    the tensor cores."""
     b, nq, d = x["q"].shape
     nk = x["k"].shape[1]
     rows_q, rows_k = 4.0 * b * nq * d, 4.0 * b * nk * d
@@ -1303,7 +1311,7 @@ def flash_cost(x: dict, kind: str) -> tuple[float, float]:
         nbytes, macs = 3 * rows_q + 2 * rows_k + 8.0 * b * nq, 3 * d
     else:                  # q, k, v, dsp, lse, di in; dk, dv out
         nbytes, macs = 2 * rows_q + 4 * rows_k + 8.0 * b * nq, 4 * d
-    return nbytes + mask, 2.0 * macs * x["valid_pairs"]
+    return nbytes + mask, 0.0, TF32_PASSES * 2.0 * macs * x["valid_pairs"]
 
 
 def mlr_cost(n: int, k: int, d: int) -> tuple[float, float]:
@@ -1956,12 +1964,15 @@ def row_cost(op: str, n: int, d: int) -> tuple[float, float]:
             float(ROW_FLOPS[op]) * n * d)
 
 
-def linear_cost(n: int, d_in: int, d_out: int) -> tuple[float, float]:
-    """(bytes, operations) of hyp_linear: x, M and b read once, the
-    output written once; the product's 2·n·d_in·d_out, ‖x‖², and about
-    8 operations an output for the rescale, ⊕ b and proj."""
+def linear_cost(n: int, d_in: int,
+                d_out: int) -> tuple[float, float, float]:
+    """(bytes, f32 operations, TF32 operations) of hyp_linear on f32 x:
+    x, M and b read once, the output written once; ‖x‖² and about 8
+    operations an output for the rescale, ⊕ b and proj in f32, and the
+    product's 2·n·d_in·d_out as a 3×TF32 product on the tensor cores."""
     return (4.0 * (n * d_in + d_in * d_out + d_out + n * d_out),
-            2.0 * n * d_in * d_out + 2.0 * n * d_in + 8.0 * n * d_out)
+            2.0 * n * d_in + 8.0 * n * d_out,
+            TF32_PASSES * 2.0 * n * d_in * d_out)
 
 
 def gyro_counts() -> dict:
@@ -2359,8 +2370,12 @@ def gyro_kernel_entries(torch, gp: dict, card: dict) -> list:
         m = torch.randn((di, do), generator=gen, device=dev) / np.sqrt(di)
         b = ball_tensor(torch, gen, (do,), 1.0, dev, 0.3)
         runs[name] = ((lambda a=(x, m, b): K.hyp_linear(*a, 1.0)),
-                      (lambda a=(x, m, b): hyp_linear_plain(*a, 1.0)))
+                      (lambda a=(x, m, b): hyp_linear_plain(*a, 1.0)),
+                      (lambda a=(x, m): torch.matmul(*a)))
     bd, bby = bound_ms(*linear_cost(*LINEAR_SHAPES["arxiv_128"]))
+    # the product alone (torch.matmul of x and M in f32; main() keeps TF32
+    # off) is a reference, not the same function: no library call computes
+    # the layer
     e = {"name": "hyp_linear", "route": "cuda",
          "source": "hyperspace_torch/kernels/csrc/hyplinear.cu",
          "entry": "hs_hyp_linear",
@@ -2371,12 +2386,20 @@ def gyro_kernel_entries(torch, gp: dict, card: dict) -> list:
          "ms": device_ms(torch, runs["arxiv_128"][0]),
          "plain_ms": device_ms(torch, runs["arxiv_128"][1], reps=5),
          "bound_ms": bd, "bound_by": bby, "library_ms": None,
+         "bytes_bound_ms": linear_cost(*LINEAR_SHAPES["arxiv_128"])[0]
+         / HBM_BYTES_PER_S * 1e3,
+         "product_alone_ms": device_ms(torch, runs["arxiv_128"][2]),
+         "product_alone": "torch.matmul(x, M) in f32: the product alone, "
+                          "not the same function",
+         "product_alone_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
          "call_ms": timed_ms(torch, runs["arxiv_128"][0])}
     for name in ("arxiv_32", "smoke"):
         side_ms(torch, e, f"ms_{name}", runs[name][0])
         side_ms(torch, e, f"plain_ms_{name}", runs[name][1])
-        e[f"bound_ms_{name}"] = bound_ms(*linear_cost(
-            *LINEAR_SHAPES[name]))[0]
+        side_ms(torch, e, f"product_alone_ms_{name}", runs[name][2])
+        cost = linear_cost(*LINEAR_SHAPES[name])
+        e[f"bound_ms_{name}"] = bound_ms(*cost)[0]
+        e[f"bytes_bound_ms_{name}"] = cost[0] / HBM_BYTES_PER_S * 1e3
         e[f"shape_{name}"] = list(LINEAR_SHAPES[name])
     entries.append({**e, **card})
     return entries
@@ -2443,21 +2466,25 @@ def main(argv=None) -> int:
     for man, table, fresh in kinds:
         for b in (8, BATCH):
             q = fresh[:b]
-            for rows in (table[:chunk], table):  # a served chunk, the table
+            # a served chunk, the table, the IVF export's 287 centroids
+            for rows in (table[:chunk], table, table[:287]):
                 got = pdist(q, rows, C, manifold=man)
+                again = pdist(q, rows, C, manifold=man)
                 torch.cuda.synchronize()
                 want = pdist_plain(q, rows, C, manifold=man)
                 diff = (got - want).abs()
                 worst = float(diff.max())
                 err["pdist"] = max(err["pdist"], worst)
                 over = int((diff > ATOL + RTOL * want.abs()).sum())
+                same = bool(torch.equal(got, again))
                 emit({"phase": "check", "kernel": "pdist", "manifold": man,
                       "shape": [b, rows.shape[0], rows.shape[1]],
-                      "max_abs_err": worst, "over_tolerance": over})
-                if over:
+                      "max_abs_err": worst, "over_tolerance": over,
+                      "repeat_equal": same})
+                if over or not same:
                     raise AssertionError(
                         f"pdist {man}: {over} entries beyond "
-                        f"rtol={RTOL} atol={ATOL}")
+                        f"rtol={RTOL} atol={ATOL}, repeat equal {same}")
         slab = torch.zeros((padded, table.shape[1]), device=dev)
         slab[:ROWS] = table
         for b, k, ex, (col0, n) in itertools.product(
@@ -2618,7 +2645,9 @@ def main(argv=None) -> int:
          "bound_ms": pb, "bound_by": pby, "library_ms": None,
          "call_ms": timed_ms(torch, run_pdist(BATCH)),
          "ms_bucket8": device_ms(torch, run_pdist(8)),
+         "bound_ms_bucket8": bound_ms(*pdist_cost(8, chunk, DIM))[0],
          "full_table_ms": device_ms(torch, run_pdist(BATCH, table)),
+         "bound_ms_full_table": bound_ms(*pdist_cost(BATCH, ROWS, DIM))[0],
          **card},
         {"name": "scan_topk", "route": "cuda",
          "source": "hyperspace_torch/kernels/csrc/scan_topk.cu",

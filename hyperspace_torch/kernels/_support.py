@@ -11,8 +11,10 @@ Build: each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a``
 into a shared library with a plain C interface and loaded with
 ``ctypes``, once per process, at the kernel's first use (never at
 import).  Libraries land in ``build/hyperspace_torch/`` at the root of
-the checkout, named by a hash of their source, so an edited source
-rebuilds and concurrent builds never see a half-written file.
+the checkout, named by a hash of their source and of the ``csrc/``
+headers it includes by a quoted name (``tf32.cuh``), so an edited
+source or header rebuilds and concurrent builds never see a
+half-written file.
 Every exported C function launches on the stream it is given and
 returns ``cudaGetLastError()``; :func:`check` raises on non-zero.
 """
@@ -22,6 +24,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -60,10 +63,30 @@ def _nvcc() -> str:
     return path
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.M)
+
+
+def _sources(name: str) -> dict[str, bytes]:
+    """The text of ``csrc/<name>.cu`` and of every header it includes
+    by a quoted name, directly or through another header, by file name
+    in the order first met."""
+    texts: dict[str, bytes] = {}
+    todo = [f"{name}.cu"]
+    while todo:
+        fname = todo.pop(0)
+        if fname in texts:
+            continue
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            texts[fname] = f.read()
+        todo += [m.decode() for m in _INCLUDE.findall(texts[fname])]
+    return texts
+
+
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"{name}-{digest}.so")
+    h = hashlib.sha256()
+    for fname, text in _sources(name).items():
+        h.update(fname.encode() + b"\0" + text)
+    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 
 
 def _start_build(name: str):

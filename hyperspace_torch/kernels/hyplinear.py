@@ -2,12 +2,13 @@
 ``hyperspace_tpu/kernels/hyplinear.py``, kernel N5; Ganea et al. 2018).
 
 :func:`hyp_linear` launches ``csrc/hyplinear.cu`` for CUDA tensors (x f32
-or bf16, M and b read as f32, the product in full f32 inside the kernel,
-any (d_in, d_out)) and runs :func:`hyp_linear_plain`, the manifold-method
-composition (JAX's twin ``_t_hyp_linear``), for CPU tensors.  The JAX
-package's quiet fall back to its twin above a VMEM budget is not carried
-over.  The gradient is autograd of the plain version on the saved inputs,
-to x, M, b and a tensor c, as JAX's ``custom_vjp`` takes the twin's VJP.
+or bf16, M and b read as f32, the product at f32 accuracy on the tensor
+cores (3×TF32), each output written once, any (d_in, d_out)) and runs
+:func:`hyp_linear_plain`, the manifold-method composition (JAX's twin
+``_t_hyp_linear``), for CPU tensors.  The JAX package's quiet fall back
+to its twin above a VMEM budget is not carried over.  The gradient is
+autograd of the plain version on the saved inputs, to x, M, b and a
+tensor c, as JAX's ``custom_vjp`` takes the twin's VJP.
 """
 
 from __future__ import annotations
@@ -45,16 +46,13 @@ def _launch(x: torch.Tensor, m: torch.Tensor, b: torch.Tensor, c):
     mf = m.to(torch.float32).contiguous()
     bf = b.reshape(d_out).to(torch.float32).contiguous()
     out = torch.empty((n, d_out), dtype=x.dtype, device=dev)
-    # the raw product: the output itself when it is f32
-    mx = out if x.dtype == torch.float32 else torch.empty(
-        (n, d_out), dtype=torch.float32, device=dev)
     c_keep, cp, cv = device_scalar("hyp_linear", c, dev)
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     fn = S.function("hyplinear", "hs_hyp_linear",
-                    [I, P, P, P, P, P, L, I, I, P, ctypes.c_float, P])
+                    [I, P, P, P, P, L, I, I, P, ctypes.c_float, P])
     S.check(fn(_KINDS[x.dtype], x2.data_ptr(), mf.data_ptr(), bf.data_ptr(),
-               mx.data_ptr(), out.data_ptr(), n, d_in, d_out, cp, cv,
-               S.stream_ptr(x)), "hyp_linear")
+               out.data_ptr(), n, d_in, d_out, cp, cv, S.stream_ptr(x)),
+            "hyp_linear")
     del c_keep
     hyp_linear.launches += 1
     return out.reshape(x.shape[:-1] + (d_out,))

@@ -59,7 +59,7 @@ def dev():
     return torch.device("cuda")
 
 
-def rows(rng, n, d, kind, dev):
+def rows(rng, n, d, kind, dev, c=1.0):
     if kind == "euclidean":
         return torch.as_tensor(rng.standard_normal((n, d)),
                                dtype=torch.float32, device=dev)
@@ -67,21 +67,66 @@ def rows(rng, n, d, kind, dev):
     v = rng.standard_normal((n, dd))
     v *= rng.uniform(0.0, 0.9, (n, 1)) / np.linalg.norm(v, axis=1,
                                                         keepdims=True)
-    x = torch.as_tensor(v, dtype=torch.float32, device=dev)
-    return ball_to_lorentz(x, 1.0).contiguous() if kind == "lorentz" else x
+    x = torch.as_tensor(v / np.sqrt(c), dtype=torch.float32, device=dev)
+    return ball_to_lorentz(x, c).contiguous() if kind == "lorentz" else x
 
 
-@pytest.mark.parametrize("kind,d", [("poincare", 3), ("poincare", 10),
-                                    ("poincare", 40), ("lorentz", 11)])
-def test_pdist_kernel_matches_plain(dev, kind, d):
+@pytest.mark.parametrize("kind,d,n,m,c", [
+    pytest.param("poincare", 3, 37, 301, 1.0, id="poincare-3"),
+    pytest.param("poincare", 10, 37, 301, 1.0, id="poincare-10"),
+    pytest.param("poincare", 40, 37, 301, 1.0, id="poincare-40"),
+    pytest.param("lorentz", 11, 37, 301, 1.0, id="lorentz-11"),
+    # the served shapes: one query, bucket 8, a two-stage chunk, the IVF
+    # centroids (m % 4 = 3: rows start off 16-byte boundaries), m % 4 = 2
+    ("poincare", 10, 1, 2048, 1.0), ("poincare", 10, 8, 2048, 1.0),
+    ("poincare", 10, 1024, 2048, 1.0), ("lorentz", 11, 1024, 2048, 1.0),
+    ("poincare", 10, 1024, 287, 1.0), ("lorentz", 11, 8, 287, 1.0),
+    ("poincare", 10, 300, 2050, 0.5), ("lorentz", 11, 300, 2050, 0.5),
+    # the general loop: D outside 10 and 11
+    ("poincare", 1, 100, 301, 1.0), ("poincare", 1024, 37, 301, 0.5),
+    ("lorentz", 3, 100, 287, 0.5), ("poincare", 10, 8, 5, 0.5),
+    # more column tiles than one grid holds (65,535 × 128 columns): two
+    # launches, the second at a column-tile offset
+    pytest.param("poincare", 10, 2, 65535 * 128 + 5, 1.0,
+                 id="poincare-10-past-grid-y"),
+    pytest.param("lorentz", 16, 2, 65535 * 128 + 5, 0.5,
+                 id="lorentz-16-past-grid-y")])
+def test_pdist_kernel_matches_plain(dev, kind, d, n, m, c):
     rng = np.random.default_rng(0)
-    x, y = rows(rng, 37, d, kind, dev), rows(rng, 301, d, kind, dev)
+    x, y = rows(rng, n, d, kind, dev, c), rows(rng, m, d, kind, dev, c)
     before = pdist.launches
-    got = pdist(x, y, 1.0, manifold=kind)
+    got = pdist(x, y, c, manifold=kind)
+    again = pdist(x, y, c, manifold=kind)
     torch.cuda.synchronize()
-    assert pdist.launches == before + 1
-    want = pdist_plain(x, y, 1.0, manifold=kind)
+    assert pdist.launches == before + 2
+    assert torch.equal(got, again)
+    want = pdist_plain(x, y, c, manifold=kind)
     torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("c", [1.0, 0.5])
+def test_pdist_kernel_duplicates_edge_and_offsets(dev, c):
+    """Rows against their own copies give 0 exactly (the kernel sums the
+    norms and the Gram in one order; the plain version's Gram leaves
+    noise there, so those pairs are held to 0 alone); rows at ‖x‖ =
+    (1 − 4e-3)/√c and unprojected rows (1 − c‖x‖² ≤ 0) within the tier;
+    y an offset view (its rows off 16-byte boundaries)."""
+    rng = np.random.default_rng(11)
+    x = rows(rng, 64, 10, "poincare", dev, c)
+    base = rows(rng, 2051, 10, "poincare", dev, c)
+    x[::4] = x[::4] / torch.linalg.norm(x[::4], dim=1, keepdim=True) * (
+        (1 - 4e-3) / np.sqrt(c))
+    x[1::8] = x[1::8] / torch.linalg.norm(x[1::8], dim=1, keepdim=True) * (
+        1.2 / np.sqrt(c))
+    base[3:3 + 64 * 16:16] = x
+    y = base[3:]
+    assert y.is_contiguous() and y.data_ptr() % 16 != 0
+    got = pdist(x, y, c, manifold="poincare")
+    want = pdist_plain(x, y, c, manifold="poincare")
+    dup = torch.zeros_like(got, dtype=torch.bool)
+    dup[torch.arange(64), torch.arange(64) * 16] = True
+    assert bool((got[dup] == 0).all())
+    torch.testing.assert_close(got[~dup], want[~dup], rtol=RTOL, atol=ATOL)
 
 
 @pytest.mark.parametrize("kind,d", [("poincare", 10), ("lorentz", 11),
@@ -1284,7 +1329,12 @@ def linear_args(rng, n, d_in, d_out, dev):
 
 @pytest.mark.parametrize("n,d_in,d_out", [(256, 48, 32), (1000, 128, 128),
                                           (777, 130, 200), (5, 7, 3),
-                                          (300, 1000, 700)])
+                                          (300, 1000, 700),
+                                          # rows past a whole row tile; the
+                                          # path widths at a few thousand rows
+                                          (1001, 128, 128), (4099, 128, 32),
+                                          (3000, 128, 128), (333, 48, 64),
+                                          (70, 129, 17)])
 @pytest.mark.parametrize("c", [1.0, 0.5])
 def test_hyp_linear_kernel_matches_plain(dev, n, d_in, d_out, c):
     from hyperspace_torch.kernels.hyplinear import hyp_linear, hyp_linear_plain
@@ -1327,6 +1377,20 @@ def test_hyp_linear_kernel_bf16_margin_and_leading_dims(dev):
     zm = torch.zeros_like(m)                   # M x = 0 on every row
     torch.testing.assert_close(hyp_linear(x, zm, b, 1.0),
                                b.expand(600, 32), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("n,d_out", [(4099, 32), (3000, 128)])
+def test_hyp_linear_kernel_bf16_path_widths(dev, n, d_out):
+    from hyperspace_torch.kernels.hyplinear import hyp_linear, hyp_linear_plain
+
+    rng = np.random.default_rng(n)
+    x, m, b = linear_args(rng, n, 128, d_out, dev)
+    m = m / np.sqrt(128 / 16.0)
+    xb = x.to(torch.bfloat16)
+    got = hyp_linear(xb, m, b, 1.0)
+    assert torch.equal(got, hyp_linear(xb, m, b, 1.0))
+    assert_bf16_close(got, hyp_linear_plain(xb.float(), m, b, 1.0), 2e-4,
+                      2e-4)
 
 
 def test_hyp_linear_gradients_match_plain_autograd(dev):

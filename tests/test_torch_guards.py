@@ -217,6 +217,26 @@ def test_missing_compiler_raises(monkeypatch, tmp_path):
         _support.build_all(["pdist"])
 
 
+def test_build_name_covers_included_headers(monkeypatch, tmp_path):
+    """A library is named by its source and every header it includes by
+    a quoted name, through other headers too: an edited header rebuilds
+    the sources that include it, and only those."""
+    (tmp_path / "k.cu").write_text('#include <cuda_runtime.h>\n'
+                                   '#include "h.cuh"\nint f();\n')
+    (tmp_path / "other.cu").write_text("int g();\n")
+    (tmp_path / "h.cuh").write_text('#pragma once\n  #include "g.cuh"\n')
+    (tmp_path / "g.cuh").write_text("// one\n")
+    monkeypatch.setattr(_support, "CSRC", str(tmp_path))
+    assert list(_support._sources("k")) == ["k.cu", "h.cuh", "g.cuh"]
+    first, other = _support._lib_path("k"), _support._lib_path("other")
+    (tmp_path / "g.cuh").write_text("// two\n")
+    assert _support._lib_path("k") != first
+    assert _support._lib_path("other") == other
+    monkeypatch.undo()
+    for name in ("attention", "hyplinear"):     # the shared 3×TF32 split
+        assert "tf32.cuh" in _support._sources(name)
+
+
 def test_launchers_check_inputs():
     f32 = (torch.float32,)
     with pytest.raises(ValueError, match="float32"):
