@@ -21,37 +21,43 @@ prints its seconds):
    launch count must have risen during this phase;
 5. the training data: the HGCN link-prediction bench's synthetic
    hierarchy at ogbn-arxiv scale (169,343 nodes), community-reordered,
-   split, with its cluster split (host preparation, timed on its own);
+   split, with its cluster split and the clustered edges' row plan (host
+   preparation, timed on its own; the row plan's build again alone);
 6. hold each scatter kernel against its plain version on the card at the
    training path's shapes (the real straggler, clustered and decoder
    edge sets), plus an input with empty rows and padding edges, the
    straggler and decoder sets from an unaligned data_ptr, 3,000 edges
-   over all 169,343 rows and no edge at all; ``csr_segment_sum``
-   launched twice must give the same bits;
+   over all 169,343 rows and no edge at all; ``csr_segment_sum`` and
+   ``cluster_aggregate`` launched twice must give the same bits, the
+   latter with the step's row plan and, built on the card, without;
 7. the training path: ``run_hgcn_bench`` (bf16 edge messages and decoder
    pass, hidden (128, 32), Lorentz) for one warm-up and 10 timed steps;
    every loss finite, the last timed loss below the first, and the
    launch counts must rise by steps × 7 (``csr_segment_sum``) and
-   steps × 4 (``cluster_aggregate``); then the device busy time, idle
-   share and top device items of a step, the peak device memory, and
-   the test ROC-AUC after the steps;
+   steps × 4 (``cluster_aggregate``), with no row plan built in the
+   steps; then the device busy time, idle share and top device items of
+   a step, the peak device memory, and the test ROC-AUC after the steps;
 8. the whole step on the card against the port on the CPU (the plain
    versions), 2 steps each on a 20,000-node split with its cluster
    split, from the same parameters and negatives: losses within rel 2e-2;
 9. the attention arm's data: phase 5's split with its cluster split
-   rebuilt at the attention threshold (128 edges a pair); the gate must
-   be open; then ``csr_segment_reduce_1d`` (sum and max),
+   rebuilt at the attention threshold (128 edges a pair), its row plan's
+   build timed alone; the gate must be open; then
+   ``csr_segment_reduce_1d`` (sum and max),
    ``csr_att_bwd_edges``, ``cluster_att_fwd`` and ``cluster_att_bwd``
    against their plain versions on the path's straggler and clustered
    edge sets at F = 128 and 32, bf16 and f32, plus inputs with empty rows
    and padding edges and with F = 8 and 130, ``csr_att_bwd_edges`` also
    on unaligned views of its rows and (d_num | d_den); and
    ``csr_segment_sum`` at the arm's widths (F + 1 = 129 and 33, bf16) on
-   both edge sets; each kernel launched twice must give the same bits;
+   both edge sets; each kernel launched twice must give the same bits,
+   ``cluster_att_bwd`` with the step's row plan (the subset's built on
+   the card) and, on the path's set, the same bits without it;
 10. the attention training path: ``run_hgcn_bench`` with ``use_att`` (lr
    3e-3, clip 1.0) for one warm-up and 10 timed steps; losses finite and
    falling, and the launch counts exactly steps × 2 for each attention
-   kernel, × 7 for ``csr_segment_sum`` and 0 for ``cluster_aggregate``;
+   kernel, × 7 for ``csr_segment_sum`` and 0 for ``cluster_aggregate``,
+   with no row plan built in the steps;
    the device busy time, idle share, top device items, peak memory and
    test ROC-AUC;
 11. two attention steps on the card against the CPU on phase 8's split,
@@ -370,17 +376,23 @@ def segment_cost(e: int, f: int, n: int, size: int) -> tuple[float, float]:
             float(e) * f)
 
 
-def cluster_cost(e: int, f: int, n: int, size: int) -> tuple[float, float]:
-    """(bytes, operations) of the cluster aggregation: h read once, 12 B
-    per edge (receiver, sender, weight), the output written once; one
-    multiply-add per edge and column."""
-    return (2.0 * n * f * size + 12.0 * e, 2.0 * e * f)
+def cluster_cost(e: int, f: int, n: int, size: int,
+                 receiver_ids: bool = False) -> tuple[float, float]:
+    """(bytes, operations) of the cluster aggregation: h read once, the
+    least input that defines the sum (a sender and a weight an edge, a
+    row pointer a row), the output written once; one multiply-add per
+    edge and column.  ``receiver_ids``: the count before the row plan,
+    12 B an edge (receiver, sender, weight) and no row pointer."""
+    ids = 12.0 * e if receiver_ids else 8.0 * e + 4.0 * (n + 1)
+    return (2.0 * n * f * size + ids, 2.0 * e * f)
 
 
 def train_path(torch, args, card: dict) -> dict:
     """Phases 5–8; returns what the kernels line needs."""
     from hyperspace_torch.benchmarks import hgcn_bench as B
-    from hyperspace_torch.kernels.cluster import (build_cluster_split,
+    from hyperspace_torch.kernels import cluster as KC
+    from hyperspace_torch.kernels.cluster import (build_cluster_rows,
+                                                  build_cluster_split,
                                                   cluster_aggregate,
                                                   cluster_aggregate_plain)
     from hyperspace_torch.kernels.segment import csr_segment_sum
@@ -395,7 +407,10 @@ def train_path(torch, args, card: dict) -> dict:
     if cs is None:
         raise AssertionError("no cluster split at arxiv scale")
     n_strag = int(cs.s_mask.sum())
+    t1 = time.perf_counter()
+    build_cluster_rows(cs.c_recv, cs.c_send, n, with_rev=True)
     emit({"phase": "train_setup", "host_prep_s": setup.prep_s,
+          "row_plan_s": time.perf_counter() - t1,
           "seconds": time.perf_counter() - t0, "nodes": n,
           "edges_padded": int(setup.split.graph.senders.shape[0]),
           "edges_real": setup.split.graph.num_edges,
@@ -437,9 +452,19 @@ def train_path(torch, args, card: dict) -> dict:
              bf16)
 
     def cl_case(f, dtype):
+        # as the step calls it, with its row plan; twice, and once with
+        # the plan built on the card
         h = torch.randn(n, f, generator=gen, device=dev).to(dtype)
-        got = cluster_aggregate(h, agg.c_wf, agg.c_recv, agg.c_send, None, n)
+        got = cluster_aggregate(h, agg.c_wf, agg.c_recv, agg.c_send, None, n,
+                                rows=agg.c_rows)
+        again = cluster_aggregate(h, agg.c_wf, agg.c_recv, agg.c_send, None,
+                                  n, rows=agg.c_rows)
+        built = cluster_aggregate(h, agg.c_wf, agg.c_recv, agg.c_send, None,
+                                  n)
         torch.cuda.synchronize()
+        if not torch.equal(got, built):
+            raise AssertionError(f"cluster_aggregate F={f}: the plan built "
+                                 "on the card gives other bits")
         want = cluster_aggregate_plain(h, agg.c_wf, agg.c_recv, agg.c_send,
                                        n)
         w_used = agg.c_wf.to(dtype).float()     # bf16 h: rounded weights
@@ -449,7 +474,7 @@ def train_path(torch, args, card: dict) -> dict:
         err["cluster_aggregate"] = max(err["cluster_aggregate"],
                                        check_scatter(
             torch, "cluster_aggregate", f"clustered F={f}", got, want,
-            bound))
+            bound, again))
 
     cl_case(128, bf16)
     cl_case(32, bf16)
@@ -459,10 +484,12 @@ def train_path(torch, args, card: dict) -> dict:
     # --- phase 7: the training path --------------------------------------
     t0 = time.perf_counter()
     csr_segment_sum.launches = cluster_aggregate.launches = 0
+    KC.row_plan_builds = 0
     torch.cuda.reset_peak_memory_stats()
     res = B.run_hgcn_bench(steps=TRAIN_STEPS, warmup=1, setup=setup)
     launches = {"csr_segment_sum": csr_segment_sum.launches,
-                "cluster_aggregate": cluster_aggregate.launches}
+                "cluster_aggregate": cluster_aggregate.launches,
+                "row_plan_builds": KC.row_plan_builds}
     peak = torch.cuda.max_memory_allocated()
     losses = res["losses"]
     emit({"phase": "train", "steps": TRAIN_STEPS, "warmup": 1,
@@ -475,6 +502,9 @@ def train_path(torch, args, card: dict) -> dict:
             raise AssertionError(
                 f"{name}: {launches[name]} launches over {TRAIN_STEPS + 1} "
                 f"steps, want {per_step} a step")
+    if launches["row_plan_builds"]:
+        raise AssertionError(f"the steps built {launches['row_plan_builds']} "
+                             "row plans; the split's should serve them all")
     if not np.all(np.isfinite(losses + res["warmup_losses"])):
         raise AssertionError(f"non-finite training loss: {losses}")
     if not losses[-1] < losses[0]:
@@ -582,9 +612,10 @@ def train_kernel_entries(torch, tr: dict, card: dict) -> list:
         torch.stack([agg.c_recv.long(), agg.c_send.long()]), agg.c_wf,
         (n, n)).coalesce().to_sparse_csr()
 
-    def clu(hh):
+    def clu(hh):         # as the step calls it, with its row plan
         return lambda: cluster_aggregate(hh, agg.c_wf, agg.c_recv,
-                                         agg.c_send, None, n)
+                                         agg.c_send, None, n,
+                                         rows=agg.c_rows)
 
     cb, cby = bound_ms(*cluster_cost(e, 128, n, 2))
     cl_entry = {
@@ -600,6 +631,8 @@ def train_kernel_entries(torch, tr: dict, card: dict) -> list:
         "plain_ms": device_ms(torch, lambda: cluster_aggregate_plain(
             h[128], agg.c_wf, agg.c_recv, agg.c_send, n), reps=5),
         "bound_ms": cb, "bound_by": cby,
+        "bound_ms_receiver_ids": bound_ms(*cluster_cost(e, 128, n, 2,
+                                                        True))[0],
         "library_ms": device_ms(torch, lambda: torch.sparse.mm(w_csr, h32)),
         "library_call": "torch.sparse.mm of the f32 CSR weight matrix "
                         "and f32 h",
@@ -685,7 +718,10 @@ def att_path(torch, args, card: dict, tr: dict) -> dict:
     agg, n = setup.ga.cluster, setup.num_nodes
     cs = g.cluster_split
     n_strag = int(cs.s_mask.sum())
+    t1 = time.perf_counter()
+    KC.build_cluster_rows(cs.c_recv, cs.c_send, n, with_rev=True)
     emit({"phase": "att_setup", "cluster_split_s": split_s,
+          "row_plan_s": time.perf_counter() - t1,
           "seconds": time.perf_counter() - t0, "nodes": n,
           "min_pair_edges": G.cluster_min_pair_for(True),
           "frac_clustered": cs.frac_clustered, "att_ok": agg.att_ok,
@@ -761,12 +797,17 @@ def att_path(torch, args, card: dict, tr: dict) -> dict:
                            got[1], again[1], want[1], sc[1], f + 1 + k)
             err["csr_att_bwd_edges"] = max(err["csr_att_bwd_edges"], e0, e1)
 
-    every3 = (agg.c_recv % 3) == 0           # rows 1, 2 of every 3 empty
-    c_sets = {"clustered": (agg.c_recv, agg.c_send),
+    # rows 1, 2 of every 3 empty, and closed under reversal as
+    # cluster_att_bwd's involution needs: both ends a multiple of 3
+    every3 = ((agg.c_recv % 3) == 0) & ((agg.c_send % 3) == 0)
+    # the path's set with the step's row plan; the subset's plan is built
+    # on the card at each call
+    c_sets = {"clustered": (agg.c_recv, agg.c_send, agg.c_rows),
               "clustered, empty rows": (agg.c_recv[every3].contiguous(),
-                                        agg.c_send[every3].contiguous())}
+                                        agg.c_send[every3].contiguous(),
+                                        None)}
     a_s, a_r = rand(n, scale=0.7), rand(n, scale=0.7) + 0.3
-    for label, (r, s_) in c_sets.items():
+    for label, (r, s_, rows) in c_sets.items():
         k = torch.bincount(r.long(), minlength=n).float()
         for f, dt in ((128, bf16), (32, bf16), (128, f32), (8, f32),
                       (130, bf16)):
@@ -786,7 +827,14 @@ def att_path(torch, args, card: dict, tr: dict) -> dict:
                 torch, "cluster_att_fwd", tag, got, again, want, sc,
                 k[:, None], wulp))
             got, again = twice(lambda: KC.cluster_att_bwd(
-                gext, h, a_s, a_r, r, s_, None, n, ATT_SLOPE, ATT_BOUND))
+                gext, h, a_s, a_r, r, s_, None, n, ATT_SLOPE, ATT_BOUND,
+                rows=rows))
+            if rows is not None:
+                built = KC.cluster_att_bwd(gext, h, a_s, a_r, r, s_, None, n,
+                                           ATT_SLOPE, ATT_BOUND)
+                if not all(torch.equal(a, b) for a, b in zip(got, built)):
+                    raise AssertionError(f"cluster_att_bwd {tag}: the plan "
+                                         "built on the card gives other bits")
             want = KC.cluster_att_bwd_plain(gext, h, a_s, a_r, r, s_, n,
                                             ATT_SLOPE, ATT_BOUND)
             sc = KC.cluster_att_bwd_plain(gext.abs(), h.abs(), a_s, a_r, r,
@@ -803,9 +851,10 @@ def att_path(torch, args, card: dict, tr: dict) -> dict:
     # --- phase 10: the attention training path -------------------------
     t0 = time.perf_counter()
     att_reset()
+    KC.row_plan_builds = 0
     torch.cuda.reset_peak_memory_stats()
     res = B.run_hgcn_bench(steps=TRAIN_STEPS, warmup=1, setup=setup)
-    launches = att_counts()
+    launches = {**att_counts(), "row_plan_builds": KC.row_plan_builds}
     peak = torch.cuda.max_memory_allocated()
     losses = res["losses"]
     emit({"phase": "att_train", "steps": TRAIN_STEPS, "warmup": 1,
@@ -821,6 +870,9 @@ def att_path(torch, args, card: dict, tr: dict) -> dict:
             raise AssertionError(
                 f"attention: {name} launched {launches[name]} times in "
                 f"{TRAIN_STEPS + 1} steps, want {per_step} a step")
+    if launches["row_plan_builds"]:
+        raise AssertionError(f"the attention steps built "
+                             f"{launches['row_plan_builds']} row plans")
     if not np.all(np.isfinite(losses + res["warmup_losses"])):
         raise AssertionError(f"non-finite attention loss: {losses}")
     if not losses[-1] < losses[0]:
@@ -978,17 +1030,22 @@ def att_kernel_entries(torch, at: dict, card: dict) -> list:
         return (ce * 8.0 + n * (f * size + 8.0) + n * 4.0 * (f + 1),
                 ce * (2.0 * f + 20.0))
 
-    def bwd_cost(f, size):
-        return (ce * 8.0 + n * (4.0 * (f + 1) + f * size + 8.0)
+    def bwd_cost(f, size, receiver_ids=False):
+        # the least input: a sender an edge and a row pointer a row (before
+        # the row plan: a receiver and a sender an edge); g, h and the two
+        # scores read once, dh, dα_s and dα_r written once
+        ids = ce * 8.0 if receiver_ids else ce * 4.0 + 4.0 * (n + 1)
+        return (ids + n * (4.0 * (f + 1) + f * size + 8.0)
                 + n * 4.0 * (f + 2), ce * (6.0 * f + 40.0))
 
     def fwd(f):
         return lambda: KC.cluster_att_fwd(h[f], a_s, a_r, cr, csn, None, n,
                                           ATT_SLOPE, ATT_BOUND)
 
-    def bwd(f):
+    def bwd(f):          # as the step calls it, with its row plan
         return lambda: KC.cluster_att_bwd(gx[f], h[f], a_s, a_r, cr, csn,
-                                          None, n, ATT_SLOPE, ATT_BOUND)
+                                          None, n, ATT_SLOPE, ATT_BOUND,
+                                          rows=agg.c_rows)
 
     fb, fby = bound_ms(*fwd_cost(128, 2))
     entries.append({
@@ -1012,6 +1069,7 @@ def att_kernel_entries(torch, at: dict, card: dict) -> list:
             gx[128], h[128], a_s, a_r, cr, csn, n, ATT_SLOPE, ATT_BOUND),
             reps=5),
         "bound_ms": bb, "bound_by": bby, "library_ms": None,
+        "bound_ms_receiver_ids": bound_ms(*bwd_cost(128, 2, True))[0],
         "call_ms": timed_ms(torch, bwd(128)),
         "ms_F32": device_ms(torch, bwd(32)),
         "bound_ms_F32": bound_ms(*bwd_cost(32, 2))[0], **card})

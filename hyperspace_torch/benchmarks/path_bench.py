@@ -1,8 +1,9 @@
-"""Gyro-linear layer step and two-stage exact batch on one card.
+"""Gyro-linear layer step, two-stage exact batch and HGCN steps on one
+card.
 
-The two paths that launch ``hyp_linear`` and ``pdist``, at the sizes
-``chip_smoke.py`` drives them, timed alone so that two checkouts can be
-compared on one card in one run:
+The paths that launch ``hyp_linear``, ``pdist`` and the cluster kernels,
+at the sizes ``chip_smoke.py`` drives them, timed alone so that two
+checkouts can be compared on one card in one run:
 
 - ``gyro_layers``: HypLinear(128) on the ball c = 1 → HypAct(c 1 → 0.5,
   relu) → HypLinear(32) on 169,343 points at radius 0.8, mean squared
@@ -13,14 +14,21 @@ compared on one card in one run:
   1,024 distinct ids never asked before through :class:`RequestBatcher`,
   k = 10; median batch ms and engine-call ms (each ending in the copy of
   the answer to the host), busy ms a batch, idle share, ``pdist``
-  launches a batch.
+  launches a batch;
+- ``hgcn_mean`` and ``hgcn_att``: the HGCN link-prediction step at
+  ogbn-arxiv scale that ``chip_smoke.py``'s ``train`` and ``att_train``
+  phases run (``hgcn_bench.setup_lp``, bf16 messages, hidden (128, 32);
+  the attention arm with ``use_att``): step ms after one warm-up step,
+  busy ms a step, idle share, the device ms of each kernel of
+  ``csrc/cluster.cu`` a step (``cluster_ms``, by item name) and the
+  launches a step of ``cluster_aggregate`` and ``cluster_att_bwd``.
 
 Busy ms come from ``torch.profiler`` put on the card's clock
 (:mod:`devtime`); ``kernel_ms`` is the busy time of the items whose name
 holds the kernel's.  Prints one JSON object a leg.
 
     python -m hyperspace_torch.benchmarks.path_bench [--seed 0]
-        [--steps 10] [--legs gyro_layers,two_stage]
+        [--steps 10] [--legs gyro_layers,two_stage,hgcn_mean,hgcn_att]
 
 To time another checkout's package with this file, put that checkout's
 root first on ``PYTHONPATH`` and run the file by its path; ``package``
@@ -50,6 +58,12 @@ def card_name() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+
+
+# the kernels of csrc/cluster.cu, by the names the profiler shows, of
+# this checkout and of those before the row plan
+CLUSTER_KERNELS = ("agg_rows_kernel", "att_bwd_rows_kernel", "row_sum_kernel",
+                   "cluster_kernel", "att_bwd_kernel", "block_ptr_kernel")
 
 
 def busy(fn, wall_ms: float, kernel: str, reps: int) -> dict:
@@ -148,6 +162,34 @@ def two_stage(seed: int) -> dict:
                    "pdist", 5)}
 
 
+def hgcn(seed: int, steps: int, use_att: bool) -> dict:
+    from hyperspace_torch.benchmarks import hgcn_bench as B
+    from hyperspace_torch.benchmarks.devtime import profile_window
+    from hyperspace_torch.kernels import cluster as KC
+
+    setup = B.setup_lp(device="cuda", seed=seed, use_att=use_att)
+    first = float(setup.step())                     # warm-up
+    KC.cluster_aggregate.launches = KC.cluster_att_bwd.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [setup.step() for _ in range(steps)]
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / steps
+    launches = {"cluster_aggregate": KC.cluster_aggregate.launches / steps,
+                "cluster_att_bwd": KC.cluster_att_bwd.launches / steps}
+    items, _, windows = profile_window(torch, setup.step, 3)
+    total = sum(items.values())
+    cl = {k[:90]: v for k, v in items.items()
+          if any(name in k for name in CLUSTER_KERNELS)}
+    return {"leg": "hgcn_att" if use_att else "hgcn_mean",
+            "nodes": setup.num_nodes, "steps": steps, "step_ms": step_ms,
+            "launches_a_step": launches, "loss_first": first,
+            "loss_last": float(losses[-1]), "busy_ms": total,
+            "idle_share": 1.0 - total / step_ms,
+            "clock_checked": any(w["accepted"] for w in windows),
+            "cluster_ms": cl, "cluster_ms_total": sum(cl.values())}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -160,10 +202,12 @@ def main(argv=None) -> int:
     import hyperspace_torch
 
     head = {"package": hyperspace_torch.__file__, "card": card_name()}
+    legs = {"gyro_layers": lambda: gyro_layers(args.seed, args.steps),
+            "two_stage": lambda: two_stage(args.seed),
+            "hgcn_mean": lambda: hgcn(args.seed, args.steps, False),
+            "hgcn_att": lambda: hgcn(args.seed, args.steps, True)}
     for leg in args.legs.split(","):
-        out = (gyro_layers(args.seed, args.steps) if leg == "gyro_layers"
-               else two_stage(args.seed))
-        emit({**head, **out})
+        emit({**head, **legs[leg]()})
     return 0
 
 

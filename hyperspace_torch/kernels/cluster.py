@@ -19,9 +19,13 @@ tensors on the CPU they run their ``*_plain`` versions.
 
 The host side — the (receiver block, sender block, chunk) plan and the
 split of a graph's edges into clustered pairs and stragglers — is
-ported array-equal to the JAX package.  The CUDA kernel needs only the
-edges' (receiver block, sender block) order, not the plan; the wrapper
-takes the plan for the same signature and ignores it.
+ported array-equal to the JAX package.  The CUDA kernels do not use
+that plan (the wrappers take it for the same signature and ignore it):
+the aggregation and the attention backward read the port's own row plan
+(:class:`ClusterRows`), which :func:`build_cluster_split` builds once per
+graph and ``rows=`` passes in; without it, a CUDA call builds one on the
+card first (counted in ``row_plan_builds``).  The attention forward
+still sorts each receiver block's edges itself.
 """
 
 from __future__ import annotations
@@ -39,6 +43,9 @@ from hyperspace_torch.kernels.segment import CARD_DTYPES, build_csr_plan, \
 _BN = 256   # receiver-block rows
 _BS = 256   # sender-block rows
 _BK = 512   # edges per chunk of the JAX plan
+
+# row plans built on the card by a wrapper called without ``rows=``
+row_plan_builds = 0
 
 
 class ClusterPlan(NamedTuple):
@@ -99,6 +106,113 @@ def build_cluster_plan(receivers: np.ndarray, senders: np.ndarray,
     return ClusterPlan(rb_items, sb_items, chunk_items, first)
 
 
+class ClusterRows(NamedTuple):
+    """The row plan of an edge set: its edges in row order, stable (a
+    row's edges keep their arrival order).  numpy arrays on the host,
+    int32 tensors on the card (:func:`rows_on`).
+
+    ``row_ptr [N + 1]``: row i's slots are ``row_ptr[i]:row_ptr[i+1]``;
+    ``perm [E]``: each slot's arrival index (its weight's place), None
+    where the edges (and weights) are in row order already;
+    ``recv``, ``send [E]``: each slot's receiver (ascending) and sender;
+    ``rev [E]``: the slot of each slot's reverse edge (an involution),
+    None unless asked for."""
+
+    row_ptr: object
+    perm: object
+    recv: object
+    send: object
+    rev: object = None
+
+
+def build_cluster_rows(receivers: np.ndarray, senders: np.ndarray,
+                       num_nodes: int, with_rev: bool = False) -> ClusterRows:
+    """The :class:`ClusterRows` of an edge list, on the host.  With
+    ``with_rev`` the k-th (receiver, sender) = (a, b) slot is paired with
+    the k-th (b, a) slot; raises when the edge multiset is not closed
+    under reversal."""
+    r = np.asarray(receivers).astype(np.int64)
+    s = np.asarray(senders).astype(np.int64)
+    if r.shape != s.shape or r.ndim != 1:
+        raise ValueError(f"cluster rows: want [E] receivers and senders; "
+                         f"got {r.shape}, {s.shape}")
+    if len(r) and (min(r.min(), s.min()) < 0
+                   or max(r.max(), s.max()) >= num_nodes):
+        raise ValueError(f"cluster rows: node ids outside [0, {num_nodes})")
+    perm = np.argsort(r, kind="stable")
+    rr, ss = r[perm], s[perm]
+    row_ptr = np.zeros(num_nodes + 1, np.int64)
+    np.cumsum(np.bincount(rr, minlength=num_nodes), out=row_ptr[1:])
+    rev = None
+    if with_rev:
+        fwd = np.lexsort((ss, rr))      # slots by (receiver, sender)
+        bwd = np.lexsort((rr, ss))      # slots by (sender, receiver)
+        if not (np.array_equal(rr[fwd], ss[bwd])
+                and np.array_equal(ss[fwd], rr[bwd])):
+            raise ValueError("cluster rows: the edges are not closed under "
+                             "reversal")
+        rev = np.empty(len(r), np.int32)
+        rev[fwd] = bwd
+    i32 = np.int32
+    return ClusterRows(row_ptr.astype(i32), perm.astype(i32), rr.astype(i32),
+                       ss.astype(i32), rev)
+
+
+def cluster_rows_on_device(receivers: torch.Tensor, senders: torch.Tensor,
+                           num_nodes: int,
+                           with_rev: bool = False) -> ClusterRows:
+    """:func:`build_cluster_rows` on the tensors' device (torch's stable
+    sorts), counted in ``row_plan_builds``."""
+    global row_plan_builds
+    r, s = receivers.long(), senders.long()
+    perm = torch.sort(r, stable=True).indices
+    rr, ss = r[perm], s[perm]
+    row_ptr = torch.zeros(num_nodes + 1, dtype=torch.int64, device=r.device)
+    torch.cumsum(torch.bincount(rr, minlength=num_nodes), 0,
+                 out=row_ptr[1:])
+    rev = None
+    if with_rev:
+        fwd = torch.sort(rr * num_nodes + ss, stable=True).indices
+        bwd = torch.sort(ss * num_nodes + rr, stable=True).indices
+        if not torch.equal(rr[fwd] * num_nodes + ss[fwd],
+                           ss[bwd] * num_nodes + rr[bwd]):
+            raise ValueError("cluster rows: the edges are not closed under "
+                             "reversal")
+        rev = torch.empty_like(fwd).scatter_(0, fwd, bwd).int()
+    row_plan_builds += 1
+    return ClusterRows(row_ptr.int(), perm.int(), rr.int(), ss.int(), rev)
+
+
+def rows_on(rows: ClusterRows, device) -> ClusterRows:
+    """A host :class:`ClusterRows` as int32 tensors on ``device``."""
+    return ClusterRows(*(None if a is None else torch.as_tensor(
+        np.asarray(a, np.int32), device=device) for a in rows))
+
+
+def _check_rows(name: str, rows: ClusterRows, e: int, num_nodes: int,
+                need_rev: bool = False) -> None:
+    if tuple(rows.row_ptr.shape) != (num_nodes + 1,) or tuple(
+            rows.send.shape) != (e,):
+        raise ValueError(f"{name}: a row plan of {rows.send.shape[0]} edges "
+                         f"over {rows.row_ptr.shape[0] - 1} rows for {e} "
+                         f"edges over {num_nodes}")
+    if need_rev and rows.rev is None:
+        raise ValueError(f"{name}: the row plan has no reverse slots "
+                         "(build it with with_rev=True)")
+
+
+def _rows_for_launch(name: str, rows, receivers: torch.Tensor,
+                     senders: torch.Tensor, num_nodes: int,
+                     need_rev: bool = False) -> ClusterRows:
+    """``rows`` checked for a launch, or built on the card when None."""
+    if rows is None:
+        rows = cluster_rows_on_device(receivers, senders, num_nodes, need_rev)
+    _check_rows(name, rows, receivers.shape[0], num_nodes, need_rev)
+    S.check_cuda(name, (torch.int32,), receivers,
+                 *(a for a in rows if a is not None))
+    return rows
+
+
 def cluster_aggregate_plain(h: torch.Tensor, w: torch.Tensor,
                             receivers: torch.Tensor, senders: torch.Tensor,
                             num_nodes: int) -> torch.Tensor:
@@ -114,54 +228,53 @@ def cluster_aggregate_plain(h: torch.Tensor, w: torch.Tensor,
     return out.to(h.dtype)
 
 
-def _launch(h: torch.Tensor, w: torch.Tensor, receivers: torch.Tensor,
-            senders: torch.Tensor, num_nodes: int) -> torch.Tensor:
-    S.check_cuda("cluster_aggregate", CARD_DTYPES, h)
-    S.check_cuda("cluster_aggregate", (torch.float32,), w)
-    S.check_cuda("cluster_aggregate", (torch.int32,), receivers, senders)
-    if len({h.device, w.device, receivers.device}) != 1:
-        raise ValueError("cluster_aggregate: tensors on several devices")
-    e = receivers.shape[0]
-    f = h.shape[1]
-    ptr = torch.empty(-(-num_nodes // _BN) + 1, dtype=torch.int32,
-                      device=h.device)
-    out = torch.empty((num_nodes, f), dtype=h.dtype, device=h.device)
-    P, I = ctypes.c_void_p, ctypes.c_int
-    fn = S.function("cluster", "hs_cluster_aggregate",
-                    [P, P, P, P, P, P, I, I, I, I, P])
-    S.check(fn(h.data_ptr(), w.data_ptr(), receivers.data_ptr(),
-               senders.data_ptr(), ptr.data_ptr(), out.data_ptr(), e,
-               num_nodes, f, int(h.dtype == torch.bfloat16),
-               S.stream_ptr(h)), "cluster_aggregate")
-    cluster_aggregate.launches += 1
-    return out
-
-
 def cluster_aggregate(h: torch.Tensor, w: torch.Tensor,
                       receivers: torch.Tensor, senders: torch.Tensor, plan,
-                      num_nodes: int) -> torch.Tensor:
+                      num_nodes: int,
+                      rows: ClusterRows | None = None) -> torch.Tensor:
     """out[r] = Σ_{e: receivers_e = r} w_e · h[senders_e].
 
     ``h: [N, F]``, ``w: [E]`` float32 (0 on padding), ``receivers`` and
-    ``senders``: [E] int32, sorted by (receiver // 256, sender // 256) as
-    :func:`build_cluster_split` leaves them; ``plan`` the JAX kernel's
+    ``senders``: [E] int32 (:func:`build_cluster_split` leaves them sorted
+    by (receiver // 256, sender // 256)); ``plan`` the JAX kernel's
     :class:`ClusterPlan` (accepted for the same signature, not needed
-    here).  An empty edge set gives zeros.  CUDA tensors go through
-    ``csrc/cluster.cu``; CPU tensors through
+    here); ``rows`` the edges' :class:`ClusterRows` on h's device (on the
+    card, built there when None).  An empty edge set gives zeros.  CUDA
+    tensors go through ``csrc/cluster.cu``; CPU tensors through
     :func:`cluster_aggregate_plain`."""
     del plan
     if h.ndim != 2 or not (w.shape == receivers.shape == senders.shape):
         raise ValueError(f"cluster_aggregate: want [N, F] h and [E] edges; "
                          f"got {tuple(h.shape)}, {tuple(w.shape)}, "
                          f"{tuple(receivers.shape)}, {tuple(senders.shape)}")
+    e, f = receivers.shape[0], h.shape[1]
     if h.device.type == "cpu" and receivers.device.type == "cpu":
+        if rows is not None:
+            _check_rows("cluster_aggregate", rows, e, num_nodes)
         return cluster_aggregate_plain(h, w, receivers, senders, num_nodes)
     if h.device.type != "cuda":
         raise ValueError(f"cluster_aggregate: unsupported device {h.device}")
-    if receivers.shape[0] == 0:
-        return torch.zeros((num_nodes, h.shape[1]), dtype=h.dtype,
-                           device=h.device)
-    return _launch(h, w, receivers, senders, num_nodes)
+    S.check_cuda("cluster_aggregate", CARD_DTYPES, h)
+    S.check_cuda("cluster_aggregate", (torch.float32,), w)
+    S.check_cuda("cluster_aggregate", (torch.int32,), receivers, senders)
+    if len({h.device, w.device, receivers.device}) != 1:
+        raise ValueError("cluster_aggregate: tensors on several devices")
+    if e == 0:
+        return torch.zeros((num_nodes, f), dtype=h.dtype, device=h.device)
+    rows = _rows_for_launch("cluster_aggregate", rows, receivers, senders,
+                            num_nodes)
+    # the kernel reads the weights in row order: the step's are stored so
+    w = w if rows.perm is None else w[rows.perm.long()]
+    out = torch.empty((num_nodes, f), dtype=h.dtype, device=h.device)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn = S.function("cluster", "hs_cluster_aggregate",
+                    [P, P, P, P, P, P, I, I, I, I, P])
+    S.check(fn(h.data_ptr(), w.data_ptr(), rows.row_ptr.data_ptr(),
+               rows.recv.data_ptr(), rows.send.data_ptr(), out.data_ptr(), e,
+               num_nodes, f, int(h.dtype == torch.bfloat16),
+               S.stream_ptr(h)), "cluster_aggregate")
+    cluster_aggregate.launches += 1
+    return out
 
 
 cluster_aggregate.launches = 0
@@ -307,21 +420,25 @@ def cluster_att_bwd(g_ext: torch.Tensor, h: torch.Tensor,
                     alpha_s: torch.Tensor, alpha_r: torch.Tensor,
                     receivers: torch.Tensor, senders: torch.Tensor, plan,
                     num_nodes: int, negative_slope: float = 0.2,
-                    bound: float = 30.0):
+                    bound: float = 30.0, rows: ClusterRows | None = None):
     """Backward of :func:`cluster_att_fwd` from the cotangent
     ``g_ext: [N, F+1]`` f32 (d_num | d_den): returns
     ``(dh [N, F], d_alpha_s [N], d_alpha_r [N])``, f32, each indexed by
     receiver through the edge involution, so the edge set must be closed
-    under reversal (the cluster split's is).  CUDA tensors go through
-    ``csrc/cluster.cu``; CPU tensors through :func:`cluster_att_bwd_plain`."""
+    under reversal (the cluster split's is).  ``rows``: the edges'
+    :class:`ClusterRows` with ``rev`` on h's device (on the card, built
+    there when None).  CUDA tensors go through ``csrc/cluster.cu``; CPU
+    tensors through :func:`cluster_att_bwd_plain`."""
     del plan
     _check_att("cluster_att_bwd", h, alpha_s, alpha_r, receivers, senders,
                num_nodes)
-    f = h.shape[1]
+    e, f = receivers.shape[0], h.shape[1]
     if g_ext.shape != (num_nodes, f + 1):
         raise ValueError(f"cluster_att_bwd: want a [N, F+1] cotangent; got "
                          f"{tuple(g_ext.shape)} for h {tuple(h.shape)}")
     if h.device.type == "cpu" and receivers.device.type == "cpu":
+        if rows is not None:
+            _check_rows("cluster_att_bwd", rows, e, num_nodes, need_rev=True)
         return cluster_att_bwd_plain(g_ext, h, alpha_s, alpha_r, receivers,
                                      senders, num_nodes, negative_slope,
                                      bound)
@@ -330,22 +447,24 @@ def cluster_att_bwd(g_ext: torch.Tensor, h: torch.Tensor,
     _check_att_cuda("cluster_att_bwd", h, (g_ext, alpha_s, alpha_r),
                     (receivers, senders))
     dev = h.device
-    if receivers.shape[0] == 0:
+    if e == 0:
         z = torch.zeros(num_nodes, dtype=torch.float32, device=dev)
         return torch.zeros((num_nodes, f), dtype=torch.float32,
                            device=dev), z, z.clone()
-    ptr = torch.empty(-(-num_nodes // _BN) + 1, dtype=torch.int32,
-                      device=dev)
+    rows = _rows_for_launch("cluster_att_bwd", rows, receivers, senders,
+                            num_nodes, need_rev=True)
     dh = torch.empty((num_nodes, f), dtype=torch.float32, device=dev)
     da_s = torch.empty(num_nodes, dtype=torch.float32, device=dev)
     da_r = torch.empty(num_nodes, dtype=torch.float32, device=dev)
+    scratch = torch.empty(e, dtype=torch.float32, device=dev)
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn = S.function("cluster", "hs_cluster_att_bwd",
-                    [P, P, P, P, P, P, P, P, P, P, I, I, I, I, F, F, P])
+                    [P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, F, F, P])
     S.check(fn(g_ext.data_ptr(), h.data_ptr(), alpha_s.data_ptr(),
-               alpha_r.data_ptr(), receivers.data_ptr(), senders.data_ptr(),
-               ptr.data_ptr(), dh.data_ptr(), da_s.data_ptr(),
-               da_r.data_ptr(), receivers.shape[0], num_nodes, f,
+               alpha_r.data_ptr(), rows.row_ptr.data_ptr(),
+               rows.recv.data_ptr(), rows.send.data_ptr(),
+               rows.rev.data_ptr(), dh.data_ptr(), da_s.data_ptr(),
+               da_r.data_ptr(), scratch.data_ptr(), e, num_nodes, f,
                int(h.dtype == torch.bfloat16), bound, negative_slope,
                S.stream_ptr(h)), "cluster_att_bwd")
     cluster_att_bwd.launches += 1
@@ -361,7 +480,9 @@ class ClusterSplit(NamedTuple):
     sorted, padded, with their CSR plan); ``*_wf``/``*_wb`` are the mean
     weights 1/deg of each edge's receiver and sender (the involution
     backward's weights).  ``s_rev_local``/``s_mask`` are the straggler
-    involution and validity mask, None without ``rev_perm``."""
+    involution and validity mask, None without ``rev_perm``; ``c_rows``
+    the clustered edges' :class:`ClusterRows` (the port's own, for the
+    CUDA kernels; with ``rev`` when ``rev_perm`` is given)."""
 
     c_recv: np.ndarray
     c_send: np.ndarray
@@ -376,6 +497,7 @@ class ClusterSplit(NamedTuple):
     frac_clustered: float
     s_rev_local: np.ndarray | None = None
     s_mask: np.ndarray | None = None
+    c_rows: ClusterRows | None = None
 
 
 def build_cluster_split(senders: np.ndarray, receivers: np.ndarray,
@@ -443,4 +565,6 @@ def build_cluster_split(senders: np.ndarray, receivers: np.ndarray,
         s_plan=s_plan,
         frac_clustered=float(len(c_recv)) / max(len(r), 1),
         **maps,
+        c_rows=build_cluster_rows(c_recv, c_send, num_nodes,
+                                  with_rev=rev_perm is not None),
     )

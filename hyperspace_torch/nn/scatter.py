@@ -38,9 +38,9 @@ from typing import ClassVar, Optional
 
 import torch
 
-from hyperspace_torch.kernels.cluster import (cluster_aggregate,
+from hyperspace_torch.kernels.cluster import (ClusterRows, cluster_aggregate,
                                               cluster_att_bwd,
-                                              cluster_att_fwd)
+                                              cluster_att_fwd, rows_on)
 from hyperspace_torch.kernels.segment import (csr_att_bwd_edges,
                                               csr_segment_reduce_1d,
                                               csr_segment_sum)
@@ -182,10 +182,12 @@ def planned_segment_max_1d(vals: torch.Tensor, receivers: torch.Tensor,
 @dataclasses.dataclass
 class ClusterAgg:
     """Device tensors of a host ``kernels.cluster.ClusterSplit``: the
-    clustered edges with their forward/backward weights and plan, and the
-    stragglers with theirs (and, for attention, their involution and
-    validity mask).  ``use_att_cluster`` is the attention gate, set by
-    :meth:`from_host` from the clustered fraction."""
+    clustered edges with their forward/backward weights, plan and row
+    plan (``c_rows``, built once per graph, which the CUDA kernels read;
+    the edges then in its row order), and the stragglers with theirs
+    (and, for attention, their involution and validity mask).
+    ``use_att_cluster`` is the attention gate, set by :meth:`from_host`
+    from the clustered fraction."""
 
     # the attention arm takes the in-tile cluster kernels only when at
     # least this share of the edges is clustered: the JAX package's gate
@@ -204,6 +206,7 @@ class ClusterAgg:
     s_plan: tuple
     s_rev_local: Optional[torch.Tensor] = None
     s_mask: Optional[torch.Tensor] = None
+    c_rows: Optional[ClusterRows] = None
     use_att_cluster: bool = False
 
     @property
@@ -214,21 +217,30 @@ class ClusterAgg:
 
     @classmethod
     def from_host(cls, split, device) -> "ClusterAgg":
+        """With a row plan, the clustered edges and their weights go to
+        the device in its row order (each row's edges in their order), so
+        the kernels read the weights without the permutation."""
         def dev(a):
             return None if a is None else torch.as_tensor(a, device=device)
 
-        return cls(dev(split.c_recv), dev(split.c_send), dev(split.c_wf),
-                   dev(split.c_wb), tuple(dev(a) for a in split.c_plan),
+        c_edges = (split.c_recv, split.c_send, split.c_wf, split.c_wb)
+        rows = split.c_rows
+        if rows is not None:
+            rows = rows_on(rows._replace(perm=None), device)
+            c_edges = (rows.recv, rows.send, split.c_wf[split.c_rows.perm],
+                       split.c_wb[split.c_rows.perm])
+        return cls(*(dev(a) for a in c_edges),
+                   tuple(dev(a) for a in split.c_plan),
                    dev(split.s_recv), dev(split.s_send), dev(split.s_wf),
                    dev(split.s_wb), tuple(dev(a) for a in split.s_plan),
-                   dev(split.s_rev_local), dev(split.s_mask),
+                   dev(split.s_rev_local), dev(split.s_mask), c_rows=rows,
                    use_att_cluster=split.frac_clustered >= cls.ATT_MIN_FRAC)
 
 
 def _cluster_two_path(h: torch.Tensor, wf_c: torch.Tensor, wf_s: torch.Tensor,
                       agg: ClusterAgg, num_segments: int) -> torch.Tensor:
     out = cluster_aggregate(h, wf_c, agg.c_recv, agg.c_send, agg.c_plan,
-                            num_segments)
+                            num_segments, rows=agg.c_rows)
     msgs = wf_s.to(h.dtype)[:, None] * h[agg.s_send]
     return out + _sorted_segsum(msgs, agg.s_recv, agg.s_plan,
                                 num_segments).to(out.dtype)
@@ -377,7 +389,7 @@ class _ClusterAttPartial(torch.autograd.Function):
         dh, da_s, da_r = cluster_att_bwd(
             g.to(torch.float32).contiguous(), h, alpha_s, alpha_r,
             agg.c_recv, agg.c_send, agg.c_plan, ctx.num_segments,
-            ctx.negative_slope, float(ATT_LOGIT_BOUND))
+            ctx.negative_slope, float(ATT_LOGIT_BOUND), rows=agg.c_rows)
         return (dh.to(h.dtype), da_s.to(alpha_s.dtype),
                 da_r.to(alpha_r.dtype), None, None, None)
 

@@ -895,6 +895,93 @@ def test_cluster_att_kernels_match_plain(dev, dt, case):
     assert bool(empty.any()) or n < e   # fewer edges than rows: some empty
 
 
+# --- the row plan: every width, hub rows, full blocks, unaligned views ------
+
+ROW_WIDTHS = [1, 3, 31, 32, 33, 64, 127, 128, 129, 200]
+
+
+def row_plan_case(kind):
+    """(receivers, senders, n) of a reversal-closed edge set sorted by
+    pair: ``random``; ``hub``, one row of 5,000 edges; ``full_block``, a
+    receiver block of 6,000 edges (more than the forward stages at once);
+    ``none``, no edge at all."""
+    rng = np.random.default_rng(len(kind))
+    if kind == "none":
+        z = np.zeros(0, np.int32)
+        return z, z, 500
+    n, e_half, lo, hi = {"random": (700, 2000, 0, 700),
+                         "hub": (900, 5000, 300, 301),
+                         "full_block": (1000, 3000, 256, 512)}[kind]
+    return (*pair_edges(rng, n, e_half, lo, hi), n)
+
+
+def row_plan_cases():
+    out = [pytest.param("random", f, off, id=f"random-F{f}-off{off}")
+           for f in ROW_WIDTHS for off in (0, 1)]
+    out += [pytest.param(kind, f, 0, id=f"{kind}-F{f}")
+            for kind in ("hub", "full_block", "none") for f in (32, 128, 129)]
+    return out
+
+
+def row_inputs(dev, dt, n, f, e, off, seed):
+    """h [n, f] of dt and the cotangent [n, f + 1] f32, both views
+    ``off`` elements into their storage (off 1: unaligned data_ptrs)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    h = torch.randn(n * f + off, generator=gen, device=dev).to(dt)[off:]
+    g = torch.randn(n * (f + 1) + off, generator=gen, device=dev)[off:]
+    w = torch.rand(e, generator=gen, device=dev)
+    a_s = torch.randn(n, generator=gen, device=dev) * 0.7
+    a_r = torch.randn(n, generator=gen, device=dev) * 0.7 + 0.3
+    return h.view(n, f), g.view(n, f + 1), w, a_s, a_r
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind,f,off", row_plan_cases())
+def test_cluster_rows_kernels_match_plain(dev, dt, kind, f, off):
+    """``cluster_aggregate`` and ``cluster_att_bwd`` on the row plan:
+    against their plain versions, two launches bitwise equal, and a call
+    without the plan (built on the card, counted) equal to one with it."""
+    from hyperspace_torch.kernels import cluster as KC
+
+    r, s, n = row_plan_case(kind)
+    e = len(r)
+    rows = KC.rows_on(KC.build_cluster_rows(r, s, n, with_rev=True), dev)
+    rr, ss = torch.as_tensor(r, device=dev), torch.as_tensor(s, device=dev)
+    h, g, w, a_s, a_r = row_inputs(dev, dt, n, f, e, off, n + f + off)
+    if off:
+        assert h.data_ptr() % 8 and g.data_ptr() % 8
+    k = torch.bincount(rr.long(), minlength=n).float()
+    launched = (cluster_aggregate.launches, cluster_att_bwd.launches,
+                KC.row_plan_builds)
+    got = cluster_aggregate(h, w, rr, ss, None, n, rows=rows)
+    again = cluster_aggregate(h, w, rr, ss, None, n, rows=rows)
+    built = cluster_aggregate(h, w, rr, ss, None, n)
+    bw = cluster_att_bwd(g, h, a_s, a_r, rr, ss, None, n, rows=rows)
+    bw2 = cluster_att_bwd(g, h, a_s, a_r, rr, ss, None, n, rows=rows)
+    bw_built = cluster_att_bwd(g, h, a_s, a_r, rr, ss, None, n)
+    torch.cuda.synchronize()
+    live = int(e > 0)
+    assert (cluster_aggregate.launches, cluster_att_bwd.launches,
+            KC.row_plan_builds) == (launched[0] + 3 * live,
+                                    launched[1] + 3 * live,
+                                    launched[2] + 2 * live)
+    assert torch.equal(got, again) and torch.equal(got, built)
+    assert all(torch.equal(a, b) for a, b in zip(bw, bw2))
+    assert all(torch.equal(a, b) for a, b in zip(bw, bw_built))
+    want = cluster_aggregate_plain(h, w, rr, ss, n)
+    assert_scatter_close(got, want, order_bound(rr, cluster_aggregate_plain(
+        h.float().abs(), w.to(dt).float(), rr, ss, n), n))
+    wulp = 2.0 ** -7 if dt == torch.bfloat16 else 2.0 ** -23
+    want_b = cluster_att_bwd_plain(g, h, a_s, a_r, rr, ss, n)
+    sc = cluster_att_bwd_plain(g.abs(), h.abs(), a_s, a_r, rr, ss, n)
+    assert_att_close(bw[0], want_b[0], sc[0], k[:, None], wulp)
+    for a, b, c in zip(bw[1:], want_b[1:], sc[1:]):
+        assert_att_close(a, b, c, f + 1 + k)
+    empty = k == 0
+    for t in (got, *bw):
+        assert torch.all(t[empty] == 0)
+
+
 def test_attention_kernels_refuse_what_they_do_not_take(dev):
     ids = torch.zeros(4, dtype=torch.int32, device=dev)
     v = torch.zeros(4, device=dev)

@@ -78,7 +78,11 @@ def test_prepare_equal(hierarchy, cluster, min_pair):
         assert jg.cluster_split is None and tg.cluster_split is None
         return
     js, ts = jg.cluster_split, tg.cluster_split
-    assert js._fields == ts._fields
+    # the port's split also carries its own row plan of the clustered edges
+    assert ts._fields == js._fields + ("c_rows",)
+    for a, b in zip(ts.c_rows, TC.build_cluster_rows(ts.c_recv, ts.c_send, N,
+                                                     with_rev=True)):
+        np.testing.assert_array_equal(a, b)
     for name in js._fields:
         a, b = getattr(js, name), getattr(ts, name)
         if name.endswith("plan"):

@@ -269,6 +269,14 @@ def test_cluster_att_bwd_matches_jax(monkeypatch, n, e, f, dt):
     got = [a.numpy() for a in TC.cluster_att_bwd(
         torch.tensor(g), torch.tensor(h).to(tdt), torch.tensor(a_s),
         torch.tensor(a_r), torch.as_tensor(r), torch.as_tensor(s), plan, n)]
+    # and with the port's row plan, as the attention step passes it
+    rows = TC.rows_on(TC.build_cluster_rows(r, s, n, with_rev=True), "cpu")
+    got_rows = TC.cluster_att_bwd(
+        torch.tensor(g), torch.tensor(h).to(tdt), torch.tensor(a_s),
+        torch.tensor(a_r), torch.as_tensor(r), torch.as_tensor(s), plan, n,
+        rows=rows)
+    for a, b in zip(got, got_rows):
+        np.testing.assert_array_equal(a, b.numpy())
     assert TC.cluster_att_bwd.launches == before
     assert [a.shape for a in got] == [(n, f), (n,), (n,)]
     for name, a, b, x in zip(("dh", "d_alpha_s", "d_alpha_r"), got,

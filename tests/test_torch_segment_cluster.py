@@ -117,6 +117,11 @@ def test_cluster_aggregate_matches_jax(mode, f, dt):
     got = TC.cluster_aggregate(torch.tensor(h).to(_tdtype(dt)),
                                torch.tensor(w), torch.as_tensor(r),
                                torch.as_tensor(s), plan, n)
+    # and with the port's row plan, as the HGCN step passes it
+    rows = TC.rows_on(TC.build_cluster_rows(r, s, n), "cpu")
+    assert torch.equal(got, TC.cluster_aggregate(
+        torch.tensor(h).to(_tdtype(dt)), torch.tensor(w), torch.as_tensor(r),
+        torch.as_tensor(s), plan, n, rows=rows))
     assert TC.cluster_aggregate.launches == before
     assert got.dtype == _tdtype(dt) and got.shape == (n, f)
     assert torch.all(got[512:] == 0)
