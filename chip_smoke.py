@@ -51,8 +51,9 @@ prints its seconds):
    on unaligned views of its rows and (d_num | d_den); and
    ``csr_segment_sum`` at the arm's widths (F + 1 = 129 and 33, bf16) on
    both edge sets; each kernel launched twice must give the same bits,
-   ``cluster_att_bwd`` with the step's row plan (the subset's built on
-   the card) and, on the path's set, the same bits without it;
+   ``cluster_att_fwd`` and ``cluster_att_bwd`` with the step's row plan
+   (the subset's built on the card) and, on the path's set, the same
+   bits without it;
 10. the attention training path: ``run_hgcn_bench`` with ``use_att`` (lr
    3e-3, clip 1.0) for one warm-up and 10 timed steps; losses finite and
    falling, and the launch counts exactly steps × 2 for each attention
@@ -92,7 +93,10 @@ prints its seconds):
    versions on the card: the candidate lists of nprobe 1 and 8 at
    k = 10 and 256, a 37-wide list with pads in mid-list, a query with no
    candidate and k above the reachable, queries off the table without
-   ``exclude_self``, hyperboloid rows; the ADC scan at the path's m = 3,
+   ``exclude_self``, hyperboloid rows, and two ids at one distance with
+   the lower id at the later position, in different splits of 8
+   queries (the earlier position must come first); the ADC scan at the
+   path's m = 3,
    k = 170, at m = 8, k = 256, and with ``col0`` and ``n`` cut; both
    slab scans at the path's shapes on an insertion storm (every row
    nearer than all before it) and on identical rows or codes, whose ids
@@ -818,7 +822,13 @@ def att_path(torch, args, card: dict, tr: dict) -> dict:
             gext = rand(n, f + 1)
             tag = f"{label} F={f} {str(dt)[6:]}"
             got, again = twice(lambda: KC.cluster_att_fwd(
-                h, a_s, a_r, r, s_, None, n, ATT_SLOPE, ATT_BOUND))
+                h, a_s, a_r, r, s_, None, n, ATT_SLOPE, ATT_BOUND, rows=rows))
+            if rows is not None:
+                built = KC.cluster_att_fwd(h, a_s, a_r, r, s_, None, n,
+                                           ATT_SLOPE, ATT_BOUND)
+                if not torch.equal(got, built):
+                    raise AssertionError(f"cluster_att_fwd {tag}: the plan "
+                                         "built on the card gives other bits")
             want = KC.cluster_att_fwd_plain(h, a_s, a_r, r, s_, n, ATT_SLOPE,
                                             ATT_BOUND)
             sc = KC.cluster_att_fwd_plain(h.abs(), a_s, a_r, r, s_, n,
@@ -1026,8 +1036,12 @@ def att_kernel_entries(torch, at: dict, card: dict) -> list:
     a_s, a_r = rand(n, scale=0.7), rand(n, scale=0.7) + 0.3
     cr, csn = agg.c_recv, agg.c_send
 
-    def fwd_cost(f, size):
-        return (ce * 8.0 + n * (f * size + 8.0) + n * 4.0 * (f + 1),
+    def fwd_cost(f, size, receiver_ids=False):
+        # the least input: a sender an edge and a row pointer a row (before
+        # the row plan: a receiver and a sender an edge); h and the two
+        # scores read once, the [n, f + 1] f32 partials written once
+        ids = ce * 8.0 if receiver_ids else ce * 4.0 + 4.0 * (n + 1)
+        return (ids + n * (f * size + 8.0) + n * 4.0 * (f + 1),
                 ce * (2.0 * f + 20.0))
 
     def bwd_cost(f, size, receiver_ids=False):
@@ -1038,9 +1052,10 @@ def att_kernel_entries(torch, at: dict, card: dict) -> list:
         return (ids + n * (4.0 * (f + 1) + f * size + 8.0)
                 + n * 4.0 * (f + 2), ce * (6.0 * f + 40.0))
 
-    def fwd(f):
+    def fwd(f):          # as the step calls it, with its row plan
         return lambda: KC.cluster_att_fwd(h[f], a_s, a_r, cr, csn, None, n,
-                                          ATT_SLOPE, ATT_BOUND)
+                                          ATT_SLOPE, ATT_BOUND,
+                                          rows=agg.c_rows)
 
     def bwd(f):          # as the step calls it, with its row plan
         return lambda: KC.cluster_att_bwd(gx[f], h[f], a_s, a_r, cr, csn,
@@ -1056,6 +1071,7 @@ def att_kernel_entries(torch, at: dict, card: dict) -> list:
         "plain_ms": device_ms(torch, lambda: KC.cluster_att_fwd_plain(
             h[128], a_s, a_r, cr, csn, n, ATT_SLOPE, ATT_BOUND), reps=5),
         "bound_ms": fb, "bound_by": fby, "library_ms": None,
+        "bound_ms_receiver_ids": bound_ms(*fwd_cost(128, 2, True))[0],
         "call_ms": timed_ms(torch, fwd(128)),
         "ms_F32": device_ms(torch, fwd(32)),
         "bound_ms_F32": bound_ms(*fwd_cost(32, 2))[0], **card})
@@ -1767,6 +1783,7 @@ def ivf_pq_path(torch, args, card: dict, table_l, fresh) -> dict:
         err["scan_topk_cand"] = max(err["scan_topk_cand"], check_topk(
             torch, "scan_topk_cand", label, got, again, want,
             lorentz_rows=table_ if kind == "lorentz" else None))
+        return got
 
     for p in (1, 8):
         for k in (10, 256):
@@ -1780,6 +1797,23 @@ def ivf_pq_path(torch, args, card: dict, table_l, fresh) -> dict:
     # queries off the table: at d = 0 the two sides' Gram noise differs
     cand_case("C 37, k 10, exclude_self off, queries off the table",
               eng.table, odd, fresh, qi, 10, False)
+    # two ids at one distance, the lower at the later position, in
+    # different splits of a batch of 8: the earlier position comes first
+    # (a (distance, id) key would put the lower id first)
+    tied = eng.table.clone()
+    tied[100] = tied[50000]
+    tc = cands[8][:8].clone()
+    tc[:, 0], tc[:, -1] = 50000, 100
+    tq = (tied[50000] * 0.99)[None].expand(8, DIM).contiguous()
+    if S._cand_splits(8, tc.shape[1], K, dev) < 2:
+        raise AssertionError("scan_topk_cand: the tie case is not split")
+    got = cand_case(f"ids 50000 and 100 tied at positions 0 and "
+                    f"{tc.shape[1] - 1}, 8 queries", tied, tc, tq, qi[:8], K,
+                    False)
+    if not all(row.index(50000) < row.index(100)
+               for row in got[1].tolist()):
+        raise AssertionError("scan_topk_cand: a tie did not go to the "
+                             "earlier position")
     lq = table_l[qi.long()]
     lcand = torch.as_tensor(rng.integers(0, ROWS, (BATCH, 600)),
                             dtype=torch.int32, device=dev)
@@ -1938,7 +1972,11 @@ def ivf_pq_kernel_entries(torch, ip: dict, card: dict) -> list:
                                         spec=spec, k=K, exclude_self=True)
 
     c8 = ip["cands"][8]
-    valid = int((c8 >= 0).sum())
+    ok = c8 >= 0
+    valid = int(ok.sum())
+    # the same valid candidate rows, each read once and written out by
+    # one PyTorch call: the time a plain gather of these rows takes
+    g_ids = c8[ok]
     cb, cby = bound_ms(*cand_cost(BATCH, ROWS, DIM, c8.shape[1], valid, K))
     codes, lut, ks = ip["codes"], ip["lut3"], ip["k_scan"]
 
@@ -1962,9 +2000,13 @@ def ivf_pq_kernel_entries(torch, ip: dict, card: dict) -> list:
              tab, c8, q, qi, kind="poincare", c=C, k=K, exclude_self=True),
              reps=3),
          "bound_ms": cb, "bound_by": cby, "library_ms": None,
+         "splits": S._cand_splits(BATCH, c8.shape[1], K, tab.device),
+         "gather_ms": device_ms(torch, lambda: tab.index_select(0, g_ids)),
          "call_ms": timed_ms(torch, cand(8)),
          "ms_nprobe1": device_ms(torch, cand(1)),
-         "shape_nprobe1": list(ip["cands"][1].shape), **card},
+         "shape_nprobe1": list(ip["cands"][1].shape),
+         "splits_nprobe1": S._cand_splits(BATCH, ip["cands"][1].shape[1], K,
+                                          tab.device), **card},
         {"name": "scan_topk_pq", "route": "cuda",
          "source": "hyperspace_torch/kernels/csrc/scan_topk.cu",
          "entry": "hs_scan_topk_pq",

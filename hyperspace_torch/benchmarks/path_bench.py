@@ -1,9 +1,9 @@
-"""Gyro-linear layer step, two-stage exact batch and HGCN steps on one
-card.
+"""Gyro-linear layer step, two-stage exact batch, IVF fused batch and HGCN
+steps on one card.
 
-The paths that launch ``hyp_linear``, ``pdist`` and the cluster kernels,
-at the sizes ``chip_smoke.py`` drives them, timed alone so that two
-checkouts can be compared on one card in one run:
+The paths that launch ``hyp_linear``, ``pdist``, ``scan_topk_cand`` and
+the cluster kernels, at the sizes ``chip_smoke.py`` drives them, timed
+alone so that two checkouts can be compared on one card in one run:
 
 - ``gyro_layers``: HypLinear(128) on the ball c = 1 → HypAct(c 1 → 0.5,
   relu) → HypLinear(32) on 169,343 points at radius 0.8, mean squared
@@ -15,20 +15,30 @@ checkouts can be compared on one card in one run:
   k = 10; median batch ms and engine-call ms (each ending in the copy of
   the answer to the host), busy ms a batch, idle share, ``pdist``
   launches a batch;
+- ``ivf_fused``: :class:`QueryEngine` over the 82,115 ball rows drawn in
+  512 clusters as ``chip_smoke.py``'s approximate lanes draw them (its
+  ``clustered_table``), an IVF index of ``auto_ncells`` cells, nprobe 8,
+  the fused scan mode, batches of 1,024 distinct cold ids through
+  :class:`RequestBatcher`, k = 10: median batch ms and engine-call ms,
+  busy ms a batch, idle share, the device ms of ``scan_topk_cand`` a
+  batch (``kernel_ms``, its scan and split-merge items) and its
+  launches a batch;
 - ``hgcn_mean`` and ``hgcn_att``: the HGCN link-prediction step at
   ogbn-arxiv scale that ``chip_smoke.py``'s ``train`` and ``att_train``
   phases run (``hgcn_bench.setup_lp``, bf16 messages, hidden (128, 32);
   the attention arm with ``use_att``): step ms after one warm-up step,
   busy ms a step, idle share, the device ms of each kernel of
   ``csrc/cluster.cu`` a step (``cluster_ms``, by item name) and the
-  launches a step of ``cluster_aggregate`` and ``cluster_att_bwd``.
+  launches a step of ``cluster_aggregate``, ``cluster_att_fwd`` and
+  ``cluster_att_bwd``.
 
 Busy ms come from ``torch.profiler`` put on the card's clock
 (:mod:`devtime`); ``kernel_ms`` is the busy time of the items whose name
 holds the kernel's.  Prints one JSON object a leg.
 
     python -m hyperspace_torch.benchmarks.path_bench [--seed 0]
-        [--steps 10] [--legs gyro_layers,two_stage,hgcn_mean,hgcn_att]
+        [--steps 10]
+        [--legs gyro_layers,two_stage,ivf_fused,hgcn_mean,hgcn_att]
 
 To time another checkout's package with this file, put that checkout's
 root first on ``PYTHONPATH`` and run the file by its path; ``package``
@@ -46,6 +56,7 @@ import numpy as np
 import torch
 
 ROWS, DIM, C, BATCH, K = 82_115, 10, 1.0, 1024, 10
+IVF_CLUSTERS, NPROBE = 512, 8
 LAYER_ROWS, D_IN, WIDTH, D_OUT = 169_343, 128, 128, 32
 
 
@@ -162,6 +173,56 @@ def two_stage(seed: int) -> dict:
                    "pdist", 5)}
 
 
+def ivf_fused(seed: int) -> dict:
+    from hyperspace_torch.benchmarks.devtime import profile_window
+    from hyperspace_torch.kernels import scan_topk as T
+    from hyperspace_torch.manifolds import PoincareBall
+    from hyperspace_torch.serve import QueryEngine, RequestBatcher
+    from hyperspace_torch.serve.index import auto_ncells, build_index
+
+    rng = np.random.default_rng([seed, 16])
+    centers = rng.standard_normal((IVF_CLUSTERS, DIM)) * 0.25
+    vv = (centers[rng.integers(0, IVF_CLUSTERS, size=ROWS)]
+          + rng.standard_normal((ROWS, DIM)) * 0.05)
+    table = PoincareBall(C).expmap0(
+        torch.as_tensor(vv, dtype=torch.float32)).numpy()
+    index = build_index(table, ("poincare", C), auto_ncells(ROWS), iters=8,
+                        seed=0, balance=2.0)
+    eng = QueryEngine(table, ("poincare", C), index=index, nprobe=NPROBE,
+                      scan_mode="fused")
+    batcher = RequestBatcher(eng)
+    cold = rng.permutation(ROWS)[:40 * BATCH].reshape(40, BATCH)
+    walls = {"engine": [], "batcher": []}
+    for j, ids in enumerate(cold[:21]):
+        t0 = time.perf_counter()
+        i, d = eng.topk_neighbors(ids.astype(np.int32), K)
+        i.cpu(), d.cpu()
+        t1 = time.perf_counter()
+        T.scan_topk_cand.launches = 0
+        batcher.topk(ids.tolist(), K)
+        t2 = time.perf_counter()
+        if j:                                          # after a warm-up
+            walls["engine"].append(t1 - t0)
+            walls["batcher"].append(t2 - t1)
+    if batcher.stats()["cache_hit"]:
+        raise AssertionError("a batch hit the cache")
+    launches = T.scan_topk_cand.launches
+    med = float(np.median(walls["batcher"])) * 1e3
+    more = iter(cold[21:])
+    items, _, windows = profile_window(
+        torch, lambda: batcher.topk(next(more).tolist(), K), 5)
+    total = sum(items.values())
+    cand = {k[:90]: v for k, v in items.items()
+            if "scan_cand" in k or "merge" in k}
+    return {"leg": "ivf_fused", "rows": ROWS, "ncells": index.ncells,
+            "nprobe": NPROBE, "bucket": BATCH, "k": K, "batch_ms": med,
+            "engine_ms": float(np.median(walls["engine"])) * 1e3,
+            "scan_topk_cand_launches_a_batch": launches,
+            "busy_ms": total, "idle_share": 1.0 - total / med,
+            "kernel_ms": sum(cand.values()), "kernel_items": cand,
+            "clock_checked": any(w["accepted"] for w in windows)}
+
+
 def hgcn(seed: int, steps: int, use_att: bool) -> dict:
     from hyperspace_torch.benchmarks import hgcn_bench as B
     from hyperspace_torch.benchmarks.devtime import profile_window
@@ -170,12 +231,14 @@ def hgcn(seed: int, steps: int, use_att: bool) -> dict:
     setup = B.setup_lp(device="cuda", seed=seed, use_att=use_att)
     first = float(setup.step())                     # warm-up
     KC.cluster_aggregate.launches = KC.cluster_att_bwd.launches = 0
+    KC.cluster_att_fwd.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     losses = [setup.step() for _ in range(steps)]
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3 / steps
     launches = {"cluster_aggregate": KC.cluster_aggregate.launches / steps,
+                "cluster_att_fwd": KC.cluster_att_fwd.launches / steps,
                 "cluster_att_bwd": KC.cluster_att_bwd.launches / steps}
     items, _, windows = profile_window(torch, setup.step, 3)
     total = sum(items.values())
@@ -204,6 +267,7 @@ def main(argv=None) -> int:
     head = {"package": hyperspace_torch.__file__, "card": card_name()}
     legs = {"gyro_layers": lambda: gyro_layers(args.seed, args.steps),
             "two_stage": lambda: two_stage(args.seed),
+            "ivf_fused": lambda: ivf_fused(args.seed),
             "hgcn_mean": lambda: hgcn(args.seed, args.steps, False),
             "hgcn_att": lambda: hgcn(args.seed, args.steps, True)}
     for leg in args.legs.split(","):

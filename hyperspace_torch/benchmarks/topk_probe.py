@@ -7,7 +7,8 @@ needs one CUDA device and ``nvcc``; it prints JSON lines:
 
 - ``registers``: registers and spill bytes of every kernel in
   ``kernels/csrc/scan_topk.cu`` (each instantiation of the exact scan by
-  kind and query width, of the ADC scan by m, the split merges), from
+  kind and query width, of the ADC scan by m, of the candidate scan by
+  kind, width and load bytes, the split merge), from
   ``nvcc -Xptxas -v`` with the package's own flags; that build is only
   read, never loaded;
 - ``clocks``: the SM clock and its maximum (``nvidia-smi``) before and
@@ -67,9 +68,14 @@ def registers() -> None:
                     + ("general" if width == "0" else f"le{width}"))
         if p:
             return f"scan_topk_pq_m{p.group(1)}"
-        k = re.search(r"(merge_tree_kernel|merge_splits_kernel|"
-                      r"scan_cand_kernel)", sym)
-        return k.group(1) if k else sym
+        c = re.search(r"scan_cand_kernelILi(\d)ELi(\d+)ELi(\d)E", sym)
+        if c:
+            width = c.group(2)
+            return (f"scan_topk_cand_{kinds[int(c.group(1))]}_d"
+                    + ("general" if width == "0" else width)
+                    + f"_loads{4 * int(c.group(3))}")
+        k = re.search(r"merge_tree_kernel", sym)
+        return k.group(0) if k else sym
 
     emit({"probe": "registers", "by_kernel": ptxas_usage(
         S._nvcc(), S.NVCC_FLAGS, os.path.join(S.CSRC, "scan_topk.cu"),

@@ -21,11 +21,10 @@ The host side — the (receiver block, sender block, chunk) plan and the
 split of a graph's edges into clustered pairs and stragglers — is
 ported array-equal to the JAX package.  The CUDA kernels do not use
 that plan (the wrappers take it for the same signature and ignore it):
-the aggregation and the attention backward read the port's own row plan
+all three read the port's own row plan
 (:class:`ClusterRows`), which :func:`build_cluster_split` builds once per
 graph and ``rows=`` passes in; without it, a CUDA call builds one on the
-card first (counted in ``row_plan_builds``).  The attention forward
-still sorts each receiver block's edges itself.
+card first (counted in ``row_plan_builds``).
 """
 
 from __future__ import annotations
@@ -371,21 +370,25 @@ def _check_att_cuda(name: str, h: torch.Tensor, floats: tuple,
 def cluster_att_fwd(h: torch.Tensor, alpha_s: torch.Tensor,
                     alpha_r: torch.Tensor, receivers: torch.Tensor,
                     senders: torch.Tensor, plan, num_nodes: int,
-                    negative_slope: float = 0.2,
-                    bound: float = 30.0) -> torch.Tensor:
+                    negative_slope: float = 0.2, bound: float = 30.0,
+                    rows: ClusterRows | None = None) -> torch.Tensor:
     """``[N, F+1]`` f32 unnormalised attention partials over the
     clustered edges: ``out[r] = Σ_e w_e·[h[s_e] | 1]`` with
     ``w_e = exp(bound·tanh(leaky(α_s[s_e] + α_r[r_e]) / bound))``.
 
     ``h: [N, F]`` (bf16 or f32), ``alpha_s``/``alpha_r: [N]`` f32,
-    ``receivers``/``senders: [E]`` int32 sorted by (receiver // 256,
-    sender // 256); ``plan`` accepted for the JAX signature, not needed.
-    CUDA tensors go through ``csrc/cluster.cu``; CPU tensors through
+    ``receivers``/``senders: [E]`` int32; ``plan`` accepted for the JAX
+    signature, not needed; ``rows`` the edges' :class:`ClusterRows` on
+    h's device (on the card, built there when None).  CUDA tensors go
+    through ``csrc/cluster.cu``; CPU tensors through
     :func:`cluster_att_fwd_plain`."""
     del plan
     _check_att("cluster_att_fwd", h, alpha_s, alpha_r, receivers, senders,
                num_nodes)
+    e, f = receivers.shape[0], h.shape[1]
     if h.device.type == "cpu" and receivers.device.type == "cpu":
+        if rows is not None:
+            _check_rows("cluster_att_fwd", rows, e, num_nodes)
         return cluster_att_fwd_plain(h, alpha_s, alpha_r, receivers,
                                      senders, num_nodes, negative_slope,
                                      bound)
@@ -393,20 +396,19 @@ def cluster_att_fwd(h: torch.Tensor, alpha_s: torch.Tensor,
         raise ValueError(f"cluster_att_fwd: unsupported device {h.device}")
     _check_att_cuda("cluster_att_fwd", h, (alpha_s, alpha_r),
                     (receivers, senders))
-    f = h.shape[1]
-    if receivers.shape[0] == 0:
+    if e == 0:
         return torch.zeros((num_nodes, f + 1), dtype=torch.float32,
                            device=h.device)
-    ptr = torch.empty(-(-num_nodes // _BN) + 1, dtype=torch.int32,
-                      device=h.device)
+    rows = _rows_for_launch("cluster_att_fwd", rows, receivers, senders,
+                            num_nodes)
     out = torch.empty((num_nodes, f + 1), dtype=torch.float32,
                       device=h.device)
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn = S.function("cluster", "hs_cluster_att_fwd",
                     [P, P, P, P, P, P, P, I, I, I, I, F, F, P])
     S.check(fn(h.data_ptr(), alpha_s.data_ptr(), alpha_r.data_ptr(),
-               receivers.data_ptr(), senders.data_ptr(), ptr.data_ptr(),
-               out.data_ptr(), receivers.shape[0], num_nodes, f,
+               rows.row_ptr.data_ptr(), rows.recv.data_ptr(),
+               rows.send.data_ptr(), out.data_ptr(), e, num_nodes, f,
                int(h.dtype == torch.bfloat16), bound, negative_slope,
                S.stream_ptr(h)), "cluster_att_fwd")
     cluster_att_fwd.launches += 1

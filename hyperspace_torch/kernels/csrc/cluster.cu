@@ -27,36 +27,36 @@
 // kernels and that bound is the gather of one sender row an edge (5.6
 // edges a row, so h is read about six times over, from L2): the design
 // keeps those reads in flight and spends little else an edge.
-//   1. The aggregation and the backward read a row plan built once per
-//      graph (kernels/cluster.py `ClusterRows`); nothing is sorted at a
-//      launch, and the step keeps its edges and weights in the plan's row
-//      order.  A unit of G lanes (a lane group) takes a span of whole rows
-//      with about equal edges (`unit_span`); there are as many units as
-//      the card holds threads at once (the occupancy API; four times as
-//      many for the backward past 64 columns).  A unit walks
-//      its slots D at a time, the next step's index entries loading while
-//      this step's rows arrive; each lane holds V columns (V = 4: 8- or
-//      16-byte loads where the pitch and the pointer allow), G fitted to
-//      the width (8 lanes a row at F = 32, 32 at 128); a row is written
-//      when its last slot is summed, and its empty rows as 0.
-//   2. The backward reduces each slot's dot inside its lane group, the D
+//   1. The three kernels read a row plan built once per graph
+//      (kernels/cluster.py `ClusterRows`); nothing is sorted at a launch,
+//      and the step keeps its edges and weights in the plan's row order.
+//      A unit of G lanes (a lane group) takes a span of whole rows with
+//      about equal edges (`unit_span`); there are as many units as the
+//      card holds threads at once (the occupancy API; four times as many
+//      for the backward past 64 columns).  A unit walks its slots D at a
+//      time, the next step's index entries loading while this step's rows
+//      arrive; each lane holds V columns (16-byte loads where the pitch
+//      and the pointer allow: V = 8 bf16 or 4 f32; else 8-byte bf16
+//      loads, V = 4), G fitted to the width (bf16 h: 4 lanes a row at F =
+//      32 and 16 at 128 in the aggregation and the forward; the backward
+//      keeps V = 4, 8 and 32 lanes); a row is written when its last slot
+//      is summed, and its empty rows as 0.
+//   2. The aggregation and the attention forward are one walk
+//      (`agg_rows_kernel`): the forward computes each slot's weight from
+//      the two scores (the sender's α_s prefetched with the step's ids,
+//      one bounded-logit weight a lane a step, shared in the group by
+//      shuffles) and sums the weights into den beside the columns.
+//   3. The backward reduces each slot's dot inside its lane group, the D
 //      slots of a step together (`group_reduce`), and takes dα_r through
 //      the involution: at slot j it computes only the reverse edge's dpre
 //      from the d_num row that dh needs anyway (one bounded-logit weight
 //      a slot, not two), adds it to dα_s and writes it to an [E] scratch
 //      at rev(j); `row_sum_kernel` sums the scratch by row into dα_r.
-//   3. `cluster_kernel` (the attention forward): a block per (receiver
-//      block, 128-column tile), 32 warps; `block_ptr_kernel` finds each
-//      256-row receiver block's edge range, the block stages its edges
-//      2,048 at a time in shared memory and sorts them by row with a
-//      stable counting sort (`rank_by_row`), computing each edge's weight
-//      from the receiver block's scores in shared memory; warp w owns rows
-//      w, w + 32, … and keeps their f32 sums (and Σ w) in registers.
 //   A row has one owner and sums its edges in arrival order: no atomics,
-//   and the results are deterministic (the aggregation's bits are those
-//   of the ranking kernel it replaced: the same products in the same
-//   order).
-//
+//   and the results are deterministic (the aggregation's and the
+//   forward's bits are those of the ranking kernel they replaced: the
+//   same products in the same order).
+
 // bf16 mode, as the TPU kernels' (`fast_bf16`): a bf16 h takes its
 // weights rounded to bf16 before the product (the aggregation's w, the
 // attention forward's w, the backward's w_rev), and the backward rounds
@@ -72,13 +72,6 @@
 
 namespace {
 
-constexpr int BN = 256;     // receiver rows per block (the TPU kernel's _BN)
-constexpr int WARPS = 32;
-constexpr int THREADS = 32 * WARPS;
-constexpr int ROWS_PER_WARP = BN / WARPS;
-constexpr int CPL = 4;      // feature columns per lane
-constexpr int FT = 32 * CPL;  // columns per block; grid.y tiles wider h
-constexpr int CAP = 2048;   // edges staged in shared memory per step
 constexpr int ROW_THREADS = 256;  // the row-plan kernels' blocks
 constexpr int ROW_DEPTH = 4;      // slots whose rows a group reads at once
 constexpr int MAX_DEVICES = 64;
@@ -88,7 +81,6 @@ __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
@@ -106,173 +98,6 @@ __device__ __forceinline__ float squash(float pre, float bound, float slope,
     *dfac = __fmul_rn(__fmul_rn(w, __fsub_rn(1.0f, __fmul_rn(th, th))),
                       pos ? 1.0f : slope);
   return w;
-}
-
-// ptr[b] = the first edge whose receiver block (recv / BN) is >= b, for
-// b in [0, nb].
-__global__ void block_ptr_kernel(const int* __restrict__ recv, int e,
-                                 int nb, int* __restrict__ ptr) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i > e) return;
-  const int lo = i == 0 ? 0 : max(recv[i - 1] / BN + 1, 0);
-  const int hi = i == e ? nb : min(recv[i] / BN, nb);
-  for (int b = lo; b <= hi; ++b) ptr[b] = i;
-}
-
-// Ranks the edges [base, base + m) of receiver block rb by row: s_row[i]
-// is edge i's row in the block (-1 for another block's edge), s_pos[i]
-// its rank among its row's edges in arrival order, and off[0..BN] the
-// rows' ranges once sorted; edge i goes to off[s_row[i]] + s_pos[i].
-// Starts and ends with the block synchronised.
-__device__ void rank_by_row(const int* __restrict__ recv, int base, int m,
-                            int rb, int* s_row, int* s_pos, int* cnt,
-                            int* off) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  __syncthreads();  // the last chunk is consumed
-  for (int i = threadIdx.x; i < BN; i += blockDim.x) cnt[i] = 0;
-  for (int i = threadIdx.x; i < m; i += blockDim.x) {
-    const int r = recv[base + i] - rb * BN;
-    s_row[i] = (r >= 0 && r < BN) ? r : -1;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    for (int j = 0; j < m; j += 32) {
-      const int i = j + lane;
-      const int r = i < m ? s_row[i] : -1;
-      const unsigned grp = __match_any_sync(FULL, r);
-      const int rank = __popc(grp & ((1u << lane) - 1u));
-      const int before = r >= 0 ? cnt[r] : 0;
-      __syncwarp();
-      if (r >= 0) {
-        s_pos[i] = before + rank;
-        if (rank == 0) cnt[r] = before + __popc(grp);
-      }
-      __syncwarp();
-    }
-    // exclusive scan of the counts: 8 rows per lane
-    int local[BN / 32], sum = 0;
-#pragma unroll
-    for (int q = 0; q < BN / 32; ++q) {
-      local[q] = cnt[lane * (BN / 32) + q];
-      sum += local[q];
-    }
-    int incl = sum;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int t = __shfl_up_sync(FULL, incl, d);
-      if (lane >= d) incl += t;
-    }
-    int run = incl - sum;
-#pragma unroll
-    for (int q = 0; q < BN / 32; ++q) {
-      off[lane * (BN / 32) + q] = run;
-      run += local[q];
-    }
-    if (lane == 31) off[BN] = incl;
-  }
-  __syncthreads();
-}
-
-// ATT false: out [n, f] of T = Σ w_e h[s_e] (w given).  ATT true: out
-// [n, f + 1] f32 = Σ w_e [h[s_e] | 1], w_e from the scores.
-template <typename T, bool ATT>
-__global__ void __launch_bounds__(THREADS)
-cluster_kernel(const T* __restrict__ h, const float* __restrict__ w,
-               const float* __restrict__ a_s, const float* __restrict__ a_r,
-               const int* __restrict__ recv, const int* __restrict__ send,
-               const int* __restrict__ ptr,
-               std::conditional_t<ATT, float, T>* __restrict__ out, int n,
-               int f, float bound, float slope) {
-  extern __shared__ int smem[];
-  int* s_row = smem;                        // [CAP] staged, arrival order
-  int* s_pos = s_row + CAP;                 // rank within its row
-  int* o_snd = s_pos + CAP;                 // [CAP] sorted by row
-  float* o_w = (float*)(o_snd + CAP);
-  int* cnt = (int*)(o_w + CAP);             // [BN] edges per row
-  int* off = cnt + BN;                      // [BN + 1] row ranges
-  float* sh_ar = (float*)(off + BN + 1);    // [BN] receivers' α_r (ATT)
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int rb = blockIdx.x;
-  const int c0 = blockIdx.y * FT;
-  const bool bf16 = sizeof(T) == 2;
-  const int ostride = ATT ? f + 1 : f;
-
-  if (ATT)
-    for (int i = threadIdx.x; i < BN; i += THREADS)
-      sh_ar[i] = rb * BN + i < n ? a_r[rb * BN + i] : 0.0f;
-  bool live[CPL];
-#pragma unroll
-  for (int k = 0; k < CPL; ++k) live[k] = c0 + lane + 32 * k < f;
-  float acc[ROWS_PER_WARP][CPL];
-  float den[ROWS_PER_WARP];
-#pragma unroll
-  for (int q = 0; q < ROWS_PER_WARP; ++q) {
-    den[q] = 0.0f;
-#pragma unroll
-    for (int k = 0; k < CPL; ++k) acc[q][k] = 0.0f;
-  }
-
-  const int e0 = ptr[rb], e1 = ptr[rb + 1];
-  for (int base = e0; base < e1; base += CAP) {
-    const int m = min(CAP, e1 - base);
-    rank_by_row(recv, base, m, rb, s_row, s_pos, cnt, off);
-    for (int i = threadIdx.x; i < m; i += THREADS) {
-      const int r = s_row[i];
-      if (r < 0) continue;
-      const int d = off[r] + s_pos[i];
-      const int s = send[base + i];
-      o_snd[d] = s;
-      const float wi = ATT ? squash(a_s[s] + sh_ar[r], bound, slope, nullptr)
-                           : w[base + i];
-      o_w[d] = bf16 ? round_bf16(wi) : wi;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int q = 0; q < ROWS_PER_WARP; ++q) {
-      const int r = warp + q * WARPS;
-      const int b = off[r + 1];
-      int e = off[r];
-      for (; e + 1 < b; e += 2) {
-        const T* p0 = h + (size_t)o_snd[e] * f + c0 + lane;
-        const T* p1 = h + (size_t)o_snd[e + 1] * f + c0 + lane;
-        const float w0 = o_w[e], w1 = o_w[e + 1];
-        float v0[CPL], v1[CPL];
-#pragma unroll
-        for (int k = 0; k < CPL; ++k) {
-          v0[k] = live[k] ? to_f32(p0[32 * k]) : 0.0f;
-          v1[k] = live[k] ? to_f32(p1[32 * k]) : 0.0f;
-        }
-#pragma unroll
-        for (int k = 0; k < CPL; ++k) {
-          acc[q][k] += w0 * v0[k];
-          acc[q][k] += w1 * v1[k];
-        }
-        if (ATT) {
-          den[q] += w0;
-          den[q] += w1;
-        }
-      }
-      if (e < b) {
-        const T* p0 = h + (size_t)o_snd[e] * f + c0 + lane;
-        const float w0 = o_w[e];
-#pragma unroll
-        for (int k = 0; k < CPL; ++k)
-          if (live[k]) acc[q][k] += w0 * to_f32(p0[32 * k]);
-        if (ATT) den[q] += w0;
-      }
-    }
-  }
-#pragma unroll
-  for (int q = 0; q < ROWS_PER_WARP; ++q) {
-    const int gr = rb * BN + warp + q * WARPS;
-    if (gr >= n) continue;
-    auto* o = out + (size_t)gr * ostride + c0 + lane;
-#pragma unroll
-    for (int k = 0; k < CPL; ++k)
-      if (live[k]) store(o + 32 * k, acc[q][k]);
-    if (ATT && blockIdx.y == 0 && lane == 0)
-      out[(size_t)gr * ostride + f] = den[q];
-  }
 }
 
 // --- the row plan: the aggregation and the attention backward ---------------
@@ -307,6 +132,10 @@ struct Cols<__nv_bfloat16, 4> {
   using raw = uint2;
 };
 template <>
+struct Cols<__nv_bfloat16, 8> {
+  using raw = uint4;
+};
+template <>
 struct Cols<__nv_bfloat16, 1> {
   using raw = unsigned short;
 };
@@ -331,6 +160,12 @@ __device__ __forceinline__ void unpack(uint2 v, float* x) {
   x[0] = bf16_lo(v.x), x[1] = bf16_hi(v.x);
   x[2] = bf16_lo(v.y), x[3] = bf16_hi(v.y);
 }
+__device__ __forceinline__ void unpack(uint4 v, float* x) {
+  x[0] = bf16_lo(v.x), x[1] = bf16_hi(v.x);
+  x[2] = bf16_lo(v.y), x[3] = bf16_hi(v.y);
+  x[4] = bf16_lo(v.z), x[5] = bf16_hi(v.z);
+  x[6] = bf16_lo(v.w), x[7] = bf16_hi(v.w);
+}
 __device__ __forceinline__ void unpack(unsigned short v, float* x) {
   x[0] = bf16_lo(v);
 }
@@ -347,7 +182,13 @@ __device__ __forceinline__ void store_cols(float* p, const float* x) {
 }
 template <int V>
 __device__ __forceinline__ void store_cols(__nv_bfloat16* p, const float* x) {
-  if (V == 4)
+  if (V == 8)
+    *reinterpret_cast<uint4*>(p) =
+        make_uint4(bf16_bits(x[0]) | bf16_bits(x[1]) << 16,
+                   bf16_bits(x[2]) | bf16_bits(x[3]) << 16,
+                   bf16_bits(x[4]) | bf16_bits(x[5]) << 16,
+                   bf16_bits(x[6]) | bf16_bits(x[7]) << 16);
+  else if (V == 4)
     *reinterpret_cast<uint2*>(p) =
         make_uint2(bf16_bits(x[0]) | bf16_bits(x[1]) << 16,
                    bf16_bits(x[2]) | bf16_bits(x[3]) << 16);
@@ -395,18 +236,36 @@ __device__ __forceinline__ void unit_span(int u, int units, int e, int n,
   j1 = __ldg(row_ptr + r_hi);
 }
 
-// out [n, f] of T: out[i] = Σ_{j in row i} w[j] · h[send[j]], in slot
-// order (w in slot order).  grid.y tiles the columns by V·G·NV.
-template <typename T, int G, int V, int NV>
+// The output of a row walk: T (the aggregation) or f32 (the attention
+// forward's num | den).
+template <typename T, bool ATT>
+using Out = std::conditional_t<ATT, float, T>;
+
+// out[i] = Σ_{j in row i} w_j · h[send[j]], in slot order; grid.y tiles
+// the columns by V·G·NV.  ATT false (the aggregation): w_j = w[j] (in
+// slot order), out [n, f] of T.  ATT true (the attention forward): w_j =
+// squash(α_s[send[j]] + α_r[i]) from the scores, out [n, f + 1] f32 with
+// Σ w_j in column f.  Lane q of a group computes the weight of the
+// step's slot q / (G / D) and the group shares it by shuffles: one
+// squash a lane a step, not D.  The attention output's pitch (f + 1
+// floats) leaves its rows past the first off 16-byte boundaries, so it
+// takes 4-byte stores (coalesced across the group); its h loads keep V.
+template <typename T, int G, int V, int NV, bool ATT>
 __global__ void __launch_bounds__(ROW_THREADS)
 agg_rows_kernel(const T* __restrict__ h, const float* __restrict__ w,
+                const float* __restrict__ a_s, const float* __restrict__ a_r,
                 const int* __restrict__ row_ptr, const int* __restrict__ recv,
-                const int* __restrict__ send, T* __restrict__ out, int n,
-                int f, int e) {
+                const int* __restrict__ send, Out<T, ATT>* __restrict__ out,
+                int n, int f, int e, float bound, float slope) {
   constexpr int D = ROW_DEPTH;
+  static_assert(D <= G, "a step's weights are computed inside one group");
+  constexpr int SUB = G / D;  // lanes that compute one slot's weight
   const bool bf16 = sizeof(T) == 2;
   const int q = threadIdx.x & (G - 1);
+  const int mine = q / SUB;
   const int c0 = blockIdx.y * (V * G * NV);
+  const int pitch = ATT ? f + 1 : f;
+  const bool den_lane = ATT && q == 0 && blockIdx.y == 0;
   int col[NV];
   bool live[NV];
 #pragma unroll
@@ -418,12 +277,26 @@ agg_rows_kernel(const T* __restrict__ h, const float* __restrict__ w,
   unit_span(blockIdx.x * (ROW_THREADS / G) + threadIdx.x / G,
             gridDim.x * (ROW_THREADS / G), e, n, recv, row_ptr, r_lo, r_hi,
             j, j1);
-  const float zero[V] = {};
-  auto zero_rows = [&](int a, int b) {
-    for (int r = a; r < b; ++r)
+  // row r's columns of this tile, and its den (ATT)
+  auto put = [&](int r, const float (&x)[NV][V], float den) {
+    Out<T, ATT>* o = out + (size_t)r * pitch;
 #pragma unroll
-      for (int k = 0; k < NV; ++k)
-        if (live[k]) store_cols<V>(out + (size_t)r * f + col[k], zero);
+    for (int k = 0; k < NV; ++k) {
+      if (!live[k]) continue;
+      if constexpr (ATT) {
+#pragma unroll
+        for (int i = 0; i < V; ++i) o[col[k] + i] = x[k][i];
+      } else {
+        store_cols<V>(o + col[k], x[k]);
+      }
+    }
+    if constexpr (ATT) {
+      if (den_lane) o[f] = den;
+    }
+  };
+  const float zero[NV][V] = {};
+  auto zero_rows = [&](int a, int b) {
+    for (int r = a; r < b; ++r) put(r, zero, 0.0f);
   };
   zero_rows(r_lo, j < j1 ? __ldg(recv + j) : r_hi);
 
@@ -431,22 +304,34 @@ agg_rows_kernel(const T* __restrict__ h, const float* __restrict__ w,
   // their end idle), D slots a step; a slot past j1 reads as row r_hi
   const int steps = __reduce_max_sync(FULL, (unsigned)(j1 - j + D - 1) / D);
   int s_n[D], r_n[D];
-  float w_n[D];
+  float w_n[D] = {};              // the slots' weights (the aggregation)
+  float as_n = 0.0f, ar_n = 0.0f;  // this lane's slot's scores (ATT)
   auto meta = [&](int jb) {
 #pragma unroll
     for (int d = 0; d < D; ++d) {
       const bool ok = jb + d < j1;
       s_n[d] = ok ? __ldg(send + jb + d) : 0;
       r_n[d] = ok ? __ldg(recv + jb + d) : r_hi;
-      w_n[d] = ok ? __ldg(w + jb + d) : 0.0f;
+      if (!ATT) w_n[d] = ok ? __ldg(w + jb + d) : 0.0f;
+    }
+    if (ATT) {
+      int sm = 0, rm = r_hi;
+#pragma unroll
+      for (int d = 0; d < D; ++d)
+        if (d == mine) sm = s_n[d], rm = r_n[d];
+      const bool ok = rm < r_hi;
+      as_n = ok ? __ldg(a_s + sm) : 0.0f;
+      ar_n = ok ? __ldg(a_r + rm) : 0.0f;
     }
   };
   meta(j);
   float acc[NV][V] = {};
+  float den = 0.0f;
   for (int it = 0; it < steps; ++it, j += D) {
     int r[D];
     float wt[D];
     Raw<T, V> v[D][NV];
+    const float pre = __fadd_rn(as_n, ar_n);
 #pragma unroll
     for (int d = 0; d < D; ++d) {
       r[d] = r_n[d];
@@ -458,10 +343,16 @@ agg_rows_kernel(const T* __restrict__ h, const float* __restrict__ w,
         v[d][k] = ok && live[k] ? load_raw<T, V>(row + col[k]) : Raw<T, V>{};
     }
     meta(j + D);  // the next step's slots load while this one sums
+    float wm = 0.0f;
+    if (ATT) {
+      wm = squash(pre, bound, slope, nullptr);
+      if (bf16) wm = round_bf16(wm);
+    }
 #pragma unroll
     for (int d = 0; d < D; ++d) {
+      const float wd = ATT ? __shfl_sync(FULL, wm, d * SUB, G)
+                           : (bf16 ? round_bf16(wt[d]) : wt[d]);
       if (r[d] >= r_hi) continue;
-      const float wd = bf16 ? round_bf16(wt[d]) : wt[d];
 #pragma unroll
       for (int k = 0; k < NV; ++k) {
         float x[V];
@@ -469,15 +360,15 @@ agg_rows_kernel(const T* __restrict__ h, const float* __restrict__ w,
 #pragma unroll
         for (int i = 0; i < V; ++i) acc[k][i] = fmaf(wd, x[i], acc[k][i]);
       }
+      if (ATT) den = __fadd_rn(den, wd);
       const int next = d + 1 < D ? r[d + 1] : r_n[0];
       if (next != r[d]) {  // row r[d] ends here
-        T* o = out + (size_t)r[d] * f;
+        put(r[d], acc, den);
 #pragma unroll
-        for (int k = 0; k < NV; ++k) {
-          if (live[k]) store_cols<V>(o + col[k], acc[k]);
+        for (int k = 0; k < NV; ++k)
 #pragma unroll
           for (int i = 0; i < V; ++i) acc[k][i] = 0.0f;
-        }
+        den = 0.0f;
         zero_rows(r[d] + 1, next);
       }
     }
@@ -635,31 +526,6 @@ __global__ void row_sum_kernel(const float* __restrict__ x,
   out[r] = s;
 }
 
-template <typename T, bool ATT>
-int launch_cluster(const void* h, const float* w, const float* a_s,
-                   const float* a_r, const int* recv, const int* send,
-                   const int* ptr, void* out, int n, int f, float bound,
-                   float slope, cudaStream_t s) {
-  using Out = std::conditional_t<ATT, float, T>;
-  const int nb = (n + BN - 1) / BN;
-  const size_t smem = sizeof(int) * (4 * CAP + 3 * BN + 1);
-  cudaError_t err = cudaFuncSetAttribute(
-      cluster_kernel<T, ATT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(nb, (f + FT - 1) / FT);
-  cluster_kernel<T, ATT><<<grid, THREADS, smem, s>>>(
-      (const T*)h, w, a_s, a_r, recv, send, ptr, (Out*)out, n, f, bound,
-      slope);
-  return 0;
-}
-
-int block_ptr(const int* recv, int e, int n, int* ptr, cudaStream_t s) {
-  const int nb = (n + BN - 1) / BN;
-  block_ptr_kernel<<<(e + 1 + 255) / 256, 256, 0, s>>>(recv, e, nb, ptr);
-  return 0;
-}
-
 // Resident blocks of a row-plan kernel on the current card (ROW_THREADS
 // threads, no shared memory: L1 takes it all), asked once a card.
 template <typename K>
@@ -688,41 +554,55 @@ bool aligned(const void* p, size_t bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
-template <typename T, int G, int V, int NV>
-int launch_agg(const void* h, const float* w, const int* row_ptr,
-               const int* recv, const int* send, void* out, int e, int n,
-               int f, cudaStream_t s) {
+struct AggArgs {
+  const void* h;
+  const float *w, *a_s, *a_r;
+  const int *row_ptr, *recv, *send;
+  void* out;
+  int e, n, f;
+  float bound, slope;
+};
+
+template <typename T, int G, int V, int NV, bool ATT>
+int launch_agg(const AggArgs& a, cudaStream_t s) {
   static int slots_of[MAX_DEVICES];
-  auto kern = agg_rows_kernel<T, G, V, NV>;
+  auto kern = agg_rows_kernel<T, G, V, NV, ATT>;
   int grid = 0;
   const cudaError_t err = row_grid(kern, slots_of, grid);
   if (err != cudaSuccess) return (int)err;
   constexpr int ct = V * G * NV;
-  kern<<<dim3(grid, (f + ct - 1) / ct), ROW_THREADS, 0, s>>>(
-      (const T*)h, w, row_ptr, recv, send, (T*)out, n, f, e);
+  kern<<<dim3(grid, (a.f + ct - 1) / ct), ROW_THREADS, 0, s>>>(
+      (const T*)a.h, a.w, a.a_s, a.a_r, a.row_ptr, a.recv, a.send,
+      (Out<T, ATT>*)a.out, a.n, a.f, a.e, a.bound, a.slope);
   return (int)cudaGetLastError();
 }
 
-// The lane group that fits the width: V = 4 (8- or 16-byte loads) when f
-// is a multiple of 4 and both row arrays are aligned to them, 8–32 lanes
-// to cover f; else one column a load, 32 lanes on up to 128 columns.
-template <typename T>
-int fit_agg(const void* h, const float* w, const int* row_ptr,
-            const int* recv, const int* send, void* out, int e, int n, int f,
-            cudaStream_t s) {
-  if (f % 4 == 0 && aligned(h, 4 * sizeof(T)) && aligned(out, 4 * sizeof(T))) {
-    if (f <= 32)
-      return launch_agg<T, 8, 4, 1>(h, w, row_ptr, recv, send, out, e, n, f, s);
-    if (f <= 64)
-      return launch_agg<T, 16, 4, 1>(h, w, row_ptr, recv, send, out, e, n, f,
-                                     s);
-    return launch_agg<T, 32, 4, 1>(h, w, row_ptr, recv, send, out, e, n, f, s);
+// The lane group that fits the width: 16-byte loads of 8 bf16 columns
+// when f is a multiple of 8 and h's rows (and the aggregation's output
+// rows) are aligned to them, 4–16 lanes to cover f (against 8-byte loads,
+// 0.081 → 0.063 ms for the aggregation at F = 128 on the H100, PERF.md
+// §6); else V = 4 (8- or 16-byte loads) when f is a multiple of 4 and the
+// rows are aligned to them, 8–32 lanes; else one column a load, 32 lanes
+// on up to 128 columns.
+template <typename T, bool ATT>
+int fit_agg(const AggArgs& a, cudaStream_t s) {
+  const int f = a.f;
+  if constexpr (sizeof(T) == 2) {
+    if (f % 8 == 0 && aligned(a.h, 16) && (ATT || aligned(a.out, 16))) {
+      if (f <= 32) return launch_agg<T, 4, 8, 1, ATT>(a, s);
+      if (f <= 64) return launch_agg<T, 8, 8, 1, ATT>(a, s);
+      return launch_agg<T, 16, 8, 1, ATT>(a, s);
+    }
   }
-  if (f <= 32)
-    return launch_agg<T, 32, 1, 1>(h, w, row_ptr, recv, send, out, e, n, f, s);
-  if (f <= 64)
-    return launch_agg<T, 32, 1, 2>(h, w, row_ptr, recv, send, out, e, n, f, s);
-  return launch_agg<T, 32, 1, 4>(h, w, row_ptr, recv, send, out, e, n, f, s);
+  if (f % 4 == 0 && aligned(a.h, 4 * sizeof(T)) &&
+      (ATT || aligned(a.out, 4 * sizeof(T)))) {
+    if (f <= 32) return launch_agg<T, 8, 4, 1, ATT>(a, s);
+    if (f <= 64) return launch_agg<T, 16, 4, 1, ATT>(a, s);
+    return launch_agg<T, 32, 4, 1, ATT>(a, s);
+  }
+  if (f <= 32) return launch_agg<T, 32, 1, 1, ATT>(a, s);
+  if (f <= 64) return launch_agg<T, 32, 1, 2, ATT>(a, s);
+  return launch_agg<T, 32, 1, 4, ATT>(a, s);
 }
 
 struct BwdArgs {
@@ -785,32 +665,29 @@ extern "C" int hs_cluster_aggregate(const void* h, const float* w,
                                     int f, int bf16, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (n > 0 && f > 0) {
+    const AggArgs a{h, w, nullptr, nullptr, row_ptr, recv, send, out,
+                    e, n,  f, 0.0f,    0.0f};
     const int err =
-        bf16 ? fit_agg<__nv_bfloat16>(h, w, row_ptr, recv, send, out, e, n, f,
-                                      s)
-             : fit_agg<float>(h, w, row_ptr, recv, send, out, e, n, f, s);
+        bf16 ? fit_agg<__nv_bfloat16, false>(a, s) : fit_agg<float, false>(a, s);
     if (err != 0) return err;
   }
   return (int)cudaGetLastError();
 }
 
-// h [n, f] (bf16 when `bf16` is non-zero, else f32), a_s and a_r [n] f32,
-// recv and send [e] int32 sorted by (recv / 256, send / 256), ptr
-// [ceil(n/256)+1] int32 scratch, out [n, f + 1] f32 (num | den).
+// h [n, f] (bf16 when `bf16` is non-zero, else f32), a_s and a_r [n] f32;
+// the row plan: row_ptr [n + 1], recv and send [e] int32 in row order;
+// out [n, f + 1] f32 (num | den).
 extern "C" int hs_cluster_att_fwd(const void* h, const float* a_s,
-                                  const float* a_r, const int* recv,
-                                  const int* send, int* ptr, float* out,
-                                  int e, int n, int f, int bf16, float bound,
-                                  float slope, void* stream) {
+                                  const float* a_r, const int* row_ptr,
+                                  const int* recv, const int* send,
+                                  float* out, int e, int n, int f, int bf16,
+                                  float bound, float slope, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (n > 0 && f > 0) {
-    block_ptr(recv, e, n, ptr, s);
+    const AggArgs a{h, nullptr, a_s, a_r, row_ptr, recv, send, out,
+                    e, n,       f,   bound, slope};
     const int err =
-        bf16 ? launch_cluster<__nv_bfloat16, true>(h, nullptr, a_s, a_r,
-                                                   recv, send, ptr, out, n,
-                                                   f, bound, slope, s)
-             : launch_cluster<float, true>(h, nullptr, a_s, a_r, recv, send,
-                                           ptr, out, n, f, bound, slope, s);
+        bf16 ? fit_agg<__nv_bfloat16, true>(a, s) : fit_agg<float, true>(a, s);
     if (err != 0) return err;
   }
   return (int)cudaGetLastError();

@@ -2,8 +2,7 @@
 //
 //  - hs_scan_topk: the exact scan over a table slab;
 //  - hs_scan_topk_pq: ADC over a PQ-coded slab;
-//  - hs_scan_topk_cand: per-query candidate rows, the IVF probing scorer
-//    (at the end, with its own sorted insert and split merge).
+//  - hs_scan_topk_cand: per-query candidate rows, the IVF probing scorer.
 //
 // Contract of every entry (identical to the Pallas kernels'): for each
 // query row b, the k smallest distances, ascending, with global ids;
@@ -11,14 +10,15 @@
 // exclude_self; unreachable slots are (+inf, -1); ties go to the lowest
 // global column (for the candidate scan: the earlier candidate position).
 //
-// The two slab scans share one selection machine, built for this card:
+// The three scans share one selection machine, built for this card:
 //
 //  - One total order.  A candidate is the 64-bit key (distance bits,
-//    global column): distances are >= +0 (every closed form clamps
-//    before its last step), so their bits order as the floats do, and
-//    the lowest-column tie rule is the key's low word.  Lists, buffers
-//    and merges compare keys only, so the answer is the k smallest keys
-//    of the slab whatever order the work runs in.
+//    global column; for the candidate scan, candidate position):
+//    distances are >= +0 (every closed form clamps before its last
+//    step), so their bits order as the floats do, and the tie rule is
+//    the key's low word.  Lists, buffers and merges compare keys only,
+//    so the answer is the k smallest keys of the slab whatever order the
+//    work runs in.
 //  - A warp owns one query's list of k keys, sorted, in shared memory.
 //    Each lane scores R rows a step (independent chains, 32 rows apart).
 //    A candidate that passes the threshold test is ballot-compacted into
@@ -86,12 +86,6 @@ __device__ __forceinline__ float arcosh1p(float u) {
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
-  return v;
-}
-
-__device__ __forceinline__ int warp_sum(int v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
   return v;
@@ -329,8 +323,16 @@ __device__ __forceinline__ void push(Sel& s, bool pass, float a, float b,
   }
 }
 
+// A key's low word as written out: the column, or with `cand` (the
+// candidate scan's list of a query) the id at that position; -1 stays.
+__device__ __forceinline__ int key_id(u64 x, const int* cand) {
+  const int p = (int)(unsigned)x;
+  return cand == nullptr || p < 0 ? p : __ldg(cand + p);
+}
+
 __device__ __forceinline__ void sel_finish(Sel& s, float* out_d, int* out_i,
-                                           size_t base) {
+                                           size_t base,
+                                           const int* cand = nullptr) {
   if (s.cnt) {
     __syncwarp();
     flush(s);
@@ -338,7 +340,7 @@ __device__ __forceinline__ void sel_finish(Sel& s, float* out_d, int* out_i,
   for (int i = s.lane; i < s.k; i += 32) {
     const u64 x = s.list[i];
     out_d[base + i] = key_dist(x);
-    out_i[base + i] = (int)(unsigned)x;
+    out_i[base + i] = key_id(x, cand);
   }
 }
 
@@ -678,11 +680,14 @@ scan_pq_kernel(const unsigned char* __restrict__ codes,
 // is carried).  A round costs O(k·pairs/32 + log k) dependent steps, so
 // 64 lists of 10 take 6 short rounds and 5 lists of 170 three.  (Reading
 // only each list's prefix at or below the threshold word, found by
-// binary searches, was slower at every shape measured.)
+// binary searches, was slower at every shape measured.)  With `cand`
+// ([B, C], the candidate scan's) the lists hold positions, written out
+// as the ids there.
 __global__ void merge_tree_kernel(const float* __restrict__ pd,
                                   const int* __restrict__ pi,
                                   float* __restrict__ od,
-                                  int* __restrict__ oi, int B, int S, int k) {
+                                  int* __restrict__ oi, int B, int S, int k,
+                                  const int* __restrict__ cand, int C) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int wm = blockDim.x >> 5;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -724,10 +729,11 @@ __global__ void merge_tree_kernel(const float* __restrict__ pd,
     src = dst;
     dst = tmp;
   }
+  const int* crow = cand == nullptr ? nullptr : cand + (size_t)b * C;
   for (int i = lane; i < k; i += 32) {
     const u64 x = src[i];
     od[(size_t)b * k + i] = key_dist(x);
-    oi[(size_t)b * k + i] = (int)(unsigned)x;
+    oi[(size_t)b * k + i] = key_id(x, crow);
   }
 }
 
@@ -736,155 +742,161 @@ __global__ void merge_tree_kernel(const float* __restrict__ pd,
 // Replaces hyperspace_tpu/kernels/scan_topk.py `_cand_body` (launched by
 // `_launch_cand`), with the tile math of `_cand_tile`/`_pair_dist_b`.
 // Contract: query row b scores the table rows whose ids stand in
-// cand[b, 0..C) (-1 = padding, anywhere in the list); its own row is
-// masked under exclude_self; ties go to the earlier candidate position;
-// slots beyond the reachable candidates are (+inf, -1).
+// cand[b, 0..C) (-1 = padding, anywhere in the list; an id outside
+// [0, N) counts as padding); its own row is masked under exclude_self;
+// ties go to the earlier candidate position, and an id listed twice
+// counts at each of its positions; slots beyond the reachable candidates
+// are (+inf, -1).
 //
 // What bounds it on an H100: the gathers.  Each candidate costs one
 // random row read of D floats (the 3.3 MB table of the serving path sits
 // in the 50 MB L2) and ~2D multiply-adds.  The TPU kernel streams a
 // pre-gathered [B, C, 128-lane] block; this one gathers each row by id
 // straight from the table, so no [B, C, D] copy is ever written:
-//  - one warp per query row; each lane takes one candidate position a
-//    step, reads its id and its row, and computes the closed form;
-//  - the warp tests the 32 distances against its running k-th and
-//    inserts the rare winners in position order (`insert` puts an equal
-//    distance after the earlier entry);
-//  - the positions are split over blockIdx.y when the batch is small,
-//    each split with its own list, merged by merge_splits_kernel (the
-//    lower split, earlier positions, wins a tie).
-
-// Insert (d, id) into the warp's sorted list, after every entry <= d.
-__device__ __forceinline__ void insert(float* ld, int* li, int k, int lane,
-                                       float d, int id) {
-  int cnt = 0;
-  for (int i = lane; i < k; i += 32) cnt += (ld[i] <= d);
-  const int pos = warp_sum(cnt);
-  float rd[KREG];
-  int ri[KREG];
-#pragma unroll
-  for (int t = 0; t < KREG; ++t) {
-    const int i = pos + lane + 32 * t;
-    if (i < k - 1) { rd[t] = ld[i]; ri[t] = li[i]; }
-  }
-  __syncwarp();
-#pragma unroll
-  for (int t = 0; t < KREG; ++t) {
-    const int i = pos + lane + 32 * t;
-    if (i < k - 1) { ld[i + 1] = rd[t]; li[i + 1] = ri[t]; }
-  }
-  __syncwarp();
-  if (lane == 0) { ld[pos] = d; li[pos] = id; }
-  __syncwarp();
-}
-
-// Merge each query row's per-split sorted lists ([B, S, k]) into [B, k].
-__global__ void merge_splits_kernel(const float* __restrict__ pd,
-                                    const int* __restrict__ pi,
-                                    float* __restrict__ od,
-                                    int* __restrict__ oi, int B, int S,
-                                    int k) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  int head[MAX_SPLITS];
-  for (int s = 0; s < S; ++s) head[s] = 0;
-  for (int j = 0; j < k; ++j) {
-    float best = INFINITY;
-    int bs = -1;
-    for (int s = 0; s < S; ++s) {
-      if (head[s] < k) {
-        const float v = pd[((size_t)b * S + s) * k + head[s]];
-        if (v < best) { best = v; bs = s; }
-      }
-    }
-    if (bs < 0) {
-      od[(size_t)b * k + j] = INFINITY;
-      oi[(size_t)b * k + j] = -1;
-    } else {
-      od[(size_t)b * k + j] = best;
-      oi[(size_t)b * k + j] = pi[((size_t)b * S + bs) * k + head[bs]];
-      ++head[bs];
-    }
-  }
-}
-
-__global__ void __launch_bounds__(WARPS * 32)
+//  - keys are (distance bits, candidate position): the position keeps
+//    the tie rule and duplicate ids; the ids are read back from cand
+//    when the answer is written (sel_finish, merge_tree_kernel);
+//  - one warp a query and split, the slab scans' selection machine
+//    (threshold test before the logarithm, buffered flushes, the
+//    query's threshold word shared by its splits);
+//  - each lane takes R positions a step, 32 apart, pushed in position
+//    order, the next step's ids loading while this step's rows arrive;
+//    at D = 10 and 11 (the ball and its hyperboloid lift) the row sits
+//    in registers, read by 8-byte loads where the pitch and the table's
+//    pointer allow; any other D loops with the query in shared memory;
+//  - the positions split over blockIdx.y, merged by merge_tree_kernel.
+// The distance arithmetic is the first version's: the same fmaf chains
+// for g and yy, the same clamps.
+template <int KIND, int DC, int VW, int R>
+__global__ void __launch_bounds__(NT)
 scan_cand_kernel(const float* __restrict__ table, const int* __restrict__ cand,
                  const float* __restrict__ q, const int* __restrict__ q_idx,
-                 float* __restrict__ out_d, int* __restrict__ out_i, int B,
-                 int C, int N, int D, int k, int exclude_self, float c,
-                 int kind, int per_split) {
-  extern __shared__ float smem_f[];
-  float* qs = smem_f;                                  // [WARPS][D]
-  float* lds = qs + (size_t)WARPS * D;                 // [WARPS][k]
-  int* lis = reinterpret_cast<int*>(lds + (size_t)WARPS * k);
+                 unsigned* __restrict__ thr, float* __restrict__ out_d,
+                 int* __restrict__ out_i, int B, int C, int N, int D, int k,
+                 int exclude_self, float c, int per_split) {
+  static_assert(DC % VW == 0, "whole loads a row");
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* qs = reinterpret_cast<float*>(smem + sel_bytes(k));  // [WARPS][D]
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int b = blockIdx.x * WARPS + warp;
   if (b >= B) return;                 // no block-wide barrier below
   const int split = blockIdx.y, splits = gridDim.y;
   const int lo = split * per_split;
   const int hi = min(C, lo + per_split);
-  float* qv = qs + (size_t)warp * D;
-  float* ld = lds + (size_t)warp * k;
-  int* li = lis + (size_t)warp * k;
-
-  float s = 0.0f;
+  const float sc = fmaxf(sqrtf(fmaxf(c, 0.0f)), 1e-12f);
+  Sel s;
+  sel_init(s, smem, warp, k, lane, KIND, sc,
+           thr != nullptr ? thr + b : nullptr);
+  float* qv = qs + warp * D;
+  float qr[DC > 0 ? DC : 1];
+  float acc = 0.0f;
   for (int kk = lane; kk < D; kk += 32) {
     const float v = q[(size_t)b * D + kk];
-    s = fmaf(v, v, s);
-    qv[kk] = (kind == LORENTZ && kk == 0) ? -v : v;    // Minkowski signature
+    acc = fmaf(v, v, acc);
+    if (DC == 0) qv[kk] = (KIND == LORENTZ && kk == 0) ? -v : v;
   }
-  const float xx = warp_sum(s);
+  const float xx = warp_sum(acc);
+  if constexpr (DC > 0) {
+#pragma unroll
+    for (int kk = 0; kk < DC; ++kk) {
+      const float v = q[(size_t)b * D + kk];
+      qr[kk] = (KIND == LORENTZ && kk == 0) ? -v : v;  // Minkowski
+    }
+  }
   const int qi = q_idx[b];
-  for (int i = lane; i < k; i += 32) { ld[i] = INFINITY; li[i] = -1; }
   __syncwarp();
-  float kth = INFINITY;
-  const float sc = fmaxf(sqrtf(fmaxf(c, 0.0f)), 1e-12f);
   const float xm = 1.0f - c * xx;
   const int* crow = cand + (size_t)b * C;
 
-  for (int p0 = lo; p0 < hi; p0 += 32) {
-    const int p = p0 + lane;
-    const int id = p < hi ? crow[p] : -1;
-    float d = INFINITY;
-    if (id >= 0 && id < N && !(exclude_self && id == qi)) {
-      const float* row = table + (size_t)id * D;
-      float g = 0.0f, yy = 0.0f;
-      for (int kk = 0; kk < D; ++kk) {
-        const float yv = __ldg(row + kk);
-        g = fmaf(qv[kk], yv, g);
-        yy = fmaf(yv, yv, yy);
+  int id_n[R];
+  auto ids = [&](int base) {
+#pragma unroll
+    for (int rr = 0; rr < R; ++rr) {
+      const int p = base + 32 * rr + lane;
+      id_n[rr] = p < hi ? __ldg(crow + p) : -1;
+    }
+  };
+  ids(lo);
+  for (int base = lo; base < hi; base += 32 * R) {
+    reread(s);
+    int pos[R];
+    bool ok[R];
+    const float* row[R];
+    float g[R], yy[R];
+#pragma unroll
+    for (int rr = 0; rr < R; ++rr) {
+      const int id = id_n[rr];
+      pos[rr] = base + 32 * rr + lane;
+      ok[rr] = id >= 0 && id < N && !(exclude_self && id == qi);
+      row[rr] = table + (size_t)(ok[rr] ? id : 0) * D;
+      g[rr] = yy[rr] = 0.0f;
+    }
+    if constexpr (DC > 0) {
+      // selects, not branches: every row load of the step issues first
+      float y[R][DC];
+#pragma unroll
+      for (int rr = 0; rr < R; ++rr) {
+#pragma unroll
+        for (int t = 0; t < DC; t += VW) {
+          if constexpr (VW == 2) {
+            const float2 v =
+                ok[rr] ? __ldg(reinterpret_cast<const float2*>(row[rr] + t))
+                       : make_float2(0.0f, 0.0f);
+            y[rr][t] = v.x;
+            y[rr][t + 1] = v.y;
+          } else {
+            y[rr][t] = ok[rr] ? __ldg(row[rr] + t) : 0.0f;
+          }
+        }
       }
-      if (kind == LORENTZ) {
-        d = arcosh1p(fmaxf(-c * g - 1.0f, 0.0f)) / sc;
-      } else {
-        const float d2 = fmaxf(xx - 2.0f * g + yy, 0.0f);
-        if (kind == EUCLIDEAN) {
-          d = sqrtf(d2);
-        } else {
-          const float den = xm * (1.0f - c * yy);
-          d = arcosh1p(2.0f * c * d2 / fmaxf(den, 1e-7f)) / sc;
+      ids(base + 32 * R);  // the next step's ids load while the rows arrive
+#pragma unroll
+      for (int t = 0; t < DC; ++t)
+#pragma unroll
+        for (int rr = 0; rr < R; ++rr) {
+          g[rr] = fmaf(qr[t], y[rr][t], g[rr]);
+          yy[rr] = fmaf(y[rr][t], y[rr][t], yy[rr]);
+        }
+    } else {
+      ids(base + 32 * R);
+      for (int kk = 0; kk < D; ++kk) {
+        const float qk = qv[kk];
+#pragma unroll
+        for (int rr = 0; rr < R; ++rr) {
+          const float yv = ok[rr] ? __ldg(row[rr] + kk) : 0.0f;
+          g[rr] = fmaf(qk, yv, g[rr]);
+          yy[rr] = fmaf(yv, yv, yy[rr]);
         }
       }
     }
-    unsigned hit = __ballot_sync(FULL, d < kth);
-    while (hit) {
-      const int src = __ffs(hit) - 1;
-      hit &= hit - 1;
-      const float dc = __shfl_sync(FULL, d, src);
-      const int ic = __shfl_sync(FULL, id, src);
-      if (dc < kth) {
-        insert(ld, li, k, lane, dc, ic);
-        kth = ld[k - 1];
+    float a[R], bq[R];
+    bool pass[R];
+#pragma unroll
+    for (int rr = 0; rr < R; ++rr) {
+      bq[rr] = 1.0f;
+      if constexpr (KIND == LORENTZ) {
+        a[rr] = fmaxf(-c * g[rr] - 1.0f, 0.0f);
+        pass[rr] = a[rr] <= s.U;
+      } else {
+        const float d2 = fmaxf(xx - 2.0f * g[rr] + yy[rr], 0.0f);
+        if constexpr (KIND == EUCLIDEAN) {
+          a[rr] = d2;
+          pass[rr] = d2 <= s.U;
+        } else {
+          const float den = xm * (1.0f - c * yy[rr]);
+          a[rr] = 2.0f * c * d2;
+          bq[rr] = fmaxf(den, 1e-7f);
+          pass[rr] = a[rr] <= s.U * bq[rr];
+        }
       }
     }
+#pragma unroll
+    for (int rr = 0; rr < R; ++rr)
+      push(s, ok[rr] && pass[rr], a[rr], bq[rr], pos[rr]);
   }
-  const size_t base = ((size_t)b * splits + split) * k;
-  for (int i = lane; i < k; i += 32) {
-    out_d[base + i] = ld[i];
-    out_i[base + i] = li[i];
-  }
+  sel_finish(s, out_d, out_i, ((size_t)b * splits + split) * k,
+             splits == 1 ? crow : nullptr);
 }
 
 }  // namespace
@@ -925,9 +937,26 @@ static PqFn pq_for(int m) {
   }
 }
 
+typedef void (*CandFn)(const float*, const int*, const float*, const int*,
+                       unsigned*, float*, int*, int, int, int, int, int, int,
+                       float, int);
+
+// candidate rows a lane a step (kernels/scan_topk.py _CAND_ROWS)
+constexpr int CAND_ROWS = 2;
+
+template <int KIND>
+static CandFn cand_for(int D, bool pair_loads) {
+  if (D == 10)
+    return pair_loads ? scan_cand_kernel<KIND, 10, 2, CAND_ROWS>
+                      : scan_cand_kernel<KIND, 10, 1, CAND_ROWS>;
+  if (D == 11) return scan_cand_kernel<KIND, 11, 1, CAND_ROWS>;
+  return scan_cand_kernel<KIND, 0, 1, CAND_ROWS>;
+}
+
 // Merge [B, S, k] split lists into [B, k] (merge_tree_kernel).
 static int merge_tree(const float* pd, const int* pi, float* od, int* oi,
-                      int B, int S, int k, cudaStream_t st) {
+                      int B, int S, int k, cudaStream_t st,
+                      const int* cand = nullptr, int C = 0) {
   const size_t per_warp = (size_t)16 * S * k;
   const int wm = (int)(SMEM_BUDGET / per_warp < (size_t)WARPS
                            ? SMEM_BUDGET / per_warp : (size_t)WARPS);
@@ -937,7 +966,7 @@ static int merge_tree(const float* pd, const int* pi, float* od, int* oi,
       (int)bytes);
   if (e != cudaSuccess) return (int)e;
   merge_tree_kernel<<<(B + wm - 1) / wm, wm * 32, bytes, st>>>(
-      pd, pi, od, oi, B, S, k);
+      pd, pi, od, oi, B, S, k, cand, C);
   return (int)cudaGetLastError();
 }
 
@@ -1038,33 +1067,38 @@ extern "C" int hs_scan_topk_pq(const unsigned char* codes, const float* lut,
   return merge_tree(part_d, part_i, od, oi, B, splits, k, st);
 }
 
+// table [N, D] f32, cand [B, C] int32, q [B, D] f32, q_idx [B] int32;
+// with splits > 1 the threshold words thr [B] (+inf bits) and the part
+// lists part_d, part_i [B, splits, k]; od, oi [B, k].
 extern "C" int hs_scan_topk_cand(const float* table, const int* cand,
                                  const float* q, const int* q_idx,
-                                 float* part_d, int* part_i, float* od,
-                                 int* oi, int B, int C, int N, int D, int k,
-                                 int exclude_self, float c, int kind,
-                                 int splits, void* stream) {
-  if (k < 1 || k > KMAX || splits < 1 || splits > MAX_SPLITS || D < 1 ||
-      C < 0)
+                                 unsigned* thr, float* part_d, int* part_i,
+                                 float* od, int* oi, int B, int C, int N,
+                                 int D, int k, int exclude_self, float c,
+                                 int kind, int splits, void* stream) {
+  if (bad_split_args(k, splits, thr, part_d, part_i) || D < 1 || C < 0 ||
+      kind < 0 || kind > 2)
     return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaGetLastError();
   cudaStream_t st = (cudaStream_t)stream;
-  const size_t bytes = ((size_t)WARPS * D + (size_t)WARPS * k) * 4 +
-                       (size_t)WARPS * k * 4;
-  if (bytes > 227 * 1024) return (int)cudaErrorInvalidValue;
+  const bool pair = D % 2 == 0 && reinterpret_cast<uintptr_t>(table) % 8 == 0;
+  const CandFn fn = kind == POINCARE  ? cand_for<POINCARE>(D, pair)
+                    : kind == LORENTZ ? cand_for<LORENTZ>(D, pair)
+                                      : cand_for<EUCLIDEAN>(D, pair);
+  const size_t bytes =
+      sel_bytes(k) + (D == 10 || D == 11 ? 0 : (size_t)WARPS * D * 4);
+  if (bytes > SMEM_BUDGET) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
-      scan_cand_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return (int)e;
   const int per_split = (C + splits - 1) / splits;
   dim3 grid((B + WARPS - 1) / WARPS, splits);
-  scan_cand_kernel<<<grid, WARPS * 32, bytes, st>>>(
-      table, cand, q, q_idx, splits == 1 ? od : part_d,
-      splits == 1 ? oi : part_i, B, C, N, D, k, exclude_self, c, kind,
-      per_split);
+  fn<<<grid, NT, bytes, st>>>(table, cand, q, q_idx,
+                              splits == 1 ? nullptr : thr,
+                              splits == 1 ? od : part_d,
+                              splits == 1 ? oi : part_i, B, C, N, D, k,
+                              exclude_self, c, per_split);
   e = cudaGetLastError();
   if (e != cudaSuccess || splits == 1) return (int)e;
-  merge_splits_kernel<<<(B + 127) / 128, 128, 0, st>>>(part_d, part_i, od, oi,
-                                                       B, splits, k);
-  return (int)cudaGetLastError();
+  return merge_tree(part_d, part_i, od, oi, B, splits, k, st, cand, C);
 }

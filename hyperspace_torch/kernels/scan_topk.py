@@ -55,6 +55,12 @@ _MIN_SPLIT_ROWS = 256
 # splits · k keys twice in one warp's shared memory
 _MERGE_KEYS = 12800
 _INF_BITS = 0x7F800000   # float32 +inf, the threshold words' start
+# the candidate scan's splits: one wave of query warps at bucket 1,024
+# on the H100's 132 SMs, where more splits were slower (PERF.md §6), and
+# at least one position a lane a warp-split, which small buckets gain by
+_CAND_WARPS_PER_SM = 7
+_CAND_MIN_SPLIT = 32
+_CAND_ROWS = 2           # csrc/scan_topk.cu CAND_ROWS: positions a lane a step
 
 
 def kind_supported(spec: tuple) -> bool:
@@ -118,18 +124,22 @@ def scan_topk_plain(slab: torch.Tensor, q: torch.Tensor,
     return dist, ids.to(torch.int32)
 
 
-def _splits(b: int, m: int, device: torch.device) -> int:
+def _splits(b: int, m: int, device: torch.device, *,
+            warps_per_sm: int = _WARPS_PER_SM,
+            min_rows: int = _MIN_SPLIT_ROWS) -> int:
     """Table splits per query block, so that small batches still put
-    about ``_WARPS_PER_SM`` query warps on every SM."""
+    about ``warps_per_sm`` query warps on every SM, each split at least
+    ``min_rows`` rows."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     warps = -(-b // 8) * 8
-    want = -(-sms * _WARPS_PER_SM // warps)
-    return max(1, min(want, _MAX_SPLITS, m // _MIN_SPLIT_ROWS))
+    want = -(-sms * warps_per_sm // warps)
+    return max(1, min(want, _MAX_SPLITS, m // min_rows))
 
 
-def _slab_splits(b: int, m: int, k: int, device: torch.device) -> int:
-    """:func:`_splits` within the slab merge's shared memory."""
-    return max(1, min(_splits(b, m, device), _MERGE_KEYS // k))
+def _slab_splits(b: int, m: int, k: int, device: torch.device,
+                 **kw) -> int:
+    """:func:`_splits` within the split merge's shared memory."""
+    return max(1, min(_splits(b, m, device, **kw), _MERGE_KEYS // k))
 
 
 def _parts(b: int, splits: int, k: int, device: torch.device):
@@ -244,20 +254,36 @@ def _cand_dist_plain(kind: str, c: float, q: torch.Tensor,
     return smath.arcosh1p(2.0 * cc * d2 / den) / sc
 
 
-def scan_topk_cand_plain(table: torch.Tensor, cand: torch.Tensor,
-                         q: torch.Tensor, q_idx: torch.Tensor, *, kind: str,
-                         c: float, k: int, exclude_self: bool):
-    """Gather every candidate row, the closed-form distances, mask
-    ``id < 0`` and (under ``exclude_self``) ``id == q_idx``, then a
-    stable ascending sort over the candidate positions."""
+def _cand_masked_dist(table: torch.Tensor, cand: torch.Tensor,
+                      q: torch.Tensor, q_idx: torch.Tensor, *, kind: str,
+                      c: float, exclude_self: bool) -> torch.Tensor:
+    """[B, C] float32 distances of each query to its candidate rows,
+    +inf at ``id < 0`` and (under ``exclude_self``) at ``id == q_idx``."""
     cand = cand.to(torch.int64)
     rows = table.to(torch.float32)[torch.clamp_min(cand, 0)]   # [B, C, D]
     d = _cand_dist_plain(kind, c, q.to(torch.float32), rows)
     mask = cand < 0
     if exclude_self:
         mask = mask | (cand == q_idx.to(torch.int64)[:, None])
-    d = torch.where(mask, torch.full_like(d, float("inf")), d)
-    return _topk_of(d, cand, k)
+    return torch.where(mask, torch.full_like(d, float("inf")), d)
+
+
+def scan_topk_cand_plain(table: torch.Tensor, cand: torch.Tensor,
+                         q: torch.Tensor, q_idx: torch.Tensor, *, kind: str,
+                         c: float, k: int, exclude_self: bool):
+    """Gather every candidate row, the closed-form distances, mask
+    ``id < 0`` and (under ``exclude_self``) ``id == q_idx``, then a
+    stable ascending sort over the candidate positions."""
+    d = _cand_masked_dist(table, cand, q, q_idx, kind=kind, c=c,
+                          exclude_self=exclude_self)
+    return _topk_of(d, cand.to(torch.int64), k)
+
+
+def _cand_splits(b: int, cc: int, k: int, device: torch.device) -> int:
+    """:func:`_slab_splits` over candidate positions, with the candidate
+    scan's constants."""
+    return _slab_splits(b, cc, k, device, warps_per_sm=_CAND_WARPS_PER_SM,
+                        min_rows=_CAND_MIN_SPLIT)
 
 
 def _launch_cand(table, cand, q, q_idx, *, kind, c, k, exclude_self):
@@ -269,19 +295,14 @@ def _launch_cand(table, cand, q, q_idx, *, kind, c, k, exclude_self):
     cc = cand.shape[1]
     od = torch.empty((b, k), dtype=torch.float32, device=q.device)
     oi = torch.empty((b, k), dtype=torch.int32, device=q.device)
-    splits = _splits(b, cc, q.device)
-    pd = pi = None
-    if splits > 1:
-        pd = torch.empty((b, splits, k), dtype=torch.float32, device=q.device)
-        pi = torch.empty((b, splits, k), dtype=torch.int32, device=q.device)
+    splits = _cand_splits(b, cc, k, q.device)
+    pd, pi, thr = _parts(b, splits, k, q.device)
     P, I = ctypes.c_void_p, ctypes.c_int
     fn = S.function("scan_topk", "hs_scan_topk_cand",
-                    [P, P, P, P, P, P, P, P, I, I, I, I, I, I,
+                    [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I,
                      ctypes.c_float, I, I, P])
     S.check(fn(table.data_ptr(), cand.data_ptr(), q.data_ptr(),
-               q_idx.data_ptr(),
-               None if pd is None else pd.data_ptr(),
-               None if pi is None else pi.data_ptr(),
+               q_idx.data_ptr(), _ptr(thr), _ptr(pd), _ptr(pi),
                od.data_ptr(), oi.data_ptr(), b, cc, table.shape[0], dim, k,
                int(exclude_self), float(c), _KINDS.index(kind), splits,
                S.stream_ptr(q)), "scan_topk_cand")

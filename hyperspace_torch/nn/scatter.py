@@ -378,7 +378,7 @@ class _ClusterAttPartial(torch.autograd.Function):
         ctx.negative_slope = negative_slope
         return cluster_att_fwd(h, alpha_s, alpha_r, agg.c_recv, agg.c_send,
                                agg.c_plan, num_segments, negative_slope,
-                               float(ATT_LOGIT_BOUND))
+                               float(ATT_LOGIT_BOUND), rows=agg.c_rows)
 
     @staticmethod
     def backward(ctx, g):

@@ -1,14 +1,17 @@
-"""The cluster kernels' row plan (``kernels.cluster.ClusterRows``) against a
-numpy oracle of the per-launch ranking it replaces, on the CPU (no JAX).
+"""The cluster kernels' row plan (``kernels.cluster.ClusterRows``) and the
+row walk that reads it, on the CPU (no JAX).
 
-The attention forward kernel still stages each 256-row receiver block's
-edges 2,048 at a time and ranks them by row in arrival order
-(``rank_by_row`` in ``csrc/cluster.cu``); the aggregation and the
-attention backward read the row plan instead, built once per graph.  The
-plan must give every row the edges the ranking gives it, in the same
-order, so that a row sums its edges in the order it did.  Also: the
-reverse-slot involution, the builder on tensors (the wrappers' path when
-no plan is passed), and the plain versions with and without a plan.
+The three kernels of ``csrc/cluster.cu`` read a row plan built once per
+graph: every row gets its edges in arrival order, the order in which the
+plain versions (``index_add_``) sum them.  ``ranked_rows`` is an oracle
+of that order as a per-block ranking gives it: receiver block by
+receiver block, 2,048 edges a chunk, a stable counting sort by row.
+Also: the reverse-slot involution, the builder on tensors (the wrappers'
+path when no plan is passed), the plain paths with and without a plan,
+and a numpy model of the walk ``agg_rows_kernel`` makes in its attention
+mode (units of whole rows from ``unit_span``, D slots a step, a row
+written when its last slot is summed, empty rows written as 0), held
+bitwise against ``cluster_att_fwd_plain``.
 """
 
 import zlib
@@ -174,19 +177,22 @@ def test_plain_paths_with_the_plan_equal_those_without(kind, dt):
     h = torch.as_tensor(rng.standard_normal((n, f)), dtype=dt)
     w = torch.as_tensor(rng.random(len(r)), dtype=torch.float32)
     rt, st = torch.as_tensor(r), torch.as_tensor(s)
-    before = (TC.cluster_aggregate.launches, TC.cluster_att_bwd.launches,
-              TC.row_plan_builds)
+    before = (TC.cluster_aggregate.launches, TC.cluster_att_fwd.launches,
+              TC.cluster_att_bwd.launches, TC.row_plan_builds)
     assert torch.equal(TC.cluster_aggregate(h, w, rt, st, None, n, rows=rows),
                        TC.cluster_aggregate(h, w, rt, st, None, n))
     g = torch.as_tensor(rng.standard_normal((n, f + 1)), dtype=torch.float32)
     a_s = torch.as_tensor(rng.standard_normal(n) * 0.7, dtype=torch.float32)
     a_r = torch.as_tensor(rng.standard_normal(n) * 0.7, dtype=torch.float32)
+    assert torch.equal(
+        TC.cluster_att_fwd(h, a_s, a_r, rt, st, None, n, rows=rows),
+        TC.cluster_att_fwd(h, a_s, a_r, rt, st, None, n))
     got = TC.cluster_att_bwd(g, h, a_s, a_r, rt, st, None, n, rows=rows)
     want = TC.cluster_att_bwd(g, h, a_s, a_r, rt, st, None, n)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     # the CPU path launches nothing and builds no plan
-    assert (TC.cluster_aggregate.launches, TC.cluster_att_bwd.launches,
-            TC.row_plan_builds) == before
+    assert (TC.cluster_aggregate.launches, TC.cluster_att_fwd.launches,
+            TC.cluster_att_bwd.launches, TC.row_plan_builds) == before
 
 
 def test_wrappers_refuse_a_plan_of_other_edges():
@@ -201,6 +207,11 @@ def test_wrappers_refuse_a_plan_of_other_edges():
         TC.cluster_aggregate(h[:-1], w, rt, st, None, n - 1, rows=rows)
     g = torch.zeros((n, 5))
     a = torch.zeros(n)
+    with pytest.raises(ValueError, match="row plan"):
+        TC.cluster_att_fwd(h, a, a, rt[:-2], st[:-2], None, n, rows=rows)
+    with pytest.raises(ValueError, match="row plan"):
+        TC.cluster_att_fwd(h[:-1], a[:-1], a[:-1], rt, st, None, n - 1,
+                           rows=rows)
     with pytest.raises(ValueError, match="reverse slots"):
         TC.cluster_att_bwd(g, h, a, a, rt, st, None, n, rows=rows)
 
@@ -242,3 +253,97 @@ def test_the_split_carries_the_plan_of_its_clustered_edges(min_pair, rev):
     np.testing.assert_array_equal(agg.c_send.numpy(), want.send)
     np.testing.assert_array_equal(agg.c_wf.numpy(), split.c_wf[want.perm])
     np.testing.assert_array_equal(agg.c_wb.numpy(), split.c_wb[want.perm])
+
+
+# --- the attention forward's row walk, modelled in numpy --------------------
+
+ROW_DEPTH = 4     # csrc/cluster.cu ROW_DEPTH: slots a group reads a step
+
+
+def unit_span(u, units, e, n, recv, row_ptr):
+    """csrc/cluster.cu ``unit_span``: the rows [r_lo, r_hi) of unit u and
+    their slots [j0, j1)."""
+    b0, b1 = u * e // units, (u + 1) * e // units
+    r_lo = 0 if b0 == 0 else int(recv[b0 - 1]) + 1
+    r_hi = n if u + 1 == units else (0 if b1 == 0 else int(recv[b1 - 1]) + 1)
+    return r_lo, r_hi, int(row_ptr[r_lo]), int(row_ptr[r_hi])
+
+
+def fwd_walk(h, w_slot, rows, n, units):
+    """``agg_rows_kernel``'s attention mode over ``units`` units: each
+    slot's weight w_slot (in slot order) times its sender's row, summed
+    with the weights (den) in slot order, a product rounded, then
+    added, as the plain version's ``index_add_`` adds them.  Returns
+    [n, f + 1] float32 and how often each row was written."""
+    f = h.shape[1]
+    recv, send, row_ptr = rows.recv, rows.send, rows.row_ptr
+    e = len(recv)
+    out = np.full((n, f + 1), np.nan, np.float32)
+    written = np.zeros(n, np.int64)
+    zero = np.zeros(f, np.float32)
+
+    def put(r, acc, den):
+        out[r, :f], out[r, f] = acc, den
+        written[r] += 1
+
+    for u in range(units):
+        r_lo, r_hi, j, j1 = unit_span(u, units, e, n, recv, row_ptr)
+        for r in range(r_lo, int(recv[j]) if j < j1 else r_hi):
+            put(r, zero, np.float32(0))
+        acc, den = zero.copy(), np.float32(0)
+        while j < j1:
+            rs = [int(recv[j + d]) if j + d < j1 else r_hi
+                  for d in range(ROW_DEPTH)]
+            after = int(recv[j + ROW_DEPTH]) if j + ROW_DEPTH < j1 else r_hi
+            for d in range(ROW_DEPTH):
+                if rs[d] >= r_hi:
+                    continue
+                wd = w_slot[j + d]
+                acc = acc + wd * h[send[j + d]]
+                den = np.float32(den + wd)
+                nxt = rs[d + 1] if d + 1 < ROW_DEPTH else after
+                if nxt != rs[d]:            # row rs[d] ends here
+                    put(rs[d], acc, den)
+                    acc, den = zero.copy(), np.float32(0)
+                    for r in range(rs[d] + 1, nxt):
+                        put(r, zero, np.float32(0))
+            j += ROW_DEPTH
+    return out, written
+
+
+def inner_rows_case():
+    """Edges among rows [100, 400) of 600: empty rows at both ends."""
+    rng = np.random.default_rng(3)
+    r = rng.integers(100, 400, 2500)
+    s = rng.integers(100, 400, 2500)
+    return (*by_pair(r, s, 600), 600)
+
+
+@pytest.mark.parametrize("kind", KINDS + ["inner"])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_forward_walk_equals_plain(kind, dt):
+    r, s, n = inner_rows_case() if kind == "inner" else edge_case(kind)
+    rng = np.random.default_rng(zlib.crc32(f"walk{kind}".encode()))
+    f = 5
+    rows = TC.build_cluster_rows(r, s, n)
+    h = torch.as_tensor(rng.standard_normal((n, f)), dtype=dt)
+    a_s = torch.as_tensor(rng.standard_normal(n) * 0.7, dtype=torch.float32)
+    a_r = torch.as_tensor(rng.standard_normal(n) * 0.7, dtype=torch.float32)
+    rt, st = torch.as_tensor(r).long(), torch.as_tensor(s).long()
+    want = TC.cluster_att_fwd_plain(h, a_s, a_r, rt, st, n).numpy()
+    # the weights as the plain version computes them (arrival order),
+    # then in slot order
+    w, _ = TC.att_squash(a_s[st] + a_r[rt], 30.0, 0.2)
+    if dt == torch.bfloat16:
+        w = w.to(torch.bfloat16).float()
+    w_slot = w.numpy()[rows.perm]
+    hf = h.float().numpy()
+    e = len(r)
+    for units in sorted({1, 3, 8, 64, e + 3}):
+        got, written = fwd_walk(hf, w_slot, rows, n, units)
+        assert np.all(written == 1), units
+        np.testing.assert_array_equal(got, want)
+    if kind == "inner":
+        deg = np.diff(rows.row_ptr)
+        assert deg[:100].sum() == 0 and deg[400:].sum() == 0
+        assert np.all(want[:100] == 0) and np.all(want[400:] == 0)

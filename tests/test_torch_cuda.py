@@ -250,6 +250,67 @@ def test_scan_topk_cand_kernel_narrow_lists(dev):
         got[1][:, 32:] == -1)
 
 
+@pytest.mark.parametrize("kind,d,off", [
+    ("poincare", 7, 0), ("lorentz", 4, 0), ("euclidean", 10, 0),
+    ("poincare", 10, 1), ("lorentz", 11, 1), ("euclidean", 11, 1)])
+@pytest.mark.parametrize("b", [8, 1024])
+def test_scan_topk_cand_kernel_widths_and_views(dev, kind, d, off, b):
+    """D = 10 and 11 (compile-time, 8-byte loads where the table allows)
+    and other D (the general loop), tables that are views one float into
+    their storage, C = 777 with pads and duplicate ids, k 64; a batch of
+    8 splits the positions, one of 1,024 does not; twice, bitwise."""
+    from hyperspace_torch.kernels import scan_topk as T
+
+    rng = np.random.default_rng(d + 10 * off + b)
+    base = rows(rng, 5000, d, kind, dev)
+    table = torch.empty(5000 * d + off, device=dev)[off:].view(5000, d)
+    table.copy_(base)
+    if off:
+        assert table.data_ptr() % 8
+    q = rows(rng, b, d, kind, dev)
+    cand = torch.as_tensor(rng.integers(0, 5000, (b, 777)),
+                           dtype=torch.int32, device=dev)
+    cand[:, 200:260] = -1
+    cand[:, 400:450] = cand[:, :50]
+    qi = cand[:, 3].clone()
+    spec = (kind, 0.0 if kind == "euclidean" else 1.0)
+    assert (T._cand_splits(b, 777, 64, dev) > 1) == (b == 8)
+    got = scan_topk_cand(table, cand, q, qi, spec=spec, k=64,
+                         exclude_self=True)
+    again = scan_topk_cand(table, cand, q, qi, spec=spec, k=64,
+                           exclude_self=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    want = scan_topk_cand_plain(base, cand, q, qi, kind=kind, c=spec[1],
+                                k=64, exclude_self=True)
+    assert_cand_close(kind, base, got, want)
+    assert not torch.any(got[1] == qi[:, None])
+
+
+def test_scan_topk_cand_tie_goes_to_the_earlier_position(dev):
+    """Ids 50 and 9,000 hold the same row; every query lists 9,000 at
+    position 0 and 50 at the last (C 4,600), in different splits of a
+    batch of 8: the earlier position, the higher id, comes first, where
+    a (distance, id) key would put 50 first."""
+    from hyperspace_torch.kernels import scan_topk as T
+
+    rng = np.random.default_rng(11)
+    table = rows(rng, 20000, 10, "poincare", dev)
+    table[50] = table[9000]
+    q = (table[9000] * 0.99)[None].expand(8, 10).contiguous()
+    cand = torch.as_tensor(rng.integers(100, 9000, (8, 4600)),
+                           dtype=torch.int32, device=dev)
+    cand[:, 0], cand[:, -1] = 9000, 50
+    qi = torch.full((8,), -1, dtype=torch.int32, device=dev)
+    assert T._cand_splits(8, 4600, 10, dev) > 1
+    got = scan_topk_cand(table, cand, q, qi, spec=("poincare", 1.0), k=10)
+    want = scan_topk_cand_plain(table, cand, q, qi, kind="poincare", c=1.0,
+                                k=10, exclude_self=False)
+    assert_cand_close("poincare", table, got, want)
+    for row in got[1].tolist():
+        assert row.index(9000) < row.index(50)
+
+
 @pytest.mark.parametrize("kind,d", [("poincare", 10), ("lorentz", 11),
                                     ("euclidean", 3)])
 @pytest.mark.parametrize("m,k", [(3, 170), (8, 256)])
@@ -980,6 +1041,53 @@ def test_cluster_rows_kernels_match_plain(dev, dt, kind, f, off):
     empty = k == 0
     for t in (got, *bw):
         assert torch.all(t[empty] == 0)
+
+
+def fwd_plan_case(kind):
+    """(receivers, senders, n): ``random`` (reversal-closed, by pair) or
+    ``inner``, every edge among rows [300, 700) of 1,000, so that rows at
+    both ends have none."""
+    rng = np.random.default_rng(len(kind))
+    if kind == "random":
+        return (*pair_edges(rng, 700, 2000), 700)
+    r = rng.integers(300, 700, 5000)
+    s = rng.integers(300, 700, 5000)
+    o = np.argsort(r // 256 * 5 + s // 256, kind="stable")
+    return r[o].astype(np.int32), s[o].astype(np.int32), 1000
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["random", "inner"])
+@pytest.mark.parametrize("f", [128, 33, 32, 5])
+@pytest.mark.parametrize("off", [0, 1])
+def test_cluster_att_fwd_on_the_row_plan(dev, dt, kind, f, off):
+    """``cluster_att_fwd`` on the row plan against its plain version, h
+    aligned and a view one element into its storage; two launches
+    bitwise equal, and a call without the plan (built on the card,
+    counted) equal to one with it; rows no edge reaches give 0 in all
+    f + 1 columns."""
+    from hyperspace_torch.kernels import cluster as KC
+
+    r, s, n = fwd_plan_case(kind)
+    rows = KC.rows_on(KC.build_cluster_rows(r, s, n), dev)
+    rr, ss = torch.as_tensor(r, device=dev), torch.as_tensor(s, device=dev)
+    h, _, _, a_s, a_r = row_inputs(dev, dt, n, f, len(r), off, n + f + off)
+    k = torch.bincount(rr.long(), minlength=n).float()
+    before = (cluster_att_fwd.launches, KC.row_plan_builds)
+    got = cluster_att_fwd(h, a_s, a_r, rr, ss, None, n, rows=rows)
+    again = cluster_att_fwd(h, a_s, a_r, rr, ss, None, n, rows=rows)
+    built = cluster_att_fwd(h, a_s, a_r, rr, ss, None, n)
+    torch.cuda.synchronize()
+    assert (cluster_att_fwd.launches, KC.row_plan_builds) == (
+        before[0] + 3, before[1] + 1)
+    assert torch.equal(got, again) and torch.equal(got, built)
+    wulp = 2.0 ** -7 if dt == torch.bfloat16 else 2.0 ** -23
+    want = cluster_att_fwd_plain(h, a_s, a_r, rr, ss, n)
+    assert_att_close(got, want, cluster_att_fwd_plain(h.abs(), a_s, a_r, rr,
+                                                      ss, n), k[:, None], wulp)
+    assert got.shape == (n, f + 1) and torch.all(got[k == 0] == 0)
+    if kind == "inner":
+        assert bool((k[:300] == 0).all()) and bool((k[700:] == 0).all())
 
 
 def test_attention_kernels_refuse_what_they_do_not_take(dev):

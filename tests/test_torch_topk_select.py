@@ -1,9 +1,10 @@
 """The slab scans' selection (``kernels/csrc/scan_topk.cu``), emulated on
 the CPU and held against the plain versions.
 
-The CUDA kernels of ``scan_topk`` and ``scan_topk_pq`` share one
-selection machine: a warp per query keeps a sorted list of k keys
-(distance bits, global column); candidates that pass a threshold test
+The CUDA kernels of ``scan_topk``, ``scan_topk_pq`` and
+``scan_topk_cand`` share one selection machine: a warp per query keeps a
+sorted list of k keys (distance bits, global column; for the candidate
+scan, candidate position); candidates that pass a threshold test
 are compacted into a 32-entry buffer; a full buffer (and the scan's end)
 is flushed: the exact test, a bitonic sort, a merge-path merge into the
 list.  The splits of a query share a threshold word, lowered by
@@ -15,8 +16,10 @@ This file replays that machine step by step in numpy, lane by lane
 where the kernel works lane by lane (merge path, the bitonic network,
 the merge rounds), with the splits advancing in seeded interleavings,
 and requires its answer to equal ``scan_topk_plain`` /
-``scan_topk_pq_plain`` exactly, for k 1 to 256, 1, 5 or 64 splits and
-distance orders that stress the ties.  It also holds the threshold
+``scan_topk_pq_plain`` / ``scan_topk_cand_plain`` exactly, for k 1 to
+256, 1, 5 or 64 splits and distance orders that stress the ties (for
+the candidate scan: -1 pads mid-list, duplicate ids, an empty query,
+the query's own row, and a tie that (distance, id) keys would break).  It also holds the threshold
 test's margin ε (``arg_bound``) on float32 pairs near the threshold with
 log1p off by two ulp, and shows that ε = 0 fails there.
 
@@ -188,11 +191,12 @@ class Warp:
             self.flush()
 
 
-def emulate(dmat, col0, k, splits, order_seed, tile=64):
+def emulate(dmat, col0, k, splits, order_seed, tile=64, cols=None):
     """The kernels' answer for a masked distance matrix ``dmat`` [B, M]
     (float32, +inf = masked): per query, ``splits`` warp-splits share a
     threshold word and advance one step at a time in the order that
-    ``order_seed`` draws ("seq" = split by split, last first)."""
+    ``order_seed`` draws ("seq" = split by split, last first).  Keys
+    take column ``col0 + j`` at place j, or ``cols[b, j]`` when given."""
     b, m = dmat.shape
     rps = -(-m // splits)
     out_d = np.empty((b, k), F32)
@@ -214,7 +218,8 @@ def emulate(dmat, col0, k, splits, order_seed, tile=64):
             hi = min(lo + 32, ends[s], s * rps + ((lo - s * rps) // tile + 1)
                      * tile)
             d = dmat[qb, lo:hi]
-            w.step(d, col0 + np.arange(lo, hi), np.isfinite(d))
+            w.step(d, col0 + np.arange(lo, hi) if cols is None
+                   else cols[qb, lo:hi], np.isfinite(d))
             pos[s] = hi
             if hi >= ends[s]:
                 w.finish()
@@ -326,6 +331,89 @@ def test_selection_equals_plain_dense(kind, k, splits):
                                   zlib.crc32(f"{kind}{k}{splits}".encode()))
         assert np.array_equal(got_d, want_d.numpy())
         assert np.array_equal(got_i, want_i.numpy())
+
+
+# the candidate scan: keys (distance, candidate position), 32·R positions
+# a step (csrc/scan_topk.cu CAND_ROWS), the word reread at each step
+CAND_STEP = 32 * T._CAND_ROWS
+
+
+def cand_case(kind, seed):
+    """A table (ids 700–704 copies of row 300), 6 queries (the first two
+    on row 300) and their candidate lists of 2,300 positions: -1 pads in
+    a mid-list run and scattered, duplicate ids (positions 500–519
+    repeat 0–19), a tied pair whose lower id sits at the later position
+    (row 1: 704 at position 10, 300 at 2,000), an empty query (row 3)."""
+    rng = seeded("cand", kind, seed)
+    n, c = 3000, 2300
+    table = dense_rows(rng, n, 10, kind)
+    table[700:705] = table[300]
+    q = torch.cat([table[[300, 300]], dense_rows(rng, 4, 10, kind)])
+    cand = rng.integers(0, n, (6, c))
+    cand[:, 100:140] = -1
+    cand[rng.random((6, c)) < 0.2] = -1
+    cand[:, 500:520] = cand[:, 0:20]
+    cand[1, 10], cand[1, 2000] = 704, 300
+    cand[0, 7] = 300                         # the query's own row
+    cand[3] = -1
+    qi = torch.as_tensor([300, 5, 0, 1, 2, 3], dtype=torch.int32)
+    return table, torch.as_tensor(cand, dtype=torch.int32), q, qi
+
+
+def cand_emulate(table, cand, q, qi, kind, k, splits, ex, order, keys):
+    """The candidate scan's answer: the masked distances of the plain
+    version, selected by the emulated machine with keys (distance,
+    position), positions then read back as ids; ``keys="id"`` keys on
+    the ids instead."""
+    c = 0.0 if kind == "euclidean" else 1.0
+    dm = T._cand_masked_dist(table, cand, q, qi, kind=kind, c=c,
+                             exclude_self=ex).numpy().astype(F32)
+    ids = cand.numpy()
+    got_d, got_p, _ = emulate(dm, 0, k, splits, order, tile=CAND_STEP,
+                              cols=ids if keys == "id" else None)
+    if keys == "id":
+        return got_d, got_p
+    rows = np.arange(len(ids))[:, None]
+    return got_d, np.where(got_p >= 0, ids[rows, np.maximum(got_p, 0)], -1)
+
+
+@pytest.mark.parametrize("splits", SPLITS)
+@pytest.mark.parametrize("k", KS)
+@pytest.mark.parametrize("kind", ("poincare", "lorentz", "euclidean"))
+def test_cand_selection_equals_plain(kind, k, splits):
+    table, cand, q, qi = cand_case(kind, 0)
+    c = 0.0 if kind == "euclidean" else 1.0
+    for ex in (True, False):
+        want_d, want_i = T.scan_topk_cand_plain(table, cand, q, qi,
+                                                kind=kind, c=c, k=k,
+                                                exclude_self=ex)
+        for order in (zlib.crc32(f"{kind}{k}{splits}{ex}".encode()), "seq"):
+            got_d, got_i = cand_emulate(table, cand, q, qi, kind, k, splits,
+                                        ex, order, "position")
+            assert np.array_equal(got_d, want_d.numpy())
+            assert np.array_equal(got_i, want_i.numpy())
+        assert np.all(got_i[3] == -1) and np.all(np.isinf(got_d[3]))
+        if ex:
+            assert not np.any(got_i[0] == 300)
+
+
+def test_cand_id_keys_break_the_tie_rule():
+    """Row 1 of the case ties ids 704 (position 10) and 300 (position
+    2,000) at one distance: the plain version lists 704 first, as
+    position keys do; (distance, id) keys would list 300 first."""
+    kind, k, splits = "poincare", 256, 5
+    table, cand, q, qi = cand_case(kind, 0)
+    want_d, want_i = T.scan_topk_cand_plain(table, cand, q, qi,
+                                            kind=kind, c=1.0, k=k,
+                                            exclude_self=True)
+    got = cand_emulate(table, cand, q, qi, kind, k, splits, True, 7,
+                       "position")
+    assert np.array_equal(got[1], want_i.numpy())
+    row = want_i[1].tolist()
+    assert row.index(704) < row.index(300)
+    by_id = cand_emulate(table, cand, q, qi, kind, k, splits, True, 7, "id")
+    assert not np.array_equal(by_id[1], want_i.numpy())
+    assert by_id[1][1].tolist().index(300) < by_id[1][1].tolist().index(704)
 
 
 def test_merge_pieces_agree_with_a_sort():
