@@ -73,7 +73,9 @@ prints its seconds):
    dense twin (dτ against its float64 twin), for an output cotangent
    drawn from a generator seeded from ``--seed``, each held norm-wise
    (largest error over the case's largest entry) as the JAX package
-   holds its own kernel; MLR logits;
+   holds its own kernel; MLR logits at those shapes and at HGCN node
+   classification's head ([169,343, 40, 32], and 1,003 rows), launched
+   twice for the same bits;
 13. the HyboNet bench legs (``workloads_bench``: ``hybonet`` and
    ``hybonet_long``): step ms, tokens/s, device busy ms and idle share,
    peak memory, the largest device items, and each kernel's launch count
@@ -113,7 +115,8 @@ prints its seconds):
    but PQ with IVF, both modes, with the card's busy time and idle share;
 20. hold the Poincaré ball's seven row-wise ops and ``hyp_linear``
    against their plain versions on the card: the ops at the path shapes
-   ([82,115, 10], [169,343, 128], [256, 48]) with c 1, 0.5 and 2.3, at
+   ([82,115, 10], [169,343, 128], [256, 48], [82,115, 8]) with c 1, 0.5
+   and 2.3, at
    d = 7, 130 and 200, leading dims [3, 8, 48], bf16 inputs (within one
    bf16 ulp of the f32 plain version), r ∈ {−1.5, 0, 0.5, 3}, points at
    the proj margin, zero rows, a bias [d] broadcast against [n, d];
@@ -144,7 +147,8 @@ prints its seconds):
    for the two slab scans the scan kernel and the split merge apart),
    the top-k throughput at bucket 1024 (batches of cold ids
    through the batcher, the engine call alone, and the card's busy
-   share), the ``nvidia-smi`` line, and finally
+   share), the launch floor (``floor_ms``: an empty kernel's device time,
+   ``benchmarks/launch_floor.py``), the ``nvidia-smi`` line, and finally
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -1103,6 +1107,10 @@ HB_SHAPES = {"bench": (256, 4, 128, 128, 64),
 FLASH_RTOL, FLASH_ATOL = 1e-4, 1e-5
 LSE_TOL = 1e-5
 MLR_RTOL, MLR_ATOL = 1e-4, 1e-5
+# HGCN node classification's head (hyperspace_tpu/models/hgcn.py:263): the
+# arxiv nodes, ogbn-arxiv's 40 classes (data/graphs.py:549-552), ball d 32
+# (hidden (128, 32), configs/hgcn_sampled_nc.yaml)
+MLR_NC_SHAPE = (169343, 40, 32)
 # the whole Function against autograd of the dense twin: largest error
 # over the largest entry, as the JAX package holds its own kernel
 # (tests/kernels/test_attention.py, test_flash_backward_matches_twin);
@@ -1236,15 +1244,18 @@ def check_mlr(torch, rng, dev, n, k, d) -> float:
     a = torch.as_tensor(rng.standard_normal((k, d)) * 0.1,
                         dtype=torch.float32, device=dev)
     got = hyp_mlr(x, p, a, C)
+    again = hyp_mlr(x, p, a, C)
     torch.cuda.synchronize()
     want = hyp_mlr_plain(x, p, a, C)
     diff = (got - want).abs()
     over = int((diff > MLR_ATOL + MLR_RTOL * want.abs()).sum())
+    same = bool(torch.equal(got, again))
     emit({"phase": "check", "kernel": "hyp_mlr", "shape": [n, k, d],
-          "max_abs_err": float(diff.max()), "over_tolerance": over})
-    if over:
+          "max_abs_err": float(diff.max()), "over_tolerance": over,
+          "repeat_equal": same})
+    if over or not same:
         raise AssertionError(f"hyp_mlr [{n}, {k}, {d}]: {over} entries "
-                             "beyond tolerance")
+                             f"beyond tolerance, repeat equal {same}")
     return float(diff.max())
 
 
@@ -1275,7 +1286,8 @@ def hybonet_path(torch, args, card: dict) -> dict:
         err["flash_fwd"] = max(err["flash_fwd"], e["fwd"])
         err["flash_dq"] = max(err["flash_dq"], e["dq"])
         err["flash_dkv"] = max(err["flash_dkv"], e["dkv"])
-    for n, k, d in ((256, 8, 128), (2, 8, 64), (64, 4, 128), (3, 300, 33)):
+    for n, k, d in ((256, 8, 128), (2, 8, 64), (64, 4, 128), (3, 300, 33),
+                    MLR_NC_SHAPE, (1003, 40, 32), (1003, 300, 33)):
         err["hyp_mlr"] = max(err["hyp_mlr"], check_mlr(torch, rng, dev, n,
                                                        k, d))
     emit({"phase": "hybonet_checks", "seconds": time.perf_counter() - t0})
@@ -1388,12 +1400,20 @@ def flash_cost(x: dict, kind: str) -> tuple[float, float, float]:
     return nbytes + mask, 0.0, TF32_PASSES * 2.0 * macs * x["valid_pairs"]
 
 
-def mlr_cost(n: int, k: int, d: int) -> tuple[float, float]:
-    """(bytes, operations) of the MLR logits: x, p, a read and the [n, k]
-    logits written once; the two products x·pᵀ, x·aᵀ, the row and class
-    norms, and about 30 operations of closed form per logit."""
-    return (4.0 * (n * d + 2 * k * d + n * k),
-            4.0 * n * k * d + 2.0 * (n + 3 * k) * d + 30.0 * n * k)
+def mlr_cost(n: int, k: int, d: int) -> tuple[float, float, float]:
+    """(bytes, f32 operations, TF32 operations) of the MLR logits as the
+    launch plan takes them: x, p, a read and the [n, k] logits written
+    once; the row and class norms and about 30 operations of closed form
+    per logit in f32; the two products x·pᵀ, x·aᵀ in f32 on the pair
+    plan, as 3×TF32 on the tensor cores on the tile plan."""
+    from hyperspace_torch.kernels.mlr import mlr_plan
+
+    products = 4.0 * n * k * d
+    f32 = 2.0 * (n + 3 * k) * d + 30.0 * n * k
+    nbytes = 4.0 * (n * d + 2 * k * d + n * k)
+    if mlr_plan(n, k, d).tile:
+        return nbytes, f32, TF32_PASSES * products
+    return nbytes, f32 + products, 0.0
 
 
 def hybonet_kernel_entries(torch, hb: dict, card: dict) -> list:
@@ -1532,6 +1552,11 @@ def hybonet_kernel_entries(torch, hb: dict, card: dict) -> list:
         p = torch.rand((k, d), generator=gen, device=dev) * 0.05
         a = torch.randn((k, d), generator=gen, device=dev) * 0.1
         mlr_args[src] = (xb, p, a, C)
+    n, k, d = MLR_NC_SHAPE
+    xn = torch.rand((n, d), generator=gen, device=dev) * (0.9 / np.sqrt(d))
+    pn = torch.rand((k, d), generator=gen, device=dev) * (0.5 / np.sqrt(d))
+    an = torch.randn((k, d), generator=gen, device=dev) * (1.0 / np.sqrt(d))
+    mlr_args["nc"] = (xn, pn, an, C)
     mb_, mby = bound_ms(*mlr_cost(256, 8, 128))
     entries.append({
         "name": "hyp_mlr", "route": "cuda",
@@ -1548,7 +1573,13 @@ def hybonet_kernel_entries(torch, hb: dict, card: dict) -> list:
         "ms_long": device_ms(torch, lambda: hyp_mlr(*mlr_args["long"])),
         "ms_cli": device_ms(torch, lambda: hyp_mlr(*mlr_args["cli"])),
         "bound_ms_long": bound_ms(*mlr_cost(2, 8, 64))[0],
-        "bound_ms_cli": bound_ms(*mlr_cost(64, 4, 128))[0], **card})
+        "bound_ms_cli": bound_ms(*mlr_cost(64, 4, 128))[0],
+        "ms_nc": device_ms(torch, lambda: hyp_mlr(*mlr_args["nc"])),
+        "plain_ms_nc": device_ms(torch, lambda: hyp_mlr_plain(
+            *mlr_args["nc"]), reps=5),
+        "bound_ms_nc": bound_ms(*mlr_cost(*MLR_NC_SHAPE))[0],
+        "bound_by_nc": bound_ms(*mlr_cost(*MLR_NC_SHAPE))[1],
+        "shape_nc": list(MLR_NC_SHAPE), **card})
     return entries
 
 
@@ -2028,9 +2059,10 @@ def ivf_pq_kernel_entries(torch, ip: dict, card: dict) -> list:
 
 # the row-wise ops' path shapes: the WordNet-noun table (BASELINE.json
 # configs[0], the RSGD/RAdam update's shape), arxiv nodes at HGCN's
-# feature width (configs[1]), the TPU smoke's own (B 256, D 48)
+# feature width (configs[1]), the TPU smoke's own (B 256, D 48), and the
+# WordNet rows at the HVAE latent's width (configs/hvae_mnist.yaml, d 8)
 ROW_SHAPES = {"wordnet": (ROWS, DIM), "arxiv": (169343, 128),
-              "smoke": (256, 48)}
+              "smoke": (256, 48), "d8": (ROWS, 8)}
 # hyp_linear's: arxiv rows through 128 → 128 and HGCN's hidden 128 → 32,
 # and the TPU smoke's 48 → 32
 LINEAR_SHAPES = {"arxiv_128": (169343, 128, 128),
@@ -2200,12 +2232,13 @@ def gyro_path(torch, args, card: dict) -> dict:
             err[op] = max(err[op], check_gyro(
                 torch, op, label, got, again, row_call(op, ts, c, plain=True),
                 ROW_RTOL, ROW_ATOL))
-        ts = [t.to(torch.bfloat16) for t in row_inputs(
-            torch, gen, op, ROW_SHAPES["arxiv"], 1.0, dev)]
-        check_gyro(torch, op, "bf16 arxiv", row_call(op, ts, 1.0),
-                   row_call(op, ts, 1.0),
-                   row_call(op, [t.float() for t in ts], 1.0, plain=True),
-                   ROW_RTOL, ROW_ATOL)
+        for name in ("arxiv", "wordnet"):       # the G-lane and packed paths
+            ts = [t.to(torch.bfloat16) for t in row_inputs(
+                torch, gen, op, ROW_SHAPES[name], 1.0, dev)]
+            check_gyro(torch, op, f"bf16 {name}", row_call(op, ts, 1.0),
+                       row_call(op, ts, 1.0),
+                       row_call(op, [t.float() for t in ts], 1.0, plain=True),
+                       ROW_RTOL, ROW_ATOL)
         # gradients to every tensor and to device tensors c and r
         ts = [t.requires_grad_() for t in row_inputs(
             torch, gen, op, ROW_SHAPES["smoke"], 0.8, dev)]
@@ -2458,7 +2491,7 @@ def gyro_kernel_entries(torch, gp: dict, card: dict) -> list:
              "plain_ms": device_ms(torch, runs["arxiv"][1], reps=5),
              "bound_ms": bd, "bound_by": bby, "library_ms": None,
              "call_ms": timed_ms(torch, runs["arxiv"][0])}
-        for name in ("wordnet", "smoke"):
+        for name in ("wordnet", "smoke", "d8"):
             side_ms(torch, e, f"ms_{name}", runs[name][0])
             e[f"bound_ms_{name}"] = bound_ms(*row_cost(op,
                                                        *ROW_SHAPES[name]))[0]
@@ -2789,8 +2822,12 @@ def main(argv=None) -> int:
                                             cold)
     emit({"phase": "throughput", "bucket": BATCH, "k": K,
           "manifold": "poincare", "rows": ROWS, **throughput, **card})
+    # the launch floor: an empty kernel launched as the kernels are
+    # (benchmarks/launch_floor.py), the least any launch here costs
+    from hyperspace_torch.benchmarks.launch_floor import floor_ms
+    floor = floor_ms()
     print(smi, flush=True)
-    emit({"kernels": kernels})
+    emit({"kernels": kernels, "floor_ms": floor})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -9,7 +9,11 @@ products ⟨x,p⟩, ⟨x,a⟩, ‖x‖², ‖p‖², ⟨p,a⟩ and ‖a‖², so
 intermediate of the naive form (``nn.mlr.hyp_mlr_logits``) never exists.
 
 :func:`hyp_mlr` launches ``csrc/mlr.cu`` for CUDA tensors (f32) and runs
-:func:`hyp_mlr_plain` (the XLA twin ``_t_hyp_mlr``) for CPU tensors.  Its
+:func:`hyp_mlr_plain` (the XLA twin ``_t_hyp_mlr``) for CPU tensors.  The
+launch follows :func:`mlr_plan`: a warp a logit for a few thousand logits
+(HyboNet's heads), else row tiles on the tensor cores with a block's
+classes staged once (HGCN node classification's [169,343, 40, 32]), and
+a warp a logit again for rows too wide for the tiles' shared memory.  Its
 gradient is the VJP of the plain version recomputed in the backward, as
 ``_mlr_bwd`` does: the JAX package has no backward kernel either.
 """
@@ -17,6 +21,7 @@ gradient is the VJP of the plain version recomputed in the backward, as
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -48,17 +53,107 @@ def hyp_mlr_plain(x: torch.Tensor, p: torch.Tensor, a: torch.Tensor,
     return (lam_p * a_norm / sc) * torch.asinh(arg)
 
 
+# csrc/mlr.cu's block: 8 warps, each a 16-row tile (or a share of one).
+# The plan models the block's shared memory to choose the class chunk;
+# the kernel sizes it itself and refuses a block the card cannot hold.
+WARPS, TILE_ROWS, SLICE = 8, 16, 16
+MAX_CHUNK = 64                 # classes a block stages: 8 n-tiles of 8
+NCONST = 8                     # per-class constants in shared memory
+SMEM_CAP = 232_448             # the H100's dynamic shared memory a block
+# a tile's depth is split across warps while the row tiles give the card
+# fewer warps than this (132 SMs × 8)
+SPLIT_BELOW_WARPS = 1056
+# launches of at most PAIR_LOGITS + PAIR_LOGITS_PER_CLASS·kc logits take
+# the pair kernel, a warp a (row, class) with no block barrier: its time
+# grows with the logits while a few row tiles cost the tile kernel a
+# floor that grows with its chunk of kc classes (HyboNet's heads and the
+# measured crossings, PERF.md §6)
+PAIR_LOGITS, PAIR_LOGITS_PER_CLASS = 4096, 256
+
+
+class MlrPlan(NamedTuple):
+    """A launch of ``csrc/mlr.cu``.  ``tile`` False: the pair kernel, a
+    warp a (row, class), and the other fields 0.  Else the tile kernel:
+    ``kc`` classes a block (a multiple of 8), ``chunks`` = ⌈k/kc⌉ blocks
+    along the classes (and ⌈n/16⌉ tiles in groups of 8/splits along the
+    rows), ``splits`` warps sharing a 16-row tile's 16-wide k slices, and
+    ``smem`` bytes of dynamic shared memory (:func:`mlr_smem`)."""
+    tile: bool
+    kc: int
+    chunks: int
+    splits: int
+    smem: int
+
+
+def mlr_pitch(d: int) -> int:
+    """Words a staged class row takes: d rounded up to 16-wide slices,
+    16 mod 32 (conflict-free 16-byte fragment loads)."""
+    slices = max(1, -(-d // SLICE))
+    return SLICE * slices + (SLICE if slices % 2 == 0 else 0)
+
+
+def mlr_smem(kc: int, splits: int, d: int) -> int:
+    """Bytes of shared memory of a block, as ``hs_hyp_mlr_smem`` gives
+    them: p and a staged [kc, pitch] as TF32 hi and lo parts, the class
+    constants, and each warp's region (its tile's [16, kc] logits, or its
+    partial fragments where the depth is split)."""
+    region = 32 * (kc + 2) if splits > 1 else TILE_ROWS * kc
+    return 4 * (4 * kc * mlr_pitch(d) + NCONST * kc + WARPS * region)
+
+
+PAIR = MlrPlan(False, 0, 0, 0, 0)
+
+
+def tile_plan(n: int, k: int, d: int) -> MlrPlan | None:
+    """The tile kernel's plan for x [n, d] and k classes: the widest
+    class chunk (at most 64, balanced over the chunks) whose block fits
+    in shared memory, and the depth split across up to 8 warps where the
+    row tiles are too few to fill the card; None for rows too wide for
+    any chunk (d above about 1,700)."""
+    slices = max(1, -(-d // SLICE))
+    tiles = -(-n // TILE_ROWS)
+    want = 1
+    while (2 * want <= min(WARPS, slices)
+           and 2 * want * tiles * -(-k // MAX_CHUNK) <= SPLIT_BELOW_WARPS):
+        want *= 2
+    for splits in dict.fromkeys((want, 1)):
+        for nt in range(min(MAX_CHUNK, -(-k // 8) * 8) // 8, 0, -1):
+            chunks = -(-k // (8 * nt))
+            per = -(-k // chunks)
+            kc = -(-per // 8) * 8
+            smem = mlr_smem(kc, splits, d)
+            if smem <= SMEM_CAP:
+                return MlrPlan(True, kc, -(-k // kc), splits, smem)
+    return None
+
+
+def mlr_plan(n: int, k: int, d: int) -> MlrPlan:
+    """The launch plan for x [n, d] and k classes: :func:`tile_plan`, or
+    the pair kernel for rows too wide for the tiles and for launches of
+    few logits (at most ``PAIR_LOGITS`` and ``PAIR_LOGITS_PER_CLASS`` a
+    class of the tile plan's chunk)."""
+    plan = tile_plan(n, k, d)
+    if plan is None or n * k <= (PAIR_LOGITS
+                                 + PAIR_LOGITS_PER_CLASS * plan.kc):
+        return PAIR
+    return plan
+
+
 def _launch(x: torch.Tensor, p: torch.Tensor, a: torch.Tensor,
             c: float) -> torch.Tensor:
     S.check_cuda("hyp_mlr", (torch.float32,), x, p, a)
     n, d = x.shape
     k = p.shape[0]
     out = torch.empty((n, k), dtype=torch.float32, device=x.device)
-    P, I = ctypes.c_void_p, ctypes.c_int
-    fn = S.function("mlr", "hs_hyp_mlr", [P, P, P, P, I, I, I,
-                                          ctypes.c_float, P])
+    if n == 0 or k == 0:
+        return out
+    plan = mlr_plan(n, k, d)
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn = S.function("mlr", "hs_hyp_mlr", [P, P, P, P, L, I, I,
+                                          ctypes.c_float, I, I, I, P])
     S.check(fn(x.data_ptr(), p.data_ptr(), a.data_ptr(), out.data_ptr(), n,
-               k, d, c, S.stream_ptr(x)), "hyp_mlr")
+               k, d, c, int(plan.tile), plan.kc, plan.splits,
+               S.stream_ptr(x)), "hyp_mlr")
     hyp_mlr.launches += 1
     return out
 

@@ -1320,10 +1320,22 @@ def test_flash_attention_gradients_match_dense_twin(dev):
     assert torch.all(grads[0][5] == 0)
 
 
-@pytest.mark.parametrize("n,k,d", [(256, 8, 128), (64, 4, 128),
-                                   (37, 5, 10), (3, 300, 33)])
-def test_hyp_mlr_kernel_matches_plain(dev, n, k, d):
-    from hyperspace_torch.kernels.mlr import hyp_mlr, hyp_mlr_plain
+@pytest.mark.parametrize("n,k,d,tile", [
+    # the pair kernel (few logits): HyboNet's heads and small cases
+    (256, 8, 128, False), (64, 4, 128, False), (37, 5, 10, False),
+    (3, 300, 33, False), (2, 8, 64, False), (517, 1, 32, False),
+    (77, 40, 200, False), (5, 1, 200, False),
+    (300, 40, 2000, False),       # rows too wide for the tiles' staging
+    # the tile kernel: HGCN node classification's head (ogbn-arxiv: 40
+    # classes, ball d 32), a row count off the block's 8 tiles of 16, K =
+    # 1, d = 200 (the depth split across 8 warps), 300 classes (5 chunks,
+    # the depth split across 2 warps, d off a multiple of 4)
+    (169343, 40, 32, True), (1003, 40, 32, True), (20000, 1, 32, True),
+    (1003, 40, 200, True), (1003, 300, 33, True)])
+def test_hyp_mlr_kernel_matches_plain(dev, n, k, d, tile):
+    from hyperspace_torch.kernels.mlr import hyp_mlr, hyp_mlr_plain, mlr_plan
+
+    assert mlr_plan(n, k, d).tile == tile
 
     rng = np.random.default_rng(n + k)
 
@@ -1338,10 +1350,43 @@ def test_hyp_mlr_kernel_matches_plain(dev, n, k, d):
                         device=dev)
     before = hyp_mlr.launches
     got = hyp_mlr(x, p, a, 1.0)
+    again = hyp_mlr(x, p, a, 1.0)
     torch.cuda.synchronize()
-    assert hyp_mlr.launches == before + 1
+    assert hyp_mlr.launches == before + 2
+    assert torch.equal(got, again)
     torch.testing.assert_close(got, hyp_mlr_plain(x, p, a, 1.0), rtol=1e-4,
                                atol=1e-5)
+
+
+def test_hyp_mlr_plan_models_the_kernels_shared_memory(dev):
+    # the wrapper chooses the class chunk from its model of the tile
+    # block's shared memory; the kernel sizes the block itself
+    import ctypes
+
+    from hyperspace_torch.kernels import _support as S
+    from hyperspace_torch.kernels import mlr as M
+
+    fn = S.library("mlr").hs_hyp_mlr_smem
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_longlong
+    for d in (1, 15, 16, 17, 32, 33, 64, 200, 1024, 1700, 2000):
+        for kc in range(8, M.MAX_CHUNK + 1, 8):
+            for splits in (1, 2, 4, 8):
+                assert fn(kc, splits, d) == M.mlr_smem(kc, splits, d)
+    optin = torch.cuda.get_device_properties(dev)
+    optin = getattr(optin, "shared_memory_per_block_optin", M.SMEM_CAP)
+    assert M.SMEM_CAP <= optin
+    # a plan the card cannot hold is refused, not launched
+    x = torch.zeros((16, 2000), device=dev)
+    out = torch.empty((16, 64), device=dev)
+    hs = S.function("mlr", "hs_hyp_mlr", [
+        ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int,
+                                ctypes.c_int, ctypes.c_float] + [
+        ctypes.c_int] * 3 + [ctypes.c_void_p])
+    w = torch.zeros((64, 2000), device=dev)
+    err = hs(x.data_ptr(), w.data_ptr(), w.data_ptr(), out.data_ptr(), 16,
+             64, 2000, 1.0, 1, 64, 1, S.stream_ptr(x))
+    assert err != 0
 
 
 def test_hybonet_kernels_refuse_what_they_do_not_take(dev):
@@ -1433,7 +1478,8 @@ def assert_bf16_close(got, want32, rtol, atol):
 
 @pytest.mark.parametrize("c", [1.0, 0.5, 2.3])
 @pytest.mark.parametrize("shape", [(40, 10), (130, 7), (9, 128), (17, 200),
-                                   (3, 8, 48), (2, 1)])
+                                   (3, 8, 48), (2, 1), (5, 10), (1003, 8),
+                                   (70, 16), (82115, 10)])
 @pytest.mark.parametrize("op", ROW_OPS)
 def test_rowwise_kernels_match_plain(dev, op, shape, c):
     from hyperspace_torch.kernels import pointwise as PW
@@ -1460,34 +1506,95 @@ def test_mobius_scalar_mul_kernel_r(dev, r):
                                         plain=True), rtol=2e-4, atol=2e-5)
 
 
+@pytest.mark.parametrize("shape", [(500, 48), (1003, 10), (29, 8), (64, 5)])
 @pytest.mark.parametrize("op", ROW_OPS)
-def test_rowwise_kernels_bf16(dev, op):
+def test_rowwise_kernels_bf16(dev, op, shape):
     rng = np.random.default_rng(2)
-    ts = [t.to(torch.bfloat16) for t in row_args(rng, op, (500, 48), 1.0,
-                                                    dev)]
+    ts = [t.to(torch.bfloat16) for t in row_args(rng, op, shape, 1.0, dev)]
     got = call_row(op, ts, 1.0)
     want = call_row(op, [t.float() for t in ts], 1.0, plain=True)
     assert_bf16_close(got, want, 2e-4, 2e-5)
+    assert torch.equal(got, call_row(op, ts, 1.0))
 
 
-def test_rowwise_kernels_broadcast_margin_and_zero_rows(dev):
+@pytest.mark.parametrize("d", range(1, 17))
+@pytest.mark.parametrize("op", ROW_OPS)
+def test_rowwise_narrow_rows_match_plain(dev, op, d):
+    """Every width of the packed kernel (a lane a row, a warp 32 rows),
+    f32, bf16 and bf16 first with f32 after (read as f32, written as
+    bf16), at n below 32 and off a multiple of 32; repeats bitwise."""
+    from hyperspace_torch.kernels import pointwise as PW
+
+    fn = getattr(PW, op)
+    for n in (5, 1003):
+        rng = np.random.default_rng(100 * n + d)
+        ts = row_args(rng, op, (n, d), 0.7, dev)
+        kinds = [("f32", ts), ("bf16", [t.to(torch.bfloat16) for t in ts])]
+        if len(ts) > 1:
+            kinds.append(("bf16 first",
+                          [ts[0].to(torch.bfloat16), *ts[1:]]))
+        for kind, xs in kinds:
+            before = fn.launches
+            got, again = call_row(op, xs, 0.7), call_row(op, xs, 0.7)
+            torch.cuda.synchronize()
+            assert fn.launches == before + 2
+            assert torch.equal(got, again), (kind, n)
+            want = call_row(op, [t.float() for t in xs], 0.7, plain=True)
+            if kind == "f32":
+                torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-5)
+            else:
+                assert_bf16_close(got, want, 2e-4, 2e-5)
+
+
+@pytest.mark.parametrize("d", [3, 8, 10, 16])
+def test_rowwise_narrow_rows_broadcast_operands(dev, d):
+    """A [d] operand (row stride 0, read once a block) in each place of
+    the multi-operand ops, f32 and bf16, beside n = 1003 rows."""
+    from hyperspace_torch.kernels import pointwise as PW
+
+    rng = np.random.default_rng(d)
+    x = ball_rows(rng, (1003, d), 1.0, dev)
+    y = ball_rows(rng, (1003, d), 1.0, dev, 0.5)
+    b = ball_rows(rng, (d,), 1.0, dev, 0.3)
+    v = torch.as_tensor(rng.standard_normal((1003, d)) * 0.3,
+                        dtype=torch.float32, device=dev)
+    for op, ts in (("mobius_add", (x, b)), ("mobius_add", (b, x)),
+                   ("expmap", (x, b)), ("logmap", (b, y)),
+                   ("ptransp", (x, b, v)), ("ptransp", (b, y, v[0]))):
+        for dt in (torch.float32, torch.bfloat16):
+            xs = [t.to(dt) for t in ts]
+            got = call_row(op, xs, 1.0)
+            assert got.shape == (1003, d)
+            assert torch.equal(got, call_row(op, xs, 1.0))
+            want = call_row(op, [t.float() for t in xs], 1.0, plain=True)
+            if dt == torch.float32:
+                torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-5)
+            else:
+                assert_bf16_close(got, want, 2e-4, 2e-5)
+    assert PW.mobius_add(b, b, 1.0).shape == (d,)
+
+
+@pytest.mark.parametrize("n", [64, 5, 1003])
+def test_rowwise_kernels_broadcast_margin_and_zero_rows(dev, n):
     from hyperspace_torch.kernels import pointwise as PW
 
     rng = np.random.default_rng(3)
-    x = ball_rows(rng, (64, 10), 1.0, dev)
+    x = ball_rows(rng, (n, 10), 1.0, dev)
     b = ball_rows(rng, (10,), 1.0, dev, 0.3)
-    for y in (b, b[None, None, :].expand(2, 64, 10)):
+    for y in (b, b[None, None, :].expand(2, n, 10)):
         torch.testing.assert_close(PW.mobius_add(x, y, 1.0),
                                    PW.mobius_add_plain(x, y, 1.0),
                                    rtol=2e-4, atol=2e-5)
-    big = torch.as_tensor(rng.standard_normal((64, 10)) * 40.0,
+    big = torch.as_tensor(rng.standard_normal((n, 10)) * 40.0,
                           dtype=torch.float32, device=dev)
     x[3] = 0.0
-    big[5] = 0.0
+    big[n // 3] = 0.0
+    big[n - 1] = 0.0
     for op, ts in (("expmap", (x, big)), ("expmap0", (big,)),
                    ("logmap0", (x,)), ("mobius_add", (x, x)),
-                   ("ptransp", (x, x, big))):
+                   ("logmap", (x, x)), ("ptransp", (x, x, big))):
         got = call_row(op, ts, 1.3)
+        assert torch.equal(got, call_row(op, ts, 1.3))
         torch.testing.assert_close(got, call_row(op, ts, 1.3, plain=True),
                                    rtol=2e-4, atol=2e-5)
     edge = PW.expmap0(big, 1.3)
