@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving and training paths and its
-Poincaré ops on one GPU and check them.
+"""Drive the PyTorch/CUDA port's serving and training paths, its
+Poincaré ops and its Poincaré-embedding trainer on one GPU and check
+them.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -149,7 +150,41 @@ prints its seconds):
    through the batcher, the engine call alone, and the card's busy
    share), the launch floor (``floor_ms``: an empty kernel's device time,
    ``benchmarks/launch_floor.py``), the ``nvidia-smi`` line, and finally
-   ``{"ok": true, "device": {...}}``.
+   ``{"ok": true, "device": {...}}``; the times are taken before phases
+   24-29, which run last, and the kernels line gains their shapes
+   (``*_pe_*`` keys: device ms, plain ms, bound ms, ``index_add_``'s ms
+   for the segment sum, launches on the path and a step);
+24. Poincaré embeddings (``models/poincare_embed.py``) on the card against
+   the CPU: 5 explicit-batch steps of every path (dense, mined, sparse,
+   planned, packed) with RSGD and RAdam on a depth-3 tree from one start
+   read by ``state_from_jax``: tables within rel 1e-4;
+25. the path's kernels at its shapes against their plain versions,
+   launched twice for the same bits: ``pdist`` at [1024, 66,430, 10]
+   (queries are table rows, as in ``evaluate``: the self column is held
+   within 1e-2, apart), ``scan_topk`` on a 64-row mining pool with
+   duplicated rows (their lower slot first), ``expmap`` at [66,430, 10]
+   and [12,288, 10], ``ptransp`` at [597,871, 10] and [12,288, 10],
+   ``csr_segment_sum`` at [12,288, 10] on a planned step's slots; then
+   their device times;
+26. training on the depth-5, branching-9 tree (66,430 nodes, 323,847
+   pairs, 316 steps an epoch), dim 10, batch 1,024, 10 negatives, every
+   strategy of ``benchmarks/poincare_bench.py`` with RAdam and with RSGD:
+   an epoch (two where graphed, the first capturing), every loss finite,
+   the counts exact over the last epoch (1 ``expmap`` a step, 1
+   ``ptransp`` a RAdam step, 1 ``scan_topk`` a mined step, 1
+   ``csr_segment_sum`` a planned step, no ``pdist``); RAdam's loss falls
+   (last 50 steps' mean below the first 50's), RSGD's over 12 graphed
+   dense epochs; graphed epochs bitwise equal to the same steps run
+   eagerly from the same state and generator;
+27. ``evaluate`` before and after RAdam's two graphed epochs: 317
+   ``pdist`` launches, MAP rising, the kernel's MAP and mean rank within
+   1e-3 of the plain version's on the card;
+28. the bench leg (``run_poincare_bench``, 2 timed repeats): epoch seconds
+   of every strategy, the headline, step ms at the depth-6 table
+   (597,871 rows, RAdam), peak memory, and the device busy time and idle
+   share of 20 steps of each strategy;
+29. ``cli.train poincare --yaml configs/poincare_wordnet.yaml steps=300``:
+   MAP, mean rank and seconds.
 """
 
 from __future__ import annotations
@@ -2538,6 +2573,492 @@ def gyro_kernel_entries(torch, gp: dict, card: dict) -> list:
     return entries
 
 
+# --- phases 24-29: Poincaré embeddings with RSGD and RAdam ------------------
+
+PE_DEPTH, PE_BRANCH = 5, 9            # bench.py's WordNet-noun stand-in
+PE_ROWS, PE_PAIRS = 66_430, 323_847
+PE_BIG_ROWS = 597_871                 # the large table, depth 6
+PE_BATCH, PE_NEG, PE_POOL = 1024, 10, 64
+PE_SLOTS = PE_BATCH * (2 + PE_NEG)    # 12,288 flat slots of a planned step
+PE_EVAL_CHUNKS = -(-PE_PAIRS // 1024)  # 317 pdist launches an evaluation
+PE_CLI_YAML = "configs/poincare_wordnet.yaml"
+PE_CARD_CPU_RTOL = 1e-4
+PE_PROFILE_STEPS = 20
+# kernels launched a step by each strategy (all others 0, pdist included)
+PE_PER_STEP = {"dense": ("expmap",), "sparse": ("expmap",),
+               "planned": ("expmap", "csr_segment_sum"),
+               "dense_scan": ("expmap",),
+               "planned_scan": ("expmap", "csr_segment_sum"),
+               "mined": ("expmap", "scan_topk"),
+               "mined_scan": ("expmap", "scan_topk")}
+
+
+def pe_counts() -> dict:
+    from hyperspace_torch.models import poincare_embed as pe
+
+    return {f.__name__: f.launches for f in pe.path_counters()}
+
+
+def pe_reset() -> None:
+    from hyperspace_torch.models import poincare_embed as pe
+
+    for f in pe.path_counters():
+        f.launches = 0
+
+
+def pe_clone(torch, state):
+    """A copy of a trainer state: tensors cloned, the generator a new one
+    at the same position."""
+    import torch.utils._pytree as pytree
+
+    def one(x):
+        if isinstance(x, torch.Generator):
+            g = torch.Generator(device=x.device)
+            g.set_state(x.get_state())
+            return g
+        return x.clone() if isinstance(x, torch.Tensor) else x
+
+    return pytree.tree_map(one, state)
+
+
+def pe_start(torch, pe, cfg, rng, device, radam: bool):
+    """A JAX-``TrainState``-shaped start from numpy (table spread over the
+    ball, Adam moments mid-run), read by ``state_from_jax``."""
+    import collections
+
+    n, d = cfg.num_nodes, cfg.dim
+    v = rng.standard_normal((n, d))
+    table = (v / np.linalg.norm(v, axis=1, keepdims=True)
+             * rng.uniform(0.05, 0.6, (n, 1))).astype(np.float32)
+    if radam:
+        Opt = collections.namedtuple("RAdamState", "count mu nu")
+        opt = Opt(np.int32(7), (rng.standard_normal((n, d)) * 1e-3).astype(
+            np.float32), (rng.uniform(0, 1e-4, (n, 1))).astype(np.float32))
+    else:
+        opt = collections.namedtuple("RSGDState", "count")(np.int32(7))
+    js = collections.namedtuple("TrainState", "table opt_state key step")(
+        table, opt, None, np.int32(7))
+    return pe.state_from_jax(cfg, js, device=device)
+
+
+def pe_card_vs_cpu(torch, args) -> dict:
+    """Phase 24: five explicit-batch steps of every path, both
+    optimizers, on the card and on the CPU from one start."""
+    from hyperspace_torch.data.wordnet import synthetic_tree
+    from hyperspace_torch.models import poincare_embed as pe
+
+    ds = synthetic_tree(3, 3)
+    out = {}
+    for optimizer in ("rsgd", "radam"):
+        for path in ("dense", "mined", "sparse", "planned", "packed"):
+            cfg = pe.PoincareEmbedConfig(
+                num_nodes=ds.num_nodes, dim=5, batch_size=48, neg_samples=6,
+                burnin_steps=3, optimizer=optimizer,
+                neg_mode="mined" if path == "mined" else "uniform")
+            rng = np.random.default_rng(args.seed + 24)
+            u = ds.pairs[rng.integers(0, ds.num_pairs, (5, 48))]
+            neg = rng.integers(0, ds.num_nodes, (5, 48, 6))
+            pools = rng.integers(0, ds.num_nodes, (5, pe.mine_pool_size(cfg)))
+            tables = {}
+            for where in ("cuda", "cpu"):
+                st = pe_start(torch, pe, cfg, np.random.default_rng(
+                    args.seed), where, optimizer == "radam")
+                opt = pe.make_optimizer(cfg)
+                plan = pe.plan_from_indices(cfg, u[..., 0], u[..., 1], neg,
+                                            device=where)
+                if path == "packed":
+                    st = pe.pack_state(cfg, st)
+                for i in range(5):
+                    ids = [torch.as_tensor(a, device=where) for a in (
+                        u[i, :, 0], u[i, :, 1], neg[i])]
+                    if path == "dense":
+                        st, _ = pe.step_on_batch(cfg, opt, st, *ids)
+                    elif path == "mined":
+                        st, _ = pe.step_on_batch(
+                            cfg, opt, st, ids[0], ids[1], pool_idx=torch.
+                            as_tensor(pools[i], device=where))
+                    elif path == "sparse":
+                        st, _ = pe.sparse_step_on_batch(cfg, opt, st, *ids)
+                    elif path == "planned":
+                        st, _ = pe.train_step_sparse_planned(cfg, opt, st,
+                                                             plan)
+                    else:
+                        st, _ = pe.train_step_planned_packed(cfg, opt, st,
+                                                             plan)
+                tables[where] = (st.packed if path == "packed"
+                                 else st.table).cpu().double()
+            ref = tables["cpu"]
+            rel = float((tables["cuda"] - ref).abs().max()
+                        / ref.abs().max())
+            out[f"{optimizer}_{path}"] = rel
+            if not rel <= PE_CARD_CPU_RTOL:
+                raise AssertionError(f"poincare {optimizer} {path}: card and "
+                                     f"CPU tables differ by rel {rel}")
+    return out
+
+
+def pe_kernel_checks(torch, args, plan_row) -> dict:
+    """Phase 25: the four kernels at this path's shapes against their
+    plain versions on the card, each launched twice for the same bits."""
+    from hyperspace_torch.kernels.distmat import pdist, pdist_plain
+    from hyperspace_torch.kernels.scan_topk import scan_topk, scan_topk_plain
+    from hyperspace_torch.kernels import _support
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 25)
+    rng = np.random.default_rng(args.seed + 25)
+    err = {}
+    table = ball_tensor(torch, gen, (PE_ROWS, DIM), C, dev, 0.8)
+    u = torch.as_tensor(rng.integers(0, PE_ROWS, PE_BATCH), device=dev)
+    q = table[u].contiguous()
+    got = pdist(q, table, C, manifold="poincare")
+    again = pdist(q, table, C, manifold="poincare")
+    want = pdist_plain(q, table, C, manifold="poincare")
+    # the queries are table rows, as in evaluate: at d(u, u) = 0 the Gram
+    # form's rounding noise differs between the two (evaluate never ranks
+    # that column), so it is held apart, within 1e-2
+    diff = (got - want).abs()
+    self_err = float(diff[torch.arange(PE_BATCH, device=dev), u].max())
+    diff[torch.arange(PE_BATCH, device=dev), u] = 0.0
+    err["pdist"] = float(diff.max())
+    over = int((diff > ATOL + RTOL * want.abs()).sum())
+    same = bool(torch.equal(got, again))
+    emit({"phase": "check", "kernel": "pdist", "case": "pe_eval",
+          "shape": [PE_BATCH, PE_ROWS, DIM], "max_abs_err": err["pdist"],
+          "self_column_max_abs_err": self_err, "over_tolerance": over,
+          "repeat_equal": same})
+    if over or not same or not self_err <= 1e-2:
+        raise AssertionError(f"pdist pe_eval: {over} over, repeat {same}")
+    # a mining pool drawn with replacement, with forced duplicates: their
+    # rows tie exactly, and the lower pool slot must come first
+    pool_ids = rng.integers(0, PE_ROWS, PE_POOL)
+    pool_ids[40:48] = pool_ids[0:8]
+    pool = table[torch.as_tensor(pool_ids, device=dev)].contiguous()
+    qi = torch.zeros(PE_BATCH, dtype=torch.int32, device=dev)
+    d1, i1 = scan_topk(pool, q, qi, 0, spec=("poincare", C), k=PE_NEG,
+                       n=PE_POOL, exclude_self=False)
+    d1b, i1b = scan_topk(pool, q, qi, 0, spec=("poincare", C), k=PE_NEG,
+                         n=PE_POOL, exclude_self=False)
+    d2, i2 = scan_topk_plain(pool, q, qi, 0, kind="poincare", c=C, k=PE_NEG,
+                             n=PE_POOL, exclude_self=False)
+    bad = _support.topk_disagreements(
+        i1.cpu().numpy(), d1.cpu().numpy(), i2.cpu().numpy(),
+        d2.cpu().numpy(), rtol=RTOL, atol=ATOL)
+    ids = i1.cpu().numpy()
+    tie_order_bad = 0
+    for a in range(8):                 # slot a and slot 40 + a are one row
+        for row in ids:
+            pa, pb = np.flatnonzero(row == a), np.flatnonzero(row == 40 + a)
+            if len(pb) and (not len(pa) or pa[0] > pb[0]):
+                tie_order_bad += 1
+    same = bool(torch.equal(d1, d1b) and torch.equal(i1, i1b))
+    err["scan_topk"] = float((d1 - d2).abs().max())
+    emit({"phase": "check", "kernel": "scan_topk", "case": "pe_mine",
+          "shape": [PE_BATCH, PE_POOL, DIM, PE_NEG],
+          "max_abs_err": err["scan_topk"], "rows_disagreeing": bad,
+          "tie_order_wrong": tie_order_bad, "repeat_equal": same})
+    if bad or tie_order_bad or not same:
+        raise AssertionError(f"scan_topk pe_mine: {bad} rows disagree, "
+                             f"{tie_order_bad} ties out of order, repeat "
+                             f"{same}")
+    for op, shapes in (("expmap", ((PE_ROWS, DIM), (PE_SLOTS, DIM))),
+                       ("ptransp", ((PE_BIG_ROWS, DIM), (PE_SLOTS, DIM)))):
+        for shape in shapes:
+            ts = row_inputs(torch, gen, op, shape, C, dev)
+            got, again = row_call(op, ts, C), row_call(op, ts, C)
+            want = row_call(op, ts, C, plain=True)
+            err[op] = max(err.get(op, 0.0), check_gyro(
+                torch, op, f"pe_{shape[0]}", got, again, want, 2e-4, 2e-5))
+    err["csr_segment_sum"] = check_segsum(
+        torch, gen, "pe_planned", plan_row.seg_sorted, PE_SLOTS, DIM,
+        torch.float32)
+    return err, table
+
+
+def pe_epochs(torch, pe, run, pairs, epochs: int = 2):
+    """``epochs`` epochs of a bench runner: the counts set to 0 before
+    the last epoch and read after it (the first captures a graph, where
+    the strategy has one); returns (losses of all epochs, counts)."""
+    losses = []
+    for e in range(epochs):
+        if e == epochs - 1:
+            torch.cuda.synchronize()
+            pe_reset()
+        losses.append(run.epoch())
+    torch.cuda.synchronize()
+    return torch.cat(losses).cpu().numpy(), pe_counts()
+
+
+def pe_bitwise(torch, pe, name, cfg, pairs, plan, steps, seed):
+    """A graphed epoch against the same steps run eagerly from the same
+    state and generator: tables and losses bitwise equal."""
+    from hyperspace_torch.benchmarks import poincare_bench as PB
+
+    run = PB.make_runner(name, cfg, pairs, plan, steps, seed)
+    eager = pe_clone(torch, run.state)
+    graphed = run.epoch()
+    cfg_r = run.cfg
+    losses = []
+    for _ in range(steps):
+        if name == "planned_scan":
+            eager, loss = pe.train_step_planned_packed(cfg_r, run.opt, eager,
+                                                       plan)
+        else:
+            eager, loss = pe.train_step(cfg_r, run.opt, eager, pairs)
+        losses.append(loss)
+    a = run.state[0]
+    same_t = bool(torch.equal(a, eager[0]))
+    same_l = bool(torch.equal(graphed, torch.stack(losses)))
+    return {"table_bitwise": same_t, "losses_bitwise": same_l,
+            "max_abs_diff": float((a - eager[0]).abs().max())}
+
+
+def poincare_path(torch, args, card: dict) -> dict:
+    """Phases 24-29; returns what the kernels line needs."""
+    import contextlib
+    import dataclasses
+
+    from hyperspace_torch.benchmarks import poincare_bench as PB
+    from hyperspace_torch.cli import train as cli_train
+    from hyperspace_torch.data.wordnet import synthetic_tree
+    from hyperspace_torch.kernels.distmat import pdist_plain
+    from hyperspace_torch.models import poincare_embed as pe
+
+    dev = torch.device("cuda")
+    # --- phase 24: card against CPU ---------------------------------------
+    t0 = time.perf_counter()
+    rel = pe_card_vs_cpu(torch, args)
+    emit({"phase": "pe_card_vs_cpu", "max_rel_table_diff": rel,
+          "rtol": PE_CARD_CPU_RTOL, "seconds": time.perf_counter() - t0})
+
+    # --- phase 25: the kernels at this path's shapes ----------------------
+    t0 = time.perf_counter()
+    ds = synthetic_tree(PE_DEPTH, PE_BRANCH)
+    assert (ds.num_nodes, ds.num_pairs) == (PE_ROWS, PE_PAIRS)
+    cfg = PB.bench_config(ds.num_nodes)
+    steps = ds.num_pairs // cfg.batch_size
+    pairs = torch.as_tensor(ds.pairs, dtype=torch.int64, device=dev)
+    plan = pe.plan_sparse_steps(cfg, ds.pairs, steps, seed=args.seed,
+                                device=dev)
+    row0 = pe._plan_row(plan, torch.zeros((), dtype=torch.int64,
+                                          device=dev))
+    err, table = pe_kernel_checks(torch, args, row0)
+    times = pe_kernel_times(torch, table, row0)
+    emit({"phase": "pe_checks", "max_abs_err": err,
+          "seconds": time.perf_counter() - t0})
+
+    # --- phase 26: every strategy, both optimizers -------------------------
+    # one epoch of each stepwise strategy, two of each graphed one (the
+    # first captures the graph), the counts read over the last.  RAdam's
+    # loss falls within the first
+    # epoch at this scale; RSGD's (lr 0.3 on a mean loss, 66,430 rows)
+    # rises through burn-in and then falls by ~4e-4 an epoch, so its fall
+    # is held over twelve graphed dense epochs
+    t0 = time.perf_counter()
+    launches = {k: 0 for k in pe_counts()}
+    trained = None
+    for optimizer in ("radam", "rsgd"):
+        cfg_o = dataclasses.replace(cfg, optimizer=optimizer)
+        for name in PB.STRATEGIES:
+            run = PB.make_runner(name, cfg_o, pairs, plan, steps, args.seed)
+            if name == "dense_scan" and optimizer == "radam":
+                before = pe.evaluate(run.state.table, ds.pairs, C)
+            epochs = 12 if (name, optimizer) == ("dense_scan", "rsgd") \
+                else 2 if name.endswith("_scan") else 1
+            losses, counts = pe_epochs(torch, pe, run, pairs, epochs)
+            per = PE_PER_STEP[name] + (("ptransp",) if optimizer == "radam"
+                                       else ())
+            want = {k: steps if k in per else 0 for k in counts}
+            first, last = float(losses[:50].mean()), float(
+                losses[-50:].mean())
+            falls = optimizer == "radam" or epochs == 12
+            emit({"phase": "pe_train", "strategy": name,
+                  "optimizer": optimizer, "steps": len(losses),
+                  "launches_last_epoch": counts, "loss_first50": first,
+                  "loss_last50": last, "fall_held": falls,
+                  "seconds": time.perf_counter() - t0})
+            if counts != want:
+                raise AssertionError(f"poincare {optimizer} {name}: launches "
+                                     f"{counts}, want {want}")
+            if not np.all(np.isfinite(losses)) or (falls and not
+                                                   last < first):
+                raise AssertionError(
+                    f"poincare {optimizer} {name}: losses not finite or not "
+                    f"falling ({first} -> {last})")
+            for k, n in counts.items():
+                launches[k] += n
+            if name == "dense_scan" and optimizer == "radam":
+                trained = run.state.table
+    radam = dataclasses.replace(cfg, optimizer="radam")
+    bitwise = {}
+    for name, c in (("dense_scan", cfg), ("mined_scan_radam", radam),
+                    ("planned_scan_radam", radam)):
+        base = name.removesuffix("_radam")
+        pe_reset()
+        bitwise[name] = pe_bitwise(torch, pe, base, c, pairs, plan, steps,
+                                   args.seed + 1)
+        if c is radam:
+            n_pt = pe_counts()["ptransp"]
+            bitwise[name]["ptransp_launches"] = n_pt
+            if n_pt < steps:
+                raise AssertionError(f"{name}: ptransp launched {n_pt} "
+                                     f"times in {steps} Adam steps")
+        if not (bitwise[name]["table_bitwise"]
+                and bitwise[name]["losses_bitwise"]):
+            raise AssertionError(f"poincare {name}: the graphed epoch "
+                                 f"differs from eager: {bitwise[name]}")
+    emit({"phase": "pe_graphed_vs_eager", "steps": steps, **bitwise,
+          "seconds": time.perf_counter() - t0})
+
+    # --- phase 27: evaluation ----------------------------------------------
+    t0 = time.perf_counter()
+    pe_reset()
+    after = pe.evaluate(trained, ds.pairs, C)
+    n_pdist = pe_counts()["pdist"]
+    plain = pe.evaluate(trained, ds.pairs, C, dist_fn=pdist_plain)
+    emit({"phase": "pe_eval", "before": before, "after": after,
+          "plain_after": plain, "pdist_launches": n_pdist,
+          "seconds": time.perf_counter() - t0, **card})
+    if n_pdist != PE_EVAL_CHUNKS:
+        raise AssertionError(f"evaluate launched pdist {n_pdist} times, "
+                             f"want {PE_EVAL_CHUNKS}")
+    launches["pdist"] += n_pdist
+    if not after["map"] > before["map"]:
+        raise AssertionError(f"MAP did not rise: {before} -> {after}")
+    if not (abs(after["map"] - plain["map"]) <= 1e-3 and abs(
+            after["mean_rank"] - plain["mean_rank"])
+            <= 1e-3 * plain["mean_rank"]):
+        raise AssertionError(f"kernel and plain evaluations differ: "
+                             f"{after} vs {plain}")
+
+    # --- phase 28: the bench leg and the large table ------------------------
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    bench = PB.run_poincare_bench(repeats=2, device="cuda", seed=args.seed)
+    peak = torch.cuda.max_memory_allocated()
+    # device busy time and idle share of 20 steps of each strategy (a
+    # window of an epoch's ~20,000 device events is more than the
+    # profiler keeps reliably), against the same 20 steps unprofiled
+    busy = {}
+    plan20 = pe.SparsePlan(*(a[:PE_PROFILE_STEPS] for a in plan))
+    for name in PB.STRATEGIES:
+        run = PB.make_runner(name, cfg, pairs, plan20, PE_PROFILE_STEPS,
+                             args.seed)
+        run.epoch()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        run.epoch()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t1) * 1e3
+        busy[name] = {"wall_ms_20_steps": wall, **device_share(
+            torch, run.epoch, wall, reps=1)}
+    emit({"phase": "pe_bench", **{k: v for k, v in bench.items()
+                                  if k != "epochs"},
+          "epoch_spread": {n: e["spread"] for n, e in
+                           bench["epochs"].items()},
+          "step_ms": {n: e["s"] / steps * 1e3 for n, e in
+                      bench["epochs"].items()},
+          "device": busy, "peak_device_memory_bytes": peak,
+          "seconds": time.perf_counter() - t0, **card})
+
+    # --- phase 29: the CLI --------------------------------------------------
+    t0 = time.perf_counter()
+    pe_reset()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli_train.main(["poincare", "--yaml", os.path.join(REPO, PE_CLI_YAML),
+                        "steps=300"])
+    res = json.loads(out.getvalue().strip().splitlines()[-1])
+    counts = pe_counts()
+    emit({"phase": "pe_cli", "config": PE_CLI_YAML, **res,
+          "launches": counts, "seconds": time.perf_counter() - t0, **card})
+    if res["steps"] != 300 or not 0.0 < res["map"] <= 1.0:
+        raise AssertionError(f"poincare CLI: {res}")
+    return {"err": err, "launches": launches, "times": times}
+
+
+def pe_kernel_times(torch, table, row) -> dict:
+    """Device ms and bounds of the four kernels at this path's shapes
+    (taken before the path's CUDA graphs and long profiler windows), keyed
+    by kernel, under names ending in ``_pe_<shape>``."""
+    from hyperspace_torch.kernels.distmat import pdist, pdist_plain
+    from hyperspace_torch.kernels.scan_topk import scan_topk, scan_topk_plain
+    from hyperspace_torch.kernels.segment import (csr_segment_sum,
+                                                  csr_segment_sum_plain)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(29)
+    q = table[:PE_BATCH].contiguous()
+    pool = table[torch.randint(0, PE_ROWS, (PE_POOL,), generator=gen,
+                               device=dev)].contiguous()
+    qi = torch.zeros(PE_BATCH, dtype=torch.int32, device=dev)
+    vals = torch.randn(PE_SLOTS, DIM, generator=gen, device=dev)
+    recv = row.seg_sorted
+    r64 = recv.long()
+
+    def lib():
+        out = torch.zeros(PE_SLOTS, DIM, device=dev)
+        return out.index_add_(0, r64, vals)
+
+    t = {"pdist": {
+        "ms_pe_eval": device_ms(torch, lambda: pdist(
+            q, table, C, manifold="poincare")),
+        "plain_ms_pe_eval": device_ms(torch, lambda: pdist_plain(
+            q, table, C, manifold="poincare"), reps=5),
+        "bound_ms_pe_eval": bound_ms(*pdist_cost(PE_BATCH, PE_ROWS, DIM))[0],
+        "shape_pe_eval": [PE_BATCH, PE_ROWS, DIM]},
+        "scan_topk": {
+        "ms_pe_mine": device_ms(torch, lambda: scan_topk(
+            pool, q, qi, 0, spec=("poincare", C), k=PE_NEG, n=PE_POOL)),
+        "plain_ms_pe_mine": device_ms(torch, lambda: scan_topk_plain(
+            pool, q, qi, 0, kind="poincare", c=C, k=PE_NEG, n=PE_POOL,
+            exclude_self=False)),
+        "bound_ms_pe_mine": bound_ms(*scan_cost(
+            PE_BATCH, PE_POOL, PE_POOL, DIM, PE_NEG))[0],
+        "shape_pe_mine": [PE_BATCH, PE_POOL, DIM, PE_NEG]},
+        "csr_segment_sum": {
+        "ms_pe_planned": device_ms(torch, lambda: csr_segment_sum(
+            vals, recv, None, PE_SLOTS)),
+        "plain_ms_pe_planned": device_ms(
+            torch, lambda: csr_segment_sum_plain(vals, recv, PE_SLOTS)),
+        "library_ms_pe_planned": device_ms(torch, lib),
+        "bound_ms_pe_planned": bound_ms(*segment_cost(
+            PE_SLOTS, DIM, PE_SLOTS, 4))[0],
+        "shape_pe_planned": [PE_SLOTS, DIM]}}
+    for op, shapes in (("expmap", {"dense": (PE_ROWS, DIM),
+                                   "planned": (PE_SLOTS, DIM)}),
+                       ("ptransp", {"large": (PE_BIG_ROWS, DIM),
+                                    "planned": (PE_SLOTS, DIM)})):
+        t[op] = {}
+        for tag, shape in shapes.items():
+            ts = row_inputs(torch, gen, op, shape, C, dev)
+            t[op][f"ms_pe_{tag}"] = device_ms(
+                torch, lambda ts=ts: row_call(op, ts, C))
+            t[op][f"plain_ms_pe_{tag}"] = device_ms(
+                torch, lambda ts=ts: row_call(op, ts, C, plain=True), reps=5)
+            t[op][f"bound_ms_pe_{tag}"] = bound_ms(*row_cost(op, *shape))[0]
+            t[op][f"shape_pe_{tag}"] = list(shape)
+    return t
+
+
+def pe_kernel_fields(pp: dict, kernels: list) -> None:
+    """Add the Poincaré path's shapes to the kernels line: each kernel's
+    times there (:func:`pe_kernel_times`), its launches on the path
+    (``launches_pe``) and a step, and its largest error there."""
+    per_step = {"pdist": ("launches_per_eval_pe", PE_EVAL_CHUNKS),
+                "scan_topk": ("launches_per_mined_step_pe", 1),
+                "csr_segment_sum": ("launches_per_planned_step_pe", 1),
+                "expmap": ("launches_per_step_pe", 1),
+                "ptransp": ("launches_per_radam_step_pe", 1)}
+    for e in kernels:
+        name = e["name"]
+        if name in pp["times"]:
+            key, n = per_step[name]
+            e.update(pp["times"][name])
+            e.update({"launches_pe": pp["launches"][name], key: n,
+                      "max_abs_err_pe": pp["err"][name]})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2746,6 +3267,7 @@ def main(argv=None) -> int:
     # --- phases 20-22: the Poincaré ops and the gyro-linear layer ----------
     gp = gyro_path(torch, args, card)
 
+
     # --- phase 23: times ---------------------------------------------------
     # kernel and plain times are device times from the profiler at the
     # main path's shapes; call_ms adds the host's launch path (CUDA
@@ -2826,6 +3348,13 @@ def main(argv=None) -> int:
     # (benchmarks/launch_floor.py), the least any launch here costs
     from hyperspace_torch.benchmarks.launch_floor import floor_ms
     floor = floor_ms()
+
+    # --- phases 24-29: Poincaré embeddings, RSGD and RAdam ----------------
+    # last: its CUDA graphs and epoch-long profiler windows come after
+    # every other device time is taken (its own kernel times are taken
+    # before its graphs)
+    pp = poincare_path(torch, args, card)
+    pe_kernel_fields(pp, kernels)
     print(smi, flush=True)
     emit({"kernels": kernels, "floor_ms": floor})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

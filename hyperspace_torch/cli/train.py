@@ -1,21 +1,30 @@
 """Training entry point: ``python -m hyperspace_torch.cli.train``
-(counterpart of ``hyperspace_tpu/cli/train.py``, the ``hybonet``
-workload).
+(counterpart of ``hyperspace_tpu/cli/train.py``, the ``hybonet`` and
+``poincare`` workloads).
 
     python -m hyperspace_torch.cli.train hybonet --yaml configs/hybonet_textclf.yaml
     python -m hyperspace_torch.cli.train hybonet steps=200 dim=64 device=cpu
+    python -m hyperspace_torch.cli.train poincare --yaml configs/poincare_wordnet.yaml
 
 ``--yaml`` reads a flat ``key: value`` file (the repository's configs);
 ``key=value`` arguments override it.  Run keys (``steps``, ``seed``,
-``data_root``, ``precision``, ``accum``, ``log``, ``device``) go to
-:class:`RunConfig`, the rest to the workload's config; an unknown key is
-a usage error.  ``accum`` must be 1 (gradient accumulation is not
-ported).  ``log=PATH`` appends one ``{"step", "loss"}`` JSON line per
-step at the end of the run.  ``device=cuda`` is the default; ``device=cpu``
-runs the kernels' plain versions.  Prints one JSON line,
-``{"workload", "source", "loss", "accuracy"}``: the last step's loss and
-the accuracy on the held-out 20 %.  Checkpoints, telemetry, chaos,
-scanned chunks and meshes are not ported.
+``data_root``, ``precision``, ``accum``, ``log``, ``device``,
+``scan_chunk``, ``host_table``) go to :class:`RunConfig`, the rest to
+the workload's config; an unknown key is a usage error.  ``accum`` must
+be 1 (gradient accumulation is not ported).  ``log=PATH`` appends one
+``{"step", "loss"}`` JSON line per step at the end of the run.
+``device=cuda`` is the default; ``device=cpu`` runs the kernels' plain
+versions.
+
+``hybonet`` prints ``{"workload", "source", "loss", "accuracy"}``: the
+last step's loss and the accuracy on the held-out 20 %.  ``poincare``
+trains Poincaré embeddings on the closure TSV at ``data_root`` (a file;
+without it the synthetic tree of depth 5, branching 4) and prints
+``{"workload", "steps", "mean_rank", "map"}``; ``scan_chunk=K`` runs K
+steps a chunk (one CUDA graph replayed K times on the card, the step
+budget rounded up to a multiple of K; dense steps only).  Checkpoints,
+telemetry, chaos, meshes and the host-resident table (``host_table=1``)
+are not ported.
 """
 
 from __future__ import annotations
@@ -26,6 +35,8 @@ import json
 import math
 import os
 
+import torch
+
 from hyperspace_torch import precision as precision_lib
 from hyperspace_torch.cli.serve import _coerce, _json_safe, apply_overrides
 
@@ -34,11 +45,15 @@ from hyperspace_torch.cli.serve import _coerce, _json_safe, apply_overrides
 class RunConfig:
     steps: int = 500
     seed: int = 0
-    data_root: str | None = None  # directory holding ``<dataset>.tsv``
+    # hybonet: a directory holding ``<dataset>.tsv``; poincare: the
+    # closure TSV itself
+    data_root: str | None = None
     precision: str = "f32"        # f32 | bf16, copied into the workload
     accum: int = 1                # microbatches per update (1 only)
     log: str | None = None        # JSONL path of per-step losses
     device: str = "cuda"          # cuda | cpu
+    scan_chunk: int = 1           # steps a chunk (poincare, dense steps)
+    host_table: bool = False      # the beyond-HBM table: not ported
 
 
 def split_overrides(pairs: list[str], run: RunConfig):
@@ -71,6 +86,13 @@ def read_flat_yaml(path: str) -> list[str]:
     return pairs
 
 
+def _write_log(path: str, losses) -> None:
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "a") as f:
+        for i, x in enumerate(losses, 1):
+            f.write(json.dumps(_json_safe({"step": i, "loss": x})) + "\n")
+
+
 def run_hybonet(run: RunConfig, overrides: dict) -> dict:
     from hyperspace_torch.data import text as T
     from hyperspace_torch.models import hybonet
@@ -87,13 +109,51 @@ def run_hybonet(run: RunConfig, overrides: dict) -> dict:
                               max_len=ds.tokens.shape[1]), overrides)
     model, losses = hybonet.train(cfg, tr, run.steps, run.seed, run.device)
     if run.log:
-        os.makedirs(os.path.dirname(os.path.abspath(run.log)), exist_ok=True)
-        with open(run.log, "a") as f:
-            for i, x in enumerate(losses, 1):
-                f.write(json.dumps(_json_safe({"step": i, "loss": x})) + "\n")
+        _write_log(run.log, losses)
     res = hybonet.evaluate(model, te)
     return {"workload": "hybonet", "source": source,
             "loss": losses[-1] if losses else math.nan, **res}
+
+
+def run_poincare(run: RunConfig, overrides: dict) -> dict:
+    from hyperspace_torch.data import wordnet
+    from hyperspace_torch.kernels._support import resolve_device
+    from hyperspace_torch.manifolds import PoincareBall
+    from hyperspace_torch.models import poincare_embed as pe
+    from hyperspace_torch.train import loop
+
+    if run.host_table:
+        raise SystemExit("host_table=1: the host-resident embedding table "
+                         "is not ported")
+    if run.data_root:
+        ds = wordnet.load_closure_tsv(run.data_root)
+    else:
+        ds = wordnet.synthetic_tree(depth=5, branching=4)
+    overrides.setdefault("precision", run.precision)
+    cfg = apply_overrides(pe.PoincareEmbedConfig(num_nodes=ds.num_nodes),
+                          overrides)
+    if run.scan_chunk > 1 and cfg.sparse:
+        raise SystemExit(
+            "scan_chunk>1 chunks the dense step only — drop sparse=true or "
+            "scan_chunk (the planned-sparse epoch is "
+            "poincare_embed.train_epoch_planned_packed)")
+    dev = resolve_device(run.device)
+    state, opt = pe.init_state(cfg, run.seed, dev)
+    pairs = torch.as_tensor(ds.pairs, dtype=torch.int64, device=dev)
+    step_fn = pe.make_train_step(cfg)
+    k = max(int(run.scan_chunk), 1)
+    stepper = loop.make_chunked_stepper(
+        lambda st, p: step_fn(cfg, opt, st, p), k,
+        counters=pe.path_counters())
+    losses = []
+    for _ in range(loop.round_steps_to_chunk(run.steps, k) // k):
+        state, loss = stepper(state, pairs)
+        losses.append(loss.reshape(-1))
+    if run.log and losses:
+        _write_log(run.log, torch.cat(losses).tolist())
+    table = PoincareBall(cfg.c).proj(state.table)
+    res = pe.evaluate(table, ds.pairs, cfg.c)
+    return {"workload": "poincare", "steps": int(state.step), **res}
 
 
 def hgcn_mode_defaults(base, overrides: dict, sampled: bool):
@@ -110,7 +170,7 @@ def hgcn_mode_defaults(base, overrides: dict, sampled: bool):
     return base
 
 
-WORKLOADS = {"hybonet": run_hybonet}
+WORKLOADS = {"hybonet": run_hybonet, "poincare": run_poincare}
 
 
 def main(argv: list[str] | None = None) -> int:

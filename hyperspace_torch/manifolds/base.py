@@ -1,9 +1,11 @@
-"""The defaults every manifold shares (counterpart of
-``hyperspace_tpu/manifolds/base.py``, its ``Manifold`` defaults).
+"""The Manifold interface every geometry implements (counterpart of
+``hyperspace_tpu/manifolds/base.py``).
 
-A subclass supplies ``proj``, ``proju``, ``expmap``, ``logmap``,
-``inner``, ``ptransp`` and ``origin``; the methods here are written in
-terms of those.  ``origin`` takes ``(shape, dtype, device)``, the port's
+A subclass supplies the abstract core — ``proj``, ``proju``, ``expmap``,
+``logmap``, ``sqdist``, ``inner``, ``ptransp``, ``egrad2rgrad`` and
+``origin`` — and the defaults here are written in terms of it;
+``check_point`` and ``health_stats`` are defaults that curved manifolds
+override with their own residual.  ``origin`` takes ``(shape, dtype, device)``, the port's
 explicit device, and ``random_normal`` a ``torch.Generator`` where JAX
 takes a key.
 """
@@ -18,8 +20,57 @@ from hyperspace_torch.manifolds import smath
 
 
 class Manifold:
-    """Shared defaults; the flat (Euclidean) forms of the origin chart and
-    of ``logdetexp``, which curved manifolds override."""
+    """A Riemannian manifold: the core that a subclass must supply raises
+    ``NotImplementedError`` here (JAX's abstract methods); the flat
+    (Euclidean) forms of the origin chart, of ``logdetexp`` and of the
+    constraint residual are defaults that curved manifolds override.
+    Points and tangents are batched over leading axes, the manifold
+    dimension the last axis."""
+
+    name: str = "manifold"
+
+    # --- core geometry --------------------------------------------------------
+
+    def proj(self, x: torch.Tensor) -> torch.Tensor:
+        """Project an ambient point onto the manifold (numerical guard)."""
+        raise NotImplementedError(type(self).__name__ + ".proj")
+
+    def proju(self, x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+        """Project an ambient vector onto the tangent space at ``x``."""
+        raise NotImplementedError(type(self).__name__ + ".proju")
+
+    def expmap(self, x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        """Exponential map of tangent ``v`` at point ``x``."""
+        raise NotImplementedError(type(self).__name__ + ".expmap")
+
+    def logmap(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """Logarithm map of ``y`` at base point ``x``."""
+        raise NotImplementedError(type(self).__name__ + ".logmap")
+
+    def sqdist(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """Squared geodesic distance over the last axis."""
+        raise NotImplementedError(type(self).__name__ + ".sqdist")
+
+    def inner(self, x: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+              keepdim: bool = False) -> torch.Tensor:
+        """Riemannian inner product of tangents ``u``, ``v`` at ``x``."""
+        raise NotImplementedError(type(self).__name__ + ".inner")
+
+    def ptransp(self, x: torch.Tensor, y: torch.Tensor,
+                v: torch.Tensor) -> torch.Tensor:
+        """Parallel transport of tangent ``v`` from ``x`` to ``y``."""
+        raise NotImplementedError(type(self).__name__ + ".ptransp")
+
+    def egrad2rgrad(self, x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+        """Euclidean gradient → Riemannian gradient at ``x``."""
+        raise NotImplementedError(type(self).__name__ + ".egrad2rgrad")
+
+    def origin(self, shape, dtype: torch.dtype = torch.float32,
+               device=None) -> torch.Tensor:
+        """The canonical base point broadcast to ``shape``."""
+        raise NotImplementedError(type(self).__name__ + ".origin")
+
+    # --- defaults -------------------------------------------------------------
 
     def dist(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         return smath.safe_sqrt(self.sqdist(x, y))

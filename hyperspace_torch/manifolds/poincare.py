@@ -27,7 +27,7 @@ class PoincareBall(Manifold):
     name = "poincare"
 
     def _c(self, like: torch.Tensor) -> torch.Tensor:
-        return torch.as_tensor(self.c, dtype=like.dtype, device=like.device)
+        return smath.as_scalar(self.c, like)
 
     def lambda_x(self, x: torch.Tensor, keepdim: bool = True) -> torch.Tensor:
         """Conformal factor 2 / (1 − c‖x‖²), the denominator clamped."""

@@ -108,10 +108,19 @@ def safe_norm(x: torch.Tensor, keepdim: bool = True) -> torch.Tensor:
     return safe_sqrt(sq_norm(x, keepdim=keepdim))
 
 
+def as_scalar(c, like: torch.Tensor) -> torch.Tensor:
+    """``c`` as a 0-dim tensor of ``like``'s dtype and device: a tensor is
+    cast (its gradient kept), a Python number filled in place on the
+    device (no host-to-device copy, so a CUDA graph can capture it)."""
+    if isinstance(c, torch.Tensor):
+        return c.to(dtype=like.dtype, device=like.device)
+    return torch.full((), c, dtype=like.dtype, device=like.device)
+
+
 def sqrt_c(c, like: torch.Tensor) -> torch.Tensor:
     """sqrt of the curvature magnitude, as a scalar tensor of ``like``'s
     dtype and device."""
-    return safe_sqrt(torch.as_tensor(c, dtype=like.dtype, device=like.device))
+    return safe_sqrt(as_scalar(c, like))
 
 
 def curvature(c, dtype: torch.dtype):

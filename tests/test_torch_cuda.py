@@ -1756,3 +1756,182 @@ def test_gyro_stack_on_the_card_matches_the_cpu(dev):
     np.testing.assert_allclose(res["cuda"][0], res["cpu"][0], rtol=1e-4)
     for a, b in zip(res["cuda"][1:], res["cpu"][1:]):
         assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+# --- the Poincaré-embedding path (RSGD / RAdam) ------------------------------
+
+PE_ROWS, PE_SLOTS = 66_430, 12_288
+
+
+def _pe_ball(gen, shape, dev, radius=0.8):
+    from hyperspace_torch.manifolds import PoincareBall
+
+    v = torch.randn(shape, generator=gen, device=dev) * (
+        radius / np.sqrt(shape[-1]))
+    return PoincareBall(1.0).expmap0(v).contiguous()
+
+
+def test_pe_pdist_at_the_evaluation_shape(dev):
+    gen = torch.Generator(device=dev).manual_seed(0)
+    table = _pe_ball(gen, (PE_ROWS, 10), dev)
+    u = torch.randint(0, PE_ROWS, (1024,), generator=gen, device=dev)
+    q = table[u].contiguous()
+    got = pdist(q, table, 1.0, manifold="poincare")
+    assert torch.equal(got, pdist(q, table, 1.0, manifold="poincare"))
+    want = pdist_plain(q, table, 1.0, manifold="poincare")
+    # queries are table rows, as in evaluate: the self column (d = 0, the
+    # Gram form's rounding noise) is held apart, within 1e-2
+    rows = torch.arange(1024, device=dev)
+    assert float((got - want)[rows, u].abs().max()) <= 1e-2
+    got[rows, u] = want[rows, u]
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+
+
+def test_pe_scan_topk_on_a_mining_pool_with_duplicates(dev):
+    gen = torch.Generator(device=dev).manual_seed(1)
+    table = _pe_ball(gen, (PE_ROWS, 10), dev)
+    ids = torch.randint(0, PE_ROWS, (64,), generator=gen, device=dev)
+    ids[40:48] = ids[:8]
+    pool = table[ids].contiguous()
+    q = table[:1024].contiguous()
+    qi = torch.zeros(1024, dtype=torch.int32, device=dev)
+    d1, i1 = scan_topk(pool, q, qi, 0, spec=("poincare", 1.0), k=10, n=64)
+    d1b, i1b = scan_topk(pool, q, qi, 0, spec=("poincare", 1.0), k=10, n=64)
+    assert torch.equal(d1, d1b) and torch.equal(i1, i1b)
+    d2, i2 = scan_topk_plain(pool, q, qi, 0, kind="poincare", c=1.0, k=10,
+                             n=64, exclude_self=False)
+    assert topk_disagreements(i1.cpu().numpy(), d1.cpu().numpy(),
+                              i2.cpu().numpy(), d2.cpu().numpy(),
+                              rtol=RTOL, atol=ATOL) == 0
+    for row in i1.cpu().numpy():        # the lower slot of a tie first
+        for a in range(8):
+            pa, pb = np.flatnonzero(row == a), np.flatnonzero(row == 40 + a)
+            assert not len(pb) or (len(pa) and pa[0] < pb[0])
+
+
+@pytest.mark.parametrize("op,n", [("expmap", PE_ROWS), ("expmap", PE_SLOTS),
+                                  ("ptransp", 597_871),
+                                  ("ptransp", PE_SLOTS)])
+def test_pe_row_ops_at_the_update_shapes(dev, op, n):
+    from hyperspace_torch import kernels as K
+    from hyperspace_torch.kernels import pointwise as PW
+
+    gen = torch.Generator(device=dev).manual_seed(n)
+    x = _pe_ball(gen, (n, 10), dev)
+    y = _pe_ball(gen, (n, 10), dev, 0.5)
+    v = torch.randn((n, 10), generator=gen, device=dev) * 0.2
+    args = (x, v) if op == "expmap" else (x, y, v)
+    got = getattr(K, op)(*args, 1.0)
+    assert torch.equal(got, getattr(K, op)(*args, 1.0))
+    want = getattr(PW, op + "_plain")(*args, 1.0)
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-5)
+
+
+def test_pe_segment_sum_at_the_planned_shape(dev):
+    from hyperspace_torch.data.wordnet import synthetic_tree
+    from hyperspace_torch.models import poincare_embed as pe
+
+    ds = synthetic_tree(5, 9)
+    cfg = pe.PoincareEmbedConfig(num_nodes=ds.num_nodes, batch_size=1024)
+    plan = pe.plan_sparse_steps(cfg, ds.pairs, 2, device=dev)
+    recv = plan.seg_sorted[1].contiguous()
+    gen = torch.Generator(device=dev).manual_seed(2)
+    vals = torch.randn(PE_SLOTS, 10, generator=gen, device=dev)
+    got = csr_segment_sum(vals, recv, None, PE_SLOTS)
+    assert torch.equal(got, csr_segment_sum(vals, recv, None, PE_SLOTS))
+    torch.testing.assert_close(
+        got, csr_segment_sum_plain(vals, recv, PE_SLOTS), rtol=1e-5,
+        atol=1e-5)
+
+
+def _pe_clone(state):
+    import torch.utils._pytree as pytree
+
+    def one(x):
+        if isinstance(x, torch.Generator):
+            g = torch.Generator(device=x.device)
+            g.set_state(x.get_state())
+            return g
+        return x.clone() if isinstance(x, torch.Tensor) else x
+
+    return pytree.tree_map(one, state)
+
+
+@pytest.mark.parametrize("optimizer", ["rsgd", "radam"])
+@pytest.mark.parametrize("path", ["dense", "mined", "planned"])
+def test_pe_graphed_epoch_equals_eager_steps(dev, optimizer, path):
+    from hyperspace_torch.data.wordnet import synthetic_tree
+    from hyperspace_torch.models import poincare_embed as pe
+
+    ds = synthetic_tree(4, 6)
+    cfg = pe.PoincareEmbedConfig(
+        num_nodes=ds.num_nodes, dim=10, batch_size=256, neg_samples=10,
+        optimizer=optimizer, burnin_steps=5,
+        neg_mode="mined" if path == "mined" else "uniform")
+    pairs = torch.as_tensor(ds.pairs, dtype=torch.int64, device=dev)
+    st, opt = pe.init_state(cfg, 3, dev)
+    if path == "planned":
+        plan = pe.plan_sparse_steps(cfg, ds.pairs, 12, device=dev)
+        st = pe.pack_state(cfg, st)
+    eager = _pe_clone(st)
+    for _ in range(2):                       # the second chunk replays
+        if path == "planned":
+            st, losses = pe.train_epoch_planned_packed(cfg, opt, st, plan)
+        else:
+            st, losses = pe.train_epoch_scan(cfg, opt, st, pairs, 12)
+        steps = []
+        for _ in range(12):
+            if path == "planned":
+                eager, loss = pe.train_step_planned_packed(cfg, opt, eager,
+                                                           plan)
+            else:
+                eager, loss = pe.train_step(cfg, opt, eager, pairs)
+            steps.append(loss)
+        assert torch.equal(st[0], eager[0])
+        assert torch.equal(losses, torch.stack(steps))
+
+
+@pytest.mark.parametrize("optimizer", ["rsgd", "radam"])
+@pytest.mark.parametrize("path", ["dense", "mined", "sparse", "planned",
+                                  "packed"])
+def test_pe_steps_on_the_card_match_the_cpu(dev, optimizer, path):
+    from hyperspace_torch.data.wordnet import synthetic_tree
+    from hyperspace_torch.models import poincare_embed as pe
+
+    ds = synthetic_tree(3, 3)
+    cfg = pe.PoincareEmbedConfig(
+        num_nodes=ds.num_nodes, dim=5, batch_size=48, neg_samples=6,
+        burnin_steps=2, optimizer=optimizer,
+        neg_mode="mined" if path == "mined" else "uniform")
+    rng = np.random.default_rng(4)
+    u = ds.pairs[rng.integers(0, ds.num_pairs, (5, 48))]
+    neg = rng.integers(0, ds.num_nodes, (5, 48, 6))
+    pools = rng.integers(0, ds.num_nodes, (5, 64))
+    tab = rng.standard_normal((ds.num_nodes, 5))
+    tab = (tab / np.linalg.norm(tab, axis=1, keepdims=True)
+           * rng.uniform(0.05, 0.6, (ds.num_nodes, 1))).astype(np.float32)
+    out = {}
+    for where in (dev, torch.device("cpu")):
+        st, opt = pe.init_state(cfg, 0, where)
+        st = st._replace(table=torch.as_tensor(tab, device=where))
+        plan = pe.plan_from_indices(cfg, u[..., 0], u[..., 1], neg,
+                                    device=where)
+        if path == "packed":
+            st = pe.pack_state(cfg, st)
+        for i in range(5):
+            ids = [torch.as_tensor(a, device=where)
+                   for a in (u[i, :, 0], u[i, :, 1], neg[i])]
+            if path in ("dense", "mined"):
+                st, _ = pe.step_on_batch(
+                    cfg, opt, st, *ids[:2],
+                    neg_idx=ids[2] if path == "dense" else None,
+                    pool_idx=torch.as_tensor(pools[i], device=where))
+            elif path == "sparse":
+                st, _ = pe.sparse_step_on_batch(cfg, opt, st, *ids)
+            elif path == "planned":
+                st, _ = pe.train_step_sparse_planned(cfg, opt, st, plan)
+            else:
+                st, _ = pe.train_step_planned_packed(cfg, opt, st, plan)
+        out[where.type] = st[0].cpu()
+    torch.testing.assert_close(out["cuda"], out["cpu"], rtol=1e-4,
+                               atol=1e-4 * float(out["cpu"].abs().max()))
