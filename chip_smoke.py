@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving and training paths, its
-Poincaré ops and its Poincaré-embedding trainer on one GPU and check
-them.
+Poincaré ops, its Poincaré-embedding trainer, HGCN node classification
+and the hyperbolic VAE on one GPU and check them.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -184,7 +184,55 @@ prints its seconds):
    (597,871 rows, RAdam), peak memory, and the device busy time and idle
    share of 20 steps of each strategy;
 29. ``cli.train poincare --yaml configs/poincare_wordnet.yaml steps=300``:
-   MAP, mean rank and seconds.
+   MAP, mean rank and seconds;
+30. node classification's data (run after phase 22): phase 5's reordered
+   graph whole, with its cluster split, 40 classes and
+   ``node_split_masks`` (60 / 20 / 20 %), prepared by
+   ``hgcn_bench.arxiv_scale_nc_graph``;
+31. the NC path (``models/hgcn.py``: Lorentz, hidden (128, 32), bf16 edge
+   messages): one warm-up and 10 timed steps, every loss finite and the
+   last below the first; launches exact: 4 ``csr_segment_sum``, 4
+   ``cluster_aggregate`` and 1 ``hyp_mlr`` a step, 2, 2 and 1 an
+   evaluation, no row plan built (the last loss held below the first
+   step's: at lr 1e-2 the first update takes most of the fall); step ms,
+   nodes/s, peak memory, val/test accuracy and macro-F1, the device busy
+   time, idle share and top items of a step; ``csr_segment_sum`` on the
+   graph's own straggler receivers and ``cluster_aggregate`` on its own
+   clustered pairs with their row plan, bf16 at F 128 and 32, each held
+   against its plain version as in phase 6 and launched twice for the
+   same bits; ``hyp_mlr`` on the head's
+   own input (the ball image of the encoder's output), launched twice for
+   the same bits: at the first step against its plain version at phase
+   12's tier, after the steps (every row within f32's resolution of the
+   ball's rim) no further from float64 than the plain version;
+32. two NC steps on the card against two on the CPU on a 20,000-node
+   graph from the same parameters: losses within rel 2e-2 (bf16 lanes);
+33. the hyperbolic VAE at ``configs/hvae_mnist.yaml``'s width (hidden
+   256, conv (32, 64), latent 8, batch 128, c = 1) on 4,096 synthetic
+   MNIST images from ``--seed``, both latent geometries: 3 steps on the
+   card and on the CPU from the same parameters, ids and ε: loss, recon,
+   kl and every parameter within rel 1e-4 (f32, cuDNN's TF32 off);
+34. 50 sampled steps on the card, each geometry: every loss finite, the
+   last 10 steps' mean below the first 10's; the IWAE bound (k = 16, 256
+   images) finite and at least the ELBO of the same 16 draws;
+35. the ``hvae`` bench leg (``workloads_bench``: batch 256, latent 2),
+   stepwise: step ms, images/s, device busy time, idle share, top items,
+   peak memory;
+36. last, after every profiled time: the bench leg's graphed chunks of 32
+   steps (per-step ms, images/s), as the path runs them and again under
+   cuDNN's determinism; on both geometries, a graphed chunk of 8 sampled
+   steps against the same steps run eagerly from the same state and
+   generator: bitwise equal under cuDNN's determinism, and within rel
+   1e-5 (parameters norm-wise, metrics) without it, as the path runs;
+37. ``cli.train hvae --yaml configs/hvae_mnist.yaml scan_chunk=100`` (its
+   800 steps in 8 graphed chunks): loss, recon, kl, IWAE and seconds.
+
+The kernels line (phase 23) also gives ``hyp_mlr`` at the NC head's own
+input (``*_nc_head`` keys: device ms, plain ms, bound, no library call)
+and, for the three kernels of the NC path, their launches there, a step
+and an evaluation (``launches_nc``, ``launches_per_step_nc``,
+``launches_per_eval_nc``), and for the two scatter kernels their largest
+error on the NC graph's edge sets (``max_abs_err_nc``).
 """
 
 from __future__ import annotations
@@ -412,6 +460,33 @@ def check_segsum(torch, gen, label, recv, n, f, dtype, n_real=None) -> float:
                          again)
 
 
+def check_cluster(torch, gen, label, agg, n, f, dtype) -> float:
+    """``cluster_aggregate`` on random h over the clustered pairs of
+    ``agg`` (a device graph's cluster split) as the step calls it, with
+    its row plan, launched twice and once with the plan built on the
+    card, against its plain version."""
+    from hyperspace_torch.kernels.cluster import (cluster_aggregate,
+                                                  cluster_aggregate_plain)
+
+    h = torch.randn(n, f, generator=gen, device=agg.c_recv.device).to(dtype)
+    got = cluster_aggregate(h, agg.c_wf, agg.c_recv, agg.c_send, None, n,
+                            rows=agg.c_rows)
+    again = cluster_aggregate(h, agg.c_wf, agg.c_recv, agg.c_send, None, n,
+                              rows=agg.c_rows)
+    built = cluster_aggregate(h, agg.c_wf, agg.c_recv, agg.c_send, None, n)
+    torch.cuda.synchronize()
+    if not torch.equal(got, built):
+        raise AssertionError(f"cluster_aggregate F={f}: the plan built on "
+                             "the card gives other bits")
+    want = cluster_aggregate_plain(h, agg.c_wf, agg.c_recv, agg.c_send, n)
+    w_used = agg.c_wf.to(dtype).float()     # bf16 h: rounded weights
+    k = torch.bincount(agg.c_recv.long(), minlength=n).float()[:, None]
+    bound = 2.0 * k * F32_EPS * cluster_aggregate_plain(
+        h.float().abs(), w_used.abs(), agg.c_recv, agg.c_send, n)
+    return check_scatter(torch, "cluster_aggregate", f"{label} F={f}",
+                         got, want, bound, again)
+
+
 def segment_cost(e: int, f: int, n: int, size: int) -> tuple[float, float]:
     """(bytes, operations) of a sorted segment sum: values and receivers
     read once, the [n, f] output written once; one add per value."""
@@ -436,15 +511,20 @@ def train_path(torch, args, card: dict) -> dict:
     from hyperspace_torch.kernels import cluster as KC
     from hyperspace_torch.kernels.cluster import (build_cluster_rows,
                                                   build_cluster_split,
-                                                  cluster_aggregate,
-                                                  cluster_aggregate_plain)
+                                                  cluster_aggregate)
     from hyperspace_torch.kernels.segment import csr_segment_sum
     from hyperspace_torch.models import hgcn
 
     dev = torch.device("cuda")
     # --- phase 5: the training data ------------------------------------
+    # the reordered graph is kept: node classification (phase 30) trains
+    # on the whole of it
     t0 = time.perf_counter()
-    setup = B.setup_lp(device=dev, seed=args.seed)
+    graph = B.arxiv_scale_reordered(seed=args.seed)
+    graph_s = time.perf_counter() - t0
+    split, _ = B.arxiv_scale_split(seed=args.seed, graph=graph)
+    split_s = time.perf_counter() - t0 - graph_s
+    setup = B.setup_lp(device=dev, seed=args.seed, split=split)
     agg, n = setup.ga.cluster, setup.num_nodes
     cs = setup.split.graph.cluster_split
     if cs is None:
@@ -452,7 +532,12 @@ def train_path(torch, args, card: dict) -> dict:
     n_strag = int(cs.s_mask.sum())
     t1 = time.perf_counter()
     build_cluster_rows(cs.c_recv, cs.c_send, n, with_rev=True)
-    emit({"phase": "train_setup", "host_prep_s": setup.prep_s,
+    # host_prep_s counts what it counted when setup_lp built the split
+    # itself: the graph, the split and the pairs; graph_s and split_s are
+    # its first two parts
+    emit({"phase": "train_setup",
+          "host_prep_s": graph_s + split_s + setup.prep_s,
+          "graph_s": graph_s, "split_s": split_s,
           "row_plan_s": time.perf_counter() - t1,
           "seconds": time.perf_counter() - t0, "nodes": n,
           "edges_padded": int(setup.split.graph.senders.shape[0]),
@@ -495,29 +580,9 @@ def train_path(torch, args, card: dict) -> dict:
              bf16)
 
     def cl_case(f, dtype):
-        # as the step calls it, with its row plan; twice, and once with
-        # the plan built on the card
-        h = torch.randn(n, f, generator=gen, device=dev).to(dtype)
-        got = cluster_aggregate(h, agg.c_wf, agg.c_recv, agg.c_send, None, n,
-                                rows=agg.c_rows)
-        again = cluster_aggregate(h, agg.c_wf, agg.c_recv, agg.c_send, None,
-                                  n, rows=agg.c_rows)
-        built = cluster_aggregate(h, agg.c_wf, agg.c_recv, agg.c_send, None,
-                                  n)
-        torch.cuda.synchronize()
-        if not torch.equal(got, built):
-            raise AssertionError(f"cluster_aggregate F={f}: the plan built "
-                                 "on the card gives other bits")
-        want = cluster_aggregate_plain(h, agg.c_wf, agg.c_recv, agg.c_send,
-                                       n)
-        w_used = agg.c_wf.to(dtype).float()     # bf16 h: rounded weights
-        k = torch.bincount(agg.c_recv.long(), minlength=n).float()[:, None]
-        bound = 2.0 * k * F32_EPS * cluster_aggregate_plain(
-            h.float().abs(), w_used.abs(), agg.c_recv, agg.c_send, n)
         err["cluster_aggregate"] = max(err["cluster_aggregate"],
-                                       check_scatter(
-            torch, "cluster_aggregate", f"clustered F={f}", got, want,
-            bound, again))
+                                       check_cluster(torch, gen, "clustered",
+                                                     agg, n, f, dtype))
 
     cl_case(128, bf16)
     cl_case(32, bf16)
@@ -591,7 +656,7 @@ def train_path(torch, args, card: dict) -> dict:
     if not rel <= CARD_CPU_RTOL:
         raise AssertionError(f"card and CPU losses differ by {rel}")
     return {"setup": setup, "launches": launches, "err": err,
-            "cpu_split": split}
+            "cpu_split": split, "graph": graph}
 
 
 def train_kernel_entries(torch, tr: dict, card: dict) -> list:
@@ -686,7 +751,7 @@ def train_kernel_entries(torch, tr: dict, card: dict) -> list:
     return [seg_entry, cl_entry]
 
 
-# --- the HGCN attention arm at ogbn-arxiv scale -------------------------------
+# --- the HGCN attention arm at ogbn-arxiv scale ------------------------------
 
 ATT_LAUNCHES_PER_STEP = {"cluster_att_fwd": 2, "cluster_att_bwd": 2,
                          "csr_att_bwd_edges": 2, "csr_segment_reduce_1d": 2,
@@ -3059,6 +3124,523 @@ def pe_kernel_fields(pp: dict, kernels: list) -> None:
                       "max_abs_err_pe": pp["err"][name]})
 
 
+# --- HGCN node classification: the first path to launch hyp_mlr at its head --
+
+NC_STEPS = 10
+# a step: 2 layers × (the clustered pairs' aggregation and the straggler
+# scatter) forward and again in the backward; the head's forward (its
+# gradient is the plain version's VJP, as JAX's)
+NC_PER_STEP = {"csr_segment_sum": 4, "cluster_aggregate": 4, "hyp_mlr": 1}
+NC_PER_EVAL = {"csr_segment_sum": 2, "cluster_aggregate": 2, "hyp_mlr": 1}
+NC_CARD_CPU_NODES = 20_000
+
+
+def nc_counts() -> dict:
+    from hyperspace_torch.kernels import cluster as KC
+    from hyperspace_torch.kernels.mlr import hyp_mlr
+    from hyperspace_torch.kernels.segment import csr_segment_sum
+
+    return {"csr_segment_sum": csr_segment_sum.launches,
+            "cluster_aggregate": KC.cluster_aggregate.launches,
+            "hyp_mlr": hyp_mlr.launches,
+            "row_plan_builds": KC.row_plan_builds}
+
+
+def nc_reset() -> None:
+    from hyperspace_torch.kernels import cluster as KC
+    from hyperspace_torch.kernels.mlr import hyp_mlr
+    from hyperspace_torch.kernels.segment import csr_segment_sum
+
+    csr_segment_sum.launches = KC.cluster_aggregate.launches = 0
+    hyp_mlr.launches = KC.row_plan_builds = 0
+
+
+def nc_setup(torch, g, device, seed: int):
+    """The NC model on ``device``: Lorentz, hidden (128, 32), the LP
+    bench's bf16 edge messages, the graph's 40 classes."""
+    from hyperspace_torch.data import graphs as G
+    from hyperspace_torch.models import hgcn
+
+    cfg = hgcn.HGCNConfig(feat_dim=g.x.shape[1], hidden_dims=(128, 32),
+                          kind="lorentz", num_classes=g.num_classes,
+                          agg_dtype=torch.bfloat16)
+    model, opt, state = hgcn.init_nc(cfg, g, seed=seed, device=device)
+    ga = G.to_device(g, device)
+    labels, train = hgcn.nc_targets(g, device)
+
+    def step():
+        nonlocal state
+        state, loss = hgcn.train_step_nc(model, opt, state, ga, labels, train)
+        return loss
+
+    return model, ga, step
+
+
+def check_counts(got: dict, per: dict, times: int, what: str) -> None:
+    for name, n in per.items():
+        if got[name] != n * times:
+            raise AssertionError(f"{what}: {got[name]} {name} launches, "
+                                 f"want {n} × {times}")
+    if got.get("row_plan_builds"):
+        raise AssertionError(f"{what}: {got['row_plan_builds']} row plans "
+                             "built; the split's should serve them all")
+
+
+def nc_path(torch, args, card: dict, tr: dict) -> dict:
+    """Phases 30–32; returns the head's inputs and launches for the
+    kernels line."""
+    from hyperspace_torch.benchmarks import hgcn_bench as B
+    from hyperspace_torch.models import hgcn
+
+    dev = torch.device("cuda")
+    # --- phase 30: the whole arxiv-scale graph with its classes ------------
+    t0 = time.perf_counter()
+    g = B.arxiv_scale_nc_graph(seed=args.seed, graph=tr["graph"])
+    prep_s = time.perf_counter() - t0
+    cs = g.cluster_split
+    if cs is None:
+        raise AssertionError("no cluster split on the NC graph")
+    model, ga, step = nc_setup(torch, g, dev, args.seed)
+    emit({"phase": "nc_setup", "host_prep_s": prep_s,
+          "seconds": time.perf_counter() - t0, "nodes": g.num_nodes,
+          "edges_real": g.num_edges, "classes": g.num_classes,
+          "frac_clustered": cs.frac_clustered,
+          "train_val_test": [int(g.train_mask.sum()), int(g.val_mask.sum()),
+                             int(g.test_mask.sum())]})
+
+    # --- phase 31: the NC path: a warm-up and 10 timed steps, an evaluation
+    t0 = time.perf_counter()
+    first_input = nc_head_input(torch, model, ga)      # the first step's
+    torch.cuda.synchronize()
+    nc_reset()
+    torch.cuda.reset_peak_memory_stats()
+    warm = float(step())
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    losses = [step() for _ in range(NC_STEPS)]
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t1) / NC_STEPS * 1e3
+    launches = nc_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    check_counts(launches, NC_PER_STEP, NC_STEPS + 1, "NC steps")
+    nc_reset()
+    ev = hgcn.evaluate_nc(model, g, ga=ga)
+    eval_launches = nc_counts()
+    check_counts(eval_launches, NC_PER_EVAL, 1, "NC evaluation")
+    emit({"phase": "nc_train", "steps": NC_STEPS, "warmup_loss": warm,
+          "losses": losses, "step_ms": step_ms,
+          "nodes_per_s": g.num_nodes / step_ms * 1e3,
+          "launches": launches, "launches_eval": eval_launches,
+          "peak_device_memory_bytes": peak, **ev,
+          "seconds": time.perf_counter() - t0, **card})
+    # held against the first step's loss (the warm-up): at lr 1e-2 the
+    # first update takes most of the fall, and the next ten wander
+    if not np.all(np.isfinite(losses + [warm])):
+        raise AssertionError(f"non-finite NC loss: {losses}")
+    if not losses[-1] < warm:
+        raise AssertionError(f"the NC loss did not fall: {warm}, {losses}")
+    t1 = time.perf_counter()
+    share = device_share(torch, step, step_ms, reps=3, top_n=8)
+    emit({"phase": "nc_profile", "step_ms": step_ms, **share,
+          "seconds": time.perf_counter() - t1, **card})
+
+    # the scatter kernels on this graph's own edge sets, as its steps call
+    # them: the straggler receivers and the clustered pairs with their row
+    # plan, bf16 at both layers' widths
+    t1 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 3)
+    agg, n, bf16 = ga.cluster, g.num_nodes, torch.bfloat16
+    n_strag = int(cs.s_mask.sum())
+    scatter_err = {
+        "csr_segment_sum": max(check_segsum(
+            torch, gen, "NC stragglers", agg.s_recv, n, f, bf16, n_strag)
+            for f in (128, 32)),
+        "cluster_aggregate": max(check_cluster(
+            torch, gen, "NC clustered", agg, n, f, bf16) for f in (128, 32))}
+    emit({"phase": "nc_scatter_checks", "straggler_edges": n_strag,
+          "clustered_edges": int(agg.c_recv.shape[0]),
+          "max_abs_err": scatter_err, "seconds": time.perf_counter() - t1})
+
+    # the head's own inputs: at the first step, against the plain version
+    # at the tier of phase 12's head check; after the steps, where the
+    # encoder has carried every point to the ball's rim in f32 (ROADMAP
+    # §C), against float64 no worse than the plain version
+    err = check_nc_head(torch, "first_step", first_input)
+    after = nc_head_input(torch, model, ga)
+    check_nc_head(torch, "after_steps", after)
+
+    # --- phase 32: two steps on the card against two on the CPU -----------
+    t0 = time.perf_counter()
+    g20 = B.arxiv_scale_nc_graph(NC_CARD_CPU_NODES, seed=args.seed)
+    if g20.cluster_split is None or not len(g20.cluster_split.c_recv):
+        raise AssertionError("the 20,000-node NC graph clusters no edge")
+    runs = {}
+    for where in ("cuda", "cpu"):
+        _m20, _g20, step20 = nc_setup(torch, g20, torch.device(where),
+                                      args.seed)
+        runs[where] = [float(step20()) for _ in range(2)]
+    rel = max(abs(a_ - b_) / abs(b_) for a_, b_ in zip(runs["cuda"],
+                                                       runs["cpu"]))
+    emit({"phase": "nc_card_vs_cpu", "nodes": NC_CARD_CPU_NODES,
+          "frac_clustered": g20.cluster_split.frac_clustered,
+          "losses_cuda": runs["cuda"], "losses_cpu": runs["cpu"],
+          "max_rel_loss_diff": rel, "seconds": time.perf_counter() - t0})
+    if not rel <= CARD_CPU_RTOL:
+        raise AssertionError(f"NC card and CPU losses differ by {rel}")
+    return {"head": after, "launches": launches, "err": err,
+            "scatter_err": scatter_err}
+
+
+def nc_head_input(torch, model, ga):
+    """(x, p, a, c) as the NC head hands them to ``hyp_mlr``: the ball
+    image of the encoder's output, the hyperplane points and normals."""
+    from hyperspace_torch.manifolds.maps import lorentz_to_ball
+
+    with torch.no_grad():
+        z, _m = model.encoder(ga)
+        head = model.head
+        c = head.manifold.c
+        return (lorentz_to_ball(z, c).contiguous(),
+                head.manifold.expmap0(head.p_tangent).contiguous(),
+                head.a.detach().contiguous(), c)
+
+
+NC_RIM_SLACK = 1.1
+
+
+def check_nc_head(torch, which: str, head) -> float:
+    """``hyp_mlr`` on an NC head input, launched twice for the same bits.
+    Where the rows keep clear of the ball's rim (``first_step``) the
+    logits are held against the plain version at phase 12's tier; where
+    1 − ‖x‖² is below f32's resolution (``after_steps``) no f32 order of
+    operations is within that tier of another, so the kernel's largest
+    error against float64 is held to at most ``NC_RIM_SLACK`` times the
+    f32 plain version's.  Returns the largest gap to the plain version."""
+    from hyperspace_torch.kernels.mlr import hyp_mlr, hyp_mlr_plain
+
+    x, p, a, c = head
+    got = hyp_mlr(x, p, a, c)
+    again = hyp_mlr(x, p, a, c)
+    torch.cuda.synchronize()
+    want = hyp_mlr_plain(x, p, a, c)
+    f64 = hyp_mlr_plain(x.double(), p.double(), a.double(), c)
+    tier = MLR_ATOL + MLR_RTOL * f64.abs()
+    err_k = (got.double() - f64).abs()
+    err_p = (want.double() - f64).abs()
+    rim = 1.0 - torch.sum(x.double() ** 2, dim=-1)
+    diff = (got - want).abs()
+    over = int((diff > MLR_ATOL + MLR_RTOL * want.abs()).sum())
+    same = bool(torch.equal(got, again))
+    out = {"phase": "check", "kernel": "hyp_mlr", "input": f"nc_head_{which}",
+           "shape": [x.shape[0], p.shape[0], x.shape[1]],
+           "max_abs_err": float(diff.max()), "over_tolerance": over,
+           "repeat_equal": same, "kernel_f64_over_tier": float(
+               (err_k / tier).max()),
+           "plain_f64_over_tier": float((err_p / tier).max()),
+           "kernel_f64_max": float(err_k.max()),
+           "plain_f64_max": float(err_p.max()),
+           "rim_gap_min_median_max": [float(rim.min()), float(rim.median()),
+                                      float(rim.max())],
+           "logit_abs_max": float(f64.abs().max())}
+    emit(out)
+    if not same:
+        raise AssertionError(f"hyp_mlr at the NC head ({which}): repeats "
+                             "differ")
+    if which == "first_step" and over:
+        raise AssertionError(f"hyp_mlr at the NC head ({which}): {over} "
+                             "logits beyond tolerance")
+    if which != "first_step" and not (out["kernel_f64_max"]
+                                      <= NC_RIM_SLACK * out["plain_f64_max"]):
+        raise AssertionError(f"hyp_mlr at the NC head ({which}): further "
+                             "from float64 than the plain version")
+    return float(diff.max())
+
+
+def nc_kernel_fields(torch, nc: dict, kernels: list) -> None:
+    """Add the NC path to the kernels line: ``hyp_mlr`` at the head's own
+    input (device ms, plain ms, bound, launches on the path, a step and an
+    evaluation; no library call computes the MLR logits), and the scatter
+    kernels' launches there."""
+    from hyperspace_torch.kernels.mlr import hyp_mlr, hyp_mlr_plain
+
+    xb, p, a, c = nc["head"]
+    shape = (xb.shape[0], p.shape[0], xb.shape[1])
+    bound, by = bound_ms(*mlr_cost(*shape))
+    for e in kernels:
+        name = e["name"]
+        if name in NC_PER_STEP:
+            e.update({"launches_nc": nc["launches"][name],
+                      "launches_per_step_nc": NC_PER_STEP[name],
+                      "launches_per_eval_nc": NC_PER_EVAL[name]})
+        if name in nc["scatter_err"]:
+            e["max_abs_err_nc"] = nc["scatter_err"][name]
+        if name == "hyp_mlr":
+            e.update({
+                "ms_nc_head": device_ms(torch, lambda: hyp_mlr(xb, p, a, c)),
+                "plain_ms_nc_head": device_ms(
+                    torch, lambda: hyp_mlr_plain(xb, p, a, c), reps=5),
+                "bound_ms_nc_head": bound, "bound_by_nc_head": by,
+                "library_ms_nc_head": None, "shape_nc_head": list(shape),
+                "max_abs_err_nc_head_first_step": nc["err"]})
+
+
+# --- the hyperbolic VAE (BASELINE.json configs[3]) -------------------------
+
+HVAE_KINDS = ("poincare", "lorentz")
+HVAE_IMAGES = 4096
+HVAE_STEPS = 50
+HVAE_CARD_CPU_STEPS = 3
+HVAE_CARD_CPU_RTOL = 1e-4       # all f32, cuDNN's TF32 off
+HVAE_IWAE_K, HVAE_IWAE_IMAGES = 16, 256
+HVAE_CLI_YAML = os.path.join("configs", "hvae_mnist.yaml")
+HVAE_CHUNK = 8                  # the graphed chunk held against eager
+# graphed against eager without cuDNN's determinism, as the path runs: its
+# weight gradients sum in another order each run (with determinism the two
+# are bitwise equal, so the graph adds no gap of its own); after 8 steps the
+# gap was up to 1.3e-6 (parameters, norm-wise) and 2.6e-6 (metrics) on the
+# H100 (PERF.md §6)
+HVAE_GRAPH_RTOL = 1e-5
+HVAE_CLI_CHUNK = 100            # the CLI's 800 steps in 8 graphed chunks
+
+
+def hvae_cfg(kind: str):
+    """``configs/hvae_mnist.yaml``'s width: hidden 256, conv (32, 64),
+    latent 8, batch 128, c = 1."""
+    from hyperspace_torch.models import hvae
+
+    return hvae.HVAEConfig(latent_dim=8, batch_size=128, hidden=256,
+                           conv_features=(32, 64), kind=kind, c=1.0)
+
+
+def hvae_card_vs_cpu(torch, args, images) -> dict:
+    """3 steps on the card and on the CPU from the same parameters with
+    the same injected ids and ε: the largest relative gap of loss, recon
+    and kl, and of each parameter norm-wise (‖card − CPU‖ / ‖CPU‖: Adam
+    divides each gradient by its own root mean square, so an entry whose
+    gradient cancels to rounding noise moves by up to lr·|noise| /
+    (|noise| + eps) on either device); the largest entry gap beside."""
+    from hyperspace_torch.models import hvae
+
+    out = {}
+    for kind in HVAE_KINDS:
+        cfg = hvae_cfg(kind)
+        gen = torch.Generator().manual_seed(args.seed + 31)
+        p0 = hvae.init_params(cfg, gen)
+        draws = [(torch.randint(0, len(images), (cfg.batch_size,),
+                                generator=gen),
+                  torch.randn((cfg.batch_size, cfg.latent_dim),
+                              generator=gen))
+                 for _ in range(HVAE_CARD_CPU_STEPS)]
+        runs = {}
+        for where in ("cuda", "cpu"):
+            model, opt, st = hvae.init_model(cfg, args.seed, where,
+                                             params=p0)
+            x = torch.as_tensor(images, device=where)
+            metrics = []
+            for idx, eps in draws:
+                st, *m = hvae.train_step_sampled(
+                    model, opt, st, x, idx=idx.to(where), eps=eps.to(where))
+                metrics.append([float(v) for v in m])
+            runs[where] = (np.asarray(metrics), {
+                f"{a}/{b}/{c}": t.cpu() for a, la in st.params.items()
+                for b, lb in la.items() for c, t in lb.items()})
+        mc, mp = runs["cuda"]
+        cc, cp = runs["cpu"]
+        rel_m = float(np.max(np.abs(mc - cc) / np.abs(cc)))
+        norm = torch.linalg.vector_norm
+        rel_p = max(float(norm(mp[k] - v) / norm(v)) for k, v in cp.items())
+        out[kind] = {"metrics_cuda": mc.tolist(), "metrics_cpu": cc.tolist(),
+                     "max_rel_metric_diff": rel_m,
+                     "max_rel_param_diff": rel_p,
+                     "max_abs_param_diff": max(float((mp[k] - v).abs().max())
+                                               for k, v in cp.items())}
+        if not (rel_m <= HVAE_CARD_CPU_RTOL and rel_p <= HVAE_CARD_CPU_RTOL):
+            raise AssertionError(f"HVAE {kind}: card and CPU differ "
+                                 f"(metrics {rel_m}, parameters {rel_p})")
+    return out
+
+
+def hvae_path(torch, args, card: dict) -> dict:
+    """Phases 33–35 (no CUDA graph); returns the bench leg for phase 36."""
+    from hyperspace_torch.benchmarks import workloads_bench as W
+    from hyperspace_torch.data.mnist import synthetic_mnist
+    from hyperspace_torch.models import hvae
+
+    dev = torch.device("cuda")
+    # --- phase 33: card against CPU, both latent geometries ---------------
+    t0 = time.perf_counter()
+    images = synthetic_mnist(num_samples=HVAE_IMAGES, seed=args.seed).images
+    data_s = time.perf_counter() - t0
+    cvc = hvae_card_vs_cpu(torch, args, images)
+    emit({"phase": "hvae_card_vs_cpu", "images": HVAE_IMAGES,
+          "data_s": data_s, "steps": HVAE_CARD_CPU_STEPS, **cvc,
+          "seconds": time.perf_counter() - t0})
+
+    # --- phase 34: sampled steps on the card, then the IWAE bound ---------
+    x_all = torch.as_tensor(images, device=dev)
+    for kind in HVAE_KINDS:
+        t0 = time.perf_counter()
+        cfg = hvae_cfg(kind)
+        model, opt, st = hvae.init_model(cfg, args.seed, dev)
+        losses = []
+        for _ in range(HVAE_STEPS):
+            st, loss, recon, kl = hvae.train_step_sampled(model, opt, st,
+                                                          x_all)
+            losses.append(loss)
+        losses = torch.stack(losses).cpu().numpy()
+        first, last = float(losses[:10].mean()), float(losses[-10:].mean())
+        x = x_all[:HVAE_IWAE_IMAGES]
+        gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
+        eps = torch.randn((HVAE_IWAE_K, HVAE_IWAE_IMAGES, cfg.latent_dim),
+                          generator=gen, device=dev)
+        iwae = float(hvae.iwae_bound(model, st.params, x, k=HVAE_IWAE_K,
+                                     eps=eps))
+        with torch.no_grad(), hvae.f32_convolutions():   # the same K draws
+            prior = model.prior(x.dtype, dev)
+            elbo = float(torch.stack([torch.mean(torch.sub(*hvae.elbo_terms(
+                model(st.params, x, eps=e), prior, x))) for e in eps]).mean())
+        emit({"phase": "hvae_train", "kind": kind, "steps": HVAE_STEPS,
+              "losses_first_10_mean": first, "losses_last_10_mean": last,
+              "last_recon": float(recon), "last_kl": float(kl),
+              "iwae_k16_256": iwae, "elbo_same_draws": elbo,
+              "seconds": time.perf_counter() - t0, **card})
+        if not np.all(np.isfinite(losses)):
+            raise AssertionError(f"HVAE {kind}: non-finite loss")
+        if not last < first:
+            raise AssertionError(f"HVAE {kind}: the loss did not fall "
+                                 f"({first} -> {last})")
+        if not (np.isfinite(iwae) and iwae >= elbo):
+            raise AssertionError(f"HVAE {kind}: IWAE {iwae} below the ELBO "
+                                 f"{elbo} of the same draws")
+
+    # --- phase 35: the bench leg, stepwise ---------------------------------
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    leg = W.setup_hvae_leg(device=dev, seed=args.seed)
+    res = W.run_hvae_leg(leg, steps=10, repeats=3, chunk=0)
+    share = device_share(torch, leg.step, res["step_ms"], reps=5, top_n=8)
+    emit({"phase": "hvae_bench", **{k: v for k, v in res.items()
+                                    if k != "losses"},
+          "loss_first": res["losses"][0], "loss_last": res["losses"][-1],
+          **share,
+          "peak_device_memory_bytes": torch.cuda.max_memory_allocated(),
+          "seconds": time.perf_counter() - t0, **card})
+    return {"leg": leg, "images": x_all, "seed": args.seed}
+
+
+def cudnn_flags(torch, deterministic: bool):
+    """cuDNN as the HVAE runs it (TF32 off, no autotuning), its
+    deterministic algorithms on or off, for the span of the block."""
+    return torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                      deterministic=deterministic,
+                                      allow_tf32=False)
+
+
+def hvae_graph_vs_eager(torch, hv: dict, kind: str,
+                        deterministic: bool) -> dict:
+    """A graphed chunk of ``HVAE_CHUNK`` sampled steps against the same
+    steps run eagerly from the same state and generator, captured and run
+    with cuDNN's determinism on or off: bitwise equality, and the largest
+    relative gaps (parameters norm-wise, metrics entry-wise)."""
+    from hyperspace_torch.models import hvae
+    from hyperspace_torch.train import loop
+
+    with cudnn_flags(torch, deterministic):
+        model, opt, st = hvae.init_model(hvae_cfg(kind), 7, "cuda")
+        eager = pe_clone(torch, st)
+        rows = []
+        for _ in range(HVAE_CHUNK):
+            eager, *m = hvae.train_step_sampled(model, opt, eager,
+                                                hv["images"])
+            rows.append(torch.stack(m))
+        chunk = loop.make_chunked_stepper(hvae.chunk_step(model, opt),
+                                          HVAE_CHUNK)
+        st, graphed = chunk(st, hv["images"])
+        torch.cuda.synchronize()
+    rows = torch.stack(rows)
+    leaves = list(zip(torch.utils._pytree.tree_leaves(st.params),
+                      torch.utils._pytree.tree_leaves(eager.params)))
+    out = {"params_bitwise": all(bool(torch.equal(a, b)) for a, b in leaves),
+           "metrics_bitwise": bool(torch.equal(graphed, rows)),
+           "max_param_rel": max(float(torch.linalg.vector_norm(a - b)
+                                      / torch.linalg.vector_norm(b))
+                                for a, b in leaves),
+           "max_metric_rel": float(((graphed - rows).abs()
+                                    / rows.abs()).max())}
+    _st, again = chunk(st, hv["images"])          # a replay, no capture
+    out["replay_finite"] = bool(torch.isfinite(again).all())
+    return out
+
+
+def hvae_graphs(torch, hv: dict, card: dict) -> None:
+    """Phases 36–37 (after every profiled time): the bench leg's graphed
+    chunks with cuDNN's determinism off (the path) and on, a graphed chunk
+    against the same steps run eagerly from the same state and generator
+    on both geometries (bitwise under determinism, within
+    ``HVAE_GRAPH_RTOL`` without), and the CLI's config in graphed
+    chunks."""
+    from hyperspace_torch.benchmarks import workloads_bench as W
+    from hyperspace_torch.cli import train as train_cli
+
+    # --- phase 36: graphed chunks -----------------------------------------
+    # the path runs without cuDNN's determinism; with it on, a graphed
+    # chunk is the eager steps bit for bit, and the leg is timed both ways
+    t0 = time.perf_counter()
+    leg = hv["leg"]
+    chunks = W.run_hvae_chunks(leg, W.SCAN_CHUNK_K, repeats=3)
+    chunk_losses = chunks.pop("losses")
+    with cudnn_flags(torch, True):
+        det_leg = W.setup_hvae_leg(device="cuda", seed=hv["seed"])
+        det = W.run_hvae_chunks(det_leg, W.SCAN_CHUNK_K, repeats=3)
+    del det_leg
+    agree = {}
+    for kind in HVAE_KINDS:
+        agree[kind] = {"deterministic": hvae_graph_vs_eager(torch, hv, kind,
+                                                            True)}
+        agree[kind]["path"] = hvae_graph_vs_eager(torch, hv, kind, False)
+    emit({"phase": "hvae_graphs", **chunks,
+          "scan_chunk_step_ms_cudnn_deterministic":
+              det["scan_chunk_step_ms"],
+          "scan_chunk_repeat_ms_cudnn_deterministic":
+              det["scan_chunk_repeat_ms"],
+          "chunk_loss_first_last": [chunk_losses[0], chunk_losses[-1]],
+          "chunk": HVAE_CHUNK, "graphed_vs_eager": agree,
+          "path_rtol": HVAE_GRAPH_RTOL,
+          "seconds": time.perf_counter() - t0, **card})
+    for kind, a in agree.items():
+        d, p = a["deterministic"], a["path"]
+        if not (d["params_bitwise"] and d["metrics_bitwise"]
+                and d["replay_finite"] and p["replay_finite"]):
+            raise AssertionError(f"HVAE {kind}: under cuDNN's determinism "
+                                 "the graphed chunk is not the eager steps "
+                                 f"bit for bit: {a}")
+        if not (p["max_param_rel"] <= HVAE_GRAPH_RTOL
+                and p["max_metric_rel"] <= HVAE_GRAPH_RTOL):
+            raise AssertionError(f"HVAE {kind}: the graphed chunk is beyond "
+                                 f"rel {HVAE_GRAPH_RTOL} of the eager steps: "
+                                 f"{a}")
+
+    # --- phase 37: the CLI at configs/hvae_mnist.yaml, graphed chunks -----
+    # (its 800 steps eagerly are host-bound: 47 ms a step on this path's
+    # stepwise bench leg on the H100, PERF.md §6)
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    old = sys.stdout
+    sys.stdout = buf
+    try:
+        train_cli.main(["hvae", "--yaml", HVAE_CLI_YAML,
+                        f"scan_chunk={HVAE_CLI_CHUNK}"])
+    finally:
+        sys.stdout = old
+    res = json.loads(buf.getvalue().strip().splitlines()[-1])
+    emit({"phase": "hvae_cli", "config": HVAE_CLI_YAML,
+          "scan_chunk": HVAE_CLI_CHUNK, **res,
+          "seconds": time.perf_counter() - t0, **card})
+    if not all(np.isfinite(res[k]) for k in ("loss", "recon", "kl", "iwae")):
+        raise AssertionError(f"the HVAE CLI's metrics are not finite: {res}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3267,6 +3849,11 @@ def main(argv=None) -> int:
     # --- phases 20-22: the Poincaré ops and the gyro-linear layer ----------
     gp = gyro_path(torch, args, card)
 
+    # --- phases 30-32: HGCN node classification at arxiv scale -------------
+    nc = nc_path(torch, args, card, tr)
+
+    # --- phases 33-35: the hyperbolic VAE (no CUDA graph yet) --------------
+    hv = hvae_path(torch, args, card)
 
     # --- phase 23: times ---------------------------------------------------
     # kernel and plain times are device times from the profiler at the
@@ -3323,6 +3910,7 @@ def main(argv=None) -> int:
         torch, tr, card) + att_kernel_entries(
         torch, at, card) + hybonet_kernel_entries(
         torch, hb, card) + gyro_kernel_entries(torch, gp, card)
+    nc_kernel_fields(torch, nc, kernels)
     for entry in kernels:      # the mean path's kernels on the attention arm
         if entry["name"] in ("csr_segment_sum", "cluster_aggregate"):
             entry["launches_attention"] = at["launches"][entry["name"]]
@@ -3355,6 +3943,9 @@ def main(argv=None) -> int:
     # before its graphs)
     pp = poincare_path(torch, args, card)
     pe_kernel_fields(pp, kernels)
+
+    # --- phases 36-37: the HVAE's graphed chunks and its CLI, last --------
+    hvae_graphs(torch, hv, card)
     print(smi, flush=True)
     emit({"kernels": kernels, "floor_ms": floor})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

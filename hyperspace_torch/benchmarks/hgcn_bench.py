@@ -1,5 +1,7 @@
 """HGCN link-prediction throughput (counterpart of
-``hyperspace_tpu/benchmarks/hgcn_bench.py``, ``step="pairs"``).
+``hyperspace_tpu/benchmarks/hgcn_bench.py``, ``step="pairs"``), and the
+arxiv-scale graphs the HGCN paths train on (LP split; the whole graph
+with node-classification masks, :func:`arxiv_scale_nc_graph`).
 
 Samples/s = nodes × steps / time: one full-graph step processes every
 node once (the HGCN convention).  Without the ogbn-arxiv files the graph
@@ -51,19 +53,41 @@ def arxiv_scale_graph(num_nodes: int = ARXIV_NODES, seed: int = 0):
         num_classes=ARXIV_CLASSES, seed=seed)
 
 
-def arxiv_scale_split(num_nodes: int = ARXIV_NODES, seed: int = 0,
-                      reorder: str | None = "community",
-                      cluster_min_pair: int = 256):
-    """:func:`arxiv_scale_graph` relabeled by ``reorder`` and split for
-    LP; returns (split, x)."""
-    edges, x, labels, _ = arxiv_scale_graph(num_nodes, seed)
+def arxiv_scale_reordered(num_nodes: int = ARXIV_NODES, seed: int = 0,
+                          reorder: str | None = "community"):
+    """:func:`arxiv_scale_graph` relabeled by ``reorder`` (features and
+    labels with it); returns (edges, x, labels, num_classes)."""
+    edges, x, labels, k = arxiv_scale_graph(num_nodes, seed)
     if reorder:
         edges, x, labels, _ = G.apply_locality_order(edges, x, labels,
                                                      method=reorder)
+    return edges, x, labels, k
+
+
+def arxiv_scale_split(num_nodes: int = ARXIV_NODES, seed: int = 0,
+                      reorder: str | None = "community",
+                      cluster_min_pair: int = 256, graph=None):
+    """:func:`arxiv_scale_reordered` split for LP (``graph`` reuses its
+    result); returns (split, x)."""
+    edges, x, _, _ = (arxiv_scale_reordered(num_nodes, seed, reorder)
+                      if graph is None else graph)
     split = G.split_edges(edges, num_nodes, x, val_frac=0.02, test_frac=0.02,
                           seed=seed, pad_multiple=65536,
                           cluster_min_pair=cluster_min_pair)
     return split, x
+
+
+def arxiv_scale_nc_graph(num_nodes: int = ARXIV_NODES, seed: int = 0,
+                         reorder: str | None = "community", graph=None):
+    """The whole graph of :func:`arxiv_scale_reordered` (``graph`` reuses
+    its result) prepared for node classification: every edge, its
+    cluster split (``cluster="auto"``: arxiv scale has one), the labels
+    and :func:`data.graphs.node_split_masks` (60 / 20 / 20 %)."""
+    edges, x, labels, k = (arxiv_scale_reordered(num_nodes, seed, reorder)
+                           if graph is None else graph)
+    tr, va, te = G.node_split_masks(num_nodes, seed=seed)
+    return G.prepare(edges, num_nodes, x, pad_multiple=65536, labels=labels,
+                     num_classes=k, train_mask=tr, val_mask=va, test_mask=te)
 
 
 @dataclasses.dataclass

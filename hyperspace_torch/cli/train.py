@@ -1,10 +1,11 @@
 """Training entry point: ``python -m hyperspace_torch.cli.train``
-(counterpart of ``hyperspace_tpu/cli/train.py``, the ``hybonet`` and
-``poincare`` workloads).
+(counterpart of ``hyperspace_tpu/cli/train.py``, the ``hybonet``,
+``poincare`` and ``hvae`` workloads).
 
     python -m hyperspace_torch.cli.train hybonet --yaml configs/hybonet_textclf.yaml
     python -m hyperspace_torch.cli.train hybonet steps=200 dim=64 device=cpu
     python -m hyperspace_torch.cli.train poincare --yaml configs/poincare_wordnet.yaml
+    python -m hyperspace_torch.cli.train hvae --yaml configs/hvae_mnist.yaml
 
 ``--yaml`` reads a flat ``key: value`` file (the repository's configs);
 ``key=value`` arguments override it.  Run keys (``steps``, ``seed``,
@@ -22,7 +23,13 @@ trains Poincaré embeddings on the closure TSV at ``data_root`` (a file;
 without it the synthetic tree of depth 5, branching 4) and prints
 ``{"workload", "steps", "mean_rank", "map"}``; ``scan_chunk=K`` runs K
 steps a chunk (one CUDA graph replayed K times on the card, the step
-budget rounded up to a multiple of K; dense steps only).  Checkpoints,
+budget rounded up to a multiple of K; dense steps only).  ``hvae``
+trains the hyperbolic VAE on the MNIST IDX files at ``data_root`` (a
+directory; without them ``synthetic_mnist``) and prints ``{"workload",
+"source", "loss", "recon", "kl", "iwae"}``: the last step's metrics and
+the 16-sample IWAE bound of the first 256 images; ``scan_chunk=K``
+graphs its sampled step as ``poincare`` does, and ``conv_features``
+takes comma-separated widths.  Checkpoints,
 telemetry, chaos, meshes and the host-resident table (``host_table=1``)
 are not ported.
 """
@@ -156,6 +163,40 @@ def run_poincare(run: RunConfig, overrides: dict) -> dict:
     return {"workload": "poincare", "steps": int(state.step), **res}
 
 
+def run_hvae(run: RunConfig, overrides: dict) -> dict:
+    from hyperspace_torch.data import mnist as M
+    from hyperspace_torch.models import hvae
+    from hyperspace_torch.train import loop
+
+    ds, source = M.load_mnist(run.data_root)
+    overrides.setdefault("precision", run.precision)
+    if "conv_features" in overrides:
+        overrides["conv_features"] = tuple(
+            int(f) for f in overrides["conv_features"].split(",") if f)
+    if "dtype" in overrides:
+        overrides["dtype"] = precision_lib.parse_dtype(overrides["dtype"])
+    cfg = apply_overrides(hvae.HVAEConfig(image_size=ds.images.shape[1]),
+                          overrides)
+    model, opt, state = hvae.init_model(cfg, run.seed, run.device)
+    dev = state.step.device
+    x_all = torch.as_tensor(ds.images, dtype=cfg.dtype, device=dev)
+    k = max(int(run.scan_chunk), 1)
+    step = hvae.chunk_step(model, opt)
+    stepper = loop.make_chunked_stepper(step, k)
+    outs = []
+    for _ in range(loop.round_steps_to_chunk(run.steps, k) // k):
+        state, out = stepper(state, x_all)
+        outs.append(out.reshape(-1, 3))
+    rows = torch.cat(outs).tolist() if outs else [[math.nan] * 3]
+    if run.log and outs:
+        _write_log(run.log, [r[0] for r in rows])
+    gen = torch.Generator(device=dev).manual_seed(1)
+    iwae = hvae.iwae_bound(model, state.params, x_all[:256], gen, k=16)
+    loss, recon, kl = rows[-1]
+    return {"workload": "hvae", "source": source, "loss": loss,
+            "recon": recon, "kl": kl, "iwae": float(iwae)}
+
+
 def hgcn_mode_defaults(base, overrides: dict, sampled: bool):
     """HGCN's mode-aware defaults, as the JAX package ships them: sampled
     minibatches and the attention arm train at lr 3e-3 (the full-graph
@@ -170,7 +211,8 @@ def hgcn_mode_defaults(base, overrides: dict, sampled: bool):
     return base
 
 
-WORKLOADS = {"hybonet": run_hybonet, "poincare": run_poincare}
+WORKLOADS = {"hybonet": run_hybonet, "poincare": run_poincare,
+             "hvae": run_hvae}
 
 
 def main(argv: list[str] | None = None) -> int:

@@ -1,7 +1,7 @@
-"""Graph data for HGCN link prediction (counterpart of
-``hyperspace_tpu/data/graphs.py``): the padded, receiver-sorted edge
-layout, the link-prediction split, the synthetic hierarchy and the
-locality relabelings.
+"""Graph data for HGCN (counterpart of ``hyperspace_tpu/data/graphs.py``):
+the padded, receiver-sorted edge layout, the link-prediction split, the
+node-classification masks, the synthetic hierarchy and the locality
+relabelings.
 
 Host work is numpy only.  The JAX package dispatches some of it to a
 C++ library (``data/_native``) and keeps these numpy versions as its
@@ -44,6 +44,11 @@ class Graph:
     deg: np.ndarray | None = None  # [N] float32 masked in-degree
     csr_plan: tuple | None = None  # kernels.segment.CsrPlan work items
     cluster_split: ClusterSplit | None = None  # mean-aggregation split
+    labels: np.ndarray | None = None  # [N] int32 (node tasks)
+    num_classes: int = 0
+    train_mask: np.ndarray | None = None  # [N] bool
+    val_mask: np.ndarray | None = None
+    test_mask: np.ndarray | None = None
 
     @property
     def num_edges(self) -> int:
@@ -166,10 +171,15 @@ def prepare(
     pad_multiple: int = 1024,
     cluster: str | bool = "auto",
     cluster_min_pair: int = 256,
+    **node_fields,
 ) -> Graph:
     """Symmetrize, add self-loops, dedupe, sort by receiver, pad; build
     ``deg``, the CSR plan and (``cluster=True``, or ``"auto"`` at ≥200,000
-    real edges) the cluster split."""
+    real edges) the cluster split.  ``node_fields`` (``labels``,
+    ``num_classes``, ``train_mask``, ``val_mask``, ``test_mask``) ride
+    along unchanged: the layout renames no node, so any relabeling
+    (:func:`apply_locality_order`) comes before, on ``x`` and labels
+    alike, and masks are drawn in the new names."""
     _check_edge_range(edges, num_nodes)
     senders, receivers, mask, rev_perm, deg = _prepare_edges_numpy(
         edges, num_nodes, pad_multiple=pad_multiple)
@@ -190,6 +200,7 @@ def prepare(
         deg=deg,
         csr_plan=tuple(build_csr_plan(receivers, num_nodes)),
         cluster_split=split,
+        **node_fields,
     )
 
 
@@ -296,6 +307,23 @@ def synthetic_hierarchy(
         size=(num_nodes, feat_dim)).astype(np.float32)
     x[:, 0] = depth / max(depth.max(), 1)
     return edges, x, labels, num_classes
+
+
+def node_split_masks(num_nodes: int, train_frac=0.6, val_frac=0.2,
+                     seed: int = 0):
+    """(train, val, test) boolean masks [N]: a seeded permutation cut at
+    ``train_frac`` and ``train_frac + val_frac``."""
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(num_nodes)
+    n_tr = int(num_nodes * train_frac)
+    n_va = int(num_nodes * val_frac)
+    tr = np.zeros(num_nodes, bool)
+    va = np.zeros(num_nodes, bool)
+    te = np.zeros(num_nodes, bool)
+    tr[perm[:n_tr]] = True
+    va[perm[n_tr: n_tr + n_va]] = True
+    te[perm[n_tr + n_va:]] = True
+    return tr, va, te
 
 
 def locality_order(edges: np.ndarray, num_nodes: int) -> np.ndarray:

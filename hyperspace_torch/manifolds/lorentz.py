@@ -82,15 +82,18 @@ class Lorentz(Manifold):
                 "time_coord_max": torch.max(sc * x[..., 0])}
 
     def origin(self, shape, dtype, device) -> torch.Tensor:
-        """(1/√c, 0, …, 0) broadcast to ``shape``."""
+        """(1/√c, 0, …, 0) broadcast to ``shape``.  A Python curvature is
+        filled in on the device (an item assignment would copy a host
+        scalar, which a CUDA graph cannot capture)."""
         t = 1.0 / smath.sqrt_curvature(self.c, dtype)
-        if not isinstance(t, torch.Tensor):
-            t = smath.scalar(t, dtype)
         out = torch.zeros(shape, dtype=dtype, device=device)
-        out[..., 0] = t
+        if isinstance(t, torch.Tensor):
+            out[..., 0] = t
+        else:
+            out.narrow(-1, 0, 1).fill_(smath.scalar(t, dtype))
         return out
 
-    # --- distance -------------------------------------------------------------
+    # --- distance ------------------------------------------------------------
 
     def dist(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         """arcosh(1 + u)/√c with u = -c⟨x,y⟩_L - 1 (the stable form)."""
@@ -101,7 +104,7 @@ class Lorentz(Manifold):
     def sqdist(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         return self.dist(x, y) ** 2
 
-    # --- exp / log ------------------------------------------------------------
+    # --- exp / log -----------------------------------------------------------
 
     def expmap(self, x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         """proj(cosh(t)·x + sinhc(t)·v), t = √c‖v‖_L."""
@@ -118,7 +121,7 @@ class Lorentz(Manifold):
         d = self.dist(x, y)[..., None]
         return d * w / smath.clamp_min(wn, smath.min_norm(x.dtype))
 
-    # --- transport / metric ---------------------------------------------------
+    # --- transport / metric --------------------------------------------------
 
     def inner(self, x: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
               keepdim: bool = False) -> torch.Tensor:
@@ -166,7 +169,7 @@ class Lorentz(Manifold):
     def origin_coords_from_tangent(self, u: torch.Tensor) -> torch.Tensor:
         return u[..., 1:]
 
-    # --- aggregation ------------------------------------------------------------
+    # --- aggregation ---------------------------------------------------------
 
     def centroid(self, x: torch.Tensor,
                  w: torch.Tensor | None = None) -> torch.Tensor:

@@ -1,8 +1,9 @@
-"""HGCN link prediction on the Lorentz model (counterpart of
-``hyperspace_tpu/models/hgcn.py``).
+"""HGCN link prediction and node classification on the Lorentz model
+(counterpart of ``hyperspace_tpu/models/hgcn.py``).
 
     features --exp0--> manifold --[HGCConv × L]--> embeddings z
     LP head: Fermi–Dirac(d²(z_u, z_v)) → binary cross-entropy → ROC-AUC
+    NC head: hyperbolic MLR → masked cross-entropy → accuracy / macro-F1
 
 The training step is :func:`train_step_lp_pairs`: every train positive
 scored with both decoder gradient scatters sorted
@@ -10,12 +11,17 @@ scored with both decoder gradient scatters sorted
 positive with a static sorted u column (``pair_sqdist_semi_planned``),
 then one AdamW update with global-norm clipping, exactly
 ``optax.chain(clip_by_global_norm, adamw)`` (``optim.adamw.AdamW``).
+Node classification is full-batch (:func:`train_step_nc`): every node's
+logits through ``LorentzMLR`` (``kernels/mlr.py:hyp_mlr`` on the ball
+image of z, one launch a forward), softmax cross-entropy over the train
+mask, the same optimizer.
 
 PyTorch idiom: the model is an ``nn.Module`` that owns its parameters
 and the step updates them in place; randomness (init, negatives,
 dropout) comes from explicit ``torch.Generator``s.  Not ported yet:
-``train_step_lp``/``train_step_lp_planned``, node classification, the
-sharded steps, rematerialisation.
+``train_step_lp``/``train_step_lp_planned``, the Euclidean NC head (the
+``euclidean`` encoder is not ported), the sharded steps,
+rematerialisation.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ from hyperspace_torch.nn.edge_dist import (pair_sqdist_planned,
                                            pair_sqdist_semi_planned)
 from hyperspace_torch.nn.gcn import HGCConv, from_tangent0_coords, \
     make_manifold
+from hyperspace_torch.nn.mlr import LorentzMLR
 from hyperspace_torch.optim.adamw import AdamW
 from hyperspace_torch.utils import metrics as metrics_lib
 
@@ -53,6 +60,7 @@ class HGCNConfig:
     lr: float = 1e-2
     weight_decay: float = 5e-4
     clip_norm: float = 0.0          # > 0: clip the global gradient norm
+    num_classes: int = 0            # the NC head's classes
     neg_per_pos: int = 1
     dtype: torch.dtype = torch.float32
     agg_dtype: Optional[torch.dtype] = None      # edge-message dtype
@@ -157,7 +165,34 @@ class HGCNLinkPred(nn.Module):
                 self.decoder(sq_neg.to(self.cfg.dtype)))
 
 
-# --- training ------------------------------------------------------------------
+class HGCNNodeClf(nn.Module):
+    """Encoder + ``LorentzMLR`` head ``head``: per-node class logits
+    [N, num_classes].  JAX's ``euclidean`` control (a plain dense head)
+    waits for the Euclidean encoder and raises, as the encoder does."""
+
+    def __init__(self, cfg: HGCNConfig,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if cfg.kind != "lorentz":
+            raise NotImplementedError(
+                f"node classification on the {cfg.kind!r} manifold is not "
+                "ported yet (lorentz is)")
+        if cfg.num_classes <= 0:
+            raise ValueError("node classification needs num_classes > 0")
+        self.cfg = cfg
+        self.encoder = HGCNEncoder(cfg, generator)
+        self.head = LorentzMLR(cfg.hidden_dims[-1], cfg.num_classes,
+                               make_manifold(cfg.kind, cfg.c),
+                               dtype=cfg.dtype, generator=generator)
+
+    def forward(self, g: graph_data.DeviceGraph, *, deterministic=True,
+                generator: Optional[torch.Generator] = None):
+        z, _m = self.encoder(g, deterministic=deterministic,
+                             generator=generator)
+        return self.head(z)
+
+
+# --- training ----------------------------------------------------------------
 
 
 def make_optimizer(cfg: HGCNConfig, model: nn.Module) -> AdamW:
@@ -195,10 +230,12 @@ def init_lp(cfg: HGCNConfig, g: graph_data.Graph, seed: int = 0,
 
 
 def params_from_jax(tree) -> dict:
-    """A ``state_dict`` for :class:`HGCNLinkPred` from the flax parameter
-    tree ``{encoder: {conv0: {kernel, bias[, att_src, att_dst]}, …},
-    decoder: {r, t_raw}}`` (numpy arrays; every leaf keeps JAX's layout:
-    kernels (d_in, d_out), attention vectors (d_out, 1))."""
+    """A ``state_dict`` for :class:`HGCNLinkPred` or :class:`HGCNNodeClf`
+    from the flax parameter tree ``{encoder: {conv0: {kernel, bias[,
+    att_src, att_dst]}, …}, decoder: {r, t_raw}}`` or ``{encoder: …,
+    head: {p_tangent, a}}`` (numpy arrays; every leaf keeps JAX's
+    layout: kernels (d_in, d_out), attention vectors (d_out, 1), the
+    MLR's hyperplanes [K, d])."""
     out = {}
     for conv, leaves in tree["encoder"].items():
         for name, a in leaves.items():
@@ -206,9 +243,17 @@ def params_from_jax(tree) -> dict:
                 raise NotImplementedError(f"parameter {conv}/{name} is not "
                                           "ported yet")
             out[f"encoder.{conv}.{name}"] = torch.as_tensor(np.array(a))
-    for name in ("r", "t_raw"):
-        out[f"decoder.{name}"] = torch.as_tensor(
-            np.array(tree["decoder"][name]))
+    heads = {"decoder": ("r", "t_raw"), "head": ("p_tangent", "a")}
+    for part in tree:
+        if part == "encoder":
+            continue
+        if part not in heads or set(tree[part]) != set(heads[part]):
+            raise NotImplementedError(
+                f"parameters {part}/{sorted(tree[part])} are not ported "
+                "yet")
+        for name in heads[part]:
+            out[f"{part}.{name}"] = torch.as_tensor(
+                np.array(tree[part][name]))
     return out
 
 
@@ -298,3 +343,92 @@ def evaluate_lp(model: HGCNLinkPred, split: graph_data.LinkSplit,
     s_pos = eval_scores_lp(model, ga, pos).float().cpu().numpy()
     s_neg = eval_scores_lp(model, ga, neg).float().cpu().numpy()
     return {"roc_auc": metrics_lib.roc_auc(s_pos, s_neg)}
+
+
+# ---- node classification ----
+
+
+def init_nc(cfg: HGCNConfig, g: graph_data.Graph, seed: int = 0,
+            device="cuda"):
+    """(model, optimizer, state) for node classification on ``device``,
+    as :func:`init_lp` makes them (``state.dropout_generator`` the
+    dropout's draws; ``state.generator`` unused)."""
+    dev = resolve_device(device)
+    if cfg.learn_c:
+        raise NotImplementedError("learn_c is not ported yet")
+    del g  # shapes come from cfg; kept for the JAX signature
+    model = HGCNNodeClf(cfg, torch.Generator().manual_seed(seed)).to(dev)
+    opt = make_optimizer(cfg, model)
+    state = TrainState(
+        generator=torch.Generator(device=dev).manual_seed(seed + 1),
+        dropout_generator=torch.Generator(device=dev).manual_seed(seed + 2))
+    return model, opt, state
+
+
+def nc_loss(logits: torch.Tensor, labels: torch.Tensor,
+            train_mask: torch.Tensor) -> torch.Tensor:
+    """Softmax cross-entropy with integer labels, averaged over the
+    masked nodes (at least one in the denominator)."""
+    ce = nn.functional.cross_entropy(logits, labels.long(), reduction="none")
+    w = train_mask.to(ce.dtype)
+    return torch.sum(ce * w) / torch.clamp_min(torch.sum(w), 1.0)
+
+
+def train_step_nc(model: HGCNNodeClf, opt: AdamW, state: TrainState,
+                  g: graph_data.DeviceGraph, labels: torch.Tensor,
+                  train_mask: torch.Tensor):
+    """One full-batch NC step: logits of every node (dropout from
+    ``state.dropout_generator``), the masked loss, backward, one
+    optimizer update in place.  Returns ``(state, loss)``, the loss a
+    0-dim device tensor."""
+    for p in model.parameters():
+        p.grad = None
+    logits = model(g, deterministic=False,
+                   generator=state.dropout_generator)
+    loss = nc_loss(logits, labels, train_mask)
+    loss.backward()
+    opt.step()
+    state.step += 1
+    return state, loss.detach()
+
+
+@torch.no_grad()
+def eval_logits_nc(model: HGCNNodeClf,
+                   g: graph_data.DeviceGraph) -> torch.Tensor:
+    return model(g)
+
+
+def evaluate_nc(model: HGCNNodeClf, g: graph_data.Graph,
+                ga: Optional[graph_data.DeviceGraph] = None) -> dict:
+    """Validation and test accuracy and test macro-F1; pass ``ga`` to
+    reuse a DeviceGraph already on the model's device."""
+    dev = next(model.parameters()).device
+    ga = graph_data.to_device(g, dev) if ga is None else ga
+    logits = eval_logits_nc(model, ga).float().cpu().numpy()
+    return {
+        "val_acc": metrics_lib.accuracy(logits, g.labels, g.val_mask),
+        "test_acc": metrics_lib.accuracy(logits, g.labels, g.test_mask),
+        "test_f1": metrics_lib.f1_macro(logits, g.labels,
+                                        model.cfg.num_classes, g.test_mask),
+    }
+
+
+def nc_targets(g: graph_data.Graph, device):
+    """The graph's labels (int64) and train mask as device tensors."""
+    return (torch.as_tensor(np.asarray(g.labels), dtype=torch.int64,
+                            device=device),
+            torch.as_tensor(np.asarray(g.train_mask, bool), device=device))
+
+
+def train_nc(cfg: HGCNConfig, g: graph_data.Graph, steps: int = 200,
+             seed: int = 0, device="cuda"):
+    """Full NC training loop; returns (model, results): the last loss and
+    :func:`evaluate_nc`'s metrics."""
+    model, opt, state = init_nc(cfg, g, seed, device)
+    dev = next(model.parameters()).device
+    ga = graph_data.to_device(g, dev)
+    labels, tr = nc_targets(g, dev)
+    loss = torch.tensor(math.nan)
+    for _ in range(steps):
+        state, loss = train_step_nc(model, opt, state, ga, labels, tr)
+    return model, {"loss": float(loss), **evaluate_nc(model, g, ga=ga)}

@@ -1,4 +1,4 @@
-"""Mixed-precision policy, the part the HGCN and HyboNet paths use
+"""Mixed-precision policy, the part the HGCN, HyboNet and HVAE paths use
 (counterpart of ``hyperspace_tpu/precision.py``).
 
 A policy names a compute dtype; ``f32`` (the default) computes in
@@ -7,8 +7,12 @@ lane (``agg_dtype``) and the bf16 training decoder lane
 (``decoder_dtype``), while the encoder's matmuls, every manifold op and
 every reduction stay float32; for HyboNet the LorentzLinear and
 attention-projection matmuls (:func:`compute_matmul` with the policy's
-:meth:`Policy.module_dtype`).  :func:`parse_dtype` maps a flag string
-such as ``"bfloat16"`` to a torch dtype.
+:meth:`Policy.module_dtype`); for the HVAE the conv and dense stacks,
+through the cast helpers (:meth:`Policy.cast_compute` at a stack's
+input, :meth:`Policy.cast_boundary` before a manifold op,
+:meth:`Policy.cast_accum` before a loss reduction).  Under ``f32`` every
+helper returns its input unchanged.  :func:`parse_dtype` maps a flag
+string such as ``"bfloat16"`` to a torch dtype.
 """
 
 from __future__ import annotations
@@ -28,11 +32,40 @@ _DTYPES = {"float32": torch.float32, "float64": torch.float64,
 class Policy:
     name: str
     compute: torch.dtype = torch.float32
+    param: torch.dtype = torch.float32      # master parameters
+    accum: torch.dtype = torch.float32      # reductions, losses
+    boundary: torch.dtype = torch.float32   # manifold-op inputs
 
     @property
     def mixed(self) -> bool:
-        """True when the compute dtype is not float32."""
+        """True when the compute dtype is not float32 — the only case in
+        which a cast helper does anything."""
         return self.compute != torch.float32
+
+    # --- cast helpers: the input itself under f32, and for a tensor that
+    # is not floating point (ids, masks) or already of the dtype ----------
+
+    def _cast(self, x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+        if self.mixed and x.is_floating_point() and x.dtype != dt:
+            return x.to(dt)
+        return x
+
+    def cast_compute(self, x: torch.Tensor) -> torch.Tensor:
+        """Activation and matmul-input cast (to ``compute``)."""
+        return self._cast(x, self.compute)
+
+    def cast_boundary(self, x: torch.Tensor) -> torch.Tensor:
+        """Cast of a manifold op's input (to ``boundary``, float32 in
+        every preset)."""
+        return self._cast(x, self.boundary)
+
+    def cast_accum(self, x: torch.Tensor) -> torch.Tensor:
+        """Cast of a reduction's input (to ``accum``)."""
+        return self._cast(x, self.accum)
+
+    def cast_param(self, x: torch.Tensor) -> torch.Tensor:
+        """Master-parameter cast (to ``param``)."""
+        return self._cast(x, self.param)
 
     def module_dtype(self) -> Optional[torch.dtype]:
         """The compute dtype a layer's matmuls take: ``compute`` when

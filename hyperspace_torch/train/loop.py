@@ -5,7 +5,7 @@ JAX runs K calls of a step body as one program (``lax.scan``) with the
 per-step losses stacked on the device.  Here, for state on a CUDA
 device, one step is captured in a ``torch.cuda.CUDAGraph`` that reads
 the state from static buffers, writes the new state back into them and
-the step's loss into slot ``i`` of a ``[K]`` buffer; a chunk replays it
+the step's loss into slot ``i`` of a ``[K, ...]`` buffer; a chunk replays it
 K times, with no host read in between.  On the CPU the chunk is a plain
 loop of the same step.  A capture that fails raises: there is no eager
 fallback on the card.
@@ -45,8 +45,10 @@ def _tensors(leaves):
 
 
 class ChunkedStepper:
-    """``chunk(state, *args) -> (state, losses [K])``: K steps of
-    ``step_fn(state, *args) -> (state, loss)``, graphed on CUDA.
+    """``chunk(state, *args) -> (state, losses [K, ...])``: K steps of
+    ``step_fn(state, *args) -> (state, loss)``, graphed on CUDA; ``loss``
+    is a tensor of any one shape (a 0-dim loss, or a vector of a step's
+    metrics), stacked along a new first axis.
 
     ``args`` are the same every step (a graph holds them by address: a
     chunk called with other argument tensors, another state layout or
@@ -128,7 +130,8 @@ class ChunkedStepper:
         torch.cuda.synchronize(dev)
         for g, s in zip(gens, saved):
             g.set_state(s)
-        losses = torch.zeros(self.k, dtype=loss.dtype, device=dev)
+        losses = torch.zeros((self.k,) + tuple(loss.shape), dtype=loss.dtype,
+                             device=dev)
         graph = torch.cuda.CUDAGraph()
         for g in gens:
             graph.register_generator_state(g)
@@ -137,7 +140,7 @@ class ChunkedStepper:
             new, loss = self._call(st, args, pos)
             for s, t in zip(static, _tensors(pytree.tree_leaves(new))):
                 s.copy_(t)
-            losses.index_copy_(0, pos.reshape(1), loss.reshape(1))
+            losses.index_copy_(0, pos.reshape(1), loss.unsqueeze(0))
             pos.add_(1)
         self._delta = [fn.launches - b for fn, b in zip(self.counters,
                                                         before)]

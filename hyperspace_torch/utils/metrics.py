@@ -1,6 +1,6 @@
 """Evaluation metrics (counterpart of ``hyperspace_tpu/utils/metrics.py``):
-ROC-AUC, rank-based (Mann–Whitney U) with tie-averaged ranks, and
-accuracy."""
+ROC-AUC, rank-based (Mann–Whitney U) with tie-averaged ranks, accuracy
+and macro-F1."""
 
 from __future__ import annotations
 
@@ -39,3 +39,23 @@ def accuracy(logits: np.ndarray, labels: np.ndarray,
         mask = np.asarray(mask, np.float64)
         return float((correct * mask).sum() / np.maximum(mask.sum(), 1.0))
     return float(correct.mean())
+
+
+def f1_macro(logits: np.ndarray, labels: np.ndarray, num_classes: int,
+             mask: np.ndarray | None = None) -> float:
+    """Mean F1 over the classes that occur as a label or a prediction
+    (over ``mask``'s rows when given); 0 when none does."""
+    pred = np.asarray(logits).argmax(-1)
+    labels = np.asarray(labels)
+    if mask is not None:
+        keep = np.asarray(mask, bool)
+        pred, labels = pred[keep], labels[keep]
+    f1s = []
+    for k in range(num_classes):
+        tp = float(((pred == k) & (labels == k)).sum())
+        fp = float(((pred == k) & (labels != k)).sum())
+        fn = float(((pred != k) & (labels == k)).sum())
+        denom = 2 * tp + fp + fn
+        if denom > 0:
+            f1s.append(2 * tp / denom)
+    return float(np.mean(f1s)) if f1s else 0.0

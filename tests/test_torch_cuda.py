@@ -721,7 +721,7 @@ def test_scatter_kernels_refuse_float64(dev):
                           torch.zeros(4, device=dev), ids, ids, None, 4)
 
 
-# --- the HGCN attention arm ---------------------------------------------------
+# --- the HGCN attention arm --------------------------------------------------
 
 
 def assert_att_close(got, want, scale, terms, weight_ulp=2.0 ** -23):
@@ -1430,7 +1430,7 @@ def test_hybonet_step_on_the_card_matches_the_cpu(dev):
     np.testing.assert_allclose(runs["cuda"], runs["cpu"], rtol=1e-4)
 
 
-# --- the Poincaré row-wise ops and hyp_linear ---------------------------------
+# --- the Poincaré row-wise ops and hyp_linear --------------------------------
 # f32 kernel against the f32 plain version: rtol 2e-4, atol 2e-5 (the
 # JAX package's tier for these kernels: log-form transcendentals, other
 # summation orders); hyp_linear atol 2e-4 (its tier).  bf16: within one
@@ -1935,3 +1935,186 @@ def test_pe_steps_on_the_card_match_the_cpu(dev, optimizer, path):
         out[where.type] = st[0].cpu()
     torch.testing.assert_close(out["cuda"], out["cpu"], rtol=1e-4,
                                atol=1e-4 * float(out["cpu"].abs().max()))
+
+
+# --- HGCN node classification and the hyperbolic VAE -------------------------
+
+
+def test_hyp_mlr_at_the_nc_heads_input(dev):
+    """The NC head's input as the path makes it: 33-wide hyperboloid
+    points mapped to the 32-d ball, 40 hyperplanes from origin tangents
+    (``LorentzMLR``), at [169,343, 40, 32]; twice for the same bits."""
+    from hyperspace_torch.kernels.mlr import hyp_mlr, hyp_mlr_plain
+    from hyperspace_torch.manifolds import PoincareBall
+    from hyperspace_torch.manifolds.maps import lorentz_to_ball
+
+    rng = np.random.default_rng(17)
+    z = hyperboloid_rows(rng, (169343, 33), dev)
+    xb = lorentz_to_ball(z, 1.0).contiguous()
+    p = PoincareBall(1.0).expmap0(torch.as_tensor(
+        rng.standard_normal((40, 32)) * 0.1, dtype=torch.float32,
+        device=dev))
+    a = torch.as_tensor(rng.standard_normal((40, 32)) * 0.3,
+                        dtype=torch.float32, device=dev)
+    before = hyp_mlr.launches
+    got = hyp_mlr(xb, p, a, 1.0)
+    again = hyp_mlr(xb, p, a, 1.0)
+    torch.cuda.synchronize()
+    assert hyp_mlr.launches == before + 2
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, hyp_mlr_plain(xb, p, a, 1.0), rtol=1e-4,
+                               atol=1e-5)
+
+
+def _nc_graph(n=600, classes=5):
+    from hyperspace_torch.data import graphs as G
+    from hyperspace_torch.kernels.cluster import build_cluster_split
+
+    edges, x, labels, _ = G.synthetic_hierarchy(
+        num_nodes=n, feat_dim=12, num_classes=classes, seed=0)
+    tr, va, te = G.node_split_masks(n, seed=0)
+    g = G.prepare(edges, n, x, pad_multiple=256, cluster=False,
+                  labels=labels, num_classes=classes, train_mask=tr,
+                  val_mask=va, test_mask=te)
+    g.cluster_split = build_cluster_split(
+        g.senders, g.receivers, g.edge_mask, g.deg, n, min_pair_edges=8,
+        rev_perm=g.rev_perm)
+    assert 0.1 < g.cluster_split.frac_clustered < 1.0
+    return g
+
+
+def test_nc_step_launch_counts_are_exact(dev):
+    """A step: 4 ``csr_segment_sum`` (2 layers' stragglers, forward and
+    backward), 4 ``cluster_aggregate``, 1 ``hyp_mlr`` (the head's
+    forward); an evaluation half the scatters and 1 ``hyp_mlr``; no row
+    plan built in either."""
+    from hyperspace_torch.data import graphs as G
+    from hyperspace_torch.kernels import cluster as KC
+    from hyperspace_torch.kernels.mlr import hyp_mlr
+    from hyperspace_torch.models import hgcn
+
+    g = _nc_graph()
+    cfg = hgcn.HGCNConfig(feat_dim=12, hidden_dims=(16, 8), num_classes=5,
+                          agg_dtype=torch.bfloat16)
+    model, opt, state = hgcn.init_nc(cfg, g, seed=0, device=dev)
+    ga = G.to_device(g, dev)
+    labels, train = hgcn.nc_targets(g, dev)
+    fns = (csr_segment_sum, KC.cluster_aggregate, hyp_mlr)
+
+    def counts():
+        return [f.launches for f in fns] + [KC.row_plan_builds]
+
+    before = counts()
+    for _ in range(3):
+        state, loss = hgcn.train_step_nc(model, opt, state, ga, labels, train)
+    after = counts()
+    assert [b - a for a, b in zip(before, after)] == [12, 12, 3, 0]
+    assert torch.isfinite(loss)
+    hgcn.evaluate_nc(model, g, ga=ga)
+    assert [b - a for a, b in zip(after, counts())] == [2, 2, 1, 0]
+
+
+def test_nc_steps_on_the_card_match_the_cpu(dev):
+    from hyperspace_torch.models import hgcn
+
+    g = _nc_graph()
+    cfg = hgcn.HGCNConfig(feat_dim=12, hidden_dims=(16, 8), num_classes=5)
+    out = {}
+    for where in (dev, torch.device("cpu")):
+        model, res = hgcn.train_nc(cfg, g, steps=3, seed=2, device=where)
+        out[where.type] = (res, {k: v.float().cpu() for k, v in
+                                 model.state_dict().items()})
+    np.testing.assert_allclose(out["cuda"][0]["loss"], out["cpu"][0]["loss"],
+                               rtol=1e-4)
+    for k, v in out["cpu"][1].items():
+        torch.testing.assert_close(out["cuda"][1][k], v, rtol=1e-4,
+                                   atol=1e-4 * float(v.abs().max()))
+
+
+@pytest.mark.parametrize("kind", ["poincare", "lorentz"])
+def test_hvae_steps_on_the_card_match_the_cpu(dev, kind):
+    """Two sampled steps from the same parameters with injected ids and
+    ε: loss, recon and kl within rel 1e-4, each parameter within rel
+    1e-4 norm-wise (float32, cuDNN's TF32 off in the model).  Not
+    element by element: Adam divides each gradient by its own root mean
+    square, so an entry whose gradient cancels to rounding noise moves
+    by up to lr·|noise| / (|noise| + eps) on either device."""
+    from hyperspace_torch.data.mnist import synthetic_mnist
+    from hyperspace_torch.models import hvae
+
+    cfg = hvae.HVAEConfig(image_size=28, latent_dim=8, hidden=64,
+                          conv_features=(16, 32), batch_size=16, kind=kind)
+    images = synthetic_mnist(num_samples=64, seed=1).images
+    gen = torch.Generator().manual_seed(5)
+    p0 = hvae.init_params(cfg, gen)
+    draws = [(torch.randint(0, 64, (16,), generator=gen),
+              torch.randn((16, 8), generator=gen)) for _ in range(2)]
+    out = {}
+    for where in (dev, torch.device("cpu")):
+        model, opt, st = hvae.init_model(cfg, 0, where, params=p0)
+        x = torch.as_tensor(images, device=where)
+        metrics = []
+        for idx, eps in draws:
+            st, *m = hvae.train_step_sampled(model, opt, st, x,
+                                             idx=idx.to(where),
+                                             eps=eps.to(where))
+            metrics.append(torch.stack(m).cpu())
+        out[where.type] = (torch.stack(metrics), st.params)
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-4,
+                               atol=0)
+    for part, layers in out["cpu"][1].items():
+        for layer, leaves in layers.items():
+            for name, v in leaves.items():
+                got = out["cuda"][1][part][layer][name].cpu()
+                gap = torch.linalg.vector_norm(got - v)
+                assert gap <= 1e-4 * torch.linalg.vector_norm(v), (
+                    part, layer, name, float(gap))
+
+
+def _hvae_graph_and_eager(dev):
+    """A graphed chunk of 4 sampled steps and the same 4 steps run
+    eagerly from the same state: (graphed metrics, eager metrics, graphed
+    parameters, eager parameters)."""
+    from hyperspace_torch.data.mnist import synthetic_mnist
+    from hyperspace_torch.models import hvae
+    from hyperspace_torch.train import loop
+
+    cfg = hvae.HVAEConfig(latent_dim=8, hidden=64, conv_features=(16, 32),
+                          batch_size=16, kind="lorentz")
+    x = torch.as_tensor(synthetic_mnist(num_samples=64, seed=2).images,
+                        device=dev)
+    model, opt, st = hvae.init_model(cfg, 3, dev)
+    eager = _pe_clone(st)
+    rows_ = []
+    for _ in range(4):
+        eager, *m = hvae.train_step_sampled(model, opt, eager, x)
+        rows_.append(torch.stack(m))
+    chunk = loop.make_chunked_stepper(hvae.chunk_step(model, opt), 4)
+    st, got = chunk(st, x)
+    torch.cuda.synchronize()
+    return (got, torch.stack(rows_),
+            torch.utils._pytree.tree_leaves(st.params),
+            torch.utils._pytree.tree_leaves(eager.params))
+
+
+def test_hvae_graphed_chunk_equals_eager_steps(dev):
+    """Under cuDNN's determinism a graphed chunk is the eager steps bit
+    for bit."""
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=True, allow_tf32=False):
+        got, want, params, eager = _hvae_graph_and_eager(dev)
+    assert torch.equal(got, want)
+    for a, b in zip(params, eager):
+        assert torch.equal(a, b)
+
+
+def test_hvae_graphed_chunk_near_eager_steps_without_determinism(dev):
+    """As the path runs (cuDNN's determinism off, its weight gradients
+    summed in another order each run), a graphed chunk stays within rel
+    1e-5 of the eager steps: metrics entry-wise, parameters norm-wise."""
+    assert not torch.backends.cudnn.deterministic
+    got, want, params, eager = _hvae_graph_and_eager(dev)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+    for a, b in zip(params, eager):
+        assert torch.linalg.vector_norm(a - b) <= 1e-5 * \
+            torch.linalg.vector_norm(b)
