@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving and training paths, its
-Poincaré ops, its Poincaré-embedding trainer, HGCN node classification
-and the hyperbolic VAE on one GPU and check them.
+Poincaré ops, its Poincaré-embedding trainer, HGCN node classification,
+the hyperbolic VAE and HGCN through its CLI from graphs on disk on one
+GPU and check them.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -227,12 +228,59 @@ prints its seconds):
 37. ``cli.train hvae --yaml configs/hvae_mnist.yaml scan_chunk=100`` (its
    800 steps in 8 graphed chunks): loss, recon, kl, IWAE and seconds.
 
+38. the disk layouts: ``community_power_law_graph`` at its defaults
+   (ogbn-arxiv's statistics: 169,343 nodes, 1,166,243 edges, 128
+   features, 40 classes, all used) written by ``write_ogb_csv_layout``
+   and a Cora-sized graph (2,708 papers, 5,429 citations, 1,433 binary
+   words, 7 classes) by ``write_cora_layout``, both loaded back (edges
+   and labels exact, features within ``%.6g``); write and load seconds;
+39. host prep on the arxiv layout: the native BFS order and edge layout
+   bitwise their Python and numpy versions, each path's seconds; a
+   prep-cache miss and then a hit in a cache root of the phase's own:
+   identical layouts, the hit faster (every other prep in the smoke
+   runs with the cache off);
+40. ``cli.train hgcn --yaml configs/hgcn_arxiv_lp.yaml data_root=<arxiv
+   layout> steps=12 graph_cache=false`` in this process: ``prep`` is
+   ``"native"``, every logged loss finite, the last below the first;
+   launches exactly 12 × (4 ``csr_segment_sum``, 4 ``cluster_aggregate``)
+   plus an evaluation's 4 and 4, no row plan built; then the CLI's step
+   on the identical split: step ms, samples/s, device busy time, idle
+   share, top items, peak memory, and the CLI's test ROC-AUC;
+41. ``train_step_lp_planned`` on that split: ``graph_edge_sqdist``'s
+   [E, 33] bf16 scatter held against its plain version (and from an
+   unaligned view), launched twice for the same bits; one warm-up and
+   10 steps, losses finite and falling, launches exactly 6 and 4 a step;
+   step ms and the device's share;
+42. ``learn_c=true`` on the card against the CPU, two steps each of LP
+   (pairs and plain) and NC on a 20,000-node graph of the same kind, from
+   the same parameters and negatives: losses and the last layer's
+   learned curvature within rel 2e-2, that curvature moved; ``hyp_mlr``
+   with the learned (device) curvature against its plain version at
+   phase 12's tier, ``dc`` included, launched twice for the same bits;
+43. ``task=nc`` on the arxiv layout (40 classes) and ``use_att=true`` LP
+   on the Cora layout through the CLI, 5 steps each: losses finite,
+   launches exact (NC: 4, 4, 1 a step and 2, 2, 1 an evaluation;
+   attention without a cluster split: 4 ``csr_segment_sum``, 2
+   ``csr_att_bwd_edges``, 2 ``csr_segment_reduce_1d`` a step, 4
+   ``csr_segment_sum`` an evaluation, no cluster kernel); then the total
+   seconds.
+
 The kernels line (phase 23) also gives ``hyp_mlr`` at the NC head's own
 input (``*_nc_head`` keys: device ms, plain ms, bound, no library call)
 and, for the three kernels of the NC path, their launches there, a step
 and an evaluation (``launches_nc``, ``launches_per_step_nc``,
 ``launches_per_eval_nc``), and for the two scatter kernels their largest
-error on the NC graph's edge sets (``max_abs_err_nc``).
+error on the NC graph's edge sets (``max_abs_err_nc``); and, from
+phases 38-43, the launches of each CLI path (``launches_hgcn_cli``,
+``launches_planned``, ``launches_hgcn_cli_nc``,
+``launches_hgcn_cli_att_cora``, each with its per-step and
+per-evaluation count), ``csr_segment_sum`` at the arxiv layout's
+stragglers and ``cluster_aggregate`` at its clustered pairs (F 128:
+``*_hgcn_cli``: shape, ms, bound, the library call's ms, largest error),
+``csr_segment_sum`` at ``graph_edge_sqdist``'s [E, 33] bf16 scatter
+(``*_graph_edges_hgcn_cli``) and ``hyp_mlr`` at the NC head's shape with
+the curvature as a device tensor and as a number (``ms_nc_device_c``,
+``ms_nc_number_c``).
 """
 
 from __future__ import annotations
@@ -336,9 +384,11 @@ def device_share(torch, fn, wall_ms: float, reps: int = 5,
     for k, ms in top:
         named[k[:60]] = named.get(k[:60], 0.0) + ms
     # the port's own kernels sit in a top-level anonymous namespace
-    # (PyTorch's in at::native::(anonymous namespace))
+    # (PyTorch's in at::native::(anonymous namespace), but for the
+    # backward of an indexed gather, which sits there too)
     hand = sum(ms for k, ms in items.items()
-               if k.removeprefix("void ").startswith("(anonymous namespace)"))
+               if k.removeprefix("void ").startswith("(anonymous namespace)")
+               and "::indexing_backward_kernel" not in k)
     return {"device_busy_ms": busy,
             "device_idle_share": 1.0 - busy / wall_ms,
             "hand_kernels_ms": hand, "device_items": len(items),
@@ -3309,7 +3359,7 @@ def nc_head_input(torch, model, ga):
 NC_RIM_SLACK = 1.1
 
 
-def check_nc_head(torch, which: str, head) -> float:
+def check_nc_head(torch, which: str, head, tag: str = "") -> float:
     """``hyp_mlr`` on an NC head input, launched twice for the same bits.
     Where the rows keep clear of the ball's rim (``first_step``) the
     logits are held against the plain version at phase 12's tier; where
@@ -3332,7 +3382,8 @@ def check_nc_head(torch, which: str, head) -> float:
     diff = (got - want).abs()
     over = int((diff > MLR_ATOL + MLR_RTOL * want.abs()).sum())
     same = bool(torch.equal(got, again))
-    out = {"phase": "check", "kernel": "hyp_mlr", "input": f"nc_head_{which}",
+    out = {"phase": "check", "kernel": "hyp_mlr",
+           "input": f"nc_head_{which}{tag}",
            "shape": [x.shape[0], p.shape[0], x.shape[1]],
            "max_abs_err": float(diff.max()), "over_tolerance": over,
            "repeat_equal": same, "kernel_f64_over_tier": float(
@@ -3641,6 +3692,580 @@ def hvae_graphs(torch, hv: dict, card: dict) -> None:
         raise AssertionError(f"the HVAE CLI's metrics are not finite: {res}")
 
 
+# --- phases 38-43: HGCN as its users launch it, through the CLI ------------
+
+# the arxiv layout: community_power_law_graph at its defaults (ogbn-arxiv's
+# statistics: 169,343 nodes, 1,166,243 edges, 128 features, 40 classes)
+# written by data.graphs.write_ogb_csv_layout; the Cora layout: a graph of
+# Cora's size (2,708 papers, 5,429 citations, 1,433 binary words, 7
+# classes) in the Planetoid format
+CORA_SHAPE = dict(num_nodes=2708, num_edges=5429, num_classes=7,
+                  feat_dim=1433)
+CLI_LP_YAML = os.path.join("configs", "hgcn_arxiv_lp.yaml")
+CLI_STEPS = 12
+CLI_NC_STEPS = CLI_ATT_STEPS = 5
+PLANNED_STEPS = 10
+# launches a step of the CLI's train_step_lp: 2 layers × (the clustered
+# pairs' aggregation and the straggler scatter) forward and again in the
+# backward; the decoder's pairs are plain gathers (their backward is
+# PyTorch's index_put_); an evaluation scores the test positives and the
+# test negatives, one encoder forward each
+CLI_LP_PER_STEP = {"csr_segment_sum": 4, "cluster_aggregate": 4}
+CLI_LP_PER_EVAL = {"csr_segment_sum": 4, "cluster_aggregate": 4}
+# train_step_lp_planned: the encoder's, graph_edge_sqdist's one [E, 33]
+# scatter for both endpoints, and the negatives' sorted u side
+PLANNED_PER_STEP = {"csr_segment_sum": 6, "cluster_aggregate": 4}
+# the attention arm on a graph under 200,000 edges (no cluster split): a
+# layer's planned partial (csr_segment_sum over [E, F + 1]) forward, its
+# dh scatter, edge pass and α_s reduction backward; an evaluation the two
+# forwards
+CLI_ATT_PER_STEP = {"csr_segment_sum": 4, "csr_att_bwd_edges": 2,
+                    "csr_segment_reduce_1d": 2}
+CLI_ATT_PER_EVAL = {"csr_segment_sum": 4}
+LEARN_C_NODES = 20_000
+LEARN_C_STEPS = 2
+
+
+def run_cli(argv: list) -> dict:
+    """``cli.train.main(argv)`` in this process; its JSON line."""
+    from contextlib import redirect_stdout
+
+    from hyperspace_torch.cli import train as cli_train
+
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        rc = cli_train.main(argv)
+    if rc != 0:
+        raise AssertionError(f"cli.train {argv[0]} exited {rc}")
+    return json.loads(buf.getvalue().splitlines()[-1])
+
+
+def read_log(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(line)["loss"] for line in f]
+
+
+def check_cli_counts(got: dict, per_step: dict, per_eval: dict, steps: int,
+                     what: str) -> None:
+    """Launches of a CLI run: ``steps`` steps and one evaluation."""
+    for name in set(per_step) | set(per_eval):
+        want = steps * per_step.get(name, 0) + per_eval.get(name, 0)
+        if got[name] != want:
+            raise AssertionError(f"{what}: {got[name]} {name} launches, want "
+                                 f"{steps} × {per_step.get(name, 0)} + "
+                                 f"{per_eval.get(name, 0)}")
+    if got.get("row_plan_builds"):
+        raise AssertionError(f"{what}: {got['row_plan_builds']} row plans "
+                             "built; the split's should serve them all")
+
+
+def check_losses(losses: list, what: str, first=None) -> None:
+    first = losses[0] if first is None else first
+    if not np.all(np.isfinite(losses + [first])):
+        raise AssertionError(f"{what}: non-finite loss {losses}")
+    if not losses[-1] < first:
+        raise AssertionError(f"{what}: the loss did not fall: {losses}")
+
+
+def layouts_equal(a, b) -> bool:
+    """Two prepared graphs' edge layouts, cluster split included, bit
+    for bit."""
+    def arrays(g):
+        out = [g.senders, g.receivers, g.edge_mask, g.rev_perm, g.deg,
+               *g.csr_plan]
+        cs = g.cluster_split
+        if cs is not None:
+            out += [v for v in cs if isinstance(v, np.ndarray)]
+            out += [v for part in (cs.c_plan, cs.s_plan, cs.c_rows)
+                    if part is not None for v in part
+                    if isinstance(v, np.ndarray)]
+        return out
+
+    xa, xb = arrays(a), arrays(b)
+    return len(xa) == len(xb) and all(
+        u.dtype == v.dtype and np.array_equal(u, v) for u, v in zip(xa, xb))
+
+
+def cli_path(torch, args, card: dict) -> dict:
+    """Phases 38–43; returns what the kernels line takes from them."""
+    from hyperspace_torch.data import graphs as G
+    from hyperspace_torch.data import native
+    from hyperspace_torch.data import prep_cache
+    from hyperspace_torch.models import hgcn
+
+    dev = torch.device("cuda")
+    work = os.path.join(REPO, "build", "chip_smoke")
+    os.makedirs(work, exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=work)
+    try:
+        return _cli_phases(torch, args, card, dev, tmp, G, native,
+                           prep_cache, hgcn)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _cli_phases(torch, args, card, dev, tmp, G, native, prep_cache, hgcn):
+    arxiv_dir, cora_dir = (os.path.join(tmp, d) for d in ("arxiv", "cora"))
+    # --- phase 38: the disk layouts --------------------------------------
+    t0 = time.perf_counter()
+    edges, x, labels, k = G.community_power_law_graph(seed=args.seed)
+    gen_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    G.write_ogb_csv_layout(arxiv_dir, edges, x, labels)
+    write_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    e_l, x_l, lab_l, k_l = G.load_ogbn_arxiv(arxiv_dir)
+    load_s = time.perf_counter() - t1
+    if not (np.array_equal(e_l, edges) and np.array_equal(lab_l, labels)
+            and k_l == k == len(np.unique(labels)) == 40):
+        raise AssertionError("the arxiv layout did not load back")
+    x_err = float(np.max(np.abs(x_l - x) / np.maximum(np.abs(x), 1e-30)))
+    if not x_err <= 5e-6 + 2.0 ** -23:      # %.6g, then an f32 rounding
+        raise AssertionError(f"features loaded {x_err} off")
+    size = sum(os.path.getsize(os.path.join(arxiv_dir, "raw", f))
+               for f in os.listdir(os.path.join(arxiv_dir, "raw")))
+    t1 = time.perf_counter()
+    ce, cx, cl, ck = G.community_power_law_graph(seed=args.seed,
+                                                 **CORA_SHAPE)
+    cx = (cx > 1.5).astype(np.float32)             # binary words
+    G.write_cora_layout(cora_dir, ce, cx, cl)
+    cora_write_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    cora = G.load_cora(cora_dir)
+    cora_load_s = time.perf_counter() - t1
+    if not (np.array_equal(cora[0], ce) and np.array_equal(cora[1], cx)):
+        raise AssertionError("the Cora layout did not load back")
+    emit({"phase": "cli_layouts", "nodes": len(x), "edges": len(edges),
+          "classes": k, "feat_dim": x.shape[1], "generate_s": gen_s,
+          "write_s": write_s, "load_s": load_s, "bytes": size,
+          "feature_max_rel_err": x_err, "cora_nodes": len(cx),
+          "cora_edges": len(ce), "cora_write_s": cora_write_s,
+          "cora_load_s": cora_load_s,
+          "seconds": time.perf_counter() - t0})
+
+    # --- phase 39: host prep, native against numpy; the prep cache -------
+    t0 = time.perf_counter()
+    n = len(x_l)
+    times = {}
+
+    def timed(name, fn):
+        t = time.perf_counter()
+        out = fn()
+        times[name] = time.perf_counter() - t
+        return out
+
+    if not native.available():
+        raise AssertionError("the native host prep did not build")
+    order_n = timed("bfs_native_s", lambda: native.locality_order(e_l, n))
+    order_p = timed("bfs_python_s", lambda: G._locality_order_python(e_l, n))
+    if not np.array_equal(order_n, order_p):
+        raise AssertionError("native and Python BFS orders differ")
+    er, xr, lr, _ = G.apply_locality_order(e_l, x_l, lab_l, cache=False)
+    lay_n = timed("layout_native_s", lambda: native.prepare_edges(er, n))
+    lay_p = timed("layout_numpy_s", lambda: G._prepare_edges_numpy(er, n))
+    if not all(a.dtype == b.dtype and np.array_equal(a, b)
+               for a, b in zip(lay_n, lay_p)):
+        raise AssertionError("native and numpy edge layouts differ")
+    pc = prep_cache.PrepCache(os.path.join(tmp, "cache"))
+    g_miss = timed("cache_miss_s", lambda: G.prepare(er, n, xr, cache=pc))
+    g_hit = timed("cache_hit_s", lambda: G.prepare(er, n, xr, cache=pc))
+    if (pc.misses, pc.hits) != (1, 1) or not layouts_equal(g_miss, g_hit):
+        raise AssertionError(f"prep cache: {pc.misses} misses, {pc.hits} "
+                             "hits, or the layouts differ")
+    if not times["cache_hit_s"] < times["cache_miss_s"]:
+        raise AssertionError(f"the cache hit was not faster: {times}")
+    emit({"phase": "cli_host_prep", **times, "edges_real": g_miss.num_edges,
+          "frac_clustered": g_miss.cluster_split.frac_clustered,
+          "prep": g_miss.prep, "seconds": time.perf_counter() - t0})
+    del g_hit, lay_n, lay_p
+
+    # --- phase 40: cli.train hgcn --yaml configs/hgcn_arxiv_lp.yaml -------
+    t0 = time.perf_counter()
+    log = os.path.join(tmp, "lp.jsonl")
+    nc_reset()
+    torch.cuda.reset_peak_memory_stats()
+    out = run_cli(["hgcn", "--yaml", CLI_LP_YAML, f"data_root={arxiv_dir}",
+                   f"steps={CLI_STEPS}", "graph_cache=false", f"log={log}"])
+    launches = nc_counts()
+    cli_peak = torch.cuda.max_memory_allocated()
+    losses = read_log(log)
+    emit({"phase": "cli_lp", "result": out, "losses": losses,
+          "launches": launches, "peak_device_memory_bytes": cli_peak,
+          "seconds": time.perf_counter() - t0, **card})
+    if out["prep"] != "native" or out["source"] != "disk":
+        raise AssertionError(f"cli lp: prep {out['prep']}, {out['source']}")
+    check_losses(losses, "cli lp")
+    check_cli_counts(launches, CLI_LP_PER_STEP, CLI_LP_PER_EVAL, CLI_STEPS,
+                     "cli lp")
+    # the CLI's step timed and profiled on the identical split, built as
+    # the CLI builds it (the yaml's BFS relabeling, split_edges' defaults)
+    t1 = time.perf_counter()
+    split = G.split_edges(er, n, xr, seed=0, cache=False,
+                          cluster_min_pair=G.cluster_min_pair_for(False))
+    split_s = time.perf_counter() - t1
+    cfg = hgcn.HGCNConfig(feat_dim=xr.shape[1], hidden_dims=(128, 32),
+                          kind="lorentz", agg_dtype=torch.bfloat16,
+                          decoder_dtype=torch.bfloat16)
+    model, opt, state = hgcn.init_lp(cfg, split.graph, seed=0, device=dev)
+    ga = G.to_device(split.graph, dev)
+    train_pos = G.index_tensor(split.train_pos, dev)
+
+    def lp_step():
+        nonlocal state
+        state, loss = hgcn.train_step_lp(model, opt, n, state, ga, train_pos)
+        return loss
+
+    torch.cuda.reset_peak_memory_stats()
+    float(lp_step())
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        lp_step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t1) / TRAIN_STEPS * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    share = device_share(torch, lp_step, step_ms, reps=3, top_n=8)
+    cs = split.graph.cluster_split
+    clustered_in = np.bincount(cs.c_recv, minlength=n)
+    emit({"phase": "cli_lp_profile", "split_s": split_s, "step_ms": step_ms,
+          "samples_per_s": n / step_ms * 1e3, "nodes": n,
+          "edges_real": split.graph.num_edges,
+          "max_in_degree": int(split.graph.deg.max()),
+          "rows_with_clustered_edges": int((clustered_in > 0).sum()),
+          "max_clustered_in_degree": int(clustered_in.max()),
+          "frac_clustered": cs.frac_clustered,
+          "train_pairs": len(split.train_pos),
+          "peak_device_memory_bytes": peak,
+          "test_roc_auc_cli": out["roc_auc"], **share, **card})
+
+    # --- phase 41: train_step_lp_planned on the same split ---------------
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 41)
+    e_real = split.graph.num_edges
+    bf16 = torch.bfloat16
+    edge_err = max(check_segsum(torch, gen, "graph edges", ga.receivers, n,
+                                33, bf16, e_real),
+                   check_segsum(torch, gen, "graph edges, unaligned view",
+                                ga.receivers, n, 33, bf16, -e_real))
+    # the encoder's scatters on this graph's own edge sets, as in phase 31
+    n_strag = int(cs.s_mask.sum())
+    scatter_err = {
+        "csr_segment_sum": max(check_segsum(
+            torch, gen, "CLI stragglers", ga.cluster.s_recv, n, f, bf16,
+            n_strag) for f in (128, 32)),
+        "cluster_aggregate": max(check_cluster(
+            torch, gen, "CLI clustered", ga.cluster, n, f, bf16)
+            for f in (128, 32))}
+    neg_u, neg_plan = hgcn.make_static_negatives(n, len(split.train_pos),
+                                                 seed=0, device=dev)
+    model_p, opt_p, state_p = hgcn.init_lp(cfg, split.graph, seed=0,
+                                           device=dev)
+
+    def planned_step():
+        nonlocal state_p
+        state_p, loss = hgcn.train_step_lp_planned(
+            model_p, opt_p, n, state_p, ga, neg_u, neg_plan)
+        return loss
+
+    nc_reset()
+    warm = float(planned_step())
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    p_losses = [planned_step() for _ in range(PLANNED_STEPS)]
+    torch.cuda.synchronize()
+    p_ms = (time.perf_counter() - t1) / PLANNED_STEPS * 1e3
+    p_launches = nc_counts()
+    p_losses = [float(v) for v in p_losses]
+    check_counts(p_launches, PLANNED_PER_STEP, PLANNED_STEPS + 1,
+                 "planned steps")
+    check_losses(p_losses, "planned steps", first=warm)
+    p_share = device_share(torch, planned_step, p_ms, reps=3, top_n=8)
+    emit({"phase": "cli_planned", "warmup_loss": warm, "losses": p_losses,
+          "step_ms": p_ms, "samples_per_s": n / p_ms * 1e3,
+          "launches": p_launches, "edges_padded": int(ga.receivers.shape[0]),
+          "graph_edge_scatter_max_abs_err": edge_err,
+          "encoder_scatter_max_abs_err": scatter_err, **p_share,
+          "seconds": time.perf_counter() - t0, **card})
+
+    # --- phase 42: learn_c on the card against the CPU -------------------
+    t0 = time.perf_counter()
+    lc = learn_c_card_vs_cpu(torch, args, G, hgcn)
+    emit({"phase": "cli_learn_c_card_vs_cpu", **lc["report"],
+          "seconds": time.perf_counter() - t0})
+
+    # --- phase 43: task=nc on the arxiv layout, attention on Cora --------
+    t0 = time.perf_counter()
+    nc_log = os.path.join(tmp, "nc.jsonl")
+    nc_reset()
+    nc_out = run_cli(["hgcn", "task=nc", "dataset=ogbn-arxiv",
+                      f"data_root={arxiv_dir}", "reorder=true",
+                      "hidden_dims=[128, 32]", "agg_dtype=bfloat16",
+                      f"steps={CLI_NC_STEPS}", "graph_cache=false",
+                      f"log={nc_log}"])
+    nc_launches = nc_counts()
+    nc_losses = read_log(nc_log)
+    check_cli_counts(nc_launches, NC_PER_STEP, NC_PER_EVAL, CLI_NC_STEPS,
+                     "cli nc")
+    if not np.all(np.isfinite(nc_losses)) or nc_out["prep"] != "native":
+        raise AssertionError(f"cli nc: {nc_losses}, prep {nc_out['prep']}")
+    att_log = os.path.join(tmp, "att.jsonl")
+    att_reset()
+    nc_reset()
+    att_out = run_cli(["hgcn", "dataset=cora", f"data_root={cora_dir}",
+                       "use_att=true", "agg_dtype=bfloat16",
+                       f"steps={CLI_ATT_STEPS}", "graph_cache=false",
+                       f"log={att_log}"])
+    att_launches = {**att_counts(), **nc_counts()}
+    att_losses = read_log(att_log)
+    check_cli_counts(att_launches, CLI_ATT_PER_STEP, CLI_ATT_PER_EVAL,
+                     CLI_ATT_STEPS, "cli attention on Cora")
+    for name in ("cluster_att_fwd", "cluster_att_bwd", "cluster_aggregate"):
+        if att_launches[name]:
+            raise AssertionError(f"cli attention on Cora: {name} launched "
+                                 "on a graph without a cluster split")
+    if not np.all(np.isfinite(att_losses)):
+        raise AssertionError(f"cli attention on Cora: {att_losses}")
+    emit({"phase": "cli_nc_and_att", "nc_result": nc_out,
+          "nc_losses": nc_losses, "nc_launches": nc_launches,
+          "att_result": att_out, "att_losses": att_losses,
+          "att_launches": att_launches,
+          "seconds": time.perf_counter() - t0, **card})
+    return {"launches_lp": launches, "launches_planned": p_launches,
+            "launches_nc": nc_launches, "launches_att": att_launches,
+            "ga": ga, "n": n, "e_real": e_real, "n_strag": n_strag,
+            "edge_err": edge_err, "scatter_err": scatter_err,
+            "mlr": lc["mlr"]}
+
+
+def learn_c_card_vs_cpu(torch, args, G, hgcn) -> dict:
+    """Phase 42: two steps each of LP (pairs and plain) and NC with
+    learned curvature on a 20,000-node graph of the arxiv layout's kind,
+    on the card and on the CPU from the same parameters and negatives:
+    losses and the last layer's learned curvature within rel 2e-2 (the
+    bf16 lanes), that curvature moved off its start.  The first layer's
+    curvature has a gradient of rounding noise (the next layer's logmap0
+    at c undoes its expmap0 at c), which AdamW turns into steps of about
+    ±lr either way: it is reported, not held.  Then ``hyp_mlr`` with the
+    NC head's learned (device) curvature against its plain version,
+    ``dc`` included, launched twice for the same bits."""
+    from hyperspace_torch.benchmarks import hgcn_bench as B
+    from hyperspace_torch.kernels.mlr import hyp_mlr, hyp_mlr_plain
+    from hyperspace_torch.manifolds.maps import lorentz_to_ball
+
+    m = round(B.ARXIV_EDGES * LEARN_C_NODES / B.ARXIV_NODES)
+    edges, x, labels, k = G.community_power_law_graph(
+        LEARN_C_NODES, m, seed=args.seed)
+    edges, x, labels, _ = G.apply_locality_order(edges, x, labels,
+                                                 cache=False)
+    split = G.split_edges(edges, LEARN_C_NODES, x, seed=0, cache=False)
+    tr, va, te = G.node_split_masks(LEARN_C_NODES, seed=0)
+    g_nc = G.prepare(edges, LEARN_C_NODES, x, labels=labels, num_classes=k,
+                     train_mask=tr, val_mask=va, test_mask=te, cache=False)
+    if split.graph.cluster_split is None or g_nc.cluster_split is None:
+        raise AssertionError("the 20,000-node graphs have no cluster split")
+    base = dict(feat_dim=x.shape[1], hidden_dims=(128, 32), learn_c=True,
+                agg_dtype=torch.bfloat16)
+    cfg_lp = hgcn.HGCNConfig(decoder_dtype=torch.bfloat16, **base)
+    cfg_nc = hgcn.HGCNConfig(num_classes=k, **base)
+    n, p = LEARN_C_NODES, len(split.train_pos)
+    gen = torch.Generator().manual_seed(args.seed + 42)
+    negs = [torch.randint(0, n, (p, 2), generator=gen, dtype=torch.int32)
+            for _ in range(LEARN_C_STEPS)]
+    runs, heads = {}, {}
+    for where in ("cuda", "cpu"):
+        dev = torch.device(where)
+        ga = G.to_device(split.graph, dev)
+        tp = G.index_tensor(split.train_pos, dev)
+        pos = hgcn.make_planned_pairs(split.train_pos, n, dev)
+        neg_u, neg_plan = hgcn.make_static_negatives(n, p, seed=0, device=dev)
+        out = {}
+        for kind in ("pairs", "lp"):
+            model, opt, state = hgcn.init_lp(cfg_lp, split.graph, seed=0,
+                                             device=dev)
+            losses = []
+            for neg in negs:
+                if kind == "lp":
+                    state, loss = hgcn.train_step_lp(model, opt, n, state, ga,
+                                                     tp, neg=neg.to(dev))
+                else:
+                    state, loss = hgcn.train_step_lp_pairs(
+                        model, opt, n, state, ga, pos, neg_u, neg_plan,
+                        neg_v=neg[:, 1].contiguous().to(dev))
+                losses.append(float(loss))
+            out[kind] = (losses, curvatures(model))
+        model, opt, state = hgcn.init_nc(cfg_nc, g_nc, seed=0, device=dev)
+        gn = G.to_device(g_nc, dev)
+        lab, trm = hgcn.nc_targets(g_nc, dev)
+        if where == "cuda":
+            heads["first_step"] = learned_head_input(torch, model, gn)
+        losses = []
+        for _ in range(LEARN_C_STEPS):
+            state, loss = hgcn.train_step_nc(model, opt, state, gn, lab, trm)
+            losses.append(float(loss))
+        out["nc"] = (losses, curvatures(model))
+        runs[where] = out
+        if where == "cuda":
+            heads["after_steps"] = learned_head_input(torch, model, gn)
+    report, worst = {}, 0.0
+    for kind in ("pairs", "lp", "nc"):
+        (lc, cc), (lp_, cp_) = runs["cuda"][kind], runs["cpu"][kind]
+        rel_l = max(abs(a - b) / abs(b) for a, b in zip(lc, lp_))
+        rel_c = abs(cc[-1] - cp_[-1]) / abs(cp_[-1])
+        worst = max(worst, rel_l, rel_c)
+        report[kind] = {"losses_cuda": lc, "losses_cpu": lp_,
+                        "c_cuda": cc, "c_cpu": cp_, "max_rel_loss_diff":
+                        rel_l, "rel_c_diff_last_layer": rel_c}
+        if not abs(cc[-1] - 1.0) > 1e-4:
+            raise AssertionError(f"learn_c {kind}: the last layer's "
+                                 f"curvature did not move: {cc}")
+    if not worst <= CARD_CPU_RTOL:
+        raise AssertionError(f"learn_c: card and CPU differ by {worst}")
+    # hyp_mlr with the learned curvature, a device tensor: at the first
+    # step's input at phase 12's tier, after the steps (rows at the
+    # ball's rim) no further from float64 than the plain version, as
+    # phase 31 holds it; dc through the kernel against the plain version
+    err = max(check_nc_head(torch, which, heads[which], "_learned_c")
+              for which in ("first_step", "after_steps"))
+    xb, pb, a, c = heads["first_step"]
+    c = c.clone().requires_grad_()
+    got = hyp_mlr(xb, pb, a, c)
+    gout = torch.randn(got.shape, generator=torch.Generator(
+        device=got.device).manual_seed(args.seed + 43), device=got.device)
+    (dc_k,) = torch.autograd.grad(got, c, gout)
+    c2 = c.detach().clone().requires_grad_()
+    (dc_p,) = torch.autograd.grad(hyp_mlr_plain(xb, pb, a, c2), c2, gout)
+    dc_rel = float((dc_k - dc_p).abs() / dc_p.abs().clamp_min(1e-30))
+    mlr = {"shape": list(got.shape) + [xb.shape[1]], "max_abs_err": err,
+           "dc_kernel": float(dc_k), "dc_plain": float(dc_p),
+           "dc_rel_diff": dc_rel, "c": float(c.detach())}
+    emit({"phase": "check", "kernel": "hyp_mlr", "input": "learned_c_dc",
+          **mlr})
+    if not dc_rel <= MLR_RTOL:
+        raise AssertionError(f"hyp_mlr with a device c: {mlr}")
+    report["learned_c_first_layer_note"] = (
+        "gradient of rounding noise; reported, not held")
+    return {"report": report, "mlr": mlr}
+
+
+def learned_head_input(torch, model, ga):
+    """(x, p, a, c) as the NC head hands them to ``hyp_mlr`` with learned
+    curvature: c the last layer's, a device tensor."""
+    from hyperspace_torch.manifolds import PoincareBall
+    from hyperspace_torch.manifolds.maps import lorentz_to_ball
+
+    with torch.no_grad():
+        z, m = model.encoder(ga)
+        c = m.c.detach()
+        return (lorentz_to_ball(z, c).contiguous(),
+                PoincareBall(c).expmap0(model.head.p_tangent).contiguous(),
+                model.head.a.detach().contiguous(), c)
+
+
+def curvatures(model) -> list:
+    """Every layer's learned curvature, first to last."""
+    enc = model.encoder
+    return [float(getattr(enc, f"conv{i}").out_curvature().detach())
+            for i in range(len(enc.cfg.hidden_dims))]
+
+
+def cli_kernel_fields(torch, cp: dict, kernels: list) -> None:
+    """Add the CLI paths to the kernels line (``*_hgcn_cli*`` keys): the
+    launches of B1 and B2 in the LP run, the planned steps and the NC run
+    (per step and per evaluation), the attention kernels' on Cora; B1 at
+    the arxiv layout's straggler scatter (F 128) and at graph_edge_sqdist's
+    [E, 33] bf16 scatter, B2 at its clustered pairs (F 128), each with its
+    bound, the library call's time (``index_add_``, ``torch.sparse.mm``)
+    and its largest error on these edge sets; and ``hyp_mlr`` at the NC
+    head's shape with the curvature as a device tensor and as a number."""
+    from hyperspace_torch.kernels.cluster import cluster_aggregate
+    from hyperspace_torch.kernels.mlr import hyp_mlr, hyp_mlr_plain
+    from hyperspace_torch.kernels.segment import csr_segment_sum
+
+    ga, n, e_real = cp["ga"], cp["n"], cp["e_real"]
+    dev = ga.receivers.device
+    gen = torch.Generator(device=dev).manual_seed(38)
+    r = ga.receivers
+    vals = torch.randn(r.shape[0], 33, generator=gen, device=dev)
+    vals[e_real:] = 0
+    v16 = vals.to(torch.bfloat16)
+    r64 = r.long()
+    agg, n_strag = ga.cluster, cp["n_strag"]
+    s_vals = torch.randn(agg.s_recv.shape[0], 128, generator=gen, device=dev)
+    s_vals[n_strag:] = 0
+    s16, s64 = s_vals.to(torch.bfloat16), agg.s_recv.long()
+    e_c = agg.c_recv.shape[0]
+    h16 = torch.randn(n, 128, generator=gen, device=dev).to(torch.bfloat16)
+    h32 = h16.float()
+    w_csr = torch.sparse_coo_tensor(
+        torch.stack([agg.c_recv.long(), agg.c_send.long()]), agg.c_wf,
+        (n, n)).coalesce().to_sparse_csr()
+    rng = np.random.default_rng(38)
+    nn_, kk, dd = MLR_NC_SHAPE
+    xb = torch.as_tensor(rng.standard_normal((nn_, dd)), dtype=torch.float32,
+                         device=dev)
+    xb *= 0.9 / xb.norm(dim=1, keepdim=True).clamp_min(1.0)
+    p = torch.as_tensor(rng.standard_normal((kk, dd)) * 0.05,
+                        dtype=torch.float32, device=dev)
+    a = torch.as_tensor(rng.standard_normal((kk, dd)) * 0.1,
+                        dtype=torch.float32, device=dev)
+    c_dev = torch.tensor(C, device=dev)
+    for e in kernels:
+        name = e["name"]
+        for run, per_step, per_eval, key in (
+                ("launches_lp", CLI_LP_PER_STEP, CLI_LP_PER_EVAL, "hgcn_cli"),
+                ("launches_planned", PLANNED_PER_STEP, {}, "planned"),
+                ("launches_nc", NC_PER_STEP, NC_PER_EVAL, "hgcn_cli_nc"),
+                ("launches_att", CLI_ATT_PER_STEP, CLI_ATT_PER_EVAL,
+                 "hgcn_cli_att_cora")):
+            if name in cp[run]:
+                e.update({f"launches_{key}": cp[run][name],
+                          f"launches_per_step_{key}": per_step.get(name, 0),
+                          f"launches_per_eval_{key}": per_eval.get(name, 0)})
+        if name == "cluster_aggregate":
+            e.update({
+                "shape_hgcn_cli": [n, 128, e_c],
+                "ms_hgcn_cli": device_ms(torch, lambda: cluster_aggregate(
+                    h16, agg.c_wf, agg.c_recv, agg.c_send, None, n,
+                    rows=agg.c_rows)),
+                "bound_ms_hgcn_cli": bound_ms(*cluster_cost(e_c, 128, n, 2))[0],
+                "library_ms_hgcn_cli": device_ms(
+                    torch, lambda: torch.sparse.mm(w_csr, h32)),
+                "max_abs_err_hgcn_cli": cp["scatter_err"]["cluster_aggregate"]})
+        if name == "csr_segment_sum":
+            e.update({
+                "shape_hgcn_cli": [int(agg.s_recv.shape[0]), 128, n],
+                "ms_hgcn_cli": device_ms(
+                    torch, lambda: csr_segment_sum(s16, agg.s_recv, None, n)),
+                "bound_ms_hgcn_cli": bound_ms(*segment_cost(n_strag, 128, n,
+                                                       2))[0],
+                "library_ms_hgcn_cli": device_ms(
+                    torch, lambda: torch.zeros((n, 128), device=dev
+                                               ).index_add_(0, s64, s_vals)),
+                "max_abs_err_hgcn_cli": cp["scatter_err"]["csr_segment_sum"],
+                "shape_graph_edges_hgcn_cli": [int(r.shape[0]), 33, n],
+                "ms_graph_edges_hgcn_cli": device_ms(
+                    torch, lambda: csr_segment_sum(v16, r, None, n)),
+                "bound_ms_graph_edges_hgcn_cli": bound_ms(*segment_cost(
+                    e_real, 33, n, 2))[0],
+                "library_ms_graph_edges_hgcn_cli": device_ms(
+                    torch, lambda: torch.zeros((n, 33), device=dev
+                                               ).index_add_(0, r64, vals)),
+                "max_abs_err_graph_edges_hgcn_cli": cp["edge_err"]})
+        if name == "hyp_mlr":
+            e.update({
+                "ms_nc_device_c": device_ms(
+                    torch, lambda: hyp_mlr(xb, p, a, c_dev)),
+                "ms_nc_number_c": device_ms(
+                    torch, lambda: hyp_mlr(xb, p, a, C)),
+                "plain_ms_nc_device_c": device_ms(
+                    torch, lambda: hyp_mlr_plain(xb, p, a, c_dev), reps=5),
+                "bound_ms_nc_device_c": bound_ms(*mlr_cost(
+                    nn_, kk, dd))[0],
+                "shape_nc_device_c": [nn_, kk, dd],
+                "max_abs_err_learned_c": cp["mlr"]["max_abs_err"],
+                "dc_rel_diff_learned_c": cp["mlr"]["dc_rel_diff"]})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3651,6 +4276,10 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
+    # every host prep here is a build: no "auto" prep-cache entry is read
+    # or written (phase 39 times a miss and a hit in a cache of its own)
+    os.environ["HYPERSPACE_GRAPH_CACHE"] = "0"
     from hyperspace_torch.cli import serve as cli
     from hyperspace_torch.kernels import _support
     from hyperspace_torch.kernels.distmat import pdist, pdist_plain
@@ -3944,8 +4573,13 @@ def main(argv=None) -> int:
     pp = poincare_path(torch, args, card)
     pe_kernel_fields(pp, kernels)
 
-    # --- phases 36-37: the HVAE's graphed chunks and its CLI, last --------
+    # --- phases 36-37: the HVAE's graphed chunks and its CLI --------------
     hvae_graphs(torch, hv, card)
+
+    # --- phases 38-43: HGCN through the CLI, from graphs on disk ----------
+    cp = cli_path(torch, args, card)
+    cli_kernel_fields(torch, cp, kernels)
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"kernels": kernels, "floor_ms": floor})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,7 +1,9 @@
 """HGCN link-prediction throughput (counterpart of
-``hyperspace_tpu/benchmarks/hgcn_bench.py``, ``step="pairs"``), and the
-arxiv-scale graphs the HGCN paths train on (LP split; the whole graph
-with node-classification masks, :func:`arxiv_scale_nc_graph`).
+``hyperspace_tpu/benchmarks/hgcn_bench.py``: ``step="pairs"``, the
+default, through ``models.hgcn.train_step_lp_pairs``; ``step="lp"``
+through the CLI's ``train_step_lp``), and the arxiv-scale graphs the
+HGCN paths train on (LP split; the whole graph with node-classification
+masks, :func:`arxiv_scale_nc_graph`).
 
 Samples/s = nodes × steps / time: one full-graph step processes every
 node once (the HGCN convention).  Without the ogbn-arxiv files the graph
@@ -10,7 +12,7 @@ nodes, 1.166 M directed edges, 128 features), community-reordered, split
 2% / 2% for validation and test.
 
     python -m hyperspace_torch.benchmarks.hgcn_bench [--steps 10]
-        [--num-nodes 169343] [--device cuda] [--use-att]
+        [--num-nodes 169343] [--device cuda] [--use-att] [--step lp]
 
 prints one JSON object.  The defaults are the JAX bench's: float32
 compute, bf16 edge messages and bf16 training decoder pass,
@@ -106,11 +108,20 @@ class LPSetup:
     num_nodes: int
     device: torch.device
     prep_s: float  # host preparation seconds (graph, split, plans)
+    step_kind: str = "pairs"          # "pairs" or "lp"
+    train_pos: torch.Tensor | None = None  # [P, 2] ("lp")
 
-    def step(self, neg_v=None):
-        self.state, loss = hgcn.train_step_lp_pairs(
-            self.model, self.opt, self.num_nodes, self.state, self.ga,
-            self.pos, self.neg_u, self.neg_plan, neg_v=neg_v)
+    def step(self, neg=None):
+        """One step; ``neg`` replaces the step's draw: the negatives'
+        v column ("pairs") or the [Q, 2] negative pairs ("lp")."""
+        if self.step_kind == "lp":
+            self.state, loss = hgcn.train_step_lp(
+                self.model, self.opt, self.num_nodes, self.state, self.ga,
+                self.train_pos, neg=neg)
+        else:
+            self.state, loss = hgcn.train_step_lp_pairs(
+                self.model, self.opt, self.num_nodes, self.state, self.ga,
+                self.pos, self.neg_u, self.neg_plan, neg_v=neg)
         return loss
 
 
@@ -118,10 +129,14 @@ def setup_lp(num_nodes: int = ARXIV_NODES, *, device="cuda",
              dtype: str = "float32", agg_dtype: str | None = "bfloat16",
              decoder_dtype: str | None = "bfloat16", seed: int = 0,
              split: G.LinkSplit | None = None,
-             use_att: bool = False) -> LPSetup:
+             use_att: bool = False, step: str = "pairs") -> LPSetup:
     """The bench's config, graph, model and step inputs on ``device``
     (``split`` reuses an already prepared split; its cluster split should
-    be built at ``G.cluster_min_pair_for(use_att)``)."""
+    be built at ``G.cluster_min_pair_for(use_att)``).  ``step``: "pairs"
+    (:func:`models.hgcn.train_step_lp_pairs`) or "lp"
+    (:func:`models.hgcn.train_step_lp`)."""
+    if step not in ("pairs", "lp"):
+        raise ValueError(f"step must be 'pairs' or 'lp'; got {step!r}")
     dev = resolve_device(device)
     t0 = time.perf_counter()
     if split is None:
@@ -144,7 +159,8 @@ def setup_lp(num_nodes: int = ARXIV_NODES, *, device="cuda",
     model, opt, state = hgcn.init_lp(cfg, split.graph, seed=seed, device=dev)
     ga = G.to_device(split.graph, dev)
     return LPSetup(cfg, split, model, opt, state, ga, pos, neg_u, neg_plan,
-                   num_nodes, dev, prep_s)
+                   num_nodes, dev, prep_s, step,
+                   G.index_tensor(pos_host, dev) if step == "lp" else None)
 
 
 def card_name() -> str:
@@ -164,7 +180,7 @@ def run_hgcn_bench(steps: int = 10, warmup: int = 1,
                    num_nodes: int = ARXIV_NODES, *, device="cuda",
                    dtype: str = "float32", agg_dtype: str = "bfloat16",
                    decoder_dtype: str | None = "bfloat16",
-                   use_att: bool = False,
+                   use_att: bool = False, step: str = "pairs",
                    setup: LPSetup | None = None) -> dict[str, Any]:
     """Time ``steps`` training steps after ``warmup`` untimed ones.
 
@@ -172,12 +188,12 @@ def run_hgcn_bench(steps: int = 10, warmup: int = 1,
     loss of every step, ``frac_clustered``, the host preparation
     seconds, the config as executed (``use_att``, ``lr``, ``clip_norm``)
     and the device (with the card's name and power limit on CUDA).
-    ``setup`` reuses a prepared :class:`LPSetup` (whose config then
-    decides ``use_att``)."""
+    ``setup`` reuses a prepared :class:`LPSetup` (whose config and step
+    then decide ``use_att`` and ``step``)."""
     if setup is None:
         setup = setup_lp(num_nodes, device=device, dtype=dtype,
                          agg_dtype=agg_dtype, decoder_dtype=decoder_dtype,
-                         use_att=use_att)
+                         use_att=use_att, step=step)
     dev = setup.device
     warm = [setup.step() for _ in range(warmup)]
     _sync(dev)
@@ -205,7 +221,7 @@ def run_hgcn_bench(steps: int = 10, warmup: int = 1,
             setup.cfg.agg_dtype), "decoder_dtype": str(
                 setup.cfg.decoder_dtype),
         "use_att": setup.cfg.use_att, "lr": setup.cfg.lr,
-        "clip_norm": setup.cfg.clip_norm,
+        "clip_norm": setup.cfg.clip_norm, "step": setup.step_kind,
     }
 
 
@@ -217,9 +233,12 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--use-att", action="store_true",
                     help="the attention arm (use_att) with its mode defaults")
+    ap.add_argument("--step", choices=("pairs", "lp"), default="pairs",
+                    help="the planned pairs step or the CLI's plain one")
     args = ap.parse_args(argv)
     out = run_hgcn_bench(args.steps, args.warmup, args.num_nodes,
-                         device=args.device, use_att=args.use_att)
+                         device=args.device, use_att=args.use_att,
+                         step=args.step)
     print(json.dumps(out))
     return 0
 

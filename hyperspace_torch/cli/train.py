@@ -1,21 +1,23 @@
 """Training entry point: ``python -m hyperspace_torch.cli.train``
 (counterpart of ``hyperspace_tpu/cli/train.py``, the ``hybonet``,
-``poincare`` and ``hvae`` workloads).
+``poincare``, ``hvae`` and ``hgcn`` workloads).
 
     python -m hyperspace_torch.cli.train hybonet --yaml configs/hybonet_textclf.yaml
     python -m hyperspace_torch.cli.train hybonet steps=200 dim=64 device=cpu
     python -m hyperspace_torch.cli.train poincare --yaml configs/poincare_wordnet.yaml
     python -m hyperspace_torch.cli.train hvae --yaml configs/hvae_mnist.yaml
+    python -m hyperspace_torch.cli.train hgcn --yaml configs/hgcn_arxiv_lp.yaml data_root=DIR
+    python -m hyperspace_torch.cli.train hgcn task=nc dataset=cora device=cpu
 
 ``--yaml`` reads a flat ``key: value`` file (the repository's configs);
 ``key=value`` arguments override it.  Run keys (``steps``, ``seed``,
 ``data_root``, ``precision``, ``accum``, ``log``, ``device``,
-``scan_chunk``, ``host_table``) go to :class:`RunConfig`, the rest to
-the workload's config; an unknown key is a usage error.  ``accum`` must
-be 1 (gradient accumulation is not ported).  ``log=PATH`` appends one
-``{"step", "loss"}`` JSON line per step at the end of the run.
-``device=cuda`` is the default; ``device=cpu`` runs the kernels' plain
-versions.
+``scan_chunk``, ``host_table``, ``graph_cache``, ``multihost``) go to
+:class:`RunConfig`, the rest to the workload's config; an unknown key is
+a usage error.  ``accum`` must be 1 (gradient accumulation is not
+ported).  ``log=PATH`` appends one ``{"step", "loss"}`` JSON line per
+step at the end of the run.  ``device=cuda`` is the default;
+``device=cpu`` runs the kernels' plain versions.
 
 ``hybonet`` prints ``{"workload", "source", "loss", "accuracy"}``: the
 last step's loss and the accuracy on the held-out 20 %.  ``poincare``
@@ -29,9 +31,25 @@ directory; without them ``synthetic_mnist``) and prints ``{"workload",
 "source", "loss", "recon", "kl", "iwae"}``: the last step's metrics and
 the 16-sample IWAE bound of the first 256 images; ``scan_chunk=K``
 graphs its sampled step as ``poincare`` does, and ``conv_features``
-takes comma-separated widths.  Checkpoints,
-telemetry, chaos, meshes and the host-resident table (``host_table=1``)
-are not ported.
+takes comma-separated widths.
+
+``hgcn`` trains full-batch HGCN on ``dataset`` (``cora`` or
+``ogbn-arxiv``) from its files under ``data_root`` (``cora.content`` /
+``cora.cites``, or OGB's ``raw/*.csv``; without them the synthetic
+hierarchy of ``data.graphs.load_graph``): ``reorder=true|bfs|community``
+relabels the nodes first, the host prep runs in C++ where a compiler is
+found and is cached per ``graph_cache`` (auto, true or false), and
+``task=lp`` trains link prediction with ``models.hgcn.train_step_lp``,
+``task=nc`` node classification with ``train_step_nc``.  It prints
+``{"workload", "task", "dataset", "source", "loss", ...}`` with the test
+ROC-AUC (``lp``) or the val/test accuracy and macro-F1 (``nc``), then
+``prep`` (the host prep's path, ``"native"`` or ``"numpy"``) and
+``seconds`` (the whole run).  ``hidden_dims`` takes a JSON list, the
+``*dtype`` keys dtype names.  ``sampled=true``, meshes
+(``multihost=true``) and ``scan_chunk>1`` exit "not ported".
+
+Checkpoints, telemetry, chaos, meshes and the host-resident table
+(``host_table=1``) are not ported.
 """
 
 from __future__ import annotations
@@ -41,6 +59,7 @@ import dataclasses
 import json
 import math
 import os
+import time
 
 import torch
 
@@ -61,6 +80,8 @@ class RunConfig:
     device: str = "cuda"          # cuda | cpu
     scan_chunk: int = 1           # steps a chunk (poincare, dense steps)
     host_table: bool = False      # the beyond-HBM table: not ported
+    graph_cache: str = "auto"     # hgcn's host-prep cache: auto|true|false
+    multihost: bool = False       # meshes: not ported
 
 
 def split_overrides(pairs: list[str], run: RunConfig):
@@ -211,8 +232,118 @@ def hgcn_mode_defaults(base, overrides: dict, sampled: bool):
     return base
 
 
+def _graph_cache(run: RunConfig):
+    """``graph_cache`` as the ``cache`` argument of ``data.graphs``."""
+    v = run.graph_cache.lower()
+    if v in ("1", "true", "yes", "on"):
+        return True
+    if v in ("0", "false", "no", "off"):
+        return False
+    if v == "auto":
+        return "auto"
+    raise SystemExit(f"graph_cache={run.graph_cache!r}: want auto/true/false")
+
+
+def _precision_default(run: RunConfig, overrides: dict) -> dict:
+    """Copy the run's ``precision`` into the workload's overrides unless
+    they set it (explicit wins)."""
+    overrides.setdefault("precision", run.precision)
+    return overrides
+
+
+# the neighbour-sampled mode's keys (configs/hgcn_sampled_nc.yaml)
+_SAMPLED_KEYS = ("fanouts", "batch", "plan_steps")
+
+
+def run_hgcn(run: RunConfig, overrides: dict) -> dict:
+    from hyperspace_torch.data import graphs as G
+    from hyperspace_torch.kernels._support import resolve_device
+    from hyperspace_torch.models import hgcn
+
+    t0 = time.perf_counter()
+    task = overrides.pop("task", "lp")
+    dataset = overrides.pop("dataset", "cora")
+    reorder = overrides.pop("reorder", "false").lower()
+    sampled = overrides.pop("sampled", "false").lower() in ("1", "true",
+                                                            "yes")
+    for k in _SAMPLED_KEYS:
+        overrides.pop(k, None)
+    if sampled:
+        raise SystemExit("sampled=true: neighbour-sampled HGCN "
+                         "(models/hgcn_sampled.py) is not ported")
+    if run.multihost:
+        raise SystemExit("multihost=true: meshes are not ported (the port "
+                         "trains HGCN on one device)")
+    if run.scan_chunk > 1:
+        raise SystemExit(f"scan_chunk={run.scan_chunk}: chunked (graphed) "
+                         "HGCN steps are not ported (want scan_chunk=1)")
+    if task not in ("lp", "nc"):
+        raise SystemExit(f"task={task!r}: want lp or nc")
+    if reorder not in ("0", "false", "no", "1", "true", "yes", "bfs",
+                       "community"):
+        raise SystemExit(
+            f"reorder={reorder!r}: want true/false, bfs, or community")
+    gc = _graph_cache(run)
+    dev = resolve_device(run.device)
+    if "hidden_dims" in overrides:
+        overrides["hidden_dims"] = tuple(json.loads(overrides["hidden_dims"]))
+    for k in ("dtype", "agg_dtype", "decoder_dtype"):
+        if k in overrides:
+            overrides[k] = precision_lib.parse_dtype(overrides[k])
+    edges, x, labels, ncls, source = G.load_graph(dataset, run.data_root)
+    if reorder not in ("0", "false", "no"):
+        # locality relabeling: the block density the cluster kernels use
+        edges, x, labels, _ = G.apply_locality_order(
+            edges, x, labels,
+            method="community" if reorder == "community" else "bfs",
+            cache=gc)
+    base = hgcn_mode_defaults(
+        hgcn.HGCNConfig(feat_dim=x.shape[1],
+                        num_classes=ncls if task == "nc" else 0),
+        overrides, sampled)
+    cfg = apply_overrides(base, _precision_default(run, overrides))
+    num_nodes = x.shape[0]
+    cmp_ = G.cluster_min_pair_for(cfg.use_att)
+    losses = []
+    if task == "lp":
+        split = G.split_edges(edges, num_nodes, x, seed=run.seed,
+                              cluster_min_pair=cmp_, cache=gc)
+        graph = split.graph
+        model, opt, state = hgcn.init_lp(cfg, graph, seed=run.seed,
+                                         device=dev)
+        ga = G.to_device(graph, dev)
+        train_pos = G.index_tensor(split.train_pos, dev)
+        for _ in range(run.steps):
+            state, loss = hgcn.train_step_lp(model, opt, num_nodes, state,
+                                             ga, train_pos)
+            losses.append(loss)
+        res = hgcn.evaluate_lp(model, split, "test", ga=ga)
+    else:
+        tr, va, te = G.node_split_masks(num_nodes, seed=run.seed)
+        graph = G.prepare(edges, num_nodes, x, labels=labels,
+                          num_classes=ncls, train_mask=tr, val_mask=va,
+                          test_mask=te, cluster_min_pair=cmp_, cache=gc)
+        model, opt, state = hgcn.init_nc(cfg, graph, seed=run.seed,
+                                         device=dev)
+        ga = G.to_device(graph, dev)
+        lab, mask = hgcn.nc_targets(graph, dev)
+        for _ in range(run.steps):
+            state, loss = hgcn.train_step_nc(model, opt, state, ga, lab,
+                                             mask)
+            losses.append(loss)
+        res = hgcn.evaluate_nc(model, graph, ga=ga)
+    # one host read of the losses, after the steps
+    losses = torch.stack(losses).tolist() if losses else []
+    if run.log and losses:
+        _write_log(run.log, losses)
+    return {"workload": "hgcn", "task": task, "dataset": dataset,
+            "source": source, "loss": losses[-1] if losses else math.nan,
+            **res, "prep": graph.prep,
+            "seconds": time.perf_counter() - t0}
+
+
 WORKLOADS = {"hybonet": run_hybonet, "poincare": run_poincare,
-             "hvae": run_hvae}
+             "hvae": run_hvae, "hgcn": run_hgcn}
 
 
 def main(argv: list[str] | None = None) -> int:

@@ -93,7 +93,8 @@ __device__ __forceinline__ float warp_sum(float v) {
 __global__ void __launch_bounds__(THREADS)
 pair_kernel(const float* __restrict__ x, const float* __restrict__ p,
             const float* __restrict__ a, float* __restrict__ out, int n,
-            int k, int d, float c) {
+            int k, int d, const float* __restrict__ cp) {
+  const float c = __ldg(cp);  // the curvature, from device memory
   const int pair = blockIdx.x * WARPS + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (pair >= n * k) return;  // the whole warp leaves together
@@ -186,7 +187,9 @@ template <int NT>
 __global__ void __launch_bounds__(THREADS, 2)
 mlr_kernel(const float* __restrict__ x, const float* __restrict__ p,
            const float* __restrict__ a, float* __restrict__ out, long long n,
-           int k, int d, float c, int kc, int splits, int dp, bool vec) {
+           int k, int d, const float* __restrict__ cp, int kc, int splits,
+           int dp, bool vec) {
+  const float c = __ldg(cp);  // the curvature, from device memory
   constexpr int KCP = 8 * NT;
   extern __shared__ __align__(16) unsigned smem[];
   // p and a staged split for the tensor core: hi (p rounded to TF32,
@@ -444,7 +447,7 @@ long long block_smem(int kc, int splits, int d) {
 
 template <int NT>
 int launch(const float* x, const float* p, const float* a, float* out,
-           long long n, int k, int d, float c, int kc, int splits,
+           long long n, int k, int d, const float* c, int kc, int splits,
            cudaStream_t st) {
   auto kern = mlr_kernel<NT>;
   static int cap[MAX_DEVICES];      // the card's opt-in limit, once a card
@@ -475,15 +478,18 @@ int launch(const float* x, const float* p, const float* a, float* out,
 
 }  // namespace
 
-// x [n, d], p and a [k, d], out [n, k]; all f32, contiguous.  The plan
+// x [n, d], p and a [k, d], out [n, k]; all f32, contiguous; c one f32 in
+// device memory (a learned curvature is read where the step left it, never
+// on the host).  The plan
 // (kernels/mlr.py `mlr_plan`): the pair kernel (tile 0), or the tile kernel
 // with kc classes a chunk (a multiple of 8, at most 64) and `splits` warps
 // a tile (1, 2, 4 or 8).  The tile kernel's row pitch and shared memory
 // follow from (kc, splits, d) here; a plan whose block exceeds the card's
 // shared memory is refused.
 extern "C" int hs_hyp_mlr(const float* x, const float* p, const float* a,
-                          float* out, long long n, int k, int d, float c,
-                          int tile, int kc, int splits, void* stream) {
+                          float* out, long long n, int k, int d,
+                          const float* c, int tile, int kc, int splits,
+                          void* stream) {
   if (n <= 0 || k <= 0) return 0;
   if (!tile) {                               // at most a few thousand logits
     if (n * k > (1LL << 30)) return (int)cudaErrorInvalidValue;
@@ -495,7 +501,8 @@ extern "C" int hs_hyp_mlr(const float* x, const float* p, const float* a,
   if (kc <= 0 || kc % 8 || kc > 64 || splits < 1 || WARPS % splits)
     return (int)cudaErrorInvalidValue;
   using Launch = int (*)(const float*, const float*, const float*, float*,
-                         long long, int, int, float, int, int, cudaStream_t);
+                         long long, int, int, const float*, int, int,
+                         cudaStream_t);
   constexpr Launch by_tiles[8] = {launch<1>, launch<2>, launch<3>, launch<4>,
                                   launch<5>, launch<6>, launch<7>, launch<8>};
   return by_tiles[kc / 8 - 1](x, p, a, out, n, k, d, c, kc, splits,

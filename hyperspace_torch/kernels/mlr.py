@@ -15,7 +15,11 @@ launch follows :func:`mlr_plan`: a warp a logit for a few thousand logits
 classes staged once (HGCN node classification's [169,343, 40, 32]), and
 a warp a logit again for rows too wide for the tiles' shared memory.  Its
 gradient is the VJP of the plain version recomputed in the backward, as
-``_mlr_bwd`` does: the JAX package has no backward kernel either.
+``_mlr_bwd`` does (the JAX package has no backward kernel either), with
+respect to the curvature too when ``c`` is a tensor that needs one (a
+learned curvature).  The kernel reads ``c`` from device memory: a 0-d
+tensor on x's device as it is, a number from a device scalar made once
+per (device, value), so a step never reads the curvature on the host.
 """
 
 from __future__ import annotations
@@ -139,20 +143,40 @@ def mlr_plan(n: int, k: int, d: int) -> MlrPlan:
     return plan
 
 
+_DEVICE_C: dict = {}
+
+
+def device_curvature(c, device: torch.device) -> torch.Tensor:
+    """``c`` as the [1] float32 tensor on ``device`` the kernel reads: a
+    tensor reshaped (cast if it is not f32), a number from a tensor made
+    once per (device, value) and kept."""
+    if isinstance(c, torch.Tensor):
+        if c.numel() != 1 or c.device != device:
+            raise ValueError(f"hyp_mlr: c must be one value on {device}; "
+                             f"got shape {tuple(c.shape)} on {c.device}")
+        return c.detach().to(torch.float32).reshape(1).contiguous()
+    key = (device, float(c))
+    if key not in _DEVICE_C:
+        _DEVICE_C[key] = torch.full((1,), float(c), dtype=torch.float32,
+                                    device=device)
+    return _DEVICE_C[key]
+
+
 def _launch(x: torch.Tensor, p: torch.Tensor, a: torch.Tensor,
-            c: float) -> torch.Tensor:
+            c) -> torch.Tensor:
     S.check_cuda("hyp_mlr", (torch.float32,), x, p, a)
     n, d = x.shape
     k = p.shape[0]
     out = torch.empty((n, k), dtype=torch.float32, device=x.device)
     if n == 0 or k == 0:
         return out
+    cd = device_curvature(c, x.device)
     plan = mlr_plan(n, k, d)
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn = S.function("mlr", "hs_hyp_mlr", [P, P, P, P, L, I, I,
-                                          ctypes.c_float, I, I, I, P])
+    fn = S.function("mlr", "hs_hyp_mlr", [P, P, P, P, L, I, I, P, I, I, I,
+                                          P])
     S.check(fn(x.data_ptr(), p.data_ptr(), a.data_ptr(), out.data_ptr(), n,
-               k, d, c, int(plan.tile), plan.kc, plan.splits,
+               k, d, cd.data_ptr(), int(plan.tile), plan.kc, plan.splits,
                S.stream_ptr(x)), "hyp_mlr")
     hyp_mlr.launches += 1
     return out
@@ -165,30 +189,37 @@ def _forward(x2d, p, a, c):
     if any(dv.type != "cuda" for dv in devs):
         raise ValueError(f"hyp_mlr: unsupported device "
                          f"{sorted(map(str, devs))}")
-    return _launch(x2d, p, a, float(c))
+    return _launch(x2d, p, a, c)
 
 
 class _HypMLR(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x2d, p, a, c):
-        ctx.save_for_backward(x2d, p, a)
-        ctx.c = c
+        ctx.c_is_tensor = isinstance(c, torch.Tensor)
+        ctx.save_for_backward(x2d, p, a, *((c,) if ctx.c_is_tensor else ()))
+        ctx.c = None if ctx.c_is_tensor else c
         return _forward(x2d, p, a, c)
 
     @staticmethod
     def backward(ctx, g):
+        want_c = ctx.c_is_tensor and ctx.needs_input_grad[3]
+        saved = ctx.saved_tensors
         with torch.enable_grad():
-            ins = [t.detach().requires_grad_() for t in ctx.saved_tensors]
-            out = hyp_mlr_plain(*ins, ctx.c)
-            grads = torch.autograd.grad(out, ins, g)
-        return (*grads, None)
+            ins = [t.detach().requires_grad_() for t in saved[:3]]
+            c = (saved[3].detach().requires_grad_(want_c)
+                 if ctx.c_is_tensor else ctx.c)
+            out = hyp_mlr_plain(*ins, c)
+            grads = torch.autograd.grad(out, ins + ([c] if want_c else []),
+                                        g)
+        return (*grads[:3], grads[3] if want_c else None)
 
 
 def hyp_mlr(x: torch.Tensor, p: torch.Tensor, a: torch.Tensor,
-            c: float) -> torch.Tensor:
+            c) -> torch.Tensor:
     """Hyperbolic-MLR logits [..., K] for ball points x [..., d],
     hyperplane points p [K, d] and normals a [K, d] at curvature c (a
-    number); see the module docstring."""
+    number, or a one-value tensor on x's device, whose gradient the
+    backward returns); see the module docstring."""
     if p.ndim != 2 or a.shape != p.shape or x.shape[-1] != p.shape[1]:
         raise ValueError(f"hyp_mlr: want x [..., d], p and a [K, d]; got "
                          f"{tuple(x.shape)}, {tuple(p.shape)}, "

@@ -5,23 +5,36 @@
     LP head: Fermi–Dirac(d²(z_u, z_v)) → binary cross-entropy → ROC-AUC
     NC head: hyperbolic MLR → masked cross-entropy → accuracy / macro-F1
 
-The training step is :func:`train_step_lp_pairs`: every train positive
-scored with both decoder gradient scatters sorted
-(``nn.edge_dist.pair_sqdist_planned``) plus one corrupt-v negative per
-positive with a static sorted u column (``pair_sqdist_semi_planned``),
-then one AdamW update with global-norm clipping, exactly
-``optax.chain(clip_by_global_norm, adamw)`` (``optim.adamw.AdamW``).
+Three link-prediction steps, each a loss, its backward and one AdamW
+update with global-norm clipping, exactly ``optax.chain(
+clip_by_global_norm, adamw)`` (``optim.adamw.AdamW``):
+
+- :func:`train_step_lp`, the CLI's: the train positives and as many
+  uniform negative pairs drawn on the device, scored by
+  :meth:`HGCNLinkPred.forward` on plain gathers (the backward of
+  ``z[pairs]`` is PyTorch's accumulating ``index_put_``);
+- :func:`train_step_lp_pairs`, the bench's: every train positive with
+  both decoder gradient scatters sorted (``nn.edge_dist.
+  pair_sqdist_planned``) plus one corrupt-v negative per positive with a
+  static sorted u column (``pair_sqdist_semi_planned``);
+- :func:`train_step_lp_planned`: the positives are the training graph's
+  own edges (``nn.edge_dist.graph_edge_sqdist``, one sorted scatter for
+  both endpoints), self-loops and padding weighted out, with the same
+  corrupt-v negatives.
+
 Node classification is full-batch (:func:`train_step_nc`): every node's
 logits through ``LorentzMLR`` (``kernels/mlr.py:hyp_mlr`` on the ball
 image of z, one launch a forward), softmax cross-entropy over the train
-mask, the same optimizer.
+mask, the same optimizer.  With ``learn_c`` every layer learns its
+output curvature (``nn.gcn.HGCConv``), the next layer, the decoder and
+the MLR head take it as a 0-d device tensor, and it gets gradients from
+all three.
 
 PyTorch idiom: the model is an ``nn.Module`` that owns its parameters
 and the step updates them in place; randomness (init, negatives,
-dropout) comes from explicit ``torch.Generator``s.  Not ported yet:
-``train_step_lp``/``train_step_lp_planned``, the Euclidean NC head (the
-``euclidean`` encoder is not ported), the sharded steps,
-rematerialisation.
+dropout) comes from explicit ``torch.Generator``s.  Not ported yet: the
+Euclidean and Poincaré encoders (and the Euclidean NC head), the sharded
+steps, rematerialisation.
 """
 
 from __future__ import annotations
@@ -39,7 +52,8 @@ from hyperspace_torch.data import graphs as graph_data
 from hyperspace_torch.kernels.segment import build_csr_plan
 from hyperspace_torch.kernels._support import resolve_device
 from hyperspace_torch.nn.decoders import FermiDiracDecoder
-from hyperspace_torch.nn.edge_dist import (pair_sqdist_planned,
+from hyperspace_torch.nn.edge_dist import (graph_edge_sqdist,
+                                           pair_sqdist_planned,
                                            pair_sqdist_semi_planned)
 from hyperspace_torch.nn.gcn import HGCConv, from_tangent0_coords, \
     make_manifold
@@ -108,7 +122,10 @@ class HGCNEncoder(nn.Module):
         m = make_manifold(cfg.kind, cfg.c)
         h = from_tangent0_coords(m, g.x.to(cfg.dtype))
         for i in range(len(cfg.hidden_dims)):
-            h, m = getattr(self, f"conv{i}")(h, g, deterministic=deterministic,
+            # each layer reads its points at the previous layer's output
+            # curvature (learned under learn_c)
+            h, m = getattr(self, f"conv{i}")(h, g, c_in=m.c,
+                                             deterministic=deterministic,
                                              generator=generator)
         return h, m
 
@@ -125,8 +142,10 @@ class PlannedPairs(NamedTuple):
 
 
 class HGCNLinkPred(nn.Module):
-    """Encoder + Fermi–Dirac decoder.  ``forward(g, pairs)`` gives eval
-    logits in full precision; :meth:`pair_logits` the training step's."""
+    """Encoder + Fermi–Dirac decoder.  ``forward(g, pairs)`` gives the
+    logits of plain pairs (the decoder lane's dtype in training, full
+    precision in evaluation); :meth:`pair_logits` and :meth:`edge_logits`
+    the planned steps'."""
 
     def __init__(self, cfg: HGCNConfig,
                  generator: Optional[torch.Generator] = None):
@@ -164,6 +183,33 @@ class HGCNLinkPred(nn.Module):
         return (self.decoder(sq_pos.to(self.cfg.dtype)),
                 self.decoder(sq_neg.to(self.cfg.dtype)))
 
+    def edge_logits(self, g: graph_data.DeviceGraph, neg_u: torch.Tensor,
+                    neg_v: torch.Tensor, neg_plan, *, deterministic=True,
+                    generator=None):
+        """(pos_logits [E], pos_weight [E], neg_logits [Q]): positives on
+        the graph's own edge list (:func:`graph_edge_sqdist`), weighted 0
+        on self-loops and padding, negatives on (static sorted u, fresh
+        v) pairs; every static scatter sorted."""
+        if g.rev_perm is None:
+            raise ValueError(
+                "edge_logits needs a symmetric edge layout: build the graph "
+                "with graphs.prepare(..., symmetrize=True) (rev_perm is None)")
+        z, m = self.encoder(g, deterministic=deterministic,
+                            generator=generator)
+        ddt = self.cfg.resolved_decoder_dtype()
+        if ddt is not None:
+            z = z.to(ddt)  # a training method
+        kind = self.cfg.kind
+        sq_pos = graph_edge_sqdist(z, m.c, g.senders, g.receivers,
+                                   g.rev_perm, g.plan, kind).to(
+                                       self.cfg.dtype)
+        # self-loops are degenerate positives (d = 0): weight them out
+        w_pos = (g.edge_mask & (g.senders != g.receivers)).to(sq_pos.dtype)
+        sq_neg = pair_sqdist_semi_planned(z, m.c, neg_u, neg_v, neg_plan,
+                                          kind)
+        return (self.decoder(sq_pos), w_pos,
+                self.decoder(sq_neg.to(self.cfg.dtype)))
+
 
 class HGCNNodeClf(nn.Module):
     """Encoder + ``LorentzMLR`` head ``head``: per-node class logits
@@ -187,9 +233,9 @@ class HGCNNodeClf(nn.Module):
 
     def forward(self, g: graph_data.DeviceGraph, *, deterministic=True,
                 generator: Optional[torch.Generator] = None):
-        z, _m = self.encoder(g, deterministic=deterministic,
-                             generator=generator)
-        return self.head(z)
+        z, m = self.encoder(g, deterministic=deterministic,
+                            generator=generator)
+        return self.head(z, m.c)
 
 
 # --- training ----------------------------------------------------------------
@@ -217,8 +263,6 @@ def init_lp(cfg: HGCNConfig, g: graph_data.Graph, seed: int = 0,
     generator seeded with ``seed`` (the same on every device), step
     generators on the device."""
     dev = resolve_device(device)
-    if cfg.learn_c:
-        raise NotImplementedError("learn_c is not ported yet")
     del g  # shapes come from cfg; kept for the JAX signature
     init_gen = torch.Generator().manual_seed(seed)
     model = HGCNLinkPred(cfg, init_gen).to(dev)
@@ -232,14 +276,16 @@ def init_lp(cfg: HGCNConfig, g: graph_data.Graph, seed: int = 0,
 def params_from_jax(tree) -> dict:
     """A ``state_dict`` for :class:`HGCNLinkPred` or :class:`HGCNNodeClf`
     from the flax parameter tree ``{encoder: {conv0: {kernel, bias[,
-    att_src, att_dst]}, …}, decoder: {r, t_raw}}`` or ``{encoder: …,
-    head: {p_tangent, a}}`` (numpy arrays; every leaf keeps JAX's
-    layout: kernels (d_in, d_out), attention vectors (d_out, 1), the
-    MLR's hyperplanes [K, d])."""
+    att_src, att_dst][, c_raw]}, …}, decoder: {r, t_raw}}`` or
+    ``{encoder: …, head: {p_tangent, a}}`` (numpy arrays; every leaf
+    keeps JAX's layout: kernels (d_in, d_out), attention vectors
+    (d_out, 1), the learned curvature's scalar ``c_raw``, the MLR's
+    hyperplanes [K, d])."""
     out = {}
     for conv, leaves in tree["encoder"].items():
         for name, a in leaves.items():
-            if name not in ("kernel", "bias", "att_src", "att_dst"):
+            if name not in ("kernel", "bias", "att_src", "att_dst",
+                            "c_raw"):
                 raise NotImplementedError(f"parameter {conv}/{name} is not "
                                           "ported yet")
             out[f"encoder.{conv}.{name}"] = torch.as_tensor(np.array(a))
@@ -298,6 +344,39 @@ def lp_loss(pos_logit: torch.Tensor, neg_logit: torch.Tensor) -> torch.Tensor:
             / (pos_logit.shape[0] + neg_logit.shape[0]))
 
 
+def _update(model: nn.Module, opt: AdamW, state: TrainState,
+            loss: torch.Tensor):
+    """Backward of ``loss`` into fresh gradients, one optimizer update in
+    place; returns ``(state, loss)`` with the loss detached."""
+    loss.backward()
+    opt.step()
+    state.step += 1
+    return state, loss.detach()
+
+
+def train_step_lp(model: HGCNLinkPred, opt: AdamW, num_nodes: int,
+                  state: TrainState, g: graph_data.DeviceGraph,
+                  train_pos: torch.Tensor,
+                  neg: Optional[torch.Tensor] = None):
+    """One LP step, the CLI's: ``train_pos`` [P, 2] and ``P ×
+    neg_per_pos`` negative pairs (drawn on the device from
+    ``state.generator`` unless ``neg`` is given) through
+    :meth:`HGCNLinkPred.forward` in one batch, the mean binary
+    cross-entropy, backward, one optimizer update in place.  Returns
+    ``(state, loss)``, the loss a 0-dim device tensor."""
+    n_pos = train_pos.shape[0]
+    if neg is None:   # uniform pairs: an edge or a self-pair now and then
+        neg = torch.randint(0, num_nodes, (n_pos * model.cfg.neg_per_pos, 2),
+                            generator=state.generator,
+                            device=train_pos.device, dtype=torch.int32)
+    for p in model.parameters():
+        p.grad = None
+    logits = model(g, torch.cat([train_pos, neg.to(train_pos.dtype)]),
+                   deterministic=False, generator=state.dropout_generator)
+    return _update(model, opt, state, lp_loss(logits[:n_pos],
+                                              logits[n_pos:]))
+
+
 def train_step_lp_pairs(model: HGCNLinkPred, opt: AdamW, num_nodes: int,
                         state: TrainState, g: graph_data.DeviceGraph,
                         pos: PlannedPairs, neg_u: torch.Tensor, neg_plan,
@@ -319,11 +398,32 @@ def train_step_lp_pairs(model: HGCNLinkPred, opt: AdamW, num_nodes: int,
     pos_logit, neg_logit = model.pair_logits(
         g, pos, neg_u, neg_v, neg_plan, deterministic=False,
         generator=state.dropout_generator)
-    loss = lp_loss(pos_logit, neg_logit)
-    loss.backward()
-    opt.step()
-    state.step += 1
-    return state, loss.detach()
+    return _update(model, opt, state, lp_loss(pos_logit, neg_logit))
+
+
+def train_step_lp_planned(model: HGCNLinkPred, opt: AdamW, num_nodes: int,
+                          state: TrainState, g: graph_data.DeviceGraph,
+                          neg_u: torch.Tensor, neg_plan,
+                          neg_v: Optional[torch.Tensor] = None):
+    """One LP step with every decoder gradient scatter sorted: the
+    positives are the graph's own edges (:meth:`HGCNLinkPred.
+    edge_logits`, self-loops and padding weighted out), the negatives
+    corrupt v of the static sorted ``neg_u`` (``neg_v`` drawn uniformly
+    from ``state.generator`` unless given).  Returns ``(state, loss)``."""
+    if neg_v is None:
+        neg_v = torch.randint(0, num_nodes, neg_u.shape,
+                              generator=state.generator,
+                              device=neg_u.device, dtype=torch.int32)
+    for p in model.parameters():
+        p.grad = None
+    pos_logit, w_pos, neg_logit = model.edge_logits(
+        g, neg_u, neg_v, neg_plan, deterministic=False,
+        generator=state.dropout_generator)
+    bce_pos = nn.functional.softplus(-pos_logit)
+    bce_neg = nn.functional.softplus(neg_logit)
+    loss = ((torch.sum(bce_pos * w_pos) + torch.sum(bce_neg))
+            / (torch.sum(w_pos) + neg_logit.shape[0]))
+    return _update(model, opt, state, loss)
 
 
 @torch.no_grad()
@@ -345,6 +445,25 @@ def evaluate_lp(model: HGCNLinkPred, split: graph_data.LinkSplit,
     return {"roc_auc": metrics_lib.roc_auc(s_pos, s_neg)}
 
 
+def train_lp(cfg: HGCNConfig, split: graph_data.LinkSplit, steps: int = 200,
+             seed: int = 0, log_every: int = 0, device="cuda"):
+    """Full LP training loop on :func:`train_step_lp`; returns (model,
+    history): every ``log_every`` steps the loss and the validation
+    ROC-AUC."""
+    model, opt, state = init_lp(cfg, split.graph, seed, device)
+    dev = next(model.parameters()).device
+    ga = graph_data.to_device(split.graph, dev)
+    train_pos = graph_data.index_tensor(split.train_pos, dev)
+    history = []
+    for i in range(steps):
+        state, loss = train_step_lp(model, opt, split.graph.num_nodes, state,
+                                    ga, train_pos)
+        if log_every and (i + 1) % log_every == 0:
+            ev = evaluate_lp(model, split, "val", ga=ga)
+            history.append({"step": i + 1, "loss": float(loss), **ev})
+    return model, history
+
+
 # ---- node classification ----
 
 
@@ -354,8 +473,6 @@ def init_nc(cfg: HGCNConfig, g: graph_data.Graph, seed: int = 0,
     as :func:`init_lp` makes them (``state.dropout_generator`` the
     dropout's draws; ``state.generator`` unused)."""
     dev = resolve_device(device)
-    if cfg.learn_c:
-        raise NotImplementedError("learn_c is not ported yet")
     del g  # shapes come from cfg; kept for the JAX signature
     model = HGCNNodeClf(cfg, torch.Generator().manual_seed(seed)).to(dev)
     opt = make_optimizer(cfg, model)
@@ -385,11 +502,7 @@ def train_step_nc(model: HGCNNodeClf, opt: AdamW, state: TrainState,
         p.grad = None
     logits = model(g, deterministic=False,
                    generator=state.dropout_generator)
-    loss = nc_loss(logits, labels, train_mask)
-    loss.backward()
-    opt.step()
-    state.step += 1
-    return state, loss.detach()
+    return _update(model, opt, state, nc_loss(logits, labels, train_mask))
 
 
 @torch.no_grad()

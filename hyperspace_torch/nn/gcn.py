@@ -15,13 +15,20 @@ open, the clustered edges through the in-tile kernels
 planned partial, one division for both; without a plan, through
 :func:`segment_softmax` and the involution aggregation.
 
-Not ported yet (each raises ``NotImplementedError``): learned curvature
-(``learn_c``), node-sharded graphs, and graphs without the symmetric
-layout of ``data.graphs.prepare``.
+With ``learn_c`` a layer's output curvature is learned: a scalar
+parameter ``c_raw`` (initialised at ``log(expm1(c_out))``) gives
+``c_out = softplus(c_raw)``, a 0-d tensor on the parameters' device that
+every manifold call takes as it is (no host read), and the encoder hands
+it on as the next layer's input curvature (``forward(..., c_in=)``).
+
+Not ported yet (each raises ``NotImplementedError``): node-sharded
+graphs, and graphs without the symmetric layout of
+``data.graphs.prepare``.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Optional
 
 import torch
@@ -111,7 +118,8 @@ class HGCConv(nn.Module):
     """One hyperbolic graph-conv layer: points on ``(kind, c_in)`` in,
     points on ``(kind, c_out)`` out.  ``kernel`` keeps the JAX layout
     ``(d_in, d_out)``, and so do the attention vectors ``att_src`` and
-    ``att_dst`` ``(d_out, 1)`` (``use_att``)."""
+    ``att_dst`` ``(d_out, 1)`` (``use_att``); ``learn_c`` adds the scalar
+    ``c_raw`` and makes ``c_out = softplus(c_raw)``."""
 
     def __init__(self, in_features: int, features: int, *,
                  kind: str = "lorentz", c_in: float = 1.0,
@@ -123,9 +131,9 @@ class HGCConv(nn.Module):
                  dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if learn_c:
-            raise NotImplementedError("learn_c=True is not ported yet")
         self.kind, self.c_in, self.c_out = kind, c_in, c_out
+        self.c_raw = (nn.Parameter(torch.tensor(
+            math.log(math.expm1(c_out)), dtype=dtype)) if learn_c else None)
         self.use_att = use_att
         self.activation = activation
         self.dropout_rate = dropout_rate
@@ -142,10 +150,20 @@ class HGCConv(nn.Module):
                     torch.empty(features, 1, dtype=dtype),
                     generator=generator)) for _ in range(2))
 
-    def forward(self, x: torch.Tensor, g, *, deterministic: bool = True,
+    def out_curvature(self):
+        """``c_out``: ``softplus(c_raw)`` (a 0-d tensor) with ``learn_c``,
+        else the number given."""
+        if self.c_raw is None:
+            return self.c_out
+        return nn.functional.softplus(self.c_raw)
+
+    def forward(self, x: torch.Tensor, g, *, c_in=None,
+                deterministic: bool = True,
                 generator: Optional[torch.Generator] = None):
-        m_in = make_manifold(self.kind, self.c_in)
-        m_out = make_manifold(self.kind, self.c_out)
+        """``c_in`` overrides the input curvature given at construction
+        (the encoder passes the previous layer's, learned or not)."""
+        m_in = make_manifold(self.kind, self.c_in if c_in is None else c_in)
+        m_out = make_manifold(self.kind, self.out_curvature())
         n = x.shape[0]
         h = tangent0_coords(m_in, x) @ self.kernel
         if self.bias is not None:

@@ -9,7 +9,9 @@
 call the fused ``kernels.mlr.hyp_mlr``.  Hyperplane points are stored as
 origin tangents ``p_tangent`` (zeros at init) and mapped by ``expmap0``;
 the normals ``a`` start Glorot-uniform.  :class:`LorentzMLR` maps
-hyperboloid points to the isometric Poincaré ball first.
+hyperboloid points to the isometric Poincaré ball first.  Either head's
+``forward`` takes the curvature of the points it is given (``c=``, a
+number or a 0-d tensor such as a learned one), else its manifold's.
 """
 
 from __future__ import annotations
@@ -55,9 +57,10 @@ class HypMLR(nn.Module):
         self.a = nn.Parameter(glorot_uniform((num_classes, d), generator,
                                              dtype))
 
-    def forward(self, xb: torch.Tensor) -> torch.Tensor:
-        p = self.manifold.expmap0(self.p_tangent)
-        return hyp_mlr(xb, p, self.a, self.manifold.c)
+    def forward(self, xb: torch.Tensor, c=None) -> torch.Tensor:
+        ball = self.manifold if c is None else PoincareBall(c)
+        p = ball.expmap0(self.p_tangent)
+        return hyp_mlr(xb, p, self.a, ball.c)
 
 
 class LorentzMLR(HypMLR):
@@ -67,5 +70,6 @@ class LorentzMLR(HypMLR):
     def __init__(self, d: int, num_classes: int, manifold, **kw):
         super().__init__(d, num_classes, PoincareBall(manifold.c), **kw)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(lorentz_to_ball(x, self.manifold.c))
+    def forward(self, x: torch.Tensor, c=None) -> torch.Tensor:
+        c = self.manifold.c if c is None else c
+        return super().forward(lorentz_to_ball(x, c), c)

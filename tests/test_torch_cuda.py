@@ -1381,11 +1381,12 @@ def test_hyp_mlr_plan_models_the_kernels_shared_memory(dev):
     out = torch.empty((16, 64), device=dev)
     hs = S.function("mlr", "hs_hyp_mlr", [
         ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int,
-                                ctypes.c_int, ctypes.c_float] + [
+                                ctypes.c_int, ctypes.c_void_p] + [
         ctypes.c_int] * 3 + [ctypes.c_void_p])
     w = torch.zeros((64, 2000), device=dev)
+    c = torch.ones(1, device=dev)       # the kernel reads c on the device
     err = hs(x.data_ptr(), w.data_ptr(), w.data_ptr(), out.data_ptr(), 16,
-             64, 2000, 1.0, 1, 64, 1, S.stream_ptr(x))
+             64, 2000, c.data_ptr(), 1, 64, 1, S.stream_ptr(x))
     assert err != 0
 
 
@@ -2118,3 +2119,112 @@ def test_hvae_graphed_chunk_near_eager_steps_without_determinism(dev):
     for a, b in zip(params, eager):
         assert torch.linalg.vector_norm(a - b) <= 1e-5 * \
             torch.linalg.vector_norm(b)
+
+
+# --- learned curvature, graph_edge_sqdist and the CLI's paths ---------------
+
+
+@pytest.mark.parametrize("n,k,d,tile", [(256, 8, 128, False),
+                                        (169343, 40, 32, True),
+                                        (1003, 300, 33, True)])
+def test_hyp_mlr_with_a_device_curvature(dev, n, k, d, tile):
+    """Both plans read c from device memory: a 0-d tensor (a learned
+    curvature) gives the bits of the same number passed as a Python
+    float, logits within the kernel's tier (rtol 1e-4, atol 1e-5) of the
+    float64 plain version (at c = 0.8 the f32 plain version is at 0.80 of
+    that tier here, so kernel and plain may differ by more than one tier
+    on a few logits), and the plain version's dc (the backward is its
+    VJP) through the kernel."""
+    from hyperspace_torch.kernels.mlr import hyp_mlr, hyp_mlr_plain, mlr_plan
+
+    assert mlr_plan(n, k, d).tile == tile
+    rng = np.random.default_rng(n + 3 * k)
+    c = 0.8
+
+    def ball(m, s):
+        v = rng.standard_normal((m, d))
+        v *= rng.uniform(0.0, s, (m, 1)) / np.linalg.norm(v, axis=1,
+                                                          keepdims=True)
+        return torch.as_tensor(v / np.sqrt(c), dtype=torch.float32,
+                               device=dev)
+
+    x, p = ball(n, 0.9), ball(k, 0.5)
+    a = torch.as_tensor(rng.standard_normal((k, d)), dtype=torch.float32,
+                        device=dev)
+    ct = torch.tensor(c, device=dev, requires_grad=True)
+    before = hyp_mlr.launches
+    got = hyp_mlr(x, p, a, ct)
+    again = hyp_mlr(x, p, a, ct.detach())
+    number = hyp_mlr(x, p, a, c)
+    torch.cuda.synchronize()
+    assert hyp_mlr.launches == before + 3
+    assert torch.equal(got, again) and torch.equal(got, number)
+    c2 = ct.detach().clone().requires_grad_()
+    want = hyp_mlr_plain(x, p, a, c2)
+    f64 = hyp_mlr_plain(x.double(), p.double(), a.double(), c)
+    torch.testing.assert_close(got.detach().double(), f64, rtol=1e-4,
+                               atol=1e-5)
+    g = torch.randn(got.shape, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(n))
+    (dc,) = torch.autograd.grad(got, ct, g)
+    (dc_plain,) = torch.autograd.grad(want, c2, g)
+    assert torch.equal(dc, dc_plain) and torch.isfinite(dc)
+    with pytest.raises(ValueError, match="one value"):
+        hyp_mlr(x, p, a, torch.tensor(c))            # c on the host
+
+
+def test_graph_edge_sqdist_scatter_matches_plain(dev):
+    """graph_edge_sqdist on the card: one csr_segment_sum a backward, at
+    the HGCN decoder's [E, 33] over a prepared graph's own edges, bf16
+    and f32; values, dz and dc against the same Function on the CPU."""
+    from hyperspace_torch.data import graphs as G
+    from hyperspace_torch.manifolds import Lorentz
+    from hyperspace_torch.nn.edge_dist import graph_edge_sqdist
+
+    edges, x, _, _ = G.community_power_law_graph(3000, 20000, 7, 8, seed=2)
+    g = G.prepare(edges, 3000, x, pad_multiple=1024, cache=False)
+    rng = np.random.default_rng(4)
+    v = np.zeros((3000, 33))
+    v[:, 1:] = rng.standard_normal((3000, 32)) * 0.3
+    z64 = Lorentz(0.9).expmap0(torch.as_tensor(v))
+    real = g.edge_mask & (g.senders != g.receivers)
+    gbar = torch.as_tensor(rng.standard_normal(len(real)) * real)
+    for dt, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        out = {}
+        for where in ("cuda", "cpu"):
+            d = torch.device(where)
+            gd = G.to_device(g, d)
+            z = z64.to(dt).to(d).requires_grad_()
+            c = torch.tensor(0.9, device=d, requires_grad=True)
+            before = csr_segment_sum.launches
+            sq = graph_edge_sqdist(z, c, gd.senders, gd.receivers,
+                                   gd.rev_perm, gd.plan)
+            (sq * gbar.to(dt).to(d)).float().sum().backward()
+            if where == "cuda":
+                torch.cuda.synchronize()
+                assert csr_segment_sum.launches == before + 1
+            out[where] = (sq.detach().float().cpu(), z.grad.float().cpu(),
+                          c.grad.float().cpu())
+        for got, want in zip(out["cuda"], out["cpu"]):
+            torch.testing.assert_close(got, want, rtol=tol,
+                                       atol=tol * float(want.abs().max()))
+
+
+def test_cli_hgcn_on_the_card(dev, tmp_path, capsys):
+    """cli.train hgcn from a Cora layout on disk, learned curvature on:
+    the JSON line, the native prep, finite losses."""
+    import json
+
+    from hyperspace_torch.cli import train as cli_train
+    from hyperspace_torch.data import graphs as G
+
+    edges, x, labels, _ = G.community_power_law_graph(500, 2500, 5, 16,
+                                                      seed=1)
+    G.write_cora_layout(str(tmp_path), edges, x, labels)
+    for task in ("lp", "nc"):
+        assert cli_train.main(["hgcn", f"task={task}", "dataset=cora",
+                               f"data_root={tmp_path}", "steps=3",
+                               "learn_c=true", "agg_dtype=bfloat16"]) == 0
+        out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert out["task"] == task and out["prep"] == "native"
+        assert np.isfinite(out["loss"])

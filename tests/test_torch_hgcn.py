@@ -307,10 +307,14 @@ def test_roc_auc_matches_jax():
 
 
 def test_params_from_jax_refuses_unported_leaves():
+    """``c_raw`` (learned curvature) is carried since it was ported; a
+    leaf no port module declares is still refused."""
     tree = {"encoder": {"conv0": {"kernel": np.zeros((2, 2)),
                                   "c_raw": np.zeros(())}},
             "decoder": {"r": np.zeros(()), "t_raw": np.zeros(())}}
-    with pytest.raises(NotImplementedError, match="c_raw"):
+    assert "encoder.conv0.c_raw" in th.params_from_jax(tree)
+    tree["encoder"]["conv0"]["scale"] = np.zeros(())
+    with pytest.raises(NotImplementedError, match="scale"):
         th.params_from_jax(tree)
 
 

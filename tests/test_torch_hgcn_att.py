@@ -719,6 +719,13 @@ def test_params_from_jax_carries_attention_vectors():
     model.load_state_dict(th.params_from_jax(tree))
     assert torch.equal(model.encoder.conv0.att_dst,
                        torch.full((2, 1), -0.5))
-    tree["encoder"]["conv0"]["c_raw"] = np.zeros(())
-    with pytest.raises(NotImplementedError, match="c_raw"):
+    # a learned curvature's c_raw rides along (learn_c is ported)
+    tree["encoder"]["conv0"]["c_raw"] = np.float32(0.25)
+    cfg_c = th.HGCNConfig(feat_dim=3, hidden_dims=(2,), use_att=True,
+                          learn_c=True)
+    model_c, _, _ = th.init_lp(cfg_c, None, seed=0, device="cpu")
+    model_c.load_state_dict(th.params_from_jax(tree))
+    assert float(model_c.encoder.conv0.c_raw) == 0.25
+    tree["encoder"]["conv0"]["att_mid"] = np.zeros((2, 1))
+    with pytest.raises(NotImplementedError, match="att_mid"):
         th.params_from_jax(tree)

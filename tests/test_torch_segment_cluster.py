@@ -365,13 +365,14 @@ def test_hgcconv_fwd_bwd(graphs, monkeypatch, cluster, dt, rtol, atol, jmode):
 
 
 def test_hgcconv_refuses_unported_options():
-    """Attention is ported (its vectors in JAX's (d_out, 1) layout); learned
-    curvature, the Poincaré manifold and node-sharded graphs still
-    raise."""
+    """Attention is ported (its vectors in JAX's (d_out, 1) layout), and
+    learned curvature (a scalar ``c_raw`` at log(expm1(c_out))); the
+    Poincaré manifold and node-sharded graphs still raise."""
     conv = TGCN.HGCConv(4, 3, use_att=True)
     assert conv.att_src.shape == conv.att_dst.shape == (3, 1)
-    with pytest.raises(NotImplementedError, match="learn_c"):
-        TGCN.HGCConv(4, 4, learn_c=True)
+    learned = TGCN.HGCConv(4, 4, c_out=0.7, learn_c=True)
+    assert learned.c_raw.shape == ()
+    assert abs(float(learned.out_curvature()) - 0.7) < 1e-6
     with pytest.raises(NotImplementedError, match="poincare"):
         TGCN.make_manifold("poincare", 1.0)
 
