@@ -286,6 +286,7 @@ the curvature as a device tensor and as a number (``ms_nc_device_c``,
 from __future__ import annotations
 
 import argparse
+import contextlib
 import io
 import itertools
 import json
@@ -1485,7 +1486,7 @@ def hybonet_path(torch, args, card: dict) -> dict:
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         cli_train.main(["hybonet", "--yaml", os.path.join(REPO, HB_CLI_YAML),
-                        f"log={log}"])
+                        f"log={log}", "eval_every=1"])
     counts = hb_counts()
     res = json.loads(out.getvalue().strip().splitlines()[-1])
     with open(log) as f:
@@ -3885,7 +3886,8 @@ def _cli_phases(torch, args, card, dev, tmp, G, native, prep_cache, hgcn):
     nc_reset()
     torch.cuda.reset_peak_memory_stats()
     out = run_cli(["hgcn", "--yaml", CLI_LP_YAML, f"data_root={arxiv_dir}",
-                   f"steps={CLI_STEPS}", "graph_cache=false", f"log={log}"])
+                   f"steps={CLI_STEPS}", "graph_cache=false", f"log={log}",
+                   "eval_every=1"])
     launches = nc_counts()
     cli_peak = torch.cuda.max_memory_allocated()
     losses = read_log(log)
@@ -4001,7 +4003,7 @@ def _cli_phases(torch, args, card, dev, tmp, G, native, prep_cache, hgcn):
                       f"data_root={arxiv_dir}", "reorder=true",
                       "hidden_dims=[128, 32]", "agg_dtype=bfloat16",
                       f"steps={CLI_NC_STEPS}", "graph_cache=false",
-                      f"log={nc_log}"])
+                      f"log={nc_log}", "eval_every=1"])
     nc_launches = nc_counts()
     nc_losses = read_log(nc_log)
     check_cli_counts(nc_launches, NC_PER_STEP, NC_PER_EVAL, CLI_NC_STEPS,
@@ -4014,7 +4016,7 @@ def _cli_phases(torch, args, card, dev, tmp, G, native, prep_cache, hgcn):
     att_out = run_cli(["hgcn", "dataset=cora", f"data_root={cora_dir}",
                        "use_att=true", "agg_dtype=bfloat16",
                        f"steps={CLI_ATT_STEPS}", "graph_cache=false",
-                       f"log={att_log}"])
+                       f"log={att_log}", "eval_every=1"])
     att_launches = {**att_counts(), **nc_counts()}
     att_losses = read_log(att_log)
     check_cli_counts(att_launches, CLI_ATT_PER_STEP, CLI_ATT_PER_EVAL,
@@ -4264,6 +4266,414 @@ def cli_kernel_fields(torch, cp: dict, kernels: list) -> None:
                 "shape_nc_device_c": [nn_, kk, dd],
                 "max_abs_err_learned_c": cp["mlr"]["max_abs_err"],
                 "dc_rel_diff_learned_c": cp["mlr"]["dc_rel_diff"]})
+
+
+# --- phases 44-49: product embeddings and the train runtime ----------------
+
+PRODUCT_TREE = (5, 9)              # 66,430 nodes, 323,847 closure pairs
+PRODUCT_CHUNK = 32                 # the graphed chunk (workloads_bench)
+PRODUCT_CARD_CPU_RTOL = 1e-4       # all float32
+PRODUCT_CLI_YAML = os.path.join("configs", "product_multihost.yaml")
+PRODUCT_CLI_BIG_STEPS = 1024       # 32 graphed chunks on the big closure
+RESUME_STEPS = 16                  # N: straight twice, N/2 + resume to N
+RESUME_CHUNK = 8
+RESUME_RUNS = {
+    "poincare": ["poincare", f"scan_chunk={RESUME_CHUNK}"],
+    "hvae": ["hvae", "--yaml", HVAE_CLI_YAML, f"scan_chunk={RESUME_CHUNK}"],
+    "product": ["product", f"scan_chunk={RESUME_CHUNK}"],
+    "hybonet": ["hybonet", "--yaml", HB_CLI_YAML],
+    "hgcn": ["hgcn", "hidden_dims=[32, 16]", "graph_cache=false"],
+}
+ACCUM_STEPS = 8
+ACCUM_CARD_CPU_RTOL = 1e-4
+
+
+def tree_gap(torch, a, b, path="") -> float:
+    """The largest absolute difference between two checkpoint trees'
+    float tensors; integer tensors and numbers (step counts, generator
+    states) must be equal."""
+    if isinstance(a, torch.Tensor):
+        if a.is_floating_point():
+            return float((a.double() - b.double()).abs().max()) \
+                if a.numel() else 0.0
+        if not torch.equal(a, b):
+            raise AssertionError(f"{path}: integer state differs")
+        return 0.0
+    if isinstance(a, dict):
+        return max([tree_gap(torch, a[k], b[k], f"{path}.{k}") for k in a]
+                   or [0.0])
+    if isinstance(a, list):
+        return max([tree_gap(torch, x, y, f"{path}[{i}]")
+                    for i, (x, y) in enumerate(zip(a, b))] or [0.0])
+    if a != b:
+        raise AssertionError(f"{path}: {a} != {b}")
+    return 0.0
+
+
+def product_bench(torch, card: dict) -> dict:
+    """Phase 44: the ``workloads_bench`` product leg at 66,430 nodes,
+    the graphed chunk's busy and idle share, and the chunk against the
+    same steps run eagerly from the same state and generator."""
+    from hyperspace_torch.benchmarks import workloads_bench as W
+    from hyperspace_torch.models import product_embed as pme
+    from hyperspace_torch.train import loop
+
+    t0 = time.perf_counter()
+    leg = W.setup_product_leg(device="cuda", seed=0, tree=PRODUCT_TREE)
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    res = W.run_product_leg(leg, steps=20, repeats=3, chunk=PRODUCT_CHUNK)
+    peak = torch.cuda.max_memory_allocated()
+    losses = res.pop("losses")
+    share = device_share(torch, leg.step, res["step_ms"], reps=5, top_n=5)
+    cfg, opt, pairs = leg.cfg, leg.opt, leg.pairs
+    chunk = loop.make_chunked_stepper(
+        lambda st, p: pme.train_step(cfg, opt, st, p), PRODUCT_CHUNK)
+    state = {"st": leg.state}
+
+    def run_chunk():
+        state["st"], _ = chunk(state["st"], pairs)
+
+    run_chunk()                                     # captures
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(3):
+        run_chunk()
+    torch.cuda.synchronize()
+    chunk_ms = (time.perf_counter() - t1) / 3 * 1e3
+    chunk_share = device_share(torch, run_chunk, chunk_ms, reps=3, top_n=5)
+    # the chunk against its steps run eagerly, from one state
+    eager, graphed = pe_clone(torch, state["st"]), pe_clone(torch,
+                                                           state["st"])
+    eager_losses = []
+    for _ in range(PRODUCT_CHUNK):
+        eager, loss = pme.train_step(cfg, opt, eager, pairs)
+        eager_losses.append(loss)
+    graphed, g_losses = chunk(graphed, pairs)
+    e_losses = torch.stack(eager_losses)
+    te, tg = eager.params.table, graphed.params.table
+    agree = {
+        "table_bitwise": bool(torch.equal(te, tg)),
+        "c_raw_bitwise": bool(torch.equal(eager.params.c_raw,
+                                          graphed.params.c_raw)),
+        "losses_bitwise": bool(torch.equal(e_losses, g_losses)),
+        "table_rel": float(torch.linalg.vector_norm(te - tg)
+                           / torch.linalg.vector_norm(te)),
+        "c_raw_rel": float(((eager.params.c_raw - graphed.params.c_raw).abs()
+                            / eager.params.c_raw.abs()).max()),
+        "loss_rel": float(((e_losses - g_losses).abs()
+                           / e_losses.abs()).max())}
+    out = {**res, **share, "chunk_ms": chunk_ms,
+           "chunk_device_busy_ms": chunk_share["device_busy_ms"],
+           "chunk_device_idle_share": chunk_share["device_idle_share"],
+           "chunk_top_device_ms": chunk_share["top_device_ms"],
+           "graphed_vs_eager": agree, "setup_s": setup_s,
+           "first_loss": losses[0], "last_loss": losses[-1],
+           "peak_device_memory_bytes": peak}
+    emit({"phase": "product_bench", **out,
+          "seconds": time.perf_counter() - t0, **card})
+    if not np.all(np.isfinite(losses)) or not all(
+            np.isfinite(v) for k, v in agree.items() if k.endswith("rel")):
+        raise AssertionError(f"product bench: non-finite values {agree}")
+    if agree["table_rel"] > PRODUCT_CARD_CPU_RTOL:
+        raise AssertionError(f"product: the graphed chunk is beyond rel "
+                             f"{PRODUCT_CARD_CPU_RTOL} of its eager steps: "
+                             f"{agree}")
+    return out
+
+
+def product_card_vs_cpu(torch, args) -> dict:
+    """Phase 45: three steps on given ids (collisions included) from one
+    state at 66,430 nodes, batch 1,024, on the card and on the CPU."""
+    from hyperspace_torch.data.wordnet import synthetic_tree
+    from hyperspace_torch.models import product_embed as pme
+
+    t0 = time.perf_counter()
+    ds = synthetic_tree(*PRODUCT_TREE)
+    cfg = pme.ProductEmbedConfig(num_nodes=ds.num_nodes, batch_size=1024,
+                                 burnin_steps=1)
+    rng = np.random.default_rng(args.seed + 44)
+    ids = []
+    for _ in range(3):
+        rows = rng.integers(0, len(ds.pairs), cfg.batch_size)
+        u, v = ds.pairs[rows, 0], ds.pairs[rows, 1]
+        neg = rng.integers(0, cfg.num_nodes, (cfg.batch_size,
+                                              cfg.neg_samples))
+        neg[:8, 0] = u[:8]                          # collisions with u
+        ids.append((u, v, neg))
+    runs = {}
+    for where in ("cuda", "cpu"):
+        st, opt = pme.init_state(cfg, args.seed, device="cpu")
+        st = pme.TrainState(
+            pme.Params(*(t.to(where) for t in st.params)),
+            type(st.curv_opt_state)(*(t.to(where)
+                                      for t in st.curv_opt_state)),
+            torch.Generator(device=where), st.step.to(where))
+        losses = []
+        for u, v, neg in ids:
+            st, loss = pme.step_on_batch(cfg, opt, st, *(
+                torch.as_tensor(a, device=where) for a in (u, v, neg)))
+            losses.append(float(loss))
+        runs[where] = (st.params.table.cpu(), st.params.c_raw.cpu(), losses)
+    (tg, cg, lg), (tc, cc, lc) = runs["cuda"], runs["cpu"]
+    rep = {"table_rel": float(torch.linalg.vector_norm(tg - tc)
+                              / torch.linalg.vector_norm(tc)),
+           "c_raw_rel": float(((cg - cc).abs() / cc.abs()).max()),
+           "loss_rel": max(abs(a - b) / abs(b) for a, b in zip(lg, lc)),
+           "losses_cuda": lg, "losses_cpu": lc,
+           "c_raw_cuda": cg.tolist(), "c_raw_cpu": cc.tolist()}
+    emit({"phase": "product_card_vs_cpu", **rep,
+          "seconds": time.perf_counter() - t0})
+    if not max(rep["table_rel"], rep["c_raw_rel"],
+               rep["loss_rel"]) <= PRODUCT_CARD_CPU_RTOL:
+        raise AssertionError(f"product: card and CPU differ: {rep}")
+    return rep
+
+
+def product_cli(torch, tmp: str, card: dict) -> dict:
+    """Phase 46: ``cli.train product`` at its config, then graphed chunks
+    on a 66,430-node closure TSV written here."""
+    from hyperspace_torch.data.wordnet import synthetic_tree
+
+    out = {}
+    for name, argv in (
+            ("config", ["product", "--yaml", PRODUCT_CLI_YAML,
+                        "eval_every=100"]),
+            ("big", ["product", "scan_chunk=32", "batch_size=1024",
+                     f"steps={PRODUCT_CLI_BIG_STEPS}", "eval_every=256"])):
+        t0 = time.perf_counter()
+        if name == "big":
+            ds = synthetic_tree(*PRODUCT_TREE)
+            tsv = os.path.join(tmp, "closure.tsv")
+            with open(tsv, "w") as f:
+                f.writelines(f"n{u}\tn{v}\n" for u, v in ds.pairs)
+            argv = argv + [f"data_root={tsv}"]
+        log = os.path.join(tmp, f"product_{name}.jsonl")
+        res = run_cli(argv + [f"log={log}"])
+        losses = read_log(log)
+        out[name] = {**res, "logged_losses": losses,
+                     "seconds": time.perf_counter() - t0}
+        emit({"phase": "product_cli", "run": name, "argv": argv,
+              **out[name], **card})
+        check_losses(losses, f"product CLI {name}")
+        if not max(abs(c - 1.0) for c in res["curvatures"]) > 1e-4:
+            raise AssertionError(f"product CLI {name}: the curvatures did "
+                                 f"not move: {res['curvatures']}")
+        if not 0.0 < res["map"] <= 1.0:
+            raise AssertionError(f"product CLI {name}: {res}")
+    return out
+
+
+def resume_runs(torch, tmp: str, card: dict) -> dict:
+    """Phase 47: each CLI workload N steps straight twice, and N/2 with
+    ``ckpt_dir`` then resumed to N; the resumed run's final checkpoint
+    must be as close to the straight one's as the two straight runs are
+    to each other (bitwise where they are).  Saves are timed."""
+    from hyperspace_torch.train import checkpoint as ck
+
+    saves = []
+    real_save = ck.CheckpointManager.save
+
+    def timed_save(self, step, state, *, force=False):
+        t = time.perf_counter()
+        started = real_save(self, step, state, force=force)
+        if started:
+            saves.append(time.perf_counter() - t)
+        return started
+
+    ck.CheckpointManager.save = timed_save
+    out = {}
+    try:
+        for name, argv in RESUME_RUNS.items():
+            t0 = time.perf_counter()
+            saves.clear()
+            base = argv + ["ckpt_every=4", "eval_every=1"]
+
+            def run(tag, steps, *extra):
+                d = os.path.join(tmp, f"resume_{name}_{tag}")
+                res = run_cli(base + [f"steps={steps}", f"ckpt_dir={d}",
+                                      *extra])
+                res.pop("seconds", None)
+                return res, d
+
+            flags = cudnn_flags(torch, True) if name == "hvae" else \
+                contextlib.nullcontext()
+            with flags:
+                (r1, d1), (r2, d2) = (run(t, RESUME_STEPS)
+                                      for t in ("a1", "a2"))
+                run("b", RESUME_STEPS // 2)
+                rb, db = run("b", RESUME_STEPS, "resume=true")
+            t1, s1 = ck.restore_params_only(d1)
+            t2, _ = ck.restore_params_only(d2)
+            tb, sb = ck.restore_params_only(db)
+            spread, gap = tree_gap(torch, t1, t2), tree_gap(torch, t1, tb)
+            out[name] = {
+                "straight_gap": spread, "resumed_gap": gap,
+                "bitwise": gap == 0.0, "results_equal": rb == r1,
+                "result": rb, "step": sb,
+                "save_s": sorted(saves), "ckpt_bytes": ck.dir_bytes(
+                    os.path.join(db, str(sb))),
+                "cudnn_deterministic": name == "hvae",
+                "seconds": time.perf_counter() - t0}
+            emit({"phase": "resume", "workload": name, **out[name], **card})
+            if sb != s1 or not gap <= spread:
+                raise AssertionError(
+                    f"resume {name}: the resumed run is {gap} from the "
+                    f"straight one, two straight runs {spread} apart "
+                    f"(steps {s1}, {sb})")
+    finally:
+        ck.CheckpointManager.save = real_save
+    return out
+
+
+def accum_card_vs_cpu(torch, args) -> dict:
+    """Phase 48, second half: four microsteps of accum=2 on given batches
+    from one state, HyboNet (AdamW) and the HVAE (Adam), on the card and
+    on the CPU."""
+    from hyperspace_torch.data.text import synthetic_text
+    from hyperspace_torch.models import hvae, hybonet
+    from hyperspace_torch.optim.accum import with_grad_accumulation
+
+    ds = synthetic_text(num_samples=64, vocab_size=512, num_classes=4,
+                        max_len=32, seed=args.seed)
+    hcfg = hybonet.HyboNetConfig(dim=64, num_heads=4, num_layers=2,
+                                 batch_size=16)
+    vcfg = hvae_cfg("poincare")
+    rng = np.random.default_rng(args.seed + 48)
+    images = rng.uniform(0, 1, (4, 16, 28, 28)).astype(np.float32)
+    eps = rng.standard_normal((4, 16, vcfg.latent_dim)).astype(np.float32)
+    runs = {}
+    for where in ("cuda", "cpu"):
+        model, opt, st = hybonet.init_model(hcfg, seed=args.seed,
+                                            device=where)
+        opt, _ = with_grad_accumulation(opt, None, 2)
+        hl = []
+        for i in range(4):
+            t, m, y = (torch.as_tensor(a[16 * i:16 * i + 16], device=where)
+                       for a in (ds.tokens, ds.mask, ds.labels))
+            st, loss = hybonet.train_step(model, opt, st, t, m, y)
+            hl.append(float(loss))
+        hp = torch.cat([p.detach().reshape(-1).cpu()
+                        for p in model.parameters()])
+        vmodel, vopt, vst = hvae.init_model(vcfg, args.seed, where)
+        vopt, vstate = with_grad_accumulation(vopt, vst.params, 2)
+        vst = vst._replace(opt_state=vstate)
+        vl = []
+        with cudnn_flags(torch, False):
+            for i in range(4):
+                vst, loss, _r, _k = hvae.train_step(
+                    vmodel, vopt, vst, torch.as_tensor(images[i],
+                                                       device=where),
+                    eps=torch.as_tensor(eps[i], device=where))
+                vl.append(float(loss))
+        vp = torch.cat([t.reshape(-1).cpu() for t in
+                        torch.utils._pytree.tree_leaves(vst.params)])
+        runs[where] = (hl, hp, opt.inner.count, vl, vp,
+                       int(vst.opt_state.inner_opt_state.count))
+    g, c = runs["cuda"], runs["cpu"]
+    rep = {"hybonet_loss_rel": max(abs(a - b) / abs(b)
+                                   for a, b in zip(g[0], c[0])),
+           "hybonet_param_rel": float(torch.linalg.vector_norm(g[1] - c[1])
+                                      / torch.linalg.vector_norm(c[1])),
+           "hvae_loss_rel": max(abs(a - b) / abs(b)
+                                for a, b in zip(g[3], c[3])),
+           "hvae_param_rel": float(torch.linalg.vector_norm(g[4] - c[4])
+                                   / torch.linalg.vector_norm(c[4])),
+           "inner_counts": [g[2], g[5], c[2], c[5]]}
+    if rep["inner_counts"] != [2, 2, 2, 2] or not max(
+            v for k, v in rep.items() if k.endswith("rel")) \
+            <= ACCUM_CARD_CPU_RTOL:
+        raise AssertionError(f"accum: card and CPU differ: {rep}")
+    return rep
+
+
+def accum_runs(torch, args, tmp: str, card: dict) -> dict:
+    """Phase 48: ``accum=2`` through the CLI for HyboNet and the HVAE
+    (graphed chunks), the inner optimizer's count read back from the
+    final checkpoint; then the card against the CPU."""
+    from hyperspace_torch.train.checkpoint import restore_params_only
+
+    t0 = time.perf_counter()
+    out = {}
+    for name, argv, count in (
+            ("hybonet", ["hybonet", "--yaml", HB_CLI_YAML],
+             ("opt", "inner", "count")),
+            ("hvae", ["hvae", "--yaml", HVAE_CLI_YAML, "scan_chunk=4"],
+             ("opt_state", "inner_opt_state", "count"))):
+        d = os.path.join(tmp, f"accum_{name}")
+        log = os.path.join(tmp, f"accum_{name}.jsonl")
+        res = run_cli(argv + ["accum=2", f"steps={ACCUM_STEPS}",
+                              f"ckpt_dir={d}", f"log={log}",
+                              "eval_every=1"])
+        tree, _ = restore_params_only(d)
+        node = tree
+        for key in count:
+            node = node[key]
+        losses = read_log(log)
+        out[name] = {"result": res, "losses": losses,
+                     "inner_count": int(node)}
+        if int(node) != ACCUM_STEPS // 2 or not np.all(np.isfinite(losses)):
+            raise AssertionError(f"accum {name}: {out[name]}")
+    out["card_vs_cpu"] = accum_card_vs_cpu(torch, args)
+    emit({"phase": "accum", **out, "seconds": time.perf_counter() - t0,
+          **card})
+    return out
+
+
+def health_runs(torch, tmp: str, card: dict) -> dict:
+    """Phase 49: ``health_every=1`` on ``product`` and ``poincare``: a
+    healthy run logs ``health/*`` records, every one ok; a table pushed
+    to the rim (a learning rate of 1,000 without burn-in) flags, and
+    with ``health_abort=1`` the run raises."""
+    t0 = time.perf_counter()
+    out = {}
+    for name, argv in (
+            ("product", ["product", "scan_chunk=8", "steps=200"]),
+            ("poincare", ["poincare", "scan_chunk=8", "steps=200"])):
+        rim = [("lr_table" if name == "product" else "lr") + "=1000",
+               "burnin_steps=0"]
+        for mode, extra in (("healthy", []), ("rim", rim)):
+            log = os.path.join(tmp, f"health_{name}_{mode}.jsonl")
+            run_cli(argv + ["health_every=1", f"log={log}", *extra])
+            with open(log) as f:
+                recs = [json.loads(s) for s in f]
+            health = [r for r in recs if "health/ok" in r]
+            ok = [r["health/ok"] for r in health]
+            out[f"{name}_{mode}"] = {
+                "records": len(health), "ok": sum(ok),
+                "margin_min": min(r["health/boundary_margin_min"]
+                                  for r in health)}
+            if len(health) != 25 or (mode == "healthy") != all(ok) or (
+                    mode == "rim" and any(ok[-5:])):
+                raise AssertionError(f"health {name} {mode}: "
+                                     f"{out[f'{name}_{mode}']}")
+        try:
+            run_cli(argv + ["health_every=1", "health_abort=1", *rim])
+        except FloatingPointError as e:
+            out[f"{name}_abort"] = str(e)
+        else:
+            raise AssertionError(f"health {name}: health_abort=1 did not "
+                                 "raise on the rim")
+    emit({"phase": "health", **out, "seconds": time.perf_counter() - t0,
+          **card})
+    return out
+
+
+def runtime_path(torch, args, card: dict) -> dict:
+    """Phases 44-49 (after every profiled time of the earlier phases)."""
+    work = os.path.join(REPO, "build", "chip_smoke")
+    os.makedirs(work, exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=work)
+    try:
+        out = {"bench": product_bench(torch, card),
+               "card_vs_cpu": product_card_vs_cpu(torch, args),
+               "cli": product_cli(torch, tmp, card),
+               "resume": resume_runs(torch, tmp, card),
+               "accum": accum_runs(torch, args, tmp, card),
+               "health": health_runs(torch, tmp, card)}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
 
 
 def main(argv=None) -> int:
@@ -4579,6 +4989,9 @@ def main(argv=None) -> int:
     # --- phases 38-43: HGCN through the CLI, from graphs on disk ----------
     cp = cli_path(torch, args, card)
     cli_kernel_fields(torch, cp, kernels)
+
+    # --- phases 44-49: product embeddings and the train runtime ----------
+    runtime_path(torch, args, card)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"kernels": kernels, "floor_ms": floor})

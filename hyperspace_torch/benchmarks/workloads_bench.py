@@ -13,7 +13,12 @@
   seed=0)``; besides the step-by-step time, the per-step time of one
   chunk of ``scan_chunk_k`` sampled steps through ``train/loop.py``'s
   chunked stepper (a CUDA graph replayed on the card), the CLI's
-  ``scan_chunk`` path.
+  ``scan_chunk`` path;
+- ``product_embed``: product-manifold embeddings with learned curvature
+  (ball 5, sphere 5, flat 2) on ``synthetic_tree(depth=5, branching=9)``
+  (66,430 nodes, 323,847 closure pairs) at batch 1,024: step-by-step,
+  then the per-step time of one chunk of ``scan_chunk_k`` steps, as the
+  ``hvae`` leg.
 
     python -m hyperspace_torch.benchmarks.workloads_bench [--steps 10]
         [--repeats 3] [--device cuda]
@@ -21,9 +26,8 @@
 prints one JSON object with a line per leg: ``step_ms`` (the least of
 ``repeats`` timed runs of ``steps`` steps, host clock ending in a
 synchronise), ``tokens_per_s`` (batch × L / step time) or
-``images_per_s`` (batch / step time), the shapes, the attention
-implementation, the precision, the losses and the device.  The
-product-space leg of the JAX bench waits for its model.
+``images_per_s`` (batch / step time) or ``pairs_per_s``, the shapes,
+the attention implementation, the precision, the losses and the device.
 """
 
 from __future__ import annotations
@@ -39,8 +43,10 @@ import torch
 from hyperspace_torch.benchmarks.hgcn_bench import card_name
 from hyperspace_torch.data.mnist import synthetic_mnist
 from hyperspace_torch.data.text import synthetic_text
+from hyperspace_torch.data.wordnet import synthetic_tree
 from hyperspace_torch.kernels._support import resolve_device
 from hyperspace_torch.models import hvae, hybonet
+from hyperspace_torch.models import product_embed as pme
 from hyperspace_torch.train.loop import make_chunked_stepper
 
 LEGS = {
@@ -216,6 +222,83 @@ def run_hvae_chunks(leg: HVAELeg, chunk: int = SCAN_CHUNK_K,
             "losses": losses}
 
 
+PRODUCT_TREE = (5, 9)           # depth, branching: 66,430 nodes
+PRODUCT_BATCH = 1024
+
+
+@dataclasses.dataclass
+class ProductLeg:
+    """The product leg's config, optimiser, state and pairs on one
+    device."""
+
+    cfg: pme.ProductEmbedConfig
+    opt: Any
+    state: pme.TrainState
+    pairs: torch.Tensor
+    device: torch.device
+
+    def step(self) -> torch.Tensor:
+        self.state, loss = pme.train_step(self.cfg, self.opt, self.state,
+                                          self.pairs)
+        return loss
+
+
+def setup_product_leg(*, device="cuda", seed: int = 0,
+                      tree: tuple = PRODUCT_TREE,
+                      batch_size: int = PRODUCT_BATCH) -> ProductLeg:
+    dev = resolve_device(device)
+    ds = synthetic_tree(*tree)
+    cfg = pme.ProductEmbedConfig(num_nodes=ds.num_nodes,
+                                 batch_size=batch_size)
+    state, opt = pme.init_state(cfg, seed, dev)
+    pairs = torch.as_tensor(ds.pairs, dtype=torch.int64, device=dev)
+    return ProductLeg(cfg, opt, state, pairs, dev)
+
+
+def run_product_leg(leg: ProductLeg, steps: int = 10, repeats: int = 3,
+                    warmup: int = 1, chunk: int = SCAN_CHUNK_K) -> dict:
+    """Step-by-step times as :func:`run_leg` takes them, then ``repeats``
+    chunks of ``chunk`` graphed steps after one capturing chunk."""
+    losses = [leg.step() for _ in range(warmup)]
+    _sync(leg.device)
+    times = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        losses += [leg.step() for _ in range(steps)]
+        _sync(leg.device)
+        times.append(time.perf_counter() - t0)
+    step_s = min(times) / steps
+    cfg = leg.cfg
+    out = {"step_ms": step_s * 1e3, "pairs_per_s": cfg.batch_size / step_s,
+           "num_nodes": cfg.num_nodes, "batch": cfg.batch_size,
+           "factors": [list(f) for f in cfg.factors],
+           "precision": cfg.precision, "steps": steps, "repeats": repeats,
+           "repeat_ms": [t / steps * 1e3 for t in times]}
+    if chunk > 1:
+        run = make_chunked_stepper(
+            lambda st, p: pme.train_step(cfg, leg.opt, st, p), chunk)
+        leg.state, chunk_losses = run(leg.state, leg.pairs)    # captures
+        losses += list(chunk_losses)
+        ctimes = []
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            leg.state, chunk_losses = run(leg.state, leg.pairs)
+            _sync(leg.device)
+            ctimes.append(time.perf_counter() - t0)
+            losses += list(chunk_losses)
+        scan_ms = min(ctimes) / chunk * 1e3
+        out.update({"scan_chunk_k": chunk, "scan_chunk_step_ms": scan_ms,
+                    "scan_chunk_pairs_per_s": cfg.batch_size / (
+                        scan_ms / 1e3),
+                    "scan_chunk_repeat_ms": [t / chunk * 1e3
+                                             for t in ctimes]})
+    out.update({"losses": [float(x) for x in losses],
+                "curvatures": pme.curvatures(cfg, leg.state.params),
+                "device": str(leg.device),
+                "card": card_name() if leg.device.type == "cuda" else None})
+    return out
+
+
 def run_workloads_bench(steps: int = 10, repeats: int = 3, *,
                         device="cuda", seed: int = 0) -> dict[str, Any]:
     """Every leg; ``hybonet_long`` takes max(steps // 2, 3) steps a run,
@@ -227,6 +310,8 @@ def run_workloads_bench(steps: int = 10, repeats: int = 3, *,
                             repeats)
     out["hvae"] = run_hvae_leg(setup_hvae_leg(device=device, seed=seed),
                                steps, repeats)
+    out["product_embed"] = run_product_leg(
+        setup_product_leg(device=device, seed=seed), steps, repeats)
     return out
 
 

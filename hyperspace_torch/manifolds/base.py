@@ -19,6 +19,29 @@ import torch
 from hyperspace_torch.manifolds import smath
 
 
+def reduce_health_stats(groups) -> dict:
+    """Merge same-named health stats from several sources (product
+    factors, tagged parameter leaves) by the suffix rule the health
+    monitor thresholds on: ``*_min`` → min, ``*_mean`` → the unweighted
+    mean of the means, anything else → max.  A name seen once passes
+    through as it is."""
+    agg: dict = {}
+    for stats in groups:
+        for k, v in stats.items():
+            agg.setdefault(k, []).append(v)
+    out = {}
+    for k, vs in agg.items():
+        if len(vs) == 1:
+            out[k] = vs[0]
+        elif k.endswith("_min"):
+            out[k] = torch.min(torch.stack(vs))
+        elif k.endswith("_mean"):
+            out[k] = torch.mean(torch.stack(vs))
+        else:
+            out[k] = torch.max(torch.stack(vs))
+    return out
+
+
 class Manifold:
     """A Riemannian manifold: the core that a subclass must supply raises
     ``NotImplementedError`` here (JAX's abstract methods); the flat

@@ -639,7 +639,15 @@ def evaluate(table: torch.Tensor, pairs, c, batch: int = 1024,
     ranks = torch.cat([_rank_chunk(table, p[s:s + batch, 0],
                                    p[s:s + batch, 1], c, dist_fn)
                        for s in range(0, len(pairs), batch)])
-    ranks = ranks.cpu().numpy().astype(np.int64)
+    return rank_metrics(pairs, ranks.cpu().numpy())
+
+
+def rank_metrics(pairs, ranks) -> dict:
+    """Mean rank and MAP from each pair's unfiltered rank (numpy), the
+    filtering :func:`evaluate` describes; shared by the product
+    embeddings' evaluation."""
+    pairs = np.asarray(pairs)
+    ranks = np.asarray(ranks).astype(np.int64)
     u = pairs[:, 0].astype(np.int64)
     order = np.lexsort((ranks, u))
     us, rs = u[order], ranks[order]

@@ -49,3 +49,17 @@ class AdamW:
             u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
             u = u + self.wd * p
             p.add_(-self.lr * u)
+
+    def state_dict(self) -> dict:
+        """The update count and the moments (the live tensors), for
+        ``train/checkpoint.py``."""
+        return {"count": self.count, "mu": self.mu, "nu": self.nu}
+
+    @torch.no_grad()
+    def load_state_dict(self, sd: dict) -> None:
+        """Set the count and copy the moments into the live tensors."""
+        self.count = int(sd["count"])
+        for live, saved in zip(self.mu + self.nu, list(sd["mu"])
+                               + list(sd["nu"])):
+            if saved is not live:
+                live.copy_(saved)

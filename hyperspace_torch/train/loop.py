@@ -1,5 +1,16 @@
-"""Chunked stepping (counterpart of ``hyperspace_tpu/train/loop.py``, its
-``make_chunked_stepper`` and ``round_steps_to_chunk``).
+"""The training loop and chunked stepping (counterpart of
+``hyperspace_tpu/train/loop.py``: ``run_loop``, ``resume_chunk``,
+``make_chunked_stepper``, ``round_steps_to_chunk``).
+
+:func:`run_loop` is the one step loop every CLI workload goes through:
+resume from the newest committed checkpoint, JSONL records at a
+boundary-crossing cadence (a chunk that crosses a log or save interval
+fires it) with the chunk's loss statistics, numerical-health samples at
+the chunk cadence, interval saves and a forced final save.  Its host
+reads are at those boundaries only.  The telemetry spine of JAX's loop
+(spans, counters, the run manifest, ``metrics_out``,
+``profile_steps``) and its divergence guard (``rollback``, ``chaos``)
+are not ported.
 
 JAX runs K calls of a step body as one program (``lax.scan``) with the
 per-step losses stacked on the device.  Here, for state on a CUDA
@@ -18,11 +29,15 @@ numbers, the same as an eager step from the same generator state would).
 Kernel wrappers count their launches in Python, which a replay does not
 reach: the stepper adds the captured step's launches once per replay to
 the ``counters`` it is given, and takes off those counted while
-capturing (a capture records launches, it does not run them)."""
+capturing (a capture records launches, it does not run them).  A
+checkpoint restore copies into the live state (``train/checkpoint.py``),
+so the static buffers a graph holds are never swapped."""
 
 from __future__ import annotations
 
-from typing import Callable, Sequence
+import contextlib
+import math
+from typing import Callable, Optional, Sequence
 
 import torch
 import torch.utils._pytree as pytree
@@ -157,3 +172,116 @@ def make_chunked_stepper(step_fn: Callable, chunk_steps: int, **kw):
     if int(chunk_steps) <= 1:
         return step_fn
     return ChunkedStepper(step_fn, chunk_steps, **kw)
+
+
+def resume_chunk(ckpt_dir: Optional[str], resume: bool,
+                 chunk_steps: int) -> int:
+    """The chunk a resuming batch stream starts at: a run resumed from
+    step R has consumed batches of chunks 0..ceil(R/cs)−1 (the last
+    perhaps in part), so the stream skips to the next chunk boundary —
+    floor would serve the started chunk's first R % cs rows again."""
+    if not (ckpt_dir and resume):
+        return 0
+    from hyperspace_torch.train.checkpoint import peek_latest_step
+
+    cs = max(int(chunk_steps), 1)
+    return -(-peek_latest_step(ckpt_dir) // cs)
+
+
+def _logger(run):
+    from hyperspace_torch.train.logging import MetricsLogger
+
+    return MetricsLogger(run.log, stdout=False,
+                         tensorboard_dir=getattr(run, "tensorboard_dir",
+                                                 None))
+
+
+def _health_monitor(run, health_fn):
+    if health_fn is None or int(getattr(run, "health_every", 0) or 0) <= 0:
+        return None, 0
+    from hyperspace_torch.telemetry.health import (
+        DEFAULT_BOUNDARY_EPS, DEFAULT_VIOLATION_TOL, HealthMonitor)
+
+    hm = HealthMonitor(
+        health_fn,
+        boundary_eps=float(getattr(run, "health_eps", DEFAULT_BOUNDARY_EPS)),
+        violation_tol=float(getattr(run, "health_tol",
+                                    DEFAULT_VIOLATION_TOL)),
+        abort=bool(getattr(run, "health_abort", False)))
+    return hm, int(run.health_every)
+
+
+def run_loop(run, state, stepper: Callable, project: Optional[Callable] = None,
+             steps_per_call: int = 1, health_fn: Optional[Callable] = None):
+    """The shared step loop; returns ``(state, last loss)``, the loss nan
+    when no step ran.
+
+    ``run`` has ``cli.train.RunConfig``'s fields ``steps``,
+    ``eval_every``, ``log``, ``ckpt_dir``, ``ckpt_every``, ``resume`` and,
+    optionally, ``tensorboard_dir`` and ``health_every``/``health_eps``/
+    ``health_tol``/``health_abort``.  ``stepper(state) -> (state, loss)``
+    runs exactly ``steps_per_call`` steps a call; a chunked stepper
+    returns the ``[steps_per_call]`` losses, of which the last is the
+    logged loss, and the interval's mean, last, min and max ride along
+    as ``loss_*``.  A record is written whenever a call crosses a
+    multiple of ``eval_every`` (50 when 0), and a chunked run closes with
+    a record of the steps after the last one.  ``ckpt_dir`` saves every
+    ``ckpt_every`` steps (a chunk that crosses the interval forces it;
+    ``ckpt_every <= 0`` saves only the end) and always the last step;
+    ``resume`` first copies the newest committed checkpoint into
+    ``state`` and applies ``project`` (the re-projection onto the
+    manifolds).  ``health_fn(state) -> {name: device scalar}`` is sampled
+    every ``health_every`` calls."""
+    from hyperspace_torch.optim.metrics import ChunkMetrics
+
+    monitor, health_every = _health_monitor(run, health_fn)
+    ck = None
+    if run.ckpt_dir:
+        from hyperspace_torch.train.checkpoint import CheckpointManager
+
+        ck = CheckpointManager(run.ckpt_dir,
+                               save_interval_steps=run.ckpt_every)
+    acc = ChunkMetrics() if steps_per_call > 1 else None
+    start = 0
+    loss = math.nan
+    with (ck if ck is not None else contextlib.nullcontext()), \
+            _logger(run) as log:
+        if (ck is not None and run.resume
+                and ck.latest_committed_step() is not None):
+            state, start = ck.restore(state, project=project)
+        last_saved = None
+        every = run.eval_every or 50
+        done = start
+        chunk_i = 0
+        while done < run.steps:
+            state, loss = stepper(state)
+            chunk_i += 1
+            if acc is not None:
+                acc.add(loss)
+            if loss.dim():          # a chunk's [steps_per_call] losses
+                loss = loss[-1]
+            prev, done = done, done + steps_per_call
+            if (done // every) > (prev // every):
+                kw = {"loss": float(loss)}   # the interval's host read
+                if acc is not None:
+                    stats = acc.flush()
+                    if stats is not None:
+                        kw.update(stats)
+                log.log(done, **kw)
+            if monitor is not None and chunk_i % health_every == 0:
+                monitor.check(state, done, log)
+            if ck is not None and run.ckpt_every > 0:
+                iv = run.ckpt_every
+                crossed = (done // iv) > (prev // iv)
+                if ck.save(done, state,
+                           force=crossed and steps_per_call > 1):
+                    last_saved = done
+        if acc is not None and done > start:
+            # the chunks after the last crossed boundary: every step's
+            # loss lands in some record's loss_mean
+            stats = acc.flush()
+            if stats is not None:
+                log.log(done, loss=float(loss), **stats)
+        if ck is not None and start < run.steps and last_saved != done:
+            ck.save(done, state, force=True)
+    return state, loss

@@ -2228,3 +2228,66 @@ def test_cli_hgcn_on_the_card(dev, tmp_path, capsys):
         out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
         assert out["task"] == task and out["prep"] == "native"
         assert np.isfinite(out["loss"])
+
+
+def test_product_steps_on_the_card_match_the_cpu(dev):
+    """Three product-embedding steps on given ids (collisions included)
+    from one state: table norm-wise, c_raw and losses within rel 1e-4 of
+    the CPU, all float32."""
+    from hyperspace_torch.models import product_embed as pme
+
+    cfg = pme.ProductEmbedConfig(num_nodes=500, batch_size=64,
+                                 burnin_steps=1)
+    rng = np.random.default_rng(0)
+    ids = [(rng.integers(0, 500, 64), rng.integers(0, 500, 64),
+            rng.integers(0, 500, (64, 10))) for _ in range(3)]
+    runs = {}
+    for where in ("cuda", "cpu"):
+        state, opt = pme.init_state(cfg, 0, device="cpu")
+        state = pme.TrainState(
+            pme.Params(*(t.to(where) for t in state.params)),
+            type(state.curv_opt_state)(*(t.to(where)
+                                         for t in state.curv_opt_state)),
+            torch.Generator(device=where), state.step.to(where))
+        losses = []
+        for u, v, neg in ids:
+            neg[0, 0] = u[0]
+            state, loss = pme.step_on_batch(
+                cfg, opt, state, *(torch.as_tensor(a, device=where)
+                                   for a in (u, v, neg)))
+            losses.append(float(loss))
+        runs[where] = (state, losses)
+    (sg, lg), (sc, lc) = runs["cuda"], runs["cpu"]
+    tg, tc = sg.params.table.cpu(), sc.params.table
+    assert float(torch.linalg.norm(tg - tc) / torch.linalg.norm(tc)) < 1e-4
+    np.testing.assert_allclose(sg.params.c_raw.cpu().numpy(),
+                               sc.params.c_raw.numpy(), rtol=1e-4)
+    np.testing.assert_allclose(lg, lc, rtol=1e-4)
+
+
+def test_graphed_resume_on_the_card(dev, tmp_path, capsys):
+    """``product scan_chunk=4`` through the CLI on the card: 8 steps
+    straight, and 4 then a resume to 8 (the generator registered with
+    the graph restored by ``set_state``), within what two straight runs
+    differ by."""
+    import json
+
+    from hyperspace_torch.cli import train as tcli
+    from hyperspace_torch.train.checkpoint import restore_params_only
+
+    base = ["product", "scan_chunk=4", "batch_size=256", "ckpt_every=4"]
+
+    def run(tag, steps, *extra):
+        assert tcli.main(base + [f"steps={steps}",
+                                 f"ckpt_dir={tmp_path / tag}", *extra]) == 0
+        json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        return restore_params_only(str(tmp_path / tag))[0]
+
+    a, a2 = run("a", 8), run("a2", 8)
+    run("b", 4)
+    b = run("b", 8, "resume=true")
+    ta, ta2, tb = (t["params"]["table"] for t in (a, a2, b))
+    spread = float((ta - ta2).abs().max())
+    assert float((ta - tb).abs().max()) <= spread
+    assert torch.equal(a["generator"], b["generator"])
+    assert int(a["step"]) == int(b["step"]) == 8

@@ -62,7 +62,8 @@ def test_cli_hgcn_trains_from_disk(layouts, tmp_path, extra, keys):
                     if a.startswith("dataset=")), "cora")
     log = str(tmp_path / "log.jsonl")
     out = _run(["hgcn", f"data_root={layouts[dataset]}", "steps=4",
-                "device=cpu", "hidden_dims=[16, 8]", f"log={log}", *extra]
+                "device=cpu", "hidden_dims=[16, 8]", f"log={log}",
+                "eval_every=1", *extra]
                + ([] if dataset != "cora" else ["dataset=cora"]))
     assert sorted(out) == keys
     assert (out["workload"], out["source"], out["dataset"]) == (

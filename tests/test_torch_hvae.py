@@ -306,7 +306,8 @@ def test_cli_hvae_prints_its_keys(tmp_path):
     with redirect_stdout(buf):
         assert tcli.main(["hvae", "device=cpu", "steps=3", "hidden=32",
                           "conv_features=8,16", "latent_dim=2",
-                          "batch_size=8", f"log={log}"]) == 0
+                          "batch_size=8", f"log={log}",
+                          "eval_every=1"]) == 0
     out = json.loads(buf.getvalue().splitlines()[-1])
     assert sorted(out) == ["iwae", "kl", "loss", "recon", "source",
                            "workload"]

@@ -242,7 +242,8 @@ def test_cli_trains_and_prints_one_json_line(capsys, tmp_path):
     log = tmp_path / "losses.jsonl"
     cli_train.main(["hybonet", "--yaml", "configs/hybonet_textclf.yaml",
                     "steps=3", "dim=16", "num_heads=2", "num_layers=1",
-                    "device=cpu", "dtype=float32", f"log={log}"])
+                    "device=cpu", "dtype=float32", f"log={log}",
+                    "eval_every=1"])
     lines = capsys.readouterr().out.strip().splitlines()
     assert len(lines) == 1
     res = json.loads(lines[0])
@@ -257,7 +258,7 @@ def test_cli_trains_and_prints_one_json_line(capsys, tmp_path):
 def test_cli_usage_errors():
     base = ["hybonet", "steps=1", "device=cpu", "dim=8", "num_heads=2",
             "num_layers=1"]
-    for extra in (["no_such_key=1"], ["accum=2"], ["precision=f16"],
+    for extra in (["no_such_key=1"], ["scan_chunk=2"], ["precision=f16"],
                   ["oops"]):
         with pytest.raises(SystemExit):
             cli_train.main(base + extra)
