@@ -262,8 +262,51 @@ prints its seconds):
    launches exact (NC: 4, 4, 1 a step and 2, 2, 1 an evaluation;
    attention without a cluster split: 4 ``csr_segment_sum``, 2
    ``csr_att_bwd_edges``, 2 ``csr_segment_reduce_1d`` a step, 4
-   ``csr_segment_sum`` an evaluation, no cluster kernel); then the total
-   seconds.
+   ``csr_segment_sum`` an evaluation, no cluster kernel).
+
+Phases 50-54 (after 44-49) serve through the HTTP front door
+(``serve/server.py``) on an ephemeral port, in a process of their own
+(``--front-door``: a server runs apart from training), every door
+started by ``run_front_door`` (the entry ``serve-http`` runs) and
+prewarmed on the collator's dispatch thread before its listener opens.
+A door's launch counts are set to 0 once its listener is up and read
+after its own traffic; the prewarm's launches are reported apart:
+
+50. phase 4's table under ``fused`` and ``two_stage``: every route
+   answers (``/v1/upsert``, ``/v1/delete``, ``/admin/rollover`` 400); the
+   ``/v1/topk`` and ``/v1/score`` answers equal the ``serve`` loop's
+   bit for bit; 64 concurrent single ids collate into fewer flushes and
+   answer what each id answers alone; ``kernel_builds``,
+   ``kernel_loads`` and ``cold_dispatches`` flat after prewarm (the
+   prewarms load the libraries in this fresh process, and a control
+   door without prewarm counts a cold dispatch at its first request);
+   ``scan_topk`` (fused) and ``pdist`` (two_stage) launched by traffic;
+51. open-loop latency, fused, cache off, spans on: for 1, 16 and 64 ids
+   a request, the capacity (answered/s of a closed loop over 96
+   sockets for 1.5 s), then Poisson arrivals at 0.5 and 0.9 of it for
+   3 s (a client process of its own, ``--load-client``, at most 96
+   sockets open): e2e p50/p95/p99 from socket accept, the client's
+   latency from each scheduled arrival and the arrivals that waited for
+   a socket, the stage histograms (``queue_wait``, ``collate_wait``,
+   ``dispatch``, ``device_compute``, ``serialize``), the batching factor
+   ``cache_miss / collator_flushes``, ``memory_reserved`` before and
+   after; every request 200;
+52. overload on phase 16's IVF artifact (nprobe 8, ``queue_max=8``):
+   single ids offered at 10x phase 51's highest rate for 1 s, every
+   request answered once, the excess 429, no 500, no cold dispatch at
+   any ladder width; the ladder steps down and, under calm sequential
+   traffic, recovers; each answer at a narrowed width equals the
+   engine's at that width for the same padded bucket;
+53. an armed 300 ms ``serve.dispatch`` latency against a 30 ms deadline
+   answers 504 and caches the rows (the same ids then 200, 0 new
+   slots); a drain during an in-flight dispatch answers it, refuses new
+   connections, reads 503 at ``/healthz`` meanwhile;
+54. ``cli.train poincare`` with ``ckpt_dir`` on a 5,461-node tree,
+   ``cli.serve export ... index=1 quant=pq c=1.0``, the exported
+   fingerprint equal to ``fingerprint_of`` of the restored table, and
+   ``serve-http`` over the export answering ``/v1/topk`` at nprobe 4
+   and with ``precision=pq``; then the total seconds and a
+   ``front_door`` line with the numbers of 50-54.
 
 The kernels line (phase 23) also gives ``hyp_mlr`` at the NC head's own
 input (``*_nc_head`` keys: device ms, plain ms, bound, no library call)
@@ -280,7 +323,8 @@ stragglers and ``cluster_aggregate`` at its clustered pairs (F 128:
 ``csr_segment_sum`` at ``graph_edge_sqdist``'s [E, 33] bf16 scatter
 (``*_graph_edges_hgcn_cli``) and ``hyp_mlr`` at the NC head's shape with
 the curvature as a device tensor and as a number (``ms_nc_device_c``,
-``ms_nc_number_c``).
+``ms_nc_number_c``); and, for the four serving kernels, their launches
+through the front door over phases 50-54 (``launches_front_door``).
 """
 
 from __future__ import annotations
@@ -2108,7 +2152,8 @@ def ivf_pq_path(torch, args, card: dict, table_l, fresh) -> dict:
     fused = {name: sum(launches[prec, npb, "fused"][name]
                        for prec, npb in LANE_RUNS)
              for name in ("scan_topk_cand", "scan_topk_pq")}
-    return {"err": err, "launches": fused, "table": eng.table, "q": q,
+    return {"err": err, "launches": fused, "art": art, "table": eng.table,
+            "q": q,
             "qi": qi, "cands": cands, "lut3": lut3, "codes": eng.scan_table,
             "k_scan": k_scan, "index_build_s": index_s, "pq_build_s": pq_s}
 
@@ -2118,6 +2163,9 @@ def batch_throughput(torch, eng, batcher, cold) -> dict:
     and the engine call alone on the same ids, taken in turns; host
     clock, each ending in the copy of the answer to the host; medians
     after one warm-up, then the card's busy time and idle share."""
+    from hyperspace_torch.telemetry import registry as telem
+
+    mark = telem.default_registry().mark()     # process-cumulative counters
     walls = {"engine": [], "batcher": []}
     for j, ids in enumerate(cold[:21]):
         t0 = time.perf_counter()
@@ -2129,7 +2177,7 @@ def batch_throughput(torch, eng, batcher, cold) -> dict:
         if j:                                          # after a warm-up
             walls["engine"].append(t1 - t0)
             walls["batcher"].append(t2 - t1)
-    if batcher.stats()["cache_hit"]:
+    if telem.default_registry().snapshot(baseline=mark).get("serve/cache_hit"):
         raise AssertionError("a throughput batch hit the cache")
     med = float(np.median(walls["batcher"])) * 1e3
     more = iter(cold[21:])
@@ -4676,10 +4724,826 @@ def runtime_path(torch, args, card: dict) -> dict:
     return out
 
 
+# --- phases 50-54: serving through the HTTP front door -----------------------
+
+FD_LOADS = (0.5, 0.9)              # phase 51's offered rates, of capacity
+FD_SIZES = (1, 16, 64)             # ids a request in phase 51
+FD_PROBE_S = 1.5                   # seconds of a closed-loop capacity probe
+FD_PASS_S = 3.0                    # seconds a (rate, size) pass
+FD_OVERLOAD_S = 1.0                # phase 52: 10x the highest rate for 1 s
+FD_CLIENT_CONNS = 96               # open sockets the load client holds at most
+# first-use counters, flat across traffic once a door is prewarmed
+FD_FIRST_USE = ("kernels/builds", "kernels/loads", "serve/cold_dispatches")
+FD_STAGES = ("queue_wait", "collate_wait", "dispatch", "device_compute",
+             "serialize")
+FD_TREE = (6, 4)                   # phase 54: 5,461 nodes (IVF from 2,048)
+FD_TRAIN_STEPS = 300
+
+
+def open_loop_arrivals(n: int, qps: float, seed: int) -> np.ndarray:
+    """Poisson arrival offsets (s) of ``n`` requests at an offered rate
+    ``qps``: scheduled by the clock, never by the previous answer
+    (bench.py's ``open_loop_arrivals``, kept here)."""
+    rng = np.random.default_rng(seed)
+    return np.cumsum(rng.exponential(1.0 / qps, size=n))
+
+
+async def fd_http(host: str, port: int, method: str, path: str,
+                  payload=None) -> tuple:
+    """(status, parsed body or None, raw body) of one HTTP/1.1 round
+    trip on a fresh connection."""
+    import asyncio
+
+    reader, writer = await asyncio.open_connection(host, port)
+    try:
+        body = b"" if payload is None else json.dumps(payload).encode()
+        writer.write(f"{method} {path} HTTP/1.1\r\nHost: smoke\r\n"
+                     f"Content-Length: {len(body)}\r\nConnection: close"
+                     "\r\n\r\n".encode() + body)
+        await writer.drain()
+        data = await reader.read()
+    finally:
+        writer.close()
+    head, _, raw = data.partition(b"\r\n\r\n")
+    try:
+        parsed = json.loads(raw)
+    except ValueError:
+        parsed = None
+    return int(head.split(None, 2)[1]), parsed, raw
+
+
+class FrontDoorThread:
+    """``run_front_door`` (the entry ``serve-http`` runs) on its own
+    thread and event loop; the load client runs on the caller's.  The
+    door prewarms ``prewarm_ks`` on its dispatch thread before its
+    listener opens (``()``: no prewarm).  ``prewarm`` holds what the
+    prewarm returned, its launches and the libraries it loaded; the
+    launch counts are set to 0 once the listener is up."""
+
+    def __init__(self, batcher, prewarm_ks=(K,), max_wait_us=2000.0):
+        import asyncio
+        import threading
+
+        from hyperspace_torch.serve.server import run_front_door
+        from hyperspace_torch.telemetry import registry as telem
+
+        reg = telem.default_registry()
+        got: dict = {}
+        up = threading.Event()
+        lane_reset()
+        loads = reg.get("kernels/loads")
+
+        def ready(door):
+            got["door"] = door
+            up.set()
+
+        def run():
+            try:
+                got["result"] = asyncio.run(run_front_door(
+                    batcher, host="127.0.0.1", port=0,
+                    max_wait_us=max_wait_us, ready=ready,
+                    prewarm_ks=list(prewarm_ks) or None))
+            except BaseException as e:   # reported by the caller
+                got["error"] = e
+                up.set()
+
+        self.thread = threading.Thread(target=run, daemon=True)
+        self.thread.start()
+        if not up.wait(300) or "door" not in got:
+            raise AssertionError(f"the front door did not start: "
+                                 f"{got.get('error')!r}")
+        self.door = got["door"]
+        self.loop = self.door.loop
+        self.prewarm = {**(self.door.prewarm_info or {}),
+                        "launches": lane_counts(),
+                        "kernel_loads": reg.get("kernels/loads") - loads}
+        lane_reset()
+        self.addr = (self.door.host, self.door.port)
+
+    def call(self, fn):
+        """Run ``fn()`` on the door's loop; its result."""
+        import asyncio
+
+        async def wrap():
+            return fn()
+        return asyncio.run_coroutine_threadsafe(wrap(), self.loop).result(60)
+
+    def drain(self) -> None:
+        """Drain the door (unless a phase drained it already); the
+        door's ``run_front_door`` then returns and its thread ends."""
+        import asyncio
+
+        if not self.door.draining:
+            asyncio.run_coroutine_threadsafe(self.door.drain(),
+                                             self.loop).result(120)
+        self.thread.join(120)
+        if self.thread.is_alive():
+            raise AssertionError("the front door did not stop")
+
+
+def fd_requests(addr, reqs: list) -> list:
+    """Send ``reqs`` ((method, path, payload)) one after another."""
+    import asyncio
+
+    async def go():
+        return [await fd_http(*addr, m, p, b) for m, p, b in reqs]
+    return asyncio.run(go())
+
+
+def fd_concurrent(addr, payloads: list) -> list:
+    """POST every payload to /v1/topk at once."""
+    import asyncio
+
+    async def go():
+        return await asyncio.gather(*[fd_http(*addr, "POST", "/v1/topk", b)
+                                      for b in payloads])
+    return asyncio.run(go())
+
+
+def load_client(spec: dict) -> dict:
+    """The load client (run in a process of its own by
+    :func:`fd_load`, so its Python work never takes the server's GIL):
+    POST /v1/topk of ``size`` ids drawn from ``seed`` for ``seconds``.
+    Open loop at ``qps`` (Poisson), at most ``FD_CLIENT_CONNS`` sockets
+    open at once (beyond that an arrival waits in the client, counted in
+    ``waited_for_socket``): the statuses, the latencies from each
+    scheduled arrival to its answer, the client errors and the offered
+    rate it reached.  Without ``qps``, a closed loop over
+    ``FD_CLIENT_CONNS`` sockets, each sending its next request when the
+    last is answered: the statuses and the answers a second."""
+    import asyncio
+
+    if not spec.get("qps"):
+        return closed_loop_client(spec)
+    n = max(1, int(spec["qps"] * spec["seconds"]))
+    offs = open_loop_arrivals(n, spec["qps"], spec["seed"])
+    ids = np.random.default_rng(spec["seed"]).integers(
+        0, spec["rows"], size=(n, spec["size"]))
+    addr = (spec["host"], spec["port"])
+
+    async def go():
+        loop = asyncio.get_running_loop()
+        sem = asyncio.Semaphore(FD_CLIENT_CONNS)
+        t0 = loop.time()
+        lat, statuses, errors, waited = [], {}, [], [0]
+
+        async def one(t_sched, payload):
+            waited[0] += sem.locked()
+            async with sem:
+                try:
+                    st, _b, _r = await fd_http(*addr, "POST", "/v1/topk",
+                                               payload)
+                except OSError as e:
+                    errors.append(repr(e))
+                    return
+            statuses[str(st)] = statuses.get(str(st), 0) + 1
+            lat.append((loop.time() - t_sched) * 1e3)
+
+        tasks = []
+        for i, off in enumerate(offs):
+            delay = t0 + float(off) - loop.time()
+            if delay > 0:
+                await asyncio.sleep(delay)
+            tasks.append(asyncio.ensure_future(one(
+                t0 + float(off), {"ids": ids[i].tolist(), "k": spec["k"]})))
+        sent_s = loop.time() - t0
+        await asyncio.gather(*tasks)
+        return statuses, lat, errors, n / max(sent_s, 1e-9), \
+            loop.time() - t0, waited[0]
+
+    statuses, lat, errors, achieved, wall, waited = asyncio.run(go())
+    q = (np.percentile(lat, [50, 95, 99]).tolist() if lat
+         else [None] * 3)
+    return {"requests": n, "statuses": statuses, "client_errors": errors,
+            "offered_qps": spec["qps"], "achieved_offered_qps": achieved,
+            "answered_per_s": len(lat) / max(wall, 1e-9),
+            "waited_for_socket": waited,
+            "client_ms": dict(zip(("p50", "p95", "p99"), q))}
+
+
+def closed_loop_client(spec: dict) -> dict:
+    """:func:`load_client`'s closed loop: the server's capacity at
+    ``FD_CLIENT_CONNS`` requests outstanding."""
+    import asyncio
+
+    rng = np.random.default_rng(spec["seed"])
+    addr = (spec["host"], spec["port"])
+
+    async def go():
+        loop = asyncio.get_running_loop()
+        t0 = loop.time()
+        statuses: dict = {}
+
+        async def worker():
+            while loop.time() - t0 < spec["seconds"]:
+                ids = rng.integers(0, spec["rows"], spec["size"]).tolist()
+                st, _b, _r = await fd_http(*addr, "POST", "/v1/topk",
+                                           {"ids": ids, "k": spec["k"]})
+                statuses[str(st)] = statuses.get(str(st), 0) + 1
+
+        await asyncio.gather(*[worker() for _ in range(FD_CLIENT_CONNS)])
+        return statuses, loop.time() - t0
+
+    statuses, wall = asyncio.run(go())
+    return {"statuses": statuses, "seconds": wall,
+            "answered_per_s": sum(statuses.values()) / wall}
+
+
+def fd_load(addr, size: int, qps, seconds: float, seed: int) -> dict:
+    """:func:`load_client` in a child process (this script with
+    ``--load-client``), waited for; ``qps=None`` for the closed loop."""
+    spec = {"host": addr[0], "port": addr[1], "size": size, "qps": qps,
+            "seconds": seconds, "seed": seed, "rows": ROWS, "k": K}
+    out = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          "--load-client", json.dumps(spec)],
+                         capture_output=True, text=True, timeout=600,
+                         cwd=REPO)
+    if out.returncode:
+        raise AssertionError(f"load client failed: {out.stderr[-2000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def fd_stage_summary(delta: dict) -> dict:
+    """The span histograms' stages from a registry delta (ms)."""
+    out = {}
+    for st in FD_STAGES:
+        h = delta.get(f"hist/serve/stage/{st}_ms")
+        if h and h["count"]:
+            out[st] = {"mean": h["sum"] / h["count"], "p50": h["p50"],
+                       "p95": h["p95"], "p99": h["p99"], "n": h["count"]}
+    return out
+
+
+def first_use(reg) -> dict:
+    """The first-use counters' values now."""
+    return {c.split("/")[1]: reg.get(c) for c in FD_FIRST_USE}
+
+
+def front_door_checks(torch, art, mode: str, ids8, ids1024, u, v,
+                      rng, card: dict) -> dict:
+    """Phase 50 for one scan mode: the door's traffic (every route, 64
+    concurrent single ids), its launches and first-use counters read
+    right after it; then the same requests through the stdin loop and
+    each single id alone (launches that are not the door's), and the
+    answers compared."""
+    from hyperspace_torch.cli import serve as cli
+    from hyperspace_torch.kernels._support import topk_disagreements
+    from hyperspace_torch.serve import (QueryEngine, RequestBatcher,
+                                        load_artifact)
+    from hyperspace_torch.telemetry import registry as telem
+
+    reg = telem.default_registry()
+    eng = QueryEngine.from_artifact(load_artifact(art), scan_mode=mode)
+    bat = RequestBatcher(eng, cache_size=0)
+    t0 = time.perf_counter()
+    fd = FrontDoorThread(bat)
+    warm = first_use(reg)
+    try:
+        base = reg.mark()
+        got = fd_requests(fd.addr, [
+            ("POST", "/v1/topk", {"ids": ids8, "k": K}),
+            ("POST", "/v1/topk", {"ids": ids1024, "k": K}),
+            ("POST", "/v1/score", {"u": u, "v": v, "prob": True}),
+            ("GET", "/v1/stats", None), ("POST", "/v1/stats", {}),
+            ("GET", "/healthz", None), ("GET", "/metrics", None),
+            ("POST", "/v1/upsert", {"ids": [1], "rows": [[0.0] * DIM]}),
+            ("POST", "/v1/delete", {"ids": [1]}),
+            ("POST", "/admin/rollover", {"target": art})])
+        # 64 concurrent single ids, collated
+        single = rng.choice(ROWS, 64, replace=False).tolist()
+        flush0 = reg.get("serve/collator_flushes")
+        conc = fd_concurrent(fd.addr, [{"ids": [i], "k": K} for i in single])
+        flushes = reg.get("serve/collator_flushes") - flush0
+        launches = lane_counts()
+        after = first_use(reg)
+        delta = reg.snapshot(baseline=base)
+    finally:
+        fd.drain()
+    traffic_s = time.perf_counter() - t0
+    lines = [{"op": "topk", "ids": ids8, "k": K},
+             {"op": "topk", "ids": ids1024, "k": K},
+             {"op": "score", "u": u, "v": v, "prob": True}]
+    out = io.StringIO()
+    cli.run_serve(cli.ServeConfig(artifact=art, scan_mode=mode),
+                  stdin=io.StringIO("\n".join(json.dumps(x) for x in lines)
+                                    + "\n"), stdout=out)
+    loop_ans = [json.loads(s) for s in out.getvalue().splitlines()]
+    alone = [bat.topk([i], K) for i in single]
+    statuses = [g[0] for g in got]
+    res = {"scan_mode": mode, "prewarm": fd.prewarm,
+           "first_use_after_prewarm": warm,
+           "first_use_after_traffic": after,
+           "concurrent_singles": 64, "flushes": flushes,
+           "launches": launches, "slots": delta.get("serve/slots", 0),
+           "statuses": statuses, "traffic_s": traffic_s,
+           "seconds": time.perf_counter() - t0, **card}
+    if statuses != [200] * 7 + [400] * 3:
+        emit({"phase": "front_door", **res})
+        raise AssertionError(f"front door {mode}: statuses {statuses}")
+    for j in range(3):
+        if got[j][1] != {k: loop_ans[j][k] for k in got[j][1]}:
+            raise AssertionError(f"front door {mode}: answer {j} differs "
+                                 "from the stdin loop's")
+    if b"hyperspace_serve_e2e_ms_bucket" not in got[6][2]:
+        raise AssertionError("/metrics lacks the e2e histogram")
+    if any(c[0] != 200 for c in conc) or not flushes < 64:
+        raise AssertionError(f"front door {mode}: 64 singles, "
+                             f"{flushes} flushes, statuses "
+                             f"{[c[0] for c in conc]}")
+    ci = np.asarray([c[1]["neighbors"][0] for c in conc])
+    cd = np.asarray([c[1]["dists"][0] for c in conc], np.float64)
+    ai = np.stack([a[0][0] for a in alone])
+    ad = np.stack([a[1][0] for a in alone]).astype(np.float64)
+    bad = topk_disagreements(ci, cd, ai, ad, rtol=RTOL, atol=ATOL)
+    res["collated_bitwise_equal_uncollated"] = bool(
+        np.array_equal(ci, ai) and np.array_equal(cd, ad))
+    emit({"phase": "front_door", **res})
+    if bad:
+        raise AssertionError(f"front door {mode}: collated answers "
+                             f"disagree with uncollated on {bad} rows")
+    if after != warm:
+        raise AssertionError(f"front door {mode}: first-use counters moved "
+                             f"after prewarm: {warm} -> {after}")
+    want = "scan_topk" if mode == "fused" else "pdist"
+    if launches[want] < 1:
+        raise AssertionError(f"front door {mode}: traffic never launched "
+                             f"{want}")
+    return res
+
+
+def front_door_control(torch, art, ids8, card: dict) -> dict:
+    """Phase 50's control: a door over a fresh batcher without prewarm
+    counts a cold dispatch at its first request (so the flat check above
+    can fail) and none when the request comes again."""
+    from hyperspace_torch.serve import (QueryEngine, RequestBatcher,
+                                        load_artifact)
+    from hyperspace_torch.telemetry import registry as telem
+
+    reg = telem.default_registry()
+    eng = QueryEngine.from_artifact(load_artifact(art), scan_mode="fused")
+    fd = FrontDoorThread(RequestBatcher(eng, cache_size=0), prewarm_ks=())
+    try:
+        runs = []
+        for _ in range(2):
+            before = first_use(reg)
+            t0 = time.perf_counter()
+            st = fd_requests(fd.addr, [("POST", "/v1/topk",
+                                        {"ids": ids8, "k": K})])[0][0]
+            ms = (time.perf_counter() - t0) * 1e3
+            runs.append({"status": st, "ms": ms, **{
+                c: n - before[c] for c, n in first_use(reg).items()}})
+        launches = lane_counts()
+    finally:
+        fd.drain()
+    res = {"requests": runs, "launches": launches, **card}
+    emit({"phase": "front_door_control", **res})
+    if ([r["status"] for r in runs] != [200, 200]
+            or runs[0]["cold_dispatches"] < 1 or runs[1]["cold_dispatches"]):
+        raise AssertionError(f"control: a door without prewarm should "
+                             f"count a cold dispatch once: {runs}")
+    return res
+
+
+def front_door_latency(torch, art, rng, card: dict) -> dict:
+    """Phase 51: for each request size, the capacity (a closed loop),
+    then open-loop latency at ``FD_LOADS`` of it; cache off, spans on
+    (the per-stage histograms), fused scan."""
+    from hyperspace_torch.serve import (QueryEngine, RequestBatcher,
+                                        load_artifact)
+    from hyperspace_torch.telemetry import registry as telem
+    from hyperspace_torch.telemetry import spans
+
+    reg = telem.default_registry()
+    eng = QueryEngine.from_artifact(load_artifact(art), scan_mode="fused")
+    bat = RequestBatcher(eng, cache_size=0)
+    spans.enable()
+    mem0 = torch.cuda.memory_reserved()
+    fd = FrontDoorThread(bat)
+    passes, capacity = [], {}
+    try:
+        for size in FD_SIZES:
+            probe = fd_load(fd.addr, size, None, FD_PROBE_S,
+                            seed=int(rng.integers(1 << 30)))
+            capacity[size] = probe["answered_per_s"]
+            emit({"phase": "front_door_capacity", "ids_per_request": size,
+                  **probe, **card})
+            if set(probe["statuses"]) != {"200"}:
+                raise AssertionError(f"capacity probe × {size}: "
+                                     f"{probe['statuses']}")
+            for load in FD_LOADS:
+                qps = load * capacity[size]
+                base = reg.mark()
+                cl = fd_load(fd.addr, size, qps, FD_PASS_S,
+                             seed=int(rng.integers(1 << 30)))
+                d = reg.snapshot(baseline=base)
+                e2e = d.get("hist/serve/e2e_ms") or {}
+                flushes = d.get("serve/collator_flushes", 0)
+                row = {"load": load, "capacity_per_s": capacity[size],
+                       "ids_per_request": size, **cl,
+                       "e2e_ms": {q: e2e.get(q) for q in
+                                  ("p50", "p95", "p99", "count")},
+                       "stages_ms": fd_stage_summary(d),
+                       "batching_factor": (d.get("serve/cache_miss", 0)
+                                           / flushes if flushes else None),
+                       "flushes": flushes,
+                       "slots": d.get("serve/slots", 0),
+                       "padded_waste": d.get("serve/padded_waste", 0)}
+                passes.append(row)
+                emit({"phase": "front_door_latency", **row, **card})
+                if (set(cl["statuses"]) != {"200"} or cl["client_errors"]
+                        or e2e.get("count") != cl["requests"]):
+                    raise AssertionError(f"open loop {qps:.0f}/s × {size}: "
+                                         f"{cl['statuses']} "
+                                         f"{cl['client_errors'][:3]}")
+        launches = lane_counts()
+    finally:
+        fd.drain()
+        spans.disable()
+    return {"passes": passes, "capacity_per_s": capacity,
+            "memory_reserved_before": mem0,
+            "memory_reserved_after": torch.cuda.memory_reserved(),
+            "prewarm": fd.prewarm, "launches": launches}
+
+
+def front_door_overload(torch, ivf_art, rng, qps: float,
+                        card: dict) -> dict:
+    """Phase 52: single ids at ``qps`` (10x phase 51's highest rate) for
+    1 s into ``queue_max=8`` on the IVF artifact (nprobe 8): every
+    request answered once, the excess 429, no 500, no cold dispatch at
+    any ladder width, the ladder steps down, then recovers under calm
+    traffic; answers at degraded levels equal the engine's at that
+    width."""
+    from hyperspace_torch.serve import (QueryEngine, RequestBatcher,
+                                        load_artifact)
+    from hyperspace_torch.telemetry import registry as telem
+
+    reg = telem.default_registry()
+    eng = QueryEngine.from_artifact(load_artifact(ivf_art),
+                                    scan_mode="fused", nprobe=8)
+    bat = RequestBatcher(eng, queue_max=8)
+    fd = FrontDoorThread(bat)
+    base = reg.mark()
+    t0 = time.perf_counter()
+    try:
+        cl = fd_load(fd.addr, 1, qps, FD_OVERLOAD_S,
+                     seed=int(rng.integers(1 << 30)))
+        d_load = reg.snapshot(baseline=base)
+        level_after_load = bat.degrade_level
+        # calm: sequential single ids until the ladder is back at full
+        fresh = rng.permutation(ROWS)[:200].tolist()
+        calm, checked, cmp_launches = [], 0, {}
+        widths = bat._modes
+        for qid in fresh:
+            st, body, _raw = fd_requests(fd.addr, [
+                ("POST", "/v1/topk", {"ids": [qid], "k": K})])[0]
+            level = bat.degrade_level
+            calm.append((st, level))
+            mode = widths[level]
+            if st == 200 and isinstance(mode, int):
+                # the same padded bucket straight through the engine
+                # (its launches are a comparison's, not the path's)
+                p = bat._narrowed(mode, K)
+                before = lane_counts()
+                ei, ed = (x.cpu().numpy() for x in bat.engine.topk_neighbors(
+                    np.full(8, qid, np.int32), K, nprobe=p))
+                for name, n in lane_counts().items():
+                    cmp_launches[name] = (cmp_launches.get(name, 0) + n
+                                          - before[name])
+                if (body["neighbors"][0] != ei[0].tolist()
+                        or body["dists"][0] != ed[0].tolist()):
+                    raise AssertionError(
+                        f"degraded answer at nprobe {p} differs from the "
+                        "engine's")
+                checked += 1
+            if level == 0 and len(calm) > 8:
+                break
+        d_all = reg.snapshot(baseline=base)
+    finally:
+        fd.drain()
+    res = {"offered_qps": qps, "seconds": FD_OVERLOAD_S, **cl,
+           "shed_rate": cl["statuses"].get("429", 0) / cl["requests"],
+           "degraded": d_load.get("serve/degraded", 0),
+           "level_after_load": level_after_load,
+           "recovered": d_all.get("serve/degrade_recovered", 0),
+           "calm_requests": len(calm),
+           "calm_statuses": sorted({s for s, _l in calm}),
+           "degraded_answers_checked": checked,
+           "cold_dispatches": d_all.get("serve/cold_dispatches", 0),
+           "prewarm": fd.prewarm,
+           "launches": {name: n - cmp_launches.get(name, 0)
+                        for name, n in lane_counts().items()},
+           "phase_s": time.perf_counter() - t0,
+           **card}
+    emit({"phase": "front_door_overload", **res})
+    answered = sum(cl["statuses"].values())
+    if (answered != cl["requests"] or cl["client_errors"]
+            or set(cl["statuses"]) - {"200", "429"}
+            or not cl["statuses"].get("429")):
+        raise AssertionError(f"overload: {cl['statuses']} of "
+                             f"{cl['requests']}, errors "
+                             f"{cl['client_errors'][:3]}")
+    if res["degraded"] < 1 or res["recovered"] < 1 or bat.degrade_level:
+        raise AssertionError(f"overload: the ladder did not step down and "
+                             f"recover: {res}")
+    if not checked or set(res["calm_statuses"]) - {200, 429}:
+        raise AssertionError(f"overload: no degraded answer checked: {res}")
+    if res["cold_dispatches"]:
+        raise AssertionError(f"overload: {res['cold_dispatches']} cold "
+                             "dispatches after prewarm")
+    return res
+
+
+def front_door_deadline_drain(torch, art, card: dict) -> dict:
+    """Phase 53: an armed 300 ms ``serve.dispatch`` latency against a
+    30 ms deadline answers 504 and caches its rows (the same ids then
+    answer 200 from the cache, 0 new slots); a drain during an
+    in-flight dispatch answers it, refuses new connections and reads
+    503 at /healthz meanwhile."""
+    import asyncio
+
+    from hyperspace_torch.resilience import faults
+    from hyperspace_torch.serve import (QueryEngine, RequestBatcher,
+                                        load_artifact)
+    from hyperspace_torch.telemetry import registry as telem
+
+    reg = telem.default_registry()
+    eng = QueryEngine.from_artifact(load_artifact(art), scan_mode="fused")
+    fd = FrontDoorThread(RequestBatcher(eng))
+    try:
+        faults.install([faults.FaultSpec(site="serve.dispatch",
+                                         kind="latency", ms=300.0)])
+        late = fd_requests(fd.addr, [("POST", "/v1/topk", {
+            "ids": [11, 12], "k": K, "deadline_ms": 30})])[0]
+        faults.clear()
+        base = reg.mark()
+        again = fd_requests(fd.addr, [("POST", "/v1/topk", {
+            "ids": [11, 12], "k": K, "deadline_ms": 30})])[0]
+        d = reg.snapshot(baseline=base)
+        faults.install([faults.FaultSpec(site="serve.dispatch",
+                                         kind="latency", ms=300.0)])
+
+        async def drain_mid():
+            inflight = asyncio.ensure_future(fd_http(
+                *fd.addr, "POST", "/v1/topk", {"ids": [21], "k": K}))
+            while fd.call(lambda: fd.door.inflight) == 0:
+                await asyncio.sleep(0.002)
+            drain = asyncio.wrap_future(asyncio.run_coroutine_threadsafe(
+                fd.door.drain(), fd.loop))
+            await asyncio.sleep(0.05)
+            mid = fd.call(lambda: fd.door._healthz()[0])
+            try:
+                await fd_http(*fd.addr, "GET", "/healthz")
+                refused = False
+            except OSError:
+                refused = True
+            answer = await inflight
+            await drain
+            return answer, refused, mid
+
+        answer, refused, mid = asyncio.run(drain_mid())
+    finally:
+        faults.clear()
+        fd.drain()
+    res = {"late_status": late[0], "late_kind": (late[1] or {}).get(
+        "error", {}).get("kind"), "again_status": again[0],
+        "again_new_slots": d.get("serve/slots", 0),
+        "again_cache_hit": d.get("serve/cache_hit", 0),
+        "drain_inflight_status": answer[0], "drain_refused_new": refused,
+        "healthz_while_draining": mid, **card}
+    emit({"phase": "front_door_deadline_drain", **res})
+    if (late[0] != 504 or res["late_kind"] != "deadline_exceeded"
+            or again[0] != 200 or res["again_new_slots"]
+            or res["again_cache_hit"] != 2):
+        raise AssertionError(f"deadline: {res}")
+    if answer[0] != 200 or not refused or mid != 503:
+        raise AssertionError(f"drain: {res}")
+    return res
+
+
+def front_door_export(torch, tmp: str, card: dict) -> dict:
+    """Phase 54: ``cli.train poincare`` on the card with ``ckpt_dir``
+    (eager steps on a 5,461-node tree), ``cli.serve export`` with an
+    index and a PQ payload, ``serve-http`` over the export with nprobe 4
+    and with the PQ lane."""
+    import asyncio
+    import http.client
+    import threading
+
+    from hyperspace_torch.cli import serve as cli_serve
+    from hyperspace_torch.data.wordnet import synthetic_tree
+    from hyperspace_torch.serve import fingerprint_of
+    from hyperspace_torch.train.checkpoint import restore_params_only
+
+    t0 = time.perf_counter()
+    ds = synthetic_tree(*FD_TREE)
+    tsv = os.path.join(tmp, "fd_closure.tsv")
+    with open(tsv, "w") as f:
+        f.writelines(f"n{a}\tn{b}\n" for a, b in ds.pairs)
+    ck, art = os.path.join(tmp, "fd_ck"), os.path.join(tmp, "fd_art")
+    trained = run_cli(["poincare", f"steps={FD_TRAIN_STEPS}",
+                       "batch_size=1024", f"data_root={tsv}",
+                       f"ckpt_dir={ck}", "ckpt_every=100"])
+    train_s = time.perf_counter() - t0
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli_serve.main(["export", f"ckpt={ck}", f"out={art}", "c=1.0",
+                        "index=1", "quant=pq"])
+    exp = json.loads(buf.getvalue().strip().splitlines()[-1])
+    export_s = time.perf_counter() - t0 - train_s
+    tree, step = restore_params_only(ck)
+    want_fp = fingerprint_of(tree["table"].numpy(), ("poincare", C),
+                             exp["index"]["fingerprint"],
+                             exp["quant"]["fingerprint"])
+    served = {}
+    for name, kw in (("nprobe4", {"nprobe": 4}), ("pq", {"precision": "pq"})):
+        lane_reset()
+        got = {}
+        up = threading.Event()
+
+        def ready(door, got=got, up=up):
+            # after prewarm, before any request: the prewarm's launches
+            got["door"], got["prewarm_launches"] = door, lane_counts()
+            lane_reset()
+            up.set()
+
+        cfg = cli_serve.ServeConfig(artifact=art, scan_mode="fused",
+                                    prewarm="1", port=0, **kw)
+        th = threading.Thread(target=lambda cfg=cfg, got=got, r=ready:
+                              got.update(result=cli_serve.run_serve_http(
+                                  cfg, ready=r)))
+        th.start()
+        if not up.wait(120):
+            raise AssertionError(f"serve-http {name} did not start")
+        conn = http.client.HTTPConnection("127.0.0.1", got["door"].port,
+                                          timeout=60)
+        conn.request("POST", "/v1/topk", json.dumps(
+            {"ids": list(range(16)), "k": K}))
+        r = conn.getresponse()
+        body = json.loads(r.read())
+        conn.close()
+        launches = lane_counts()
+        asyncio.run_coroutine_threadsafe(got["door"].drain(),
+                                         got["door"].loop).result(120)
+        th.join(120)
+        nb = np.asarray(body.get("neighbors", []))
+        ds_ = np.asarray(body.get("dists", []), np.float64)
+        served[name] = {"status": r.status, "launches": launches,
+                        "prewarm": {"launches": got["prewarm_launches"]},
+                        "scan_strategy": got["result"]["scan_strategy"],
+                        "precision": got["result"]["precision"]}
+        if (r.status != 200 or nb.shape != (16, K)
+                or not np.all(np.isfinite(ds_))
+                or np.any(np.diff(ds_, axis=1) < 0)):
+            raise AssertionError(f"serve-http {name}: {r.status} {body}")
+    res = {"train": trained, "export": exp, "step": step,
+           "fingerprint_matches": exp["fingerprint"] == want_fp,
+           "served": served, "train_s": train_s, "export_s": export_s,
+           "seconds": time.perf_counter() - t0, **card}
+    emit({"phase": "front_door_export", **res})
+    if not res["fingerprint_matches"] or step != FD_TRAIN_STEPS:
+        raise AssertionError(f"export: {res}")
+    if served["nprobe4"]["scan_strategy"] != "ivf":
+        raise AssertionError(f"export: nprobe=4 did not probe: {served}")
+    return res
+
+
+def front_door_path(torch, args, card: dict, table_b, ivf_art) -> dict:
+    """Phases 50-54: phase 4's table and phase 16's IVF/PQ artifact are
+    exported again here, then served by a process of their own (this
+    script with ``--front-door``), as a user's server runs apart from
+    training: none of the earlier phases' threads, objects or allocator
+    state share its interpreter.  Its phase lines are relayed; its last
+    line is the result."""
+    from hyperspace_torch.serve import export_artifact
+
+    work = os.path.join(REPO, "build", "chip_smoke")
+    os.makedirs(work, exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=work)
+    try:
+        spec = {"art": os.path.join(tmp, "poincare"),
+                "ivf": os.path.join(tmp, "ivf_pq"), "tmp": tmp,
+                "seed": args.seed, "card": card}
+        export_artifact(spec["art"], table_b.cpu().numpy(), ("poincare", C))
+        export_artifact(spec["ivf"], ivf_art.table, ivf_art.manifold_spec,
+                        index=ivf_art.index, quant=ivf_art.quant)
+        out = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              "--front-door", json.dumps(spec)],
+                             capture_output=True, text=True, timeout=900,
+                             cwd=REPO)
+        sys.stderr.write(out.stderr)
+        lines = out.stdout.strip().splitlines()
+        for line in lines[:-1]:
+            print(line, flush=True)
+        if out.returncode:
+            raise AssertionError(f"the front-door process exited "
+                                 f"{out.returncode}: {out.stderr[-3000:]}")
+        return json.loads(lines[-1])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def front_door_phases(torch, spec: dict) -> dict:
+    """The body of phases 50-54 in the front-door process."""
+    rng = np.random.default_rng([spec["seed"], 50])
+    art, ivf, tmp, card = spec["art"], spec["ivf"], spec["tmp"], spec["card"]
+    t_all = time.perf_counter()
+    out: dict = {}
+    ids8 = rng.choice(ROWS, 8, replace=False).tolist()
+    ids1024 = rng.choice(ROWS, BATCH, replace=False).tolist()
+    u = rng.integers(0, ROWS, 8).tolist()
+    v = rng.integers(0, ROWS, 8).tolist()
+    t0 = time.perf_counter()
+    out["checks"] = {m: front_door_checks(torch, art, m, ids8, ids1024, u, v,
+                                          rng, card)
+                     for m in ("fused", "two_stage")}
+    loads = sum(c["prewarm"]["kernel_loads"] for c in out["checks"].values())
+    if loads < 1:
+        raise AssertionError("the prewarms of this fresh process loaded no "
+                             "kernel library")
+    out["control"] = front_door_control(torch, art, ids8, card)
+    emit({"phase": "front_door_checks_done",
+          "seconds": time.perf_counter() - t0})
+    for name, fn in (
+            ("latency", lambda: front_door_latency(torch, art, rng, card)),
+            ("overload", lambda: front_door_overload(
+                torch, ivf, rng, 10 * max(p["offered_qps"] for p in
+                                          out["latency"]["passes"]), card)),
+            ("deadline_drain", lambda: front_door_deadline_drain(
+                torch, art, card)),
+            ("export", lambda: front_door_export(torch, tmp, card))):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        emit({"phase": f"front_door_{name}_done",
+              "seconds": time.perf_counter() - t0})
+    out["seconds"] = time.perf_counter() - t_all
+    return out
+
+
+def front_door_fields(fp: dict, kernels: list) -> None:
+    """``launches_front_door`` on the serving kernels' entries: their
+    launches by the doors' traffic over phases 50-54 (each door's counts
+    set to 0 once its listener is up and read after its traffic), and
+    ``launches_front_door_prewarm``: the launches of those doors'
+    prewarms."""
+    doors = (list(fp["checks"].values())
+             + [fp["control"], fp["latency"], fp["overload"]]
+             + list(fp["export"]["served"].values()))
+    for entry in kernels:
+        name = entry["name"]
+        if name in doors[0]["launches"]:
+            entry["launches_front_door"] = sum(d["launches"][name]
+                                               for d in doors)
+            entry["launches_front_door_prewarm"] = sum(
+                d["prewarm"]["launches"][name] for d in doors
+                if "prewarm" in d)
+
+
+def front_door_line(fp: dict) -> dict:
+    """The numbers of phases 50-54 in one object."""
+    lat = fp["latency"]
+    return {"front_door": {
+        "capacity_per_s": lat["capacity_per_s"],
+        "latency": [{k: p[k] for k in ("load", "offered_qps",
+                                       "ids_per_request", "e2e_ms",
+                                       "client_ms", "waited_for_socket",
+                                       "stages_ms", "batching_factor",
+                                       "statuses", "achieved_offered_qps",
+                                       "answered_per_s")}
+                    for p in lat["passes"]],
+        "memory_reserved": [lat["memory_reserved_before"],
+                            lat["memory_reserved_after"]],
+        "overload": {k: fp["overload"][k] for k in (
+            "offered_qps", "achieved_offered_qps", "answered_per_s",
+            "requests", "statuses", "shed_rate", "degraded", "recovered",
+            "degraded_answers_checked", "cold_dispatches", "client_ms")},
+        "first_use_flat_after_prewarm": all(
+            c["first_use_after_traffic"] == c["first_use_after_prewarm"]
+            for c in fp["checks"].values()),
+        "prewarm_kernel_loads": {m: c["prewarm"]["kernel_loads"]
+                                 for m, c in fp["checks"].items()},
+        "control_without_prewarm": fp["control"]["requests"],
+        "flushes_of_64_singles": {m: c["flushes"]
+                                  for m, c in fp["checks"].items()},
+        "seconds": fp["seconds"]}}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--load-client", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--front-door", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.load_client:            # phases 51-52's client process
+        emit(load_client(json.loads(args.load_client)))
+        return 0
+    if args.front_door:             # phases 50-54's serving process
+        import torch
+
+        if not torch.cuda.is_available():
+            print("chip_smoke: CUDA is not available", file=sys.stderr)
+            return 1
+        emit(front_door_phases(torch, json.loads(args.front_door)))
+        return 0
 
     import torch
 
@@ -4699,6 +5563,7 @@ def main(argv=None) -> int:
     from hyperspace_torch.serve import (QueryEngine, RequestBatcher,
                                         export_artifact, load_artifact)
     from hyperspace_torch.serve.engine import auto_chunk_rows
+    from hyperspace_torch.telemetry import registry as telem
 
     # --- phase 1: the card -------------------------------------------------
     smi = subprocess.run(
@@ -4811,19 +5676,23 @@ def main(argv=None) -> int:
         for man, _t, _q in kinds:
             for mode in ("two_stage", "fused"):
                 out = io.StringIO()
+                # the serve counters are process-cumulative: this run's
+                # are the delta over a registry mark
+                mark = telem.default_registry().mark()
                 closing = cli.run_serve(
                     cli.ServeConfig(artifact=os.path.join(tmp, man),
                                     scan_mode=mode),
                     stdin=io.StringIO(lines), stdout=out)
+                run = telem.default_registry().snapshot(baseline=mark)
                 resp = [json.loads(s) for s in out.getvalue().splitlines()]
                 if len(resp) != 4 or any("error" in r for r in resp):
                     raise AssertionError(f"{man}/{mode}: {resp}")
                 answers[man, mode] = resp
                 emit({"phase": "serve", "manifold": man, "scan_mode": mode,
                       "served": closing["served"],
-                      "slots": closing["slots"],
-                      "padded_waste": closing["padded_waste"],
-                      "cache_hit": closing["cache_hit"]})
+                      "slots": run.get("serve/slots", 0),
+                      "padded_waste": run.get("serve/padded_waste", 0),
+                      "cache_hit": run.get("serve/cache_hit", 0)})
         launches = {"pdist": pdist.launches, "scan_topk": scan_topk.launches}
         emit({"phase": "launches", **launches})
         for name, count in launches.items():
@@ -4992,6 +5861,11 @@ def main(argv=None) -> int:
 
     # --- phases 44-49: product embeddings and the train runtime ----------
     runtime_path(torch, args, card)
+
+    # --- phases 50-54: serving through the HTTP front door ----------------
+    fp = front_door_path(torch, args, card, table_b, ip["art"])
+    front_door_fields(fp, kernels)
+    emit(front_door_line(fp))
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"kernels": kernels, "floor_ms": floor})

@@ -9,10 +9,14 @@ standard library only.  Kernels are hand-written CUDA C++ for Hopper
 plain PyTorch version beside it that runs only for tensors on the CPU.
 
 Ported so far: the exact and IVF/PQ serving paths (artifact →
-``serve.QueryEngine`` → ``serve.RequestBatcher`` → ``cli.serve``), and
+``serve.QueryEngine`` → ``serve.RequestBatcher`` → ``serve.Collator`` →
+``serve.HttpFrontDoor`` → ``cli.serve``, with deadlines, admission, the
+degradation ladder, access logs and the telemetry registry), and
 the five training workloads of ``cli.train`` (HGCN, HyboNet, Poincaré
 and product-manifold embeddings, the hyperbolic VAE) through one
 training loop (``train.loop.run_loop``: checkpoint and resume, JSONL
 records, health samples, gradient accumulation).  ``ROADMAP.md`` lists
 what is left.
 """
+
+__version__ = "0.1.0"

@@ -14,7 +14,9 @@ import).  Libraries land in ``build/hyperspace_torch/`` at the root of
 the checkout, named by a hash of their source and of the ``csrc/``
 headers it includes by a quoted name (``tf32.cuh``), so an edited
 source or header rebuilds and concurrent builds never see a
-half-written file.
+half-written file.  Each ``nvcc`` run counts one ``kernels/builds`` in
+the telemetry registry, and each first load of a library in a process
+one ``kernels/loads`` (a fresh process loads what an earlier one built).
 Every exported C function launches on the stream it is given and
 returns ``cudaGetLastError()``; :func:`check` raises on non-zero.
 """
@@ -30,6 +32,8 @@ import subprocess
 import threading
 
 import torch
+
+from hyperspace_torch.telemetry import registry as telem
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(
@@ -110,6 +114,8 @@ def _finish_build(name: str, started) -> None:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n"
                            + log.decode(errors="replace"))
     os.replace(tmp, out)
+    # the port's recompiles: flat across serving traffic after prewarm
+    telem.inc("kernels/builds")
 
 
 def build_all(names) -> None:
@@ -129,6 +135,7 @@ def library(name: str) -> ctypes.CDLL:
             build_all([name])
             lib = ctypes.CDLL(_lib_path(name))
             _LIBS[name] = lib
+            telem.inc("kernels/loads")
         return lib
 
 

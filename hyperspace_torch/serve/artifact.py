@@ -382,3 +382,94 @@ def load_artifact(directory: str) -> ServingArtifact:
         table=table, manifold_spec=spec,
         model_config=meta.get("model_config") or {},
         fingerprint=fp, step=meta.get("step"), index=index, quant=quant)
+
+
+# --- checkpoint → artifact ----------------------------------------------------
+
+
+def export_from_checkpoint(ckpt_dir: str, out_dir: str, *,
+                           workload: str,
+                           model_config: Optional[dict] = None,
+                           step: Optional[int] = None,
+                           overwrite: bool = False,
+                           index_ncells: Optional[int] = None,
+                           quant_lane: Optional[str] = None,
+                           device="cuda") -> ServingArtifact:
+    """Export a committed step of the port's checkpoint (the newest by
+    default) as a serving artifact.
+
+    Reads the plain tree through
+    :func:`hyperspace_torch.train.checkpoint.restore_params_only` and
+    takes the table and frozen geometry per workload, as JAX does:
+
+    - ``poincare`` / ``lorentz``: ``tree["table"]`` on the ball or the
+      hyperboloid of curvature ``model_config["c"]`` (required: the
+      trained curvature is not in the checkpoint);
+    - ``product``: ``tree["params"]["table"]`` with the learned
+      curvatures ``softplus(tree["params"]["c_raw"])`` (the softplus the
+      port's model applies, in ``c_raw``'s dtype) frozen into the spec;
+      the factor layout from ``model_config["factors"]`` or
+      ``ProductEmbedConfig``'s default.
+
+    ``index_ncells`` builds an IVF index into the artifact (``<= 0``
+    picks ``auto_ncells`` ≈ √N); ``quant_lane="pq"`` packs the PQ codes
+    and codebooks (``"int4"`` raises: its packing is not ported).  The
+    index is built on ``device`` (CUDA unless the caller asks for the
+    CPU).
+    """
+    import torch
+
+    from hyperspace_torch.train.checkpoint import restore_params_only
+
+    tree, ck_step = restore_params_only(ckpt_dir, step=step)
+    cfg = dict(model_config or {})
+    if workload in ("poincare", "lorentz"):
+        if "c" not in cfg:
+            raise ValueError(
+                f"{workload} export requires model_config['c'] (the "
+                "curvature the run trained with; it is not recoverable "
+                "from the checkpoint state)")
+        spec = (workload, float(cfg["c"]))
+        table = tree["table"].numpy()
+    elif workload == "product":
+        factors = cfg.get("factors")
+        if factors is None:
+            from hyperspace_torch.models.product_embed import \
+                ProductEmbedConfig
+
+            factors = list(ProductEmbedConfig.factors)
+        curv = torch.nn.functional.softplus(
+            tree["params"]["c_raw"]).numpy()
+        factors = [tuple(f) for f in factors]
+        want = sum(1 for kind, _d in factors if kind != "euclidean")
+        if want != curv.shape[0]:
+            raise ValueError(
+                f"factor layout {factors} expects {want} learned "
+                f"curvatures; checkpoint has {curv.shape[0]}")
+        fspec, i = [], 0
+        for kind, dim in factors:
+            if kind == "euclidean":
+                fspec.append(("euclidean", int(dim), 0.0))
+            else:
+                fspec.append((kind, int(dim), float(curv[i])))
+                i += 1
+        spec = ("product", tuple(fspec))
+        table = tree["params"]["table"].numpy()
+        cfg["factors"] = [list(f) for f in factors]
+    else:
+        raise ValueError(
+            f"export_from_checkpoint: unknown workload {workload!r} "
+            "(want poincare|lorentz|product)")
+    index = None
+    if index_ncells is not None:
+        from hyperspace_torch.serve.index import auto_ncells, build_index
+
+        ncells = int(index_ncells)
+        if ncells <= 0:
+            ncells = auto_ncells(int(table.shape[0]))
+        index = build_index(table, spec, ncells, device=device)
+    quant = (build_quant_payload(table, spec, quant_lane)
+             if quant_lane else None)
+    return export_artifact(out_dir, table, spec, model_config=cfg,
+                           step=ck_step, overwrite=overwrite, index=index,
+                           quant=quant)

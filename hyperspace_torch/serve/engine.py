@@ -40,6 +40,10 @@ Two approximate lanes compose with both modes:
   the exact engine): ``nprobe=0``, ``nprobe >= ncells``, tables under
   ``IVF_MIN_TABLE_ROWS``.
 
+Inside a span scope (``telemetry/spans.py``, the serve CLI's ``trace=``)
+each query records a ``device_compute`` stage that ends after a sync of
+the caller's stream; with spans off nothing waits.
+
 Everything runs on ``device`` — CUDA unless the caller asks for the CPU,
 where the kernels' plain versions answer.  Not ported yet (they raise):
 the ``carry`` scan, the bf16/int8/int4 lanes, mesh sharding, and
@@ -58,6 +62,7 @@ from hyperspace_torch.kernels import scan_topk as fused_kernel
 from hyperspace_torch.kernels.distmat import pdist
 from hyperspace_torch.manifolds import Lorentz, PoincareBall, smath
 from hyperspace_torch.serve.artifact import ServingArtifact, fingerprint_of
+from hyperspace_torch.telemetry import spans
 
 # f32 bytes one [B, chunk] distance tile may occupy at the nominal batch
 TILE_BUDGET = 8 * 1024 * 1024
@@ -370,6 +375,18 @@ class QueryEngine:
             raise ValueError(
                 "nprobe override needs a probing engine (this one "
                 "answers by exact scan)")
+        # the "device_compute" span stage: inside a span scope it closes
+        # after the engine's stream has finished the scan, so it times
+        # the device work, not the launches; spans off, it is a shared
+        # no-op and nothing waits
+        with spans.stage("device_compute",
+                         metric="serve/stage/device_compute_ms"):
+            out = self._topk(q_idx, k, exclude_self, nprobe)
+            self._sync_for_span()
+        return out
+
+    def _topk(self, q_idx: torch.Tensor, k: int, exclude_self: bool,
+              nprobe: Optional[int]):
         q = self.table[q_idx.long()]                       # [B, D]
         if self._ivf:
             return self._probe_topk(q, q_idx, k, exclude_self=exclude_self,
@@ -388,6 +405,12 @@ class QueryEngine:
             q, self.table[s:s + self.chunk_rows], self.spec[1],
             manifold=self.spec[0]), q_idx, k, exclude_self)
         return i, d
+
+    def _sync_for_span(self) -> None:
+        """Wait for this thread's stream on the engine's device, only
+        when a span stage is recording (the measurement mode)."""
+        if spans.active() and self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
 
     def _two_stage(self, dist_of, q_idx: torch.Tensor, k: int,
                    exclude_self: bool):
@@ -528,8 +551,12 @@ class QueryEngine:
             raise ValueError(
                 f"u_idx {tuple(u_idx.shape)} and v_idx "
                 f"{tuple(v_idx.shape)} must match")
-        d = self.manifold.dist(self.table[u_idx], self.table[v_idx])
-        return _fermi_dirac(d, fd_r, fd_t) if prob else d
+        with spans.stage("device_compute",
+                         metric="serve/stage/device_compute_ms"):
+            d = self.manifold.dist(self.table[u_idx], self.table[v_idx])
+            out = _fermi_dirac(d, fd_r, fd_t) if prob else d
+            self._sync_for_span()
+        return out
 
     def _check_ids(self, ids, name: str) -> torch.Tensor:
         arr = np.asarray(ids)

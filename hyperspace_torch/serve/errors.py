@@ -8,18 +8,27 @@ kind                meaning
 ``parse``           the input line is not valid JSON
 ``validation``      valid JSON, invalid request (bad op, bad ids/k,
                     wrong types — the reject-don't-coerce failures)
-``deadline_exceeded``  the request's deadline expired first
-``overloaded``      admission control shed the request
+``deadline_exceeded``  the request's ``deadline_ms`` expired before an
+                    honest answer existed (never dispatched late)
+``overloaded``      admission control shed the request (bounded queue
+                    full), the server is draining, or the degradation
+                    ladder answers cache-only and the request missed
 ``unknown_tenant``  the named tenant / fingerprint is not served here
 ``internal``        anything else — a server-side bug
 ==================  ====================================================
 
-The port has no deadlines, admission control or tenants yet, so only
-``parse``, ``validation`` and ``internal`` occur; the kinds keep their
-wire values so a client branches the same way on either package.
+The HTTP front door maps the kinds onto status codes: ``parse`` and
+``validation`` 400, ``overloaded`` 429, ``deadline_exceeded`` 504,
+``internal`` 500.  The port serves one tenant, so ``unknown_tenant``
+does not occur yet; the kinds keep their wire values so a client
+branches the same way on either package.
 """
 
 from __future__ import annotations
+
+
+ERROR_KINDS = ("parse", "validation", "deadline_exceeded", "overloaded",
+               "unknown_tenant", "internal")
 
 
 class ServeError(Exception):
@@ -30,6 +39,18 @@ class ServeError(Exception):
     def payload(self) -> dict:
         """The response-line body: ``{"kind": ..., "message": ...}``."""
         return {"kind": self.kind, "message": str(self)}
+
+
+class OverloadedError(ServeError):
+    """Admission queue full (shed), draining, or a cache-only miss."""
+
+    kind = "overloaded"
+
+
+class DeadlineExceededError(ServeError):
+    """The request's deadline expired before an honest answer existed."""
+
+    kind = "deadline_exceeded"
 
 
 def kind_of(exc: BaseException) -> str:

@@ -13,6 +13,7 @@ from hyperspace_tpu.cli import serve as jcli
 from hyperspace_tpu.serve.artifact import export_artifact
 from hyperspace_torch.cli import serve as tcli
 from hyperspace_torch.kernels._support import topk_disagreements
+from hyperspace_torch.telemetry import registry as tregistry
 from tests.test_torch_serve import C, make_table
 
 RTOL, ATOL = 1e-5, 1e-4
@@ -83,6 +84,7 @@ def test_serve_loop_matches_jax(artifacts, manifold, scan_mode):
     jout, tout = io.StringIO(), io.StringIO()
     jcli.run_serve(jcli.ServeConfig(artifact=art, scan_mode=scan_mode),
                    stdin=io.StringIO(text), stdout=jout)
+    base = tregistry.default_registry().mark()
     closing = tcli.run_serve(
         tcli.ServeConfig(artifact=art, scan_mode=scan_mode, device="cpu"),
         stdin=io.StringIO(text), stdout=tout)
@@ -100,7 +102,11 @@ def test_serve_loop_matches_jax(artifacts, manifold, scan_mode):
         assert t.get("request_id") == j.get("request_id")
     kinds = [t["error"]["kind"] for t in tl if "error" in t]
     assert kinds == ["parse"] + ["validation"] * 9
-    assert closing["served"] == 4 and closing["requests"] == 8
+    # the batcher's counters are process-cumulative (the telemetry
+    # registry): this loop's requests are the delta over its run
+    assert closing["served"] == 4
+    assert closing["requests"] - base["counters"].get("serve/requests",
+                                                      0) == 8
     assert closing["scan_mode"] == scan_mode
 
 
@@ -110,13 +116,18 @@ def test_stats_op_and_cache(artifacts):
         {"op": "topk", "ids": [4, 5], "k": 2},
         {"op": "stats", "request_id": "s"})) + "\n"
     out = io.StringIO()
+    base = tregistry.default_registry().mark()["counters"]
     tcli.run_serve(tcli.ServeConfig(artifact=artifacts["poincare"],
                                     device="cpu", min_bucket=2),
                    stdin=io.StringIO(lines), stdout=out)
     st = json.loads(out.getvalue().splitlines()[-1])
     assert st["request_id"] == "s"
-    assert (st["requests"], st["cache_hit"], st["cache_miss"]) == (2, 1, 3)
-    assert (st["slots"], st["padded_waste"]) == (4, 1)
+    # process-cumulative counters: the stats op's values less the mark
+    d = {k: st[k] - base.get(f"serve/{k}", 0)
+         for k in ("requests", "cache_hit", "cache_miss", "slots",
+                   "padded_waste")}
+    assert (d["requests"], d["cache_hit"], d["cache_miss"]) == (2, 1, 3)
+    assert (d["slots"], d["padded_waste"]) == (4, 1)
     assert st["buckets"][0] == 2 and st["precision"] == "f32"
 
 

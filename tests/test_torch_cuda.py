@@ -2291,3 +2291,147 @@ def test_graphed_resume_on_the_card(dev, tmp_path, capsys):
     assert float((ta - tb).abs().max()) <= spread
     assert torch.equal(a["generator"], b["generator"])
     assert int(a["step"]) == int(b["step"]) == 8
+
+
+# --- the HTTP front door on the card ------------------------------------------
+
+
+def _front_door_artifact(tmp_path, rows=4096):
+    from hyperspace_torch.manifolds import PoincareBall
+    from hyperspace_torch.serve import export_artifact
+
+    gen = torch.Generator().manual_seed(50)
+    table = PoincareBall(1.0).expmap0(
+        0.5 * torch.randn(rows, 10, generator=gen)).numpy()
+    path = str(tmp_path / "art")
+    export_artifact(path, table, ("poincare", 1.0))
+    return path
+
+
+def _door_run(batcher, go, prewarm=(8,)):
+    """Start a prewarmed ``HttpFrontDoor`` over ``batcher``, run
+    ``go(door)`` (a coroutine function) against it, drain; its result."""
+    import asyncio
+
+    from hyperspace_torch.serve.server import HttpFrontDoor
+
+    door = HttpFrontDoor(batcher, max_wait_us=2000)
+    door.collator.prewarm(list(prewarm))
+
+    async def main():
+        await door.start()
+        try:
+            return await go(door)
+        finally:
+            await door.drain()
+
+    return asyncio.run(main())
+
+
+async def _post(door, path, payload):
+    import asyncio
+    import json
+
+    reader, writer = await asyncio.open_connection(door.host, door.port)
+    body = json.dumps(payload).encode()
+    writer.write(f"POST {path} HTTP/1.1\r\nContent-Length: {len(body)}\r\n"
+                 "Connection: close\r\n\r\n".encode() + body)
+    await writer.drain()
+    data = await reader.read()
+    writer.close()
+    head, _, raw = data.partition(b"\r\n\r\n")
+    return int(head.split()[1]), json.loads(raw)
+
+
+@pytest.mark.parametrize("scan_mode", ["fused", "two_stage"])
+def test_front_door_on_the_card_equals_the_stdin_loop(dev, tmp_path,
+                                                      scan_mode):
+    """/v1/topk and /v1/score over HTTP answer bit for bit what the
+    stdin loop answers for the same requests (same buckets)."""
+    import io
+    import json
+
+    from hyperspace_torch.cli import serve as tcli
+    from hyperspace_torch.serve import (QueryEngine, RequestBatcher,
+                                        load_artifact)
+
+    art = _front_door_artifact(tmp_path)
+    reqs = [("/v1/topk", {"ids": [3, 99, 4000], "k": 8}),
+            ("/v1/topk", {"ids": list(range(200, 264)), "k": 8}),
+            ("/v1/score", {"u": [1, 2, 3], "v": [9, 8, 7], "prob": True})]
+    lines = [{"op": p.rsplit("/", 1)[-1], **b} for p, b in reqs]
+    out = io.StringIO()
+    tcli.run_serve(tcli.ServeConfig(artifact=art, scan_mode=scan_mode),
+                   stdin=io.StringIO("\n".join(json.dumps(x)
+                                               for x in lines) + "\n"),
+                   stdout=out)
+    want = [json.loads(s) for s in out.getvalue().splitlines()]
+    eng = QueryEngine.from_artifact(load_artifact(art), scan_mode=scan_mode)
+
+    async def go(door):
+        return [await _post(door, p, b) for p, b in reqs]
+
+    got = _door_run(RequestBatcher(eng, cache_size=0), go)
+    for (status, body), w in zip(got, want):
+        assert status == 200 and body == w
+
+
+def test_front_door_collates_on_the_card(dev, tmp_path):
+    """64 concurrent single ids share fewer flushes than requests and
+    answer what each id answers alone."""
+    import asyncio
+
+    from hyperspace_torch.serve import (QueryEngine, RequestBatcher,
+                                        load_artifact)
+    from hyperspace_torch.telemetry import registry as telem
+
+    eng = QueryEngine.from_artifact(load_artifact(
+        _front_door_artifact(tmp_path)), scan_mode="fused")
+    bat = RequestBatcher(eng, cache_size=0)
+    reg = telem.default_registry()
+    ids = list(range(1000, 1064))
+
+    async def go(door):
+        base = reg.mark()
+        out = await asyncio.gather(*[_post(door, "/v1/topk",
+                                           {"ids": [i], "k": 8})
+                                     for i in ids])
+        return out, reg.snapshot(baseline=base)["serve/collator_flushes"]
+
+    got, flushes = _door_run(bat, go)
+    assert flushes < len(ids)
+    for i, (status, body) in zip(ids, got):
+        ai, ad = bat.topk([i], 8)
+        assert status == 200
+        assert topk_disagreements(np.asarray(body["neighbors"]),
+                                  np.asarray(body["dists"]), ai, ad,
+                                  rtol=RTOL, atol=ATOL) == 0
+
+
+def test_no_kernel_build_after_prewarm(dev, tmp_path):
+    """Prewarm launches every bucket, k, exclude_self and ladder width
+    on the dispatch thread; traffic after it builds and loads no kernel
+    and meets no shape it did not launch."""
+    import asyncio
+
+    from hyperspace_torch.serve import (QueryEngine, RequestBatcher,
+                                        load_artifact)
+    from hyperspace_torch.telemetry import registry as telem
+
+    reg = telem.default_registry()
+    eng = QueryEngine.from_artifact(load_artifact(
+        _front_door_artifact(tmp_path)), scan_mode="fused")
+    bat = RequestBatcher(eng, cache_size=0, max_bucket=256, queue_max=64)
+
+    async def go(door):
+        base = reg.mark()
+        sizes = (1, 7, 8, 33, 200, 256, 300)
+        out = await asyncio.gather(*[_post(door, "/v1/topk", {
+            "ids": list(range(n)), "k": 8, "exclude_self": bool(n % 2)})
+            for n in sizes])
+        d = reg.snapshot(baseline=base)
+        return [s for s, _b in out], [d.get(c, 0) for c in (
+            "kernels/builds", "kernels/loads", "serve/cold_dispatches")]
+
+    statuses, new = _door_run(bat, go)
+    assert statuses == [200] * 7 and new == [0, 0, 0]

@@ -41,6 +41,8 @@ from hyperspace_torch.serve import index as tidx
 from hyperspace_torch.serve import quant as tquant
 from hyperspace_torch.serve.batcher import RequestBatcher
 from hyperspace_torch.serve.engine import QueryEngine
+from hyperspace_torch.telemetry import registry as telem
+from tests.test_torch_serve import serve_counts
 
 KTOL = dict(rtol=1e-6, atol=1e-6)
 ETOL = dict(rtol=1e-5, atol=1e-4)
@@ -568,7 +570,8 @@ def test_signatures_separate_cache_rows(served):
         eng = QueryEngine.from_artifact(art, device="cpu", scan_mode="fused",
                                         **kw)
         bat = RequestBatcher(eng, min_bucket=4, max_bucket=64)
-        kinds[name] = bat.plan_topk(10, True)(int(QUERIES[0]))
+        keyf, _nprobe_ov, _cache_only = bat.plan_topk(10, True)
+        kinds[name] = keyf(int(QUERIES[0]))
         st = bat.stats()
         assert st["scan_strategy"] == ("ivf" if "ivf" in name else "exact")
         assert st["precision"] == kw.get("precision", "f32")
@@ -584,13 +587,14 @@ def test_batcher_serves_ivf_pq_answers(served):
     eng = QueryEngine.from_artifact(art, device="cpu", scan_mode="fused",
                                     precision="pq", nprobe=4)
     bat = RequestBatcher(eng, min_bucket=4, max_bucket=32)
+    base = telem.default_registry().mark()
     ids = QUERIES[:40].tolist()
     idx, dist = bat.topk(ids, 10)
     ref_i, ref_d = eng.topk_neighbors(np.asarray(ids, np.int32), 10)
     np.testing.assert_array_equal(idx, ref_i.numpy())
     np.testing.assert_array_equal(dist, ref_d.numpy())
     bat.topk(ids[:3], 10)
-    assert bat.stats()["cache_hit"] == 3
+    assert serve_counts(base)["cache_hit"] == 3
 
 
 # --- the CLI ------------------------------------------------------------------

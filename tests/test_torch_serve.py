@@ -23,6 +23,7 @@ from hyperspace_torch.serve import artifact as tart
 from hyperspace_torch.serve.batcher import (RequestBatcher, bucket_for,
                                             bucket_sizes)
 from hyperspace_torch.serve.engine import QueryEngine, auto_chunk_rows
+from hyperspace_torch.telemetry import registry as telem
 from tests.test_torch_kernels import u_bound
 
 RTOL, ATOL = 1e-5, 1e-4
@@ -279,28 +280,40 @@ def test_bucket_ladder_matches_jax():
             assert bucket_for(n, b) == jb.bucket_for(n, b)
 
 
+def serve_counts(base: dict) -> dict:
+    """The ``serve/*`` counters since the registry mark ``base``: the
+    batcher's counters are process-cumulative (the telemetry registry),
+    so one batcher's counts are deltas."""
+    snap = telem.default_registry().snapshot(baseline=base)
+    return {k[len("serve/"):]: v for k, v in snap.items()
+            if k.startswith("serve/")}
+
+
 def test_batcher_topk_cache_and_counters(tables):
     table, spec = tables["lorentz"], ("lorentz", C)
     eng = QueryEngine(table, spec, device="cpu", scan_mode="fused")
     bat = RequestBatcher(eng, min_bucket=4, max_bucket=16)
+    base = telem.default_registry().mark()
     ids = [5, 9, 5, 3, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21, 22, 23,
            24, 25]
     idx, dist = bat.topk(ids, 6)
     ref_i, ref_d = eng.topk_neighbors(ids, 6)
     np.testing.assert_array_equal(idx, ref_i.numpy())
     np.testing.assert_array_equal(dist, ref_d.numpy())
-    st = bat.stats()
+    st = serve_counts(base)
     # 18 unique ids: one slab of 16, one of 2 padded to bucket 4
     assert (st["cache_miss"], st["cache_hit"]) == (18, 0)
     assert (st["slots"], st["padded_waste"]) == (20, 2)
     bat.topk([9, 3], 6)
-    st = bat.stats()
+    st = serve_counts(base)
     assert st["cache_hit"] == 2 and st["requests"] == 2
-    assert st["cache_hit_rate"] == round(2 / 20, 4)
-    assert st["cache_entries"] == 18 and st["scan_mode"] == "fused"
+    assert (round(st["cache_hit"] / (st["cache_hit"] + st["cache_miss"]), 4)
+            == round(2 / 20, 4))
+    full = bat.stats()
+    assert full["cache_entries"] == 18 and full["scan_mode"] == "fused"
     # a different k or flag is a different cache key
     bat.topk([9], 6, exclude_self=False)
-    assert bat.stats()["cache_miss"] == 19
+    assert serve_counts(base)["cache_miss"] == 19
     for bad in ([1.5], [True], "7", [N], []):
         with pytest.raises(ValueError):
             bat.topk(bad, 3)
@@ -312,10 +325,11 @@ def test_batcher_score_pads_and_splits(tables):
     table, spec = tables["poincare"], ("poincare", C)
     eng = QueryEngine(table, spec, device="cpu")
     bat = RequestBatcher(eng, min_bucket=2, max_bucket=8)
+    base = telem.default_registry().mark()
     u, v = list(range(11)), list(range(100, 111))
     got = bat.score(u, v, prob=True)
     want = eng.score_edges(u, v, prob=True).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-6)
-    assert bat.stats()["slots"] == 8 + 4
+    assert serve_counts(base)["slots"] == 8 + 4
     with pytest.raises(ValueError, match="matching"):
         bat.score([0, 1], [2])
