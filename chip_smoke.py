@@ -264,6 +264,41 @@ prints its seconds):
    ``csr_att_bwd_edges``, 2 ``csr_segment_reduce_1d`` a step, 4
    ``csr_segment_sum`` an evaluation, no cluster kernel).
 
+Phases 55-56 (after 16-19) serve the bf16, int8 and int4 lanes:
+
+55. each narrow lane of the three kernels against its plain version on
+   the card: bf16 ``pdist`` at phase 3's shapes within one bf16 ulp;
+   ``scan_topk`` on the bf16 copy, the int8 codes with their f32 scales
+   and the int4 nibbles with their f16 scales (``serve/quant.py``) at
+   phase 3's grid (buckets 8 and 1024, k 1, 10 and 256,
+   ``exclude_self``, ``col0`` and ``n`` cut), both manifolds;
+   ``scan_topk_cand`` on the bf16 and int8 copies of phase 16's table at
+   phase 17's lists (nprobe 1 and 8, k 10 and 256); each launched twice
+   for the same bits;
+56. every lane (f32, bf16, int8, int4) × scan mode × nprobe 0 and 8
+   through the ``serve`` loop, on phase 4's random table (its index built
+   here) and phase 16's clustered one, the counts set to 0 before each
+   run and read after: exactly one scan of the lane's own a batch under
+   ``fused`` (the candidate scan under IVF; int4 probes score in
+   PyTorch), one bf16 ``pdist`` a chunk under bf16 ``two_stage``; every
+   served distance the f32 distance of its id; recall@10 against the f32
+   exact answers; queries/s, batch ms and the card's busy ms at buckets
+   8 and 1024 of each narrow lane on the clustered table.  The kernels
+   line gains an entry a lane (``pdist_bf16``, ``scan_topk_bf16``,
+   ``scan_topk_int8``, ``scan_topk_int4``, ``scan_topk_cand_bf16``,
+   ``scan_topk_cand_int8``: device ms at buckets 1024 and 8, the bound in
+   the lane's bytes, launches from phase 56).
+
+Phase 58 (after 44-49) serves the other specs: euclidean and sphere
+tables of 82,115 × 10 from ``--seed`` (indexes built on the card) and a
+product artifact that ``cli.serve export workload=product index=1
+quant=pq`` writes from a ``cli.train product`` checkpoint on phase 46's
+66,430-node closure, through the ``serve`` loop on every lane (exact;
+f32 and one more lane probed): each served distance the manifold's own
+f32 distance of its id, the f32 exact answers against float64 on 16
+queries, recall@10, and a scan kernel launched where the spec takes it
+(euclidean under ``fused``) and none where it does not.
+
 Phases 50-54 (after 44-49) serve through the HTTP front door
 (``serve/server.py``) on an ephemeral port, in a process of their own
 (``--front-door``: a server runs apart from training), every door
@@ -305,7 +340,13 @@ after its own traffic; the prewarm's launches are reported apart:
    ``cli.serve export ... index=1 quant=pq c=1.0``, the exported
    fingerprint equal to ``fingerprint_of`` of the restored table, and
    ``serve-http`` over the export answering ``/v1/topk`` at nprobe 4
-   and with ``precision=pq``; then the total seconds and a
+   and with ``precision=pq``;
+57. ``cli.serve export ... quant=int4`` of phase 54's checkpoint (the
+   payload JAX's packing of the restored table), then ``serve-http
+   precision=int4`` (the shipped codes) and ``precision=int8`` over it
+   with ``prewarm=1``: answers 200 and equal to the same lane's engine,
+   the lane's scan launched by the traffic, builds, loads and cold
+   dispatches flat after the prewarm; then the total seconds and a
    ``front_door`` line with the numbers of 50-54.
 
 The kernels line (phase 23) also gives ``hyp_mlr`` at the NC head's own
@@ -1790,12 +1831,19 @@ LANE_RUNS = ([("f32", 0)] + [("f32", p) for p in NPROBES]
 
 
 def lane_counts() -> dict:
+    """Every serving kernel's launches, and those of each narrow lane
+    apart (``pdist_bf16``, ``scan_topk_int8``, ...)."""
     from hyperspace_torch.kernels import scan_topk as S
     from hyperspace_torch.kernels.distmat import pdist
 
-    return {"pdist": pdist.launches, "scan_topk": S.scan_topk.launches,
-            "scan_topk_cand": S.scan_topk_cand.launches,
-            "scan_topk_pq": S.scan_topk_pq.launches}
+    out = {"pdist": pdist.launches, "scan_topk": S.scan_topk.launches,
+           "scan_topk_cand": S.scan_topk_cand.launches,
+           "scan_topk_pq": S.scan_topk_pq.launches,
+           "pdist_bf16": pdist.launches_by_lane["bf16"]}
+    for fn in (S.scan_topk, S.scan_topk_cand):
+        out.update({f"{fn.__name__}_{ln}": n
+                    for ln, n in fn.launches_by_lane.items() if ln != "f32"})
+    return out
 
 
 def lane_reset() -> None:
@@ -1804,6 +1852,8 @@ def lane_reset() -> None:
 
     pdist.launches = S.scan_topk.launches = 0
     S.scan_topk_cand.launches = S.scan_topk_pq.launches = 0
+    for fn in (pdist, S.scan_topk, S.scan_topk_cand):
+        fn.launches_by_lane = dict.fromkeys(fn.launches_by_lane, 0)
 
 
 def expected_lane_launches(prec: str, nprobe: int, mode: str,
@@ -2159,8 +2209,9 @@ def ivf_pq_path(torch, args, card: dict, table_l, fresh) -> dict:
 
 
 def batch_throughput(torch, eng, batcher, cold) -> dict:
-    """Batches of distinct cold ids through ``batcher`` at bucket 1024,
-    and the engine call alone on the same ids, taken in turns; host
+    """Batches of distinct cold ids through ``batcher`` (a batch a row
+    of ``cold``: bucket 1024 unless said), and the engine call alone on
+    the same ids, taken in turns; host
     clock, each ending in the copy of the answer to the host; medians
     after one warm-up, then the card's busy time and idle share."""
     from hyperspace_torch.telemetry import registry as telem
@@ -2182,7 +2233,7 @@ def batch_throughput(torch, eng, batcher, cold) -> dict:
     med = float(np.median(walls["batcher"])) * 1e3
     more = iter(cold[21:])
     return {"batch_ms": med, "batches_per_s": 1e3 / med,
-            "queries_per_s": BATCH * 1e3 / med,
+            "queries_per_s": cold.shape[1] * 1e3 / med,
             "engine_ms": float(np.median(walls["engine"])) * 1e3,
             **device_share(torch, lambda: batcher.topk(next(more).tolist(),
                                                        K), med)}
@@ -2252,6 +2303,416 @@ def ivf_pq_kernel_entries(torch, ip: dict, card: dict) -> list:
          "bound_ms": pb, "bound_by": pby, "library_ms": None,
          "call_ms": timed_ms(torch, pq), **card},
     ]
+
+
+# --- phases 55-56: the bf16, int8 and int4 serving lanes ---------------------
+
+QLANES = ("bf16", "int8", "int4")     # the narrow lanes of the slab scan
+CAND_QLANES = ("bf16", "int8")        # and of the candidate scan
+# the lanes through the serve loop: every lane × nprobe 0 and 8
+QLANE_RUNS = [(p, n) for p in ("f32",) + QLANES for n in (0, 8)]
+QLANE_BUCKETS = (8, BATCH)
+# the entries of the kernels line these phases add: (name, kernel,
+# lane, TPU kernel); each named as lane_counts() names its launches
+QLANE_ENTRIES = (
+    ("pdist_bf16", "pdist", "bf16", "hyperspace_tpu/kernels/distmat.py:119"),
+    *((f"scan_topk_{ln}", "scan_topk", ln,
+       "hyperspace_tpu/kernels/scan_topk.py:677") for ln in QLANES),
+    *((f"scan_topk_cand_{ln}", "scan_topk_cand", ln,
+       "hyperspace_tpu/kernels/scan_topk.py:1087") for ln in CAND_QLANES))
+
+
+def lane_slabs(torch, slab) -> dict:
+    """``slab`` (float32, on the card) in each narrow lane: ``{lane:
+    (rows, scale, packed)}``, quantized by ``serve/quant.py`` as the
+    engine quantizes its table."""
+    from hyperspace_torch.serve import quant as Q
+
+    host = slab.cpu().numpy()
+    q8, s8 = Q.quantize_rows(host)
+    p4, s4 = Q.pack_int4_rows(host)
+    dev = slab.device
+    return {"bf16": (slab.to(torch.bfloat16), None, False),
+            "int8": (torch.as_tensor(q8, device=dev),
+                     torch.as_tensor(s8, device=dev), False),
+            "int4": (torch.as_tensor(p4, device=dev),
+                     torch.as_tensor(s4, device=dev), True)}
+
+
+def lane_row_bytes(lane: str, d: int) -> float:
+    """Bytes of one table row in a lane, its scale included."""
+    return {"f32": 4.0 * d, "bf16": 2.0 * d, "int8": d + 4.0,
+            "int4": (d + 1) // 2 + 2.0}[lane]
+
+
+def lane_scan_cost(b: int, m: int, n: int, d: int, k: int,
+                   lane: str) -> tuple[float, float]:
+    """:func:`scan_cost` with the slab read in ``lane``'s bytes (the
+    queries, float32, and their ids read once, the answer written once)
+    and one widening multiply an element of the narrow lanes."""
+    nbytes, ops = scan_cost(b, m, n, d, k)
+    nbytes += m * (lane_row_bytes(lane, d) - 4.0 * d)
+    return nbytes, ops + (float(m) * d if lane in ("int8", "int4") else 0.0)
+
+
+def lane_cand_cost(b: int, n: int, d: int, cand: int, valid: int, k: int,
+                   lane: str) -> tuple[float, float]:
+    """:func:`cand_cost` with the table read in ``lane``'s bytes."""
+    nbytes, ops = cand_cost(b, n, d, cand, valid, k)
+    return nbytes + n * (lane_row_bytes(lane, d) - 4.0 * d), ops
+
+
+def quant_lane_checks(torch, args, card: dict, kinds, chunk: int,
+                      padded: int, ip: dict) -> dict:
+    """Phase 55: each narrow lane of the three kernels against its plain
+    version on the card: bf16 ``pdist`` at phase 3's shapes within one
+    bf16 ulp, the slab scan's lanes at phase 3's grid (buckets 8 and
+    1024, k 1, 10 and 256, ``exclude_self``, ``col0`` and ``n`` cut),
+    the candidate scan's lanes on phase 17's lists (nprobe 1 and 8, k 10
+    and 256); each launched twice for the same bits."""
+    from hyperspace_torch.kernels import _support
+    from hyperspace_torch.kernels import scan_topk as S
+    from hyperspace_torch.kernels.distmat import pdist, pdist_plain
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng([args.seed, 55])
+    err = {name: 0.0 for name, *_ in QLANE_ENTRIES}
+    ulps = 0.0
+    for man, table, fresh in kinds:
+        spec = (man, C)
+        for b in QLANE_BUCKETS:
+            x = fresh[:b].to(torch.bfloat16)
+            for rows in (table[:chunk], table, table[:287]):
+                y = rows.to(torch.bfloat16)
+                got = pdist(x, y, C, manifold=man)
+                again = pdist(x, y, C, manifold=man)
+                torch.cuda.synchronize()
+                want = pdist_plain(x, y, C, manifold=man).float()
+                diff = (got.float() - want).abs()
+                ulp = bf16_ulp(torch, want)
+                worst = float(diff.max())
+                over = int((diff > ulp).sum())
+                same = bool(torch.equal(got, again))
+                ratio = float((diff / torch.where(ulp > 0, ulp,
+                                                  torch.ones_like(ulp)))
+                              .max())
+                err["pdist_bf16"] = max(err["pdist_bf16"], worst)
+                ulps = max(ulps, ratio)
+                emit({"phase": "lane_check", "kernel": "pdist_bf16",
+                      "manifold": man, "shape": [b, y.shape[0], y.shape[1]],
+                      "max_abs_err": worst, "max_bf16_ulps": ratio,
+                      "beyond_one_ulp": over, "repeat_equal": same})
+                if over or not same:
+                    raise AssertionError(
+                        f"pdist bf16 {man}: {over} entries beyond one bf16 "
+                        f"ulp, repeat equal {same}")
+        slab = torch.zeros((padded, table.shape[1]), device=table.device)
+        slab[:ROWS] = table
+        for lane, (rows, scale, packed) in lane_slabs(torch, slab).items():
+            bad_all = 0
+            for b, ex, (col0, n) in itertools.product(
+                    QLANE_BUCKETS, (False, True),
+                    ((0, ROWS), (5000, 5000 + ROWS - 115))):
+                q = fresh[:b]
+                qi = torch.as_tensor(rng.integers(col0, col0 + ROWS, b),
+                                     dtype=torch.int32, device=q.device)
+                kw = dict(n=n, exclude_self=ex, scale=scale, packed=packed)
+                # the plain version's stable sort: its first k of 256 are
+                # its answer at k
+                pd, pi = S.scan_topk_plain(rows, q, qi, col0, kind=man, c=C,
+                                           k=256, **kw)
+                for k in (1, 10, 256):
+                    got = S.scan_topk(rows, q, qi, col0, spec=spec, k=k,
+                                      **kw)
+                    again = S.scan_topk(rows, q, qi, col0, spec=spec, k=k,
+                                        **kw)
+                    torch.cuda.synchronize()
+                    wd, wi = pd[:, :k], pi[:, :k]
+                    fin = torch.isfinite(wd)
+                    worst = float((got[0] - wd).abs()[fin].max())
+                    err[f"scan_topk_{lane}"] = max(err[f"scan_topk_{lane}"],
+                                                   worst)
+                    bad = _support.topk_disagreements(
+                        got[1].cpu().numpy(), got[0].cpu().numpy(),
+                        wi.cpu().numpy(), wd.cpu().numpy(), rtol=RTOL,
+                        atol=ATOL)
+                    same = bool(torch.equal(got[0], again[0])
+                                and torch.equal(got[1], again[1]))
+                    if bad or not same:
+                        raise AssertionError(
+                            f"scan_topk {lane} {man} b={b} k={k} "
+                            f"exclude_self={ex} col0={col0}: {bad} rows "
+                            f"disagree, repeat bitwise {same}")
+                    bad_all += bad
+            emit({"phase": "lane_check", "kernel": f"scan_topk_{lane}",
+                  "manifold": man, "cases": 24,
+                  "max_abs_err": err[f"scan_topk_{lane}"],
+                  "rows_disagreeing": bad_all, "repeat_bitwise": True})
+    # the candidate scan's lanes on the IVF path's lists (phase 17)
+    tab, q, qi = ip["table"], ip["q"], ip["qi"]
+    ctabs = lane_slabs(torch, tab)
+    for lane in CAND_QLANES:
+        rows, scale, _ = ctabs[lane]
+        for p in (1, 8):
+            for k in (10, 256):
+                run = lambda: S.scan_topk_cand(  # noqa: E731
+                    rows, ip["cands"][p], q, qi, spec=("poincare", C), k=k,
+                    exclude_self=True, scale=scale)
+                got, again = run(), run()
+                want = S.scan_topk_cand_plain(
+                    rows, ip["cands"][p], q, qi, kind="poincare", c=C, k=k,
+                    exclude_self=True, scale=scale)
+                err[f"scan_topk_cand_{lane}"] = max(
+                    err[f"scan_topk_cand_{lane}"], check_topk(
+                        torch, f"scan_topk_cand_{lane}",
+                        f"nprobe {p}, k {k}", got, again, want))
+    emit({"phase": "lane_checks", "max_bf16_ulps_pdist": ulps,
+          "max_abs_err": err, "seconds": time.perf_counter() - t0, **card})
+    return {"err": err, "ctabs": ctabs}
+
+
+def expected_quant_launches(prec: str, nprobe: int, mode: str, batches: int,
+                            chunks: int) -> dict:
+    """Exact launches of every lane's kernels for ``batches`` top-k
+    batches of a lane run: the narrow lanes launch their own scan once a
+    batch under ``fused`` (the candidate scan under IVF; int4 has none,
+    so its probe scores in PyTorch), bf16 ``pdist`` once a chunk under
+    ``two_stage``; f32 ``pdist`` takes the centroid pass of every probe
+    and the chunks of the f32, int8 and int4 two-stage scans (those
+    chunks widen to f32)."""
+    fused = mode == "fused"
+    want = {f"scan_topk_{ln}": batches if fused and not nprobe and prec == ln
+            else 0 for ln in QLANES}
+    want.update({f"scan_topk_cand_{ln}": batches
+                 if fused and nprobe and prec == ln else 0
+                 for ln in CAND_QLANES})
+    two_chunks = 0 if fused or nprobe else batches * chunks
+    want["pdist_bf16"] = two_chunks if prec == "bf16" else 0
+    want["pdist"] = (batches if nprobe else 0) + two_chunks
+    want["scan_topk"] = (sum(want[f"scan_topk_{ln}"] for ln in QLANES)
+                         + (batches if fused and not nprobe
+                            and prec == "f32" else 0))
+    want["scan_topk_cand"] = (sum(want[f"scan_topk_cand_{ln}"]
+                                  for ln in CAND_QLANES)
+                              + (batches if fused and nprobe
+                                 and prec == "f32" else 0))
+    want["scan_topk_pq"] = 0
+    return want
+
+
+def quant_lane_engines(torch, args, card: dict, table_b, ip: dict) -> dict:
+    """Phase 56: every lane × scan mode × nprobe 0 and 8 through the
+    ``serve`` loop, on phase 4's random table (its index built here with
+    the export defaults) and phase 16's clustered one; the counts set to
+    0 before each run and read after: exactly the launches
+    :func:`expected_quant_launches` gives; every served distance the f32
+    distance of its id; recall@10 against the f32 exact answers of the
+    same table; then queries/s and the card's busy ms at buckets 8 and
+    1024 for each narrow lane on the clustered table (bucket 8: the
+    exact scans)."""
+    from hyperspace_torch.cli import serve as cli
+    from hyperspace_torch.manifolds import PoincareBall
+    from hyperspace_torch.serve import (QueryEngine, RequestBatcher,
+                                        export_artifact, load_artifact)
+    from hyperspace_torch.serve.engine import auto_chunk_rows
+    from hyperspace_torch.serve.index import auto_ncells, build_index
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng([args.seed, 56])
+    spec = ("poincare", C)
+    work = os.path.join(REPO, "build", "chip_smoke")
+    os.makedirs(work, exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=work)
+    try:
+        host = table_b.cpu().numpy()
+        t1 = time.perf_counter()
+        index = build_index(host, spec, auto_ncells(ROWS))
+        index_s = time.perf_counter() - t1
+        arts = {"random": os.path.join(tmp, "random"),
+                "clustered": os.path.join(tmp, "clustered")}
+        export_artifact(arts["random"], host, spec, index=index)
+        a = ip["art"]
+        export_artifact(arts["clustered"], a.table, spec, index=a.index)
+        chunks = -(-ROWS // auto_chunk_rows(ROWS))
+        ids = rng.choice(ROWS, BATCH, replace=False)
+        ids8 = rng.choice(np.setdiff1d(np.arange(ROWS), ids), 8,
+                          replace=False).tolist()
+        lines = "\n".join(json.dumps(r) for r in (
+            {"op": "topk", "ids": ids.tolist(), "k": K},
+            {"op": "topk", "ids": ids8, "k": K},
+            {"op": "stats"})) + "\n"
+        answers, launches, recall, agree = {}, {}, {}, {}
+        ball = PoincareBall(C)
+        for tname, path in arts.items():
+            tab = torch.as_tensor(load_artifact(path).table, device="cuda")
+            qrows = tab[torch.as_tensor(ids, device="cuda").long()]
+            for prec, npb in QLANE_RUNS:
+                for mode in ("two_stage", "fused"):
+                    lane_reset()
+                    out = io.StringIO()
+                    cli.run_serve(cli.ServeConfig(
+                        artifact=path, scan_mode=mode, precision=prec,
+                        nprobe=npb), stdin=io.StringIO(lines), stdout=out)
+                    got = lane_counts()
+                    resp = [json.loads(s) for s in
+                            out.getvalue().splitlines()]
+                    tag = f"{tname}/{prec}/{npb}/{mode}"
+                    if len(resp) != 3 or any("error" in r for r in resp):
+                        raise AssertionError(f"{tag}: {resp}")
+                    want = expected_quant_launches(prec, npb, mode, 2,
+                                                   chunks)
+                    if any(got[n] != c for n, c in want.items()):
+                        raise AssertionError(f"{tag}: launches {got}, want "
+                                             f"{want}")
+                    if resp[2]["precision"] != prec:
+                        raise AssertionError(f"{tag}: stats {resp[2]}")
+                    nb = np.asarray(resp[0]["neighbors"])
+                    ds = np.asarray(resp[0]["dists"], np.float64)
+                    if nb.shape != (BATCH, K) or not np.all(
+                            np.isfinite(ds)) or np.any(np.diff(ds, 1) < 0):
+                        raise AssertionError(f"{tag}: bad answers")
+                    # the lanes' served distances are the f32 distances of
+                    # their ids (the rescore); f32's come from the kernels'
+                    # Gram form, held at the float64 truth's tier
+                    f32 = ball.dist(qrows[:, None, :], tab[torch.as_tensor(
+                        nb, device="cuda").long()]).double()
+                    rt, at = ((TRUTH_RTOL, TRUTH_ATOL) if prec == "f32"
+                              else (PQ_F32_RTOL, PQ_F32_ATOL))
+                    over = int(((torch.as_tensor(ds, device="cuda")
+                                 - f32).abs() > at + rt * f32.abs()).sum())
+                    if over:
+                        raise AssertionError(f"{tag}: {over} served "
+                                             "distances are not the f32 "
+                                             "distance of their id")
+                    answers[tname, prec, npb, mode] = nb
+                    launches[tname, prec, npb, mode] = got
+            exact = answers[tname, "f32", 0, "two_stage"]
+            for prec, npb in QLANE_RUNS:
+                for mode in ("two_stage", "fused"):
+                    nb = answers[tname, prec, npb, mode]
+                    recall[f"{tname}_{prec}_nprobe{npb}_{mode}"] = float(
+                        np.mean([len(set(x) & set(y)) / K
+                                 for x, y in zip(nb, exact)]))
+                agree[f"{tname}_{prec}_nprobe{npb}"] = float(np.mean(
+                    answers[tname, prec, npb, "two_stage"]
+                    == answers[tname, prec, npb, "fused"]))
+        emit({"phase": "qlane_serve", "k": K, "reference": "f32 exact",
+              "recall_at_10": recall,
+              "two_stage_fused_ids_equal_share": agree,
+              "index_build_s": index_s,
+              "seconds": time.perf_counter() - t0, **card})
+        # queries/s and busy ms at buckets 8 and 1024, clustered table
+        art = load_artifact(arts["clustered"])
+        throughput = {}
+        for b in QLANE_BUCKETS:
+            cold = rng.permutation(ROWS)[:40 * b].reshape(40, b)
+            for prec in QLANES:
+                for npb in (0, 8) if b == BATCH else (0,):
+                    for mode in ("two_stage", "fused"):
+                        e = QueryEngine.from_artifact(
+                            art, scan_mode=mode, precision=prec, nprobe=npb)
+                        throughput[f"{prec}_nprobe{npb}_{mode}_b{b}"] = \
+                            batch_throughput(torch, e, RequestBatcher(e),
+                                             cold)
+        emit({"phase": "qlane_throughput", "k": K, "rows": ROWS,
+              **throughput, **card})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    # each entry's launches over the lane runs on both tables
+    totals = {name: sum(launches[key][name] for key in launches)
+              for name, *_ in QLANE_ENTRIES}
+    emit({"phase": "qlane_done", "launches": totals,
+          "seconds": time.perf_counter() - t0, **card})
+    return {"launches": totals, "recall": recall, "throughput": throughput}
+
+
+def quant_lane_entries(torch, ql: dict, qe: dict, ip: dict,
+                       card: dict) -> list:
+    """The kernels line's entries of the narrow lanes: device ms at the
+    main path's shapes (buckets 1024 and 8) against the plain version,
+    the bound in the lane's bytes, launches from phase 56."""
+    from hyperspace_torch.kernels import scan_topk as S
+    from hyperspace_torch.kernels.distmat import pdist, pdist_plain
+    from hyperspace_torch.serve.engine import auto_chunk_rows
+
+    spec = ("poincare", C)
+    tab = ip["table"]                     # the clustered table, padded
+    m = tab.shape[0]
+    q, qi = ip["q"], ip["qi"]
+    chunk = auto_chunk_rows(ROWS)
+    out = []
+    for name, kernel, lane, replaces in QLANE_ENTRIES:
+        e = {"name": name, "route": "cuda",
+             "source": "hyperspace_torch/kernels/csrc/"
+                       + ("pdist.cu" if kernel == "pdist" else
+                          "scan_topk.cu"),
+             "entry": {"pdist": "hs_pdist_bf16",
+                       "scan_topk": "hs_scan_topk",
+                       "scan_topk_cand": "hs_scan_topk_cand"}[kernel],
+             "lane": lane, "replaces": replaces,
+             "launches": qe["launches"][name],
+             "max_abs_err": ql["err"][name], "library_ms": None}
+        if kernel == "pdist":
+            y = tab[:chunk].to(torch.bfloat16)
+            x = q.to(torch.bfloat16)
+
+            def run(b, x=x, y=y):
+                return lambda: pdist(x[:b], y, C, manifold="poincare")
+
+            e.update(shape=[BATCH, chunk, DIM],
+                     plain_ms=device_ms(torch, lambda: pdist_plain(
+                         x, y, C, manifold="poincare")))
+            for b, sfx in ((BATCH, ""), (8, "_bucket8")):
+                e["ms" + sfx] = device_ms(torch, run(b))
+                nb = 2.0 * (b * DIM + chunk * DIM + b * chunk)
+                e["bound_ms" + sfx], e["bound_by" + sfx] = bound_ms(
+                    nb, pdist_cost(b, chunk, DIM)[1])
+        elif kernel == "scan_topk":
+            rows, scale, packed = ql["ctabs"][lane]
+            kw = dict(spec=spec, k=K, n=ROWS, exclude_self=True,
+                      scale=scale, packed=packed)
+
+            def run(b, rows=rows, kw=kw):
+                return lambda: S.scan_topk(rows, q[:b], qi[:b], 0, **kw)
+
+            e.update(shape=[BATCH, rows.shape[0], DIM, K],
+                     plain_ms=device_ms(torch, lambda rows=rows,
+                                        scale=scale, packed=packed:
+                                        S.scan_topk_plain(
+                                            rows, q, qi, 0, kind="poincare",
+                                            c=C, k=K, n=ROWS,
+                                            exclude_self=True, scale=scale,
+                                            packed=packed), reps=3))
+            for b, sfx in ((BATCH, ""), (8, "_bucket8")):
+                e.update({key + sfx: v for key, v in
+                          scan_parts(torch, run(b)).items()})
+                e["bound_ms" + sfx], e["bound_by" + sfx] = bound_ms(
+                    *lane_scan_cost(b, rows.shape[0], ROWS, DIM, K, lane))
+        else:
+            rows, scale, _ = ql["ctabs"][lane]
+            c8 = ip["cands"][8]
+            valid = int((c8 >= 0).sum())
+
+            def run(b, rows=rows, scale=scale):
+                return lambda: S.scan_topk_cand(
+                    rows, c8[:b], q[:b], qi[:b], spec=spec, k=K,
+                    exclude_self=True, scale=scale)
+
+            e.update(shape=[BATCH, c8.shape[1], DIM, K],
+                     plain_ms=device_ms(torch, lambda rows=rows,
+                                        scale=scale:
+                                        S.scan_topk_cand_plain(
+                                            rows, c8, q, qi, kind="poincare",
+                                            c=C, k=K, exclude_self=True,
+                                            scale=scale), reps=3))
+            for b, sfx in ((BATCH, ""), (8, "_bucket8")):
+                e["ms" + sfx] = device_ms(torch, run(b))
+                vb = valid if b == BATCH else int((c8[:b] >= 0).sum())
+                e["bound_ms" + sfx], e["bound_by" + sfx] = bound_ms(
+                    *lane_cand_cost(b, m, DIM, c8.shape[1], vb, K, lane))
+        e.update(card)
+        out.append(e)
+    return out
 
 
 # --- the Poincaré ball's primitive ops and the gyro-linear layer -----------
@@ -4707,8 +5168,144 @@ def health_runs(torch, tmp: str, card: dict) -> dict:
     return out
 
 
+SPEC_KINDS = ("euclidean", "sphere", "product")
+# phase 58's runs a spec: every lane exact (PQ on the exported product
+# artifact, whose payload it ships), both modes where the fused scan
+# takes the spec (euclidean), f32 and one more lane probed
+SPEC_RUNS = {
+    "euclidean": [(p, 0) for p in ("f32", "bf16", "int8", "int4")]
+    + [("f32", 8), ("int8", 8)],
+    "sphere": [(p, 0) for p in ("f32", "bf16", "int8", "int4")]
+    + [("f32", 8), ("int8", 8)],
+    "product": [(p, 0) for p in ("f32", "bf16", "int8", "int4", "pq")]
+    + [("f32", 8), ("pq", 8)],
+}
+PRODUCT_EXPORT_STEPS = 64
+
+
+def spec_paths(torch, args, tmp: str, card: dict) -> dict:
+    """Phase 58: the euclidean and sphere specs on 82,115 × 10 tables
+    from the seed (their indexes built on the card with the export
+    defaults), and a product artifact exported by ``cli.serve export
+    workload=product index=1 quant=pq`` from a ``cli.train product``
+    checkpoint on phase 46's 66,430-node closure, served through the
+    ``serve`` loop on every lane: each served distance the manifold's
+    own f32 distance of its id, the f32 exact answers against a float64
+    brute force on 16 queries, recall@10 of each run against them, and
+    the launches of the fused scan where the spec takes it (euclidean)
+    and of none where it does not."""
+    from hyperspace_torch.cli import serve as cli_serve
+    from hyperspace_torch.kernels import _support
+    from hyperspace_torch.serve import export_artifact, load_artifact
+    from hyperspace_torch.serve.artifact import manifold_from_spec
+    from hyperspace_torch.serve.index import auto_ncells, build_index
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng([args.seed, 58])
+    arts = {}
+    for kind in ("euclidean", "sphere"):
+        x = rng.standard_normal((ROWS, DIM)).astype(np.float32)
+        spec = ("euclidean", 0.0) if kind == "euclidean" else ("sphere", C)
+        if kind == "sphere":
+            x /= np.linalg.norm(x, axis=1, keepdims=True)
+        path = os.path.join(tmp, f"spec_{kind}")
+        export_artifact(path, x, spec,
+                        index=build_index(x, spec, auto_ncells(ROWS)))
+        arts[kind] = path
+    ck = os.path.join(tmp, "spec_product_ck")
+    run_cli(["product", "scan_chunk=32", "batch_size=1024",
+             f"steps={PRODUCT_EXPORT_STEPS}",
+             f"data_root={os.path.join(tmp, 'closure.tsv')}",
+             f"ckpt_dir={ck}", f"ckpt_every={PRODUCT_EXPORT_STEPS}"])
+    arts["product"] = os.path.join(tmp, "spec_product")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli_serve.main(["export", "workload=product", f"ckpt={ck}",
+                        f"out={arts['product']}", "index=1", "quant=pq"])
+    exp = json.loads(buf.getvalue().strip().splitlines()[-1])
+    setup_s = time.perf_counter() - t0
+    out = {"setup_s": setup_s, "product_export": exp}
+    for kind in SPEC_KINDS:
+        art = load_artifact(arts[kind])
+        n = art.num_nodes
+        man = manifold_from_spec(art.manifold_spec)
+        tab = torch.as_tensor(art.table, device="cuda")
+        ids = rng.choice(n, BATCH, replace=False)
+        qrows = tab[torch.as_tensor(ids, device="cuda").long()]
+        lines = "\n".join(json.dumps(r) for r in (
+            {"op": "topk", "ids": ids.tolist(), "k": K},
+            {"op": "stats"})) + "\n"
+        modes = ("two_stage", "fused") if kind == "euclidean" else (
+            "two_stage",)
+        answers, rep = {}, {}
+        for prec, npb in SPEC_RUNS[kind]:
+            for mode in modes:
+                lane_reset()
+                buf = io.StringIO()
+                cli_serve.run_serve(cli_serve.ServeConfig(
+                    artifact=arts[kind], scan_mode=mode, precision=prec,
+                    nprobe=npb), stdin=io.StringIO(lines), stdout=buf)
+                got = lane_counts()
+                resp = [json.loads(s) for s in buf.getvalue().splitlines()]
+                tag = f"{kind}/{prec}/{npb}/{mode}"
+                if len(resp) != 2 or any("error" in r for r in resp):
+                    raise AssertionError(f"{tag}: {resp}")
+                nb = np.asarray(resp[0]["neighbors"])
+                ds = np.asarray(resp[0]["dists"], np.float64)
+                if nb.shape != (BATCH, K) or not np.all(np.isfinite(ds)) \
+                        or np.any(np.diff(ds, axis=1) < 0):
+                    raise AssertionError(f"{tag}: bad answers")
+                # rescored lanes: the f32 distance of the id; f32 served
+                # by the fused scan's Gram form: the serving tier
+                f32 = man.dist(qrows[:, None, :], tab[torch.as_tensor(
+                    nb, device="cuda").long()]).double()
+                rt, at = ((RTOL, ATOL) if prec == "f32"
+                          else (PQ_F32_RTOL, PQ_F32_ATOL))
+                over = int(((torch.as_tensor(ds, device="cuda") - f32).abs()
+                            > at + rt * f32.abs()).sum())
+                scans = got["scan_topk"] + got["scan_topk_cand"] + got[
+                    "scan_topk_pq"]
+                takes = kind == "euclidean" and mode == "fused"
+                if over or bool(scans) != takes:
+                    raise AssertionError(f"{tag}: {over} distances off "
+                                         f"their f32 distance, launches "
+                                         f"{got}")
+                answers[prec, npb, mode] = nb
+                rep[f"{prec}_nprobe{npb}_{mode}"] = {
+                    "launches": {k: v for k, v in got.items() if v}}
+        # the f32 exact answers against float64 on 16 queries
+        t64 = tab.double()
+        q16 = torch.as_tensor(ids[:16], device="cuda").long()
+        d64 = man.dist(t64[q16][:, None, :], t64[None, :, :])
+        d64[torch.arange(16, device="cuda"), q16] = float("inf")
+        ref_d, ref_i = torch.sort(d64, dim=1, stable=True)
+        exact = answers["f32", 0, "two_stage"]
+        f32_d = man.dist(qrows[:16, None, :], tab[torch.as_tensor(
+            exact[:16], device="cuda").long()]).double()
+        bad = _support.topk_disagreements(
+            exact[:16], f32_d.cpu().numpy(), ref_i[:, :K].cpu().numpy(),
+            ref_d[:, :K].cpu().numpy(), rtol=TRUTH_RTOL, atol=TRUTH_ATOL)
+        for key, nb in answers.items():
+            rep[f"{key[0]}_nprobe{key[1]}_{key[2]}"]["recall_at_10"] = float(
+                np.mean([len(set(x) & set(y)) / K
+                         for x, y in zip(nb, exact)]))
+        out[kind] = {"rows": n, "dim": int(art.dim),
+                     "spec": art.manifold_spec,
+                     "rows_disagreeing_with_f64": bad, "runs": rep}
+        emit({"phase": "spec_serve", "kind": kind, **out[kind], **card})
+        if bad:
+            raise AssertionError(f"{kind}: f32 exact answers disagree with "
+                                 f"float64 on {bad} rows")
+    out["seconds"] = time.perf_counter() - t0
+    emit({"phase": "spec_paths_done", "seconds": out["seconds"],
+          "setup_s": setup_s, **card})
+    return out
+
+
 def runtime_path(torch, args, card: dict) -> dict:
-    """Phases 44-49 (after every profiled time of the earlier phases)."""
+    """Phases 44-49 (after every profiled time of the earlier phases),
+    and 58, which serves a product checkpoint trained on phase 46's
+    closure."""
     work = os.path.join(REPO, "build", "chip_smoke")
     os.makedirs(work, exist_ok=True)
     tmp = tempfile.mkdtemp(dir=work)
@@ -4718,7 +5315,8 @@ def runtime_path(torch, args, card: dict) -> dict:
                "cli": product_cli(torch, tmp, card),
                "resume": resume_runs(torch, tmp, card),
                "accum": accum_runs(torch, args, tmp, card),
-               "health": health_runs(torch, tmp, card)}
+               "health": health_runs(torch, tmp, card),
+               "specs": spec_paths(torch, args, tmp, card)}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return out
@@ -5320,15 +5918,69 @@ def front_door_deadline_drain(torch, art, card: dict) -> dict:
     return res
 
 
+def serve_http_door(art: str, kw: dict, ids: list) -> dict:
+    """``serve-http`` over ``art`` through the CLI's ``run_serve_http``
+    (``fused``, ``prewarm=1``, an ephemeral port, ``kw`` the lane's
+    options), one ``/v1/topk`` of ``ids`` at k = K, then a drain: the
+    status and the answer, the traffic's launches and the prewarm's
+    apart (the counts set to 0 once the listener is up), and the
+    first-use counters after the prewarm and after the traffic."""
+    import asyncio
+    import http.client
+    import threading
+
+    from hyperspace_torch.cli import serve as cli_serve
+    from hyperspace_torch.telemetry import registry as telem
+
+    reg = telem.default_registry()
+    lane_reset()
+    got = {}
+    up = threading.Event()
+
+    def ready(door):
+        # after prewarm, before any request: the prewarm's launches
+        got["door"], got["prewarm_launches"] = door, lane_counts()
+        got["first_use_after_prewarm"] = first_use(reg)
+        lane_reset()
+        up.set()
+
+    cfg = cli_serve.ServeConfig(artifact=art, scan_mode="fused",
+                                prewarm="1", port=0, **kw)
+    th = threading.Thread(target=lambda: got.update(
+        result=cli_serve.run_serve_http(cfg, ready=ready)))
+    th.start()
+    if not up.wait(120):
+        raise AssertionError(f"serve-http {kw} did not start")
+    conn = http.client.HTTPConnection("127.0.0.1", got["door"].port,
+                                      timeout=60)
+    conn.request("POST", "/v1/topk", json.dumps({"ids": ids, "k": K}))
+    r = conn.getresponse()
+    body = json.loads(r.read())
+    conn.close()
+    launches, after = lane_counts(), first_use(reg)
+    asyncio.run_coroutine_threadsafe(got["door"].drain(),
+                                     got["door"].loop).result(120)
+    th.join(120)
+    nb = np.asarray(body.get("neighbors", []))
+    ds = np.asarray(body.get("dists", []), np.float64)
+    if (r.status != 200 or nb.shape != (len(ids), K)
+            or not np.all(np.isfinite(ds))
+            or np.any(np.diff(ds, axis=1) < 0)):
+        raise AssertionError(f"serve-http {kw}: {r.status} {body}")
+    return {"status": r.status, "launches": launches,
+            "prewarm": {"launches": got["prewarm_launches"]},
+            "first_use_after_prewarm": got["first_use_after_prewarm"],
+            "first_use_after_traffic": after,
+            "scan_strategy": got["result"]["scan_strategy"],
+            "precision": got["result"]["precision"],
+            "neighbors": nb, "dists": ds}
+
+
 def front_door_export(torch, tmp: str, card: dict) -> dict:
     """Phase 54: ``cli.train poincare`` on the card with ``ckpt_dir``
     (eager steps on a 5,461-node tree), ``cli.serve export`` with an
     index and a PQ payload, ``serve-http`` over the export with nprobe 4
     and with the PQ lane."""
-    import asyncio
-    import http.client
-    import threading
-
     from hyperspace_torch.cli import serve as cli_serve
     from hyperspace_torch.data.wordnet import synthetic_tree
     from hyperspace_torch.serve import fingerprint_of
@@ -5356,45 +6008,9 @@ def front_door_export(torch, tmp: str, card: dict) -> dict:
                              exp["quant"]["fingerprint"])
     served = {}
     for name, kw in (("nprobe4", {"nprobe": 4}), ("pq", {"precision": "pq"})):
-        lane_reset()
-        got = {}
-        up = threading.Event()
-
-        def ready(door, got=got, up=up):
-            # after prewarm, before any request: the prewarm's launches
-            got["door"], got["prewarm_launches"] = door, lane_counts()
-            lane_reset()
-            up.set()
-
-        cfg = cli_serve.ServeConfig(artifact=art, scan_mode="fused",
-                                    prewarm="1", port=0, **kw)
-        th = threading.Thread(target=lambda cfg=cfg, got=got, r=ready:
-                              got.update(result=cli_serve.run_serve_http(
-                                  cfg, ready=r)))
-        th.start()
-        if not up.wait(120):
-            raise AssertionError(f"serve-http {name} did not start")
-        conn = http.client.HTTPConnection("127.0.0.1", got["door"].port,
-                                          timeout=60)
-        conn.request("POST", "/v1/topk", json.dumps(
-            {"ids": list(range(16)), "k": K}))
-        r = conn.getresponse()
-        body = json.loads(r.read())
-        conn.close()
-        launches = lane_counts()
-        asyncio.run_coroutine_threadsafe(got["door"].drain(),
-                                         got["door"].loop).result(120)
-        th.join(120)
-        nb = np.asarray(body.get("neighbors", []))
-        ds_ = np.asarray(body.get("dists", []), np.float64)
-        served[name] = {"status": r.status, "launches": launches,
-                        "prewarm": {"launches": got["prewarm_launches"]},
-                        "scan_strategy": got["result"]["scan_strategy"],
-                        "precision": got["result"]["precision"]}
-        if (r.status != 200 or nb.shape != (16, K)
-                or not np.all(np.isfinite(ds_))
-                or np.any(np.diff(ds_, axis=1) < 0)):
-            raise AssertionError(f"serve-http {name}: {r.status} {body}")
+        door = serve_http_door(art, kw, list(range(16)))
+        served[name] = {key: door[key] for key in (
+            "status", "launches", "prewarm", "scan_strategy", "precision")}
     res = {"train": trained, "export": exp, "step": step,
            "fingerprint_matches": exp["fingerprint"] == want_fp,
            "served": served, "train_s": train_s, "export_s": export_s,
@@ -5404,6 +6020,60 @@ def front_door_export(torch, tmp: str, card: dict) -> dict:
         raise AssertionError(f"export: {res}")
     if served["nprobe4"]["scan_strategy"] != "ivf":
         raise AssertionError(f"export: nprobe=4 did not probe: {served}")
+    return res
+
+
+def front_door_lanes(torch, tmp: str, card: dict) -> dict:
+    """Phase 57: ``cli.serve export ... quant=int4`` of phase 54's
+    checkpoint (its payload the restored table's packing), then
+    ``serve-http precision=int4`` (the shipped codes) and
+    ``precision=int8`` over it with ``prewarm=1``: every answer 200 and
+    equal to the same lane's engine in this process, the lane's own
+    kernel launched by the traffic, and builds, loads and cold
+    dispatches flat after the prewarm."""
+    from hyperspace_torch.cli import serve as cli_serve
+    from hyperspace_torch.serve import QueryEngine, load_artifact
+    from hyperspace_torch.serve.artifact import build_quant_payload
+    from hyperspace_torch.train.checkpoint import restore_params_only
+
+    t0 = time.perf_counter()
+    ck, art = os.path.join(tmp, "fd_ck"), os.path.join(tmp, "fd_art4")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli_serve.main(["export", f"ckpt={ck}", f"out={art}", "c=1.0",
+                        "quant=int4"])
+    exp = json.loads(buf.getvalue().strip().splitlines()[-1])
+    table = restore_params_only(ck)[0]["table"].numpy()
+    want = build_quant_payload(table, ("poincare", C), "int4")
+    ids = list(range(0, 5461, 341))
+    served = {}
+    for lane in ("int4", "int8"):
+        door = serve_http_door(art, {"precision": lane}, ids)
+        eng = QueryEngine.from_artifact(load_artifact(art), precision=lane,
+                                        scan_mode="fused")
+        ei, ed = eng.topk_neighbors(np.asarray(ids, np.int32), K)
+        served[lane] = {key: door[key] for key in (
+            "status", "launches", "prewarm", "scan_strategy", "precision",
+            "first_use_after_prewarm", "first_use_after_traffic")}
+        served[lane]["equals_engine"] = bool(
+            np.array_equal(door["neighbors"], ei.cpu().numpy())
+            and np.array_equal(door["dists"],
+                               ed.cpu().numpy().astype(np.float64)))
+    res = {"export": exp, "payload_matches": exp["quant"] == {
+        "lane": "int4", "fingerprint": want.fingerprint},
+        "served": served, "seconds": time.perf_counter() - t0, **card}
+    emit({"phase": "front_door_lanes", **res})
+    if not res["payload_matches"]:
+        raise AssertionError(f"export quant=int4: {exp}")
+    for lane, d in served.items():
+        if d["precision"] != lane or not d["equals_engine"]:
+            raise AssertionError(f"serve-http {lane}: {d}")
+        if d["first_use_after_traffic"] != d["first_use_after_prewarm"]:
+            raise AssertionError(f"serve-http {lane}: first-use counters "
+                                 f"moved after prewarm: {d}")
+        if d["launches"][f"scan_topk_{lane}"] < 1:
+            raise AssertionError(f"serve-http {lane}: traffic never "
+                                 f"launched the {lane} scan: {d}")
     return res
 
 
@@ -5470,7 +6140,8 @@ def front_door_phases(torch, spec: dict) -> dict:
                                           out["latency"]["passes"]), card)),
             ("deadline_drain", lambda: front_door_deadline_drain(
                 torch, art, card)),
-            ("export", lambda: front_door_export(torch, tmp, card))):
+            ("export", lambda: front_door_export(torch, tmp, card)),
+            ("lanes", lambda: front_door_lanes(torch, tmp, card))):
         t0 = time.perf_counter()
         out[name] = fn()
         emit({"phase": f"front_door_{name}_done",
@@ -5487,7 +6158,8 @@ def front_door_fields(fp: dict, kernels: list) -> None:
     prewarms."""
     doors = (list(fp["checks"].values())
              + [fp["control"], fp["latency"], fp["overload"]]
-             + list(fp["export"]["served"].values()))
+             + list(fp["export"]["served"].values())
+             + list(fp["lanes"]["served"].values()))
     for entry in kernels:
         name = entry["name"]
         if name in doors[0]["launches"]:
@@ -5745,6 +6417,12 @@ def main(argv=None) -> int:
     ip = ivf_pq_path(torch, args, card, table_l, fresh_b)
     err["scan_topk"] = max(err["scan_topk"], ip["err"]["scan_topk"])
 
+    # --- phases 55-56: the bf16, int8 and int4 lanes ------------------------
+    t_lanes = time.perf_counter()
+    ql = quant_lane_checks(torch, args, card, kinds, chunk, padded, ip)
+    qe = quant_lane_engines(torch, args, card, table_b, ip)
+    emit({"phase": "qlanes_total", "seconds": time.perf_counter() - t_lanes})
+
     # --- phases 5-8: the training path ----------------------------------
     tr = train_path(torch, args, card)
 
@@ -5814,7 +6492,8 @@ def main(argv=None) -> int:
          "call_ms": timed_ms(torch, run_scan(BATCH)),
          **{f"{key}_bucket8": v
             for key, v in scan_parts(torch, run_scan(8)).items()}, **card},
-    ] + ivf_pq_kernel_entries(torch, ip, card) + train_kernel_entries(
+    ] + ivf_pq_kernel_entries(torch, ip, card) + quant_lane_entries(
+        torch, ql, qe, ip, card) + train_kernel_entries(
         torch, tr, card) + att_kernel_entries(
         torch, at, card) + hybonet_kernel_entries(
         torch, hb, card) + gyro_kernel_entries(torch, gp, card)

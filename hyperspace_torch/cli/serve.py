@@ -2,10 +2,12 @@
 (counterpart of ``hyperspace_tpu/cli/serve.py``).
 
     # freeze a committed checkpoint step of the port into an artifact
+    # (quant=int4 or pq ships that lane's codes)
     python -m hyperspace_torch.cli.serve export ckpt=runs/pe/ck \
         out=runs/pe/artifact workload=poincare c=1.0 index=1 quant=pq
 
-    # one-shot queries: prints one JSON line
+    # one-shot queries: prints one JSON line (precision=bf16|int8|int4|pq
+    # scans a quantized copy and rescores in f32)
     python -m hyperspace_torch.cli.serve query artifact=DIR ids=0,1,2 k=5
     python -m hyperspace_torch.cli.serve query artifact=DIR u=0,1 v=2,3 prob=1
 
@@ -68,7 +70,7 @@ class ServeConfig:
     overwrite: bool = False
     index: bool = False           # build an IVF index into the artifact
     ncells: int = 0               # 0 = ~sqrt(N); ncells=K alone implies index
-    quant: str = ""               # pq: ship PQ codes and codebooks
+    quant: str = ""               # int4 | pq: ship the lane's payload
     # query / serve
     k: int = 10
     ids: str = ""                 # comma-separated query ids (one-shot topk)
@@ -83,9 +85,11 @@ class ServeConfig:
     chunk_rows: int = 0           # 0 = auto from the tile budget
     mesh: int = 0                 # not ported: the port serves one device
     scan_mode: str = "two_stage"  # two_stage | fused
-    # table-scan precision: f32 (exact) | pq (product-quantized codes,
-    # k + max(16k, 128) coarse candidates rescored in f32; an artifact
-    # exported with a PQ payload serves its shipped codes and codebooks)
+    # table-scan precision: f32 (exact) | bf16 | int8 | int4 | pq: a
+    # coarse scan of a bf16, int8 (per-row f32 scale), int4 (per-row f16
+    # scale) or PQ copy keeps k + max(k, 8), k + max(4k, 32) or
+    # k + max(16k, 128) candidates, rescored in f32; an artifact
+    # exported with an int4 or PQ payload serves its shipped codes
     precision: str = "f32"
     # IVF probing: cells probed per query.  0 = exact scan; needs an
     # artifact exported with an index.

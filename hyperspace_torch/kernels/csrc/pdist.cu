@@ -1,7 +1,16 @@
-// All-pairs hyperbolic distance matrix, float32, for sm_90a.
+// All-pairs hyperbolic distance matrix, float32 or bfloat16, for sm_90a.
 //
 // Replaces hyperspace_tpu/kernels/distmat.py `_poincare_body` and
 // `_lorentz_body` (the Pallas kernel launched in `_launch_pdist`).
+//
+// Two lanes, one kernel templated on the element type T: float32 in and
+// out (`hs_pdist`), and bfloat16 in and out (`hs_pdist_bf16`, the bf16
+// serving lane's two-stage chunks and centroid passes).  A bf16 lane
+// reads its rows as bf16, computes every step below in float32, and
+// rounds each distance once, to nearest even, at the store, as the
+// Pallas body does (`dist.astype(o_ref.dtype)`); it halves the table
+// bytes, not the arithmetic.  (JAX's XLA twin computes in bf16
+// throughout; the port follows the TPU kernel.)
 //
 // Closed forms (as in the Pallas bodies and `pdist_plain`):
 //   ball:        d2 = max(‖x‖² − 2⟨x,y⟩ + ‖y‖², 0),
@@ -53,6 +62,7 @@
 // Sums run in a fixed order, ‖x‖², ‖y‖² and ⟨x,y⟩ in the same one, so a
 // ball row against its own copy gives d = 0 exactly; no atomics.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -92,6 +102,17 @@ __device__ __forceinline__ float rsqrt_approx(float x) {
   return y;
 }
 
+// element i of an input row block: float32, or bf16 widened to float32
+template <typename T>
+__device__ __forceinline__ float ld_in(const float* p, size_t i) {
+  if constexpr (sizeof(T) == 2) {
+    return __bfloat162float(__ushort_as_bfloat16(
+        __ldg(reinterpret_cast<const unsigned short*>(p) + i)));
+  } else {
+    return __ldg(p + i);
+  }
+}
+
 // the distance from the Gram g and the factors; ry is 1/fy
 template <int KIND>
 __device__ __forceinline__ float dist_of(const Args& a, float g, float xx,
@@ -112,9 +133,19 @@ __device__ __forceinline__ float dist_of(const Args& a, float g, float xx,
 
 // Write a lane's 4 outputs of row r at columns col .. col + 3: one
 // 16-byte streaming store where the row starts on a 16-byte boundary, else
-// (m % 4 ≠ 0, every other row or more) four 4-byte ones
+// (m % 4 ≠ 0, every other row or more) four 4-byte ones; a bf16 output
+// takes four 2-byte stores, each value rounded to nearest even
+template <typename T>
 __device__ __forceinline__ void store_row(const Args& a, int r, int col,
                                           const float (&o)[4]) {
+  if constexpr (sizeof(T) == 2) {
+    __nv_bfloat16* q = reinterpret_cast<__nv_bfloat16*>(a.out) +
+                       (size_t)r * a.m + col;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (col + i < a.m) q[i] = __float2bfloat16_rn(o[i]);
+    return;
+  }
   float* p = a.out + (size_t)r * a.m + col;
   const bool aligned = (((r & 3) * (a.m & 3) + a.out_mod4) & 3) == 0;
   if (aligned && col + 3 < a.m) {
@@ -128,8 +159,8 @@ __device__ __forceinline__ void store_row(const Args& a, int r, int col,
 
 // DT > 0: D = DT, a lane's 4 y rows in registers, rows of the tile walked
 // by the warps; DT == 0: any D, GEN_ROWS rows a warp, D walked in KS-wide
-// slices
-template <int DT, int KIND>
+// slices.  T: the inputs' and the output's element type.
+template <int DT, int KIND, typename T>
 __global__ void __launch_bounds__(THREADS) pdist_kernel(Args a) {
   constexpr int XP = DT > 0 ? (DT + 3) / 4 * 4 : KS;  // x row pitch
   constexpr int YD = DT > 0 ? DT : KS;                // y tile depth
@@ -146,12 +177,12 @@ __global__ void __launch_bounds__(THREADS) pdist_kernel(Args a) {
     for (int e = threadIdx.x; e < COLS * DT; e += THREADS) {
       const int cc = e / DT, k = e % DT;
       ys[k * CP + cc] = col0 + cc < a.m
-                            ? __ldg(a.y + (size_t)(col0 + cc) * DT + k)
+                            ? ld_in<T>(a.y, (size_t)(col0 + cc) * DT + k)
                             : 0.0f;
     }
     for (int e = threadIdx.x; e < a.rows * DT; e += THREADS) {
       const int r = e / DT, k = e % DT;
-      float v = row0 + r < a.n ? __ldg(a.x + (size_t)(row0 + r) * DT + k)
+      float v = row0 + r < a.n ? ld_in<T>(a.x, (size_t)(row0 + r) * DT + k)
                                : 0.0f;
       xs[r * XP + k] = (!ball && k == 0) ? -v : v;  // Minkowski signature
     }
@@ -197,7 +228,7 @@ __global__ void __launch_bounds__(THREADS) pdist_kernel(Args a) {
         for (int k = 0; k < DT; ++k) g = fmaf(xv[k], yv[i][k], g);
         o[i] = dist_of<KIND>(a, g, f.x, f.y, f.z, yy[i], fy[i], ry[i]);
       }
-      store_row(a, row0 + r, col, o);
+      store_row<T>(a, row0 + r, col, o);
     }
   } else {
     // GEN_ROWS rows a warp, rows row0 + warp·GEN_ROWS + i (a.rows is
@@ -210,13 +241,13 @@ __global__ void __launch_bounds__(THREADS) pdist_kernel(Args a) {
       for (int e = threadIdx.x; e < COLS * KS; e += THREADS) {
         const int cc = e / KS, k = e % KS;
         ys[k * CP + cc] = (col0 + cc < a.m && k < kn)
-                              ? __ldg(a.y + (size_t)(col0 + cc) * a.d + k0 + k)
+                              ? ld_in<T>(a.y, (size_t)(col0 + cc) * a.d + k0 + k)
                               : 0.0f;
       }
       for (int e = threadIdx.x; e < a.rows * KS; e += THREADS) {
         const int rr = e / KS, k = e % KS;
         float v = (row0 + rr < a.n && k < kn)
-                      ? __ldg(a.x + (size_t)(row0 + rr) * a.d + k0 + k)
+                      ? ld_in<T>(a.x, (size_t)(row0 + rr) * a.d + k0 + k)
                       : 0.0f;
         xs[rr * XP + k] = (!ball && k0 + k == 0) ? -v : v;
       }
@@ -247,12 +278,12 @@ __global__ void __launch_bounds__(THREADS) pdist_kernel(Args a) {
 #pragma unroll
       for (int i = 0; i < 4; ++i)
         o[i] = dist_of<KIND>(a, g[j][i], xx[j], fx, px, yy[i], fy[i], ry[i]);
-      store_row(a, r, col, o);
+      store_row<T>(a, r, col, o);
     }
   }
 }
 
-template <int DT, int KIND>
+template <int DT, int KIND, typename T>
 int launch(Args a, cudaStream_t st) {
   const int col_tiles = (a.m + COLS - 1) / COLS;
   if (DT == 0) {
@@ -271,7 +302,7 @@ int launch(Args a, cudaStream_t st) {
       int sms = 0, per_sm = 0;
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, pdist_kernel<DT, KIND>, THREADS, 0);
+          &per_sm, pdist_kernel<DT, KIND, T>, THREADS, 0);
       slots = slots_of[dev] = (per_sm > 0 ? per_sm : 1) * sms;
     }
     a.rows = WARPS;
@@ -284,17 +315,16 @@ int launch(Args a, cudaStream_t st) {
     a.col_base = tile0 * COLS;
     const dim3 grid((a.n + a.rows - 1) / a.rows,
                     tiles < MAX_GRID_Y ? tiles : MAX_GRID_Y);
-    pdist_kernel<DT, KIND><<<grid, THREADS, 0, st>>>(a);
+    pdist_kernel<DT, KIND, T><<<grid, THREADS, 0, st>>>(a);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
   return 0;
 }
 
-}  // namespace
-
-extern "C" int hs_pdist(const float* x, const float* y, float* out, int n,
-                        int m, int d, float c, int kind, void* stream) {
+template <typename T>
+int pdist_entry(const float* x, const float* y, float* out, int n, int m,
+                int d, float c, int kind, void* stream) {
   if (n <= 0 || m <= 0) return (int)cudaGetLastError();
   Args a;
   a.x = x, a.y = y, a.out = out, a.n = n, a.m = m, a.d = d;
@@ -304,11 +334,27 @@ extern "C" int hs_pdist(const float* x, const float* y, float* out, int n,
   a.out_mod4 = (int)((reinterpret_cast<size_t>(out) / 4) & 3);
   cudaStream_t st = (cudaStream_t)stream;
   if (kind == LORENTZ) {
-    if (d == 10) return launch<10, LORENTZ>(a, st);
-    if (d == 11) return launch<11, LORENTZ>(a, st);
-    return launch<0, LORENTZ>(a, st);
+    if (d == 10) return launch<10, LORENTZ, T>(a, st);
+    if (d == 11) return launch<11, LORENTZ, T>(a, st);
+    return launch<0, LORENTZ, T>(a, st);
   }
-  if (d == 10) return launch<10, POINCARE>(a, st);
-  if (d == 11) return launch<11, POINCARE>(a, st);
-  return launch<0, POINCARE>(a, st);
+  if (d == 10) return launch<10, POINCARE, T>(a, st);
+  if (d == 11) return launch<11, POINCARE, T>(a, st);
+  return launch<0, POINCARE, T>(a, st);
+}
+
+}  // namespace
+
+// x [n, d], y [m, d], out [n, m], all float32
+extern "C" int hs_pdist(const float* x, const float* y, float* out, int n,
+                        int m, int d, float c, int kind, void* stream) {
+  return pdist_entry<float>(x, y, out, n, m, d, c, kind, stream);
+}
+
+// x [n, d], y [m, d], out [n, m], all bfloat16 (float32 inside)
+extern "C" int hs_pdist_bf16(const void* x, const void* y, void* out, int n,
+                             int m, int d, float c, int kind, void* stream) {
+  return pdist_entry<__nv_bfloat16>(
+      reinterpret_cast<const float*>(x), reinterpret_cast<const float*>(y),
+      reinterpret_cast<float*>(out), n, m, d, c, kind, stream);
 }

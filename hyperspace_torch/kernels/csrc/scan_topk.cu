@@ -1,8 +1,17 @@
-// Streaming k-NN scans (k <= 256), float32, for sm_90a.  Three entries:
+// Streaming k-NN scans (k <= 256), for sm_90a.  Three entries:
 //
 //  - hs_scan_topk: the exact scan over a table slab;
 //  - hs_scan_topk_pq: ADC over a PQ-coded slab;
 //  - hs_scan_topk_cand: per-query candidate rows, the IVF probing scorer.
+//
+// The table's lanes (the serving engine's `precision=`): the slab scan
+// reads float32, bf16, int8 rows with a float32 scale a row, or int4 rows
+// (two nibbles a byte, planar: byte j holds element j low and element
+// ceil(D/2) + j high, sign-extended) with an f16 scale a row; the
+// candidate scan reads float32, bf16 or int8 with its scale.  Only the
+// table's bytes shrink: every lane widens its elements to float32
+// (code · scale, one rounding) and scores them with the float32 lane's
+// arithmetic, as the Pallas bodies' `_tile_rows_f32` does.
 //
 // Contract of every entry (identical to the Pallas kernels'): for each
 // query row b, the k smallest distances, ascending, with global ids;
@@ -57,6 +66,8 @@
 // The table (3.3 MB at the serving shape) lives in the 50 MB L2; each
 // block stages its tiles once for its 8 query warps.
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -79,6 +90,17 @@ typedef unsigned long long u64;
 constexpr u64 EMPTY = (0x7f800000ull << 32) | 0xffffffffull;  // (+inf, -1)
 
 enum Kind { POINCARE = 0, LORENTZ = 1, EUCLIDEAN = 2 };
+// the table's element lanes (kernels/scan_topk.py _LANES)
+enum Lane { F32 = 0, BF16 = 1, INT8 = 2, INT4 = 3 };
+
+// bytes of one table row, and of its scale, in a lane
+__host__ __device__ constexpr int row_bytes(int lane, int D) {
+  return lane == F32 ? 4 * D : lane == BF16 ? 2 * D
+         : lane == INT8 ? D : (D + 1) / 2;
+}
+__host__ __device__ constexpr int scale_bytes(int lane) {
+  return lane == INT8 ? 4 : lane == INT4 ? 2 : 0;
+}
 
 __device__ __forceinline__ float arcosh1p(float u) {
   u = fmaxf(u, 0.0f);
@@ -403,6 +425,43 @@ __device__ __forceinline__ int stage_codes(unsigned char* buf, unsigned sbuf,
   return o;
 }
 
+// Element kk of staged row r in a narrow lane, widened to float32:
+// rt holds the tile's rows (rb bytes each), st their scales.
+template <int LANE>
+__device__ __forceinline__ float tile_elem(const unsigned char* rt,
+                                           const unsigned char* st, int r,
+                                           int kk, int rb) {
+  const unsigned char* row = rt + (size_t)r * rb;
+  if constexpr (LANE == BF16) {
+    return __bfloat162float(__ushort_as_bfloat16(
+        *reinterpret_cast<const unsigned short*>(row + 2 * kk)));
+  } else if constexpr (LANE == INT8) {
+    const float s = *reinterpret_cast<const float*>(st + 4 * r);
+    return __fmul_rn((float)(signed char)row[kk], s);
+  } else {                          // INT4: rb = ceil(D/2) bytes a row
+    const bool low = kk < rb;
+    const int v = row[low ? kk : kk - rb];
+    int nib = low ? (v & 15) : (v >> 4);
+    nib = nib >= 8 ? nib - 16 : nib;
+    const float s = __half2float(*reinterpret_cast<const __half*>(st + 2 * r));
+    return __fmul_rn((float)nib, s);
+  }
+}
+
+// Element i of a bf16 or int8 table, widened to float32 (int8: times
+// the row's scale s).
+template <int LANE>
+__device__ __forceinline__ float table_elem(const float* table, size_t i,
+                                            float s) {
+  if constexpr (LANE == BF16) {
+    return __bfloat162float(__ushort_as_bfloat16(
+        __ldg(reinterpret_cast<const unsigned short*>(table) + i)));
+  } else {
+    return __fmul_rn(
+        (float)__ldg(reinterpret_cast<const signed char*>(table) + i), s);
+  }
+}
+
 // --- the exact scan ---------------------------------------------------------
 //
 // Replaces hyperspace_tpu/kernels/scan_topk.py `_slab_body` (launched by
@@ -418,14 +477,21 @@ __device__ __forceinline__ int stage_codes(unsigned char* buf, unsigned sbuf,
 // the same fmaf chains for g and yy, the same clamps.  The threshold
 // test: Lorentz on u = max(-c·g - 1, 0), the ball on 2c·d2 against
 // U·max(den, 1e-7), Euclidean exactly on d2.
-template <int KIND, int DQ, int R>
+//
+// The narrow lanes (LANE != F32) stage each tile's raw bytes, and its
+// rows' scales, by 16-byte cp.async into one of two byte buffers (a row
+// of 10 int8 or 5 int4 bytes starts at any byte, so they are staged as
+// bytes, as the PQ codes are), double-buffered; when a tile has landed
+// the block widens it into the float32 tile (one pass, each element
+// once), and the warps score it exactly as the float32 lane does.
+template <int KIND, int DQ, int R, int LANE>
 __global__ void __launch_bounds__(NT)
 scan_topk_kernel(const float* __restrict__ slab, const float* __restrict__ q,
                  const int* __restrict__ q_idx, unsigned* __restrict__ thr,
                  float* __restrict__ out_d, int* __restrict__ out_i, int B,
                  int M, int D, int ds, int k, int col0, int n,
                  int exclude_self, float c, int rows_per_split, int tm,
-                 int stages) {
+                 int stages, const unsigned char* __restrict__ scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* qs = reinterpret_cast<float*>(smem + sel_bytes(k));  // [WARPS][D]
   float* tiles = qs + (DQ == 0 ? WARPS * D : 0);         // [stages][tm][ds]
@@ -470,22 +536,58 @@ scan_topk_kernel(const float* __restrict__ slab, const float* __restrict__ q,
   const int r0 = (int)threadIdx.x / D, k0 = (int)threadIdx.x % D;
   const int sr = NT / D, sk = NT % D;
   const int nt = hi > lo ? (hi - lo + tm - 1) / tm : 0;
-  if (stages == 2 && nt > 0)
-    stage_rows(tbase, slab + (size_t)lo * D, min(tm, hi - lo), D, ds, r0, k0,
-               sr, sk);
+  // the narrow lanes' byte buffers, after the one float32 tile
+  constexpr int SB = scale_bytes(LANE);
+  const int rb = row_bytes(LANE, D);
+  const int rawb = (tm * rb + 31) & ~15, scb = (tm * SB + 31) & ~15;
+  unsigned char* raw = reinterpret_cast<unsigned char*>(tiles + (size_t)tm * ds);
+  unsigned char* sraw = raw + 2 * rawb;
+  const unsigned rbase = tbase + tstride, sbase = rbase + 2u * (unsigned)rawb;
+  int o_next = 0, so_next = 0;
+  auto stage_lane = [&](int t0, int rows, int buf) {
+    o_next = stage_codes(raw + buf * rawb, rbase + (unsigned)(buf * rawb),
+                         reinterpret_cast<const unsigned char*>(slab) +
+                             (size_t)t0 * rb,
+                         rows * rb);
+    if (SB)
+      so_next = stage_codes(sraw + buf * scb, sbase + (unsigned)(buf * scb),
+                            scale + (size_t)t0 * SB, rows * SB);
+  };
+  if constexpr (LANE == F32) {
+    if (stages == 2 && nt > 0)
+      stage_rows(tbase, slab + (size_t)lo * D, min(tm, hi - lo), D, ds, r0,
+                 k0, sr, sk);
+  } else {
+    if (nt > 0) stage_lane(lo, min(tm, hi - lo), 0);
+  }
   for (int t = 0; t < nt; ++t) {
     const int t0 = lo + t * tm;
     const int rows = min(tm, hi - t0);
-    if (stages == 1) {
-      __syncthreads();                 // the tile is free again
-      stage_rows(tbase, slab + (size_t)t0 * D, rows, D, ds, r0, k0, sr, sk);
-    }
-    cp_wait_all();
-    __syncthreads();                   // tile t landed; t - 1 was read
-    if (stages == 2 && t + 1 < nt) {
-      const int t1 = t0 + tm;
-      stage_rows(tbase + ((t + 1) & 1) * tstride, slab + (size_t)t1 * D,
-                 min(tm, hi - t1), D, ds, r0, k0, sr, sk);
+    if constexpr (LANE == F32) {
+      if (stages == 1) {
+        __syncthreads();               // the tile is free again
+        stage_rows(tbase, slab + (size_t)t0 * D, rows, D, ds, r0, k0, sr,
+                   sk);
+      }
+      cp_wait_all();
+      __syncthreads();                 // tile t landed; t - 1 was read
+      if (stages == 2 && t + 1 < nt) {
+        const int t1 = t0 + tm;
+        stage_rows(tbase + ((t + 1) & 1) * tstride, slab + (size_t)t1 * D,
+                   min(tm, hi - t1), D, ds, r0, k0, sr, sk);
+      }
+    } else {
+      const int o = o_next, so = so_next;
+      cp_wait_all();
+      __syncthreads();     // raw tile t landed; the float tile was read
+      if (t + 1 < nt) stage_lane(t0 + tm, min(tm, hi - t0 - tm), (t + 1) & 1);
+      const unsigned char* rt = raw + (t & 1) * rawb + o;
+      const unsigned char* st = sraw + (t & 1) * scb + so;
+      for (int e = threadIdx.x; e < rows * D; e += NT) {
+        const int r = e / D, kk = e - r * D;
+        tiles[r * ds + kk] = tile_elem<LANE>(rt, st, r, kk, rb);
+      }
+      __syncthreads();                 // the float tile is written
     }
     if (!active) continue;
     reread(s);
@@ -766,14 +868,17 @@ __global__ void merge_tree_kernel(const float* __restrict__ pd,
 //    pointer allow; any other D loops with the query in shared memory;
 //  - the positions split over blockIdx.y, merged by merge_tree_kernel.
 // The distance arithmetic is the first version's: the same fmaf chains
-// for g and yy, the same clamps.
-template <int KIND, int DC, int VW, int R>
+// for g and yy, the same clamps.  The bf16 and int8 lanes (LANE) read
+// each element as its type, widened to float32 (int8: times the row's
+// scale, read beside its id) before the same chains.
+template <int KIND, int DC, int VW, int R, int LANE>
 __global__ void __launch_bounds__(NT)
 scan_cand_kernel(const float* __restrict__ table, const int* __restrict__ cand,
                  const float* __restrict__ q, const int* __restrict__ q_idx,
                  unsigned* __restrict__ thr, float* __restrict__ out_d,
                  int* __restrict__ out_i, int B, int C, int N, int D, int k,
-                 int exclude_self, float c, int per_split) {
+                 int exclude_self, float c, int per_split,
+                 const float* __restrict__ scale) {
   static_assert(DC % VW == 0, "whole loads a row");
   extern __shared__ __align__(16) unsigned char smem[];
   float* qs = reinterpret_cast<float*>(smem + sel_bytes(k));  // [WARPS][D]
@@ -823,6 +928,8 @@ scan_cand_kernel(const float* __restrict__ table, const int* __restrict__ cand,
     int pos[R];
     bool ok[R];
     const float* row[R];
+    size_t e0[R];      // the narrow lanes: the row's first element
+    float rs[R];       // int8: the row's scale
     float g[R], yy[R];
 #pragma unroll
     for (int rr = 0; rr < R; ++rr) {
@@ -830,6 +937,10 @@ scan_cand_kernel(const float* __restrict__ table, const int* __restrict__ cand,
       pos[rr] = base + 32 * rr + lane;
       ok[rr] = id >= 0 && id < N && !(exclude_self && id == qi);
       row[rr] = table + (size_t)(ok[rr] ? id : 0) * D;
+      e0[rr] = (size_t)(ok[rr] ? id : 0) * D;
+      rs[rr] = 1.0f;
+      if constexpr (LANE == INT8)
+        rs[rr] = ok[rr] ? __ldg(scale + id) : 0.0f;
       g[rr] = yy[rr] = 0.0f;
     }
     if constexpr (DC > 0) {
@@ -839,7 +950,10 @@ scan_cand_kernel(const float* __restrict__ table, const int* __restrict__ cand,
       for (int rr = 0; rr < R; ++rr) {
 #pragma unroll
         for (int t = 0; t < DC; t += VW) {
-          if constexpr (VW == 2) {
+          if constexpr (LANE != F32) {
+            y[rr][t] = ok[rr] ? table_elem<LANE>(table, e0[rr] + t, rs[rr])
+                              : 0.0f;
+          } else if constexpr (VW == 2) {
             const float2 v =
                 ok[rr] ? __ldg(reinterpret_cast<const float2*>(row[rr] + t))
                        : make_float2(0.0f, 0.0f);
@@ -864,7 +978,11 @@ scan_cand_kernel(const float* __restrict__ table, const int* __restrict__ cand,
         const float qk = qv[kk];
 #pragma unroll
         for (int rr = 0; rr < R; ++rr) {
-          const float yv = ok[rr] ? __ldg(row[rr] + kk) : 0.0f;
+          float yv;
+          if constexpr (LANE != F32)
+            yv = ok[rr] ? table_elem<LANE>(table, e0[rr] + kk, rs[rr]) : 0.0f;
+          else
+            yv = ok[rr] ? __ldg(row[rr] + kk) : 0.0f;
           g[rr] = fmaf(qk, yv, g[rr]);
           yy[rr] = fmaf(yv, yv, yy[rr]);
         }
@@ -905,19 +1023,39 @@ scan_cand_kernel(const float* __restrict__ table, const int* __restrict__ cand,
 
 typedef void (*DenseFn)(const float*, const float*, const int*, unsigned*,
                         float*, int*, int, int, int, int, int, int, int, int,
-                        float, int, int, int);
+                        float, int, int, int, const unsigned char*);
 
 // rows a lane a step: independent chains that hide the shared loads'
 // latency (fewer where the query takes many registers; the ADC scan's
 // lookups conflict in the banks and gain less from more in flight)
 constexpr int DENSE_ROWS = 4, PQ_ROWS = 2;
 
-template <int KIND>
+// the float32 lane's query widths; the narrow lanes keep the query in
+// registers up to D = 16 (the served widths) and in shared memory above
+constexpr int LANE_DQ_MAX = 16;
+
+template <int KIND, int LANE>
 static DenseFn dense_for(int D) {
-  if (D <= 16) return scan_topk_kernel<KIND, 16, DENSE_ROWS>;
-  if (D <= 32) return scan_topk_kernel<KIND, 32, DENSE_ROWS>;
-  if (D <= 64) return scan_topk_kernel<KIND, 64, 2>;
-  return scan_topk_kernel<KIND, 0, DENSE_ROWS>;
+  if constexpr (LANE == F32) {
+    if (D <= 16) return scan_topk_kernel<KIND, 16, DENSE_ROWS, F32>;
+    if (D <= 32) return scan_topk_kernel<KIND, 32, DENSE_ROWS, F32>;
+    if (D <= 64) return scan_topk_kernel<KIND, 64, 2, F32>;
+    return scan_topk_kernel<KIND, 0, DENSE_ROWS, F32>;
+  } else {
+    if (D <= LANE_DQ_MAX)
+      return scan_topk_kernel<KIND, LANE_DQ_MAX, DENSE_ROWS, LANE>;
+    return scan_topk_kernel<KIND, 0, DENSE_ROWS, LANE>;
+  }
+}
+
+template <int KIND>
+static DenseFn dense_lane(int D, int lane) {
+  switch (lane) {
+    case BF16: return dense_for<KIND, BF16>(D);
+    case INT8: return dense_for<KIND, INT8>(D);
+    case INT4: return dense_for<KIND, INT4>(D);
+    default: return dense_for<KIND, F32>(D);
+  }
 }
 
 typedef void (*PqFn)(const unsigned char*, const float*, const int*,
@@ -939,18 +1077,29 @@ static PqFn pq_for(int m) {
 
 typedef void (*CandFn)(const float*, const int*, const float*, const int*,
                        unsigned*, float*, int*, int, int, int, int, int, int,
-                       float, int);
+                       float, int, const float*);
 
 // candidate rows a lane a step (kernels/scan_topk.py _CAND_ROWS)
 constexpr int CAND_ROWS = 2;
 
-template <int KIND>
+template <int KIND, int LANE>
 static CandFn cand_for(int D, bool pair_loads) {
-  if (D == 10)
-    return pair_loads ? scan_cand_kernel<KIND, 10, 2, CAND_ROWS>
-                      : scan_cand_kernel<KIND, 10, 1, CAND_ROWS>;
-  if (D == 11) return scan_cand_kernel<KIND, 11, 1, CAND_ROWS>;
-  return scan_cand_kernel<KIND, 0, 1, CAND_ROWS>;
+  if (D == 10) {
+    if constexpr (LANE == F32)
+      if (pair_loads) return scan_cand_kernel<KIND, 10, 2, CAND_ROWS, F32>;
+    return scan_cand_kernel<KIND, 10, 1, CAND_ROWS, LANE>;
+  }
+  if (D == 11) return scan_cand_kernel<KIND, 11, 1, CAND_ROWS, LANE>;
+  return scan_cand_kernel<KIND, 0, 1, CAND_ROWS, LANE>;
+}
+
+template <int KIND>
+static CandFn cand_lane(int D, bool pair_loads, int lane) {
+  switch (lane) {
+    case BF16: return cand_for<KIND, BF16>(D, pair_loads);
+    case INT8: return cand_for<KIND, INT8>(D, pair_loads);
+    default: return cand_for<KIND, F32>(D, pair_loads);
+  }
 }
 
 // Merge [B, S, k] split lists into [B, k] (merge_tree_kernel).
@@ -971,11 +1120,17 @@ static int merge_tree(const float* pd, const int* pi, float* od, int* oi,
 }
 
 // Shared memory of the exact scan: the selection machine, the query
-// (general width only) and `stages` tiles of tm rows of stride ds.
+// (general width only) and `stages` tiles of tm rows of stride ds; a
+// narrow lane one float tile and two byte buffers each of rows and of
+// scales (stage_lane in scan_topk_kernel).
 static size_t dense_bytes(int D, int ds, int k, int tm, int stages,
-                          bool query_in_smem) {
-  return sel_bytes(k) + (query_in_smem ? (size_t)WARPS * D * 4 : 0) +
-         (size_t)stages * tm * ds * 4;
+                          bool query_in_smem, int lane = F32) {
+  const size_t fixed =
+      sel_bytes(k) + (query_in_smem ? (size_t)WARPS * D * 4 : 0);
+  if (lane == F32) return fixed + (size_t)stages * tm * ds * 4;
+  const size_t rawb = (size_t)((tm * row_bytes(lane, D) + 31) & ~15);
+  const size_t scb = (size_t)((tm * scale_bytes(lane) + 31) & ~15);
+  return fixed + (size_t)tm * ds * 4 + 2 * rawb + 2 * scb;
 }
 
 // The split arguments every slab entry checks: splits > 1 needs the
@@ -987,44 +1142,52 @@ static bool bad_split_args(int k, int splits, const void* thr,
                          part_i == nullptr || splits * k > MERGE_KEYS));
 }
 
-extern "C" int hs_scan_topk(const float* slab, const float* q,
-                            const int* q_idx, unsigned* thr, float* part_d,
-                            int* part_i, float* od, int* oi, int B, int M,
-                            int D, int k, int col0, int n, int exclude_self,
-                            float c, int kind, int splits, void* stream) {
+// slab [M, row_bytes(lane, D)] in the lane's element type (float32,
+// bf16, int8, int4 packed), scale [M] (int8: float32, int4: f16; null
+// otherwise), q [B, D] float32, q_idx [B] int32; with splits > 1 the
+// threshold words and part lists as hs_scan_topk_cand takes them.
+extern "C" int hs_scan_topk(const void* slab, const void* scale,
+                            const float* q, const int* q_idx, unsigned* thr,
+                            float* part_d, int* part_i, float* od, int* oi,
+                            int B, int M, int D, int k, int col0, int n,
+                            int exclude_self, float c, int kind, int lane,
+                            int splits, void* stream) {
   if (bad_split_args(k, splits, thr, part_d, part_i) || D < 1 || kind < 0 ||
-      kind > 2)
+      kind > 2 || lane < F32 || lane > INT4 ||
+      (scale_bytes(lane) > 0) != (scale != nullptr))
     return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaGetLastError();
   cudaStream_t st = (cudaStream_t)stream;
   const int ds = D | 1;  // odd row stride: lanes read distinct banks
-  const bool qsm = D > 64;
+  const bool qsm = lane == F32 ? D > 64 : D > LANE_DQ_MAX;
   // the widest tile with two stages that leaves several blocks an SM,
-  // else the widest that fits at all, two stages before one
+  // else the widest that fits at all, two stages before one (a narrow
+  // lane always double-buffers its bytes)
   int tm = 0, stages = 0;
   for (size_t budget : {(size_t)56 * 1024, SMEM_BUDGET}) {
     for (int sg = 2; sg >= 1 && !tm; --sg)
       for (int t = 512; t >= 32 && !tm; t -= 32)
-        if (dense_bytes(D, ds, k, t, sg, qsm) <= budget) {
+        if (dense_bytes(D, ds, k, t, sg, qsm, lane) <= budget) {
           tm = t;
-          stages = sg;
+          stages = lane == F32 ? sg : 1;
         }
     if (tm) break;
   }
   if (!tm) return (int)cudaErrorInvalidValue;
-  const size_t bytes = dense_bytes(D, ds, k, tm, stages, qsm);
-  DenseFn fn = kind == POINCARE  ? dense_for<POINCARE>(D)
-               : kind == LORENTZ ? dense_for<LORENTZ>(D)
-                                 : dense_for<EUCLIDEAN>(D);
+  const size_t bytes = dense_bytes(D, ds, k, tm, stages, qsm, lane);
+  DenseFn fn = kind == POINCARE  ? dense_lane<POINCARE>(D, lane)
+               : kind == LORENTZ ? dense_lane<LORENTZ>(D, lane)
+                                 : dense_lane<EUCLIDEAN>(D, lane);
   cudaError_t e = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return (int)e;
   const int rows_per_split = (M + splits - 1) / splits;
   dim3 grid((B + WARPS - 1) / WARPS, splits);
-  fn<<<grid, NT, bytes, st>>>(slab, q, q_idx, splits == 1 ? nullptr : thr,
-                              splits == 1 ? od : part_d,
-                              splits == 1 ? oi : part_i, B, M, D, ds, k, col0,
-                              n, exclude_self, c, rows_per_split, tm, stages);
+  fn<<<grid, NT, bytes, st>>>(
+      static_cast<const float*>(slab), q, q_idx, splits == 1 ? nullptr : thr,
+      splits == 1 ? od : part_d, splits == 1 ? oi : part_i, B, M, D, ds, k,
+      col0, n, exclude_self, c, rows_per_split, tm, stages,
+      static_cast<const unsigned char*>(scale));
   e = cudaGetLastError();
   if (e != cudaSuccess || splits == 1) return (int)e;
   return merge_tree(part_d, part_i, od, oi, B, splits, k, st);
@@ -1067,24 +1230,28 @@ extern "C" int hs_scan_topk_pq(const unsigned char* codes, const float* lut,
   return merge_tree(part_d, part_i, od, oi, B, splits, k, st);
 }
 
-// table [N, D] f32, cand [B, C] int32, q [B, D] f32, q_idx [B] int32;
-// with splits > 1 the threshold words thr [B] (+inf bits) and the part
-// lists part_d, part_i [B, splits, k]; od, oi [B, k].
-extern "C" int hs_scan_topk_cand(const float* table, const int* cand,
-                                 const float* q, const int* q_idx,
-                                 unsigned* thr, float* part_d, int* part_i,
-                                 float* od, int* oi, int B, int C, int N,
-                                 int D, int k, int exclude_self, float c,
-                                 int kind, int splits, void* stream) {
+// table [N, D] in the lane's element type (float32, bf16 or int8),
+// scale [N] float32 (int8 only, else null), cand [B, C] int32, q [B, D]
+// f32, q_idx [B] int32; with splits > 1 the threshold words thr [B]
+// (+inf bits) and the part lists part_d, part_i [B, splits, k]; od, oi
+// [B, k].
+extern "C" int hs_scan_topk_cand(const void* table, const float* scale,
+                                 const int* cand, const float* q,
+                                 const int* q_idx, unsigned* thr,
+                                 float* part_d, int* part_i, float* od,
+                                 int* oi, int B, int C, int N, int D, int k,
+                                 int exclude_self, float c, int kind,
+                                 int lane, int splits, void* stream) {
   if (bad_split_args(k, splits, thr, part_d, part_i) || D < 1 || C < 0 ||
-      kind < 0 || kind > 2)
+      kind < 0 || kind > 2 || lane < F32 || lane > INT8 ||
+      (lane == INT8) != (scale != nullptr))
     return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaGetLastError();
   cudaStream_t st = (cudaStream_t)stream;
   const bool pair = D % 2 == 0 && reinterpret_cast<uintptr_t>(table) % 8 == 0;
-  const CandFn fn = kind == POINCARE  ? cand_for<POINCARE>(D, pair)
-                    : kind == LORENTZ ? cand_for<LORENTZ>(D, pair)
-                                      : cand_for<EUCLIDEAN>(D, pair);
+  const CandFn fn = kind == POINCARE  ? cand_lane<POINCARE>(D, pair, lane)
+                    : kind == LORENTZ ? cand_lane<LORENTZ>(D, pair, lane)
+                                      : cand_lane<EUCLIDEAN>(D, pair, lane);
   const size_t bytes =
       sel_bytes(k) + (D == 10 || D == 11 ? 0 : (size_t)WARPS * D * 4);
   if (bytes > SMEM_BUDGET) return (int)cudaErrorInvalidValue;
@@ -1093,11 +1260,11 @@ extern "C" int hs_scan_topk_cand(const float* table, const int* cand,
   if (e != cudaSuccess) return (int)e;
   const int per_split = (C + splits - 1) / splits;
   dim3 grid((B + WARPS - 1) / WARPS, splits);
-  fn<<<grid, NT, bytes, st>>>(table, cand, q, q_idx,
-                              splits == 1 ? nullptr : thr,
+  fn<<<grid, NT, bytes, st>>>(static_cast<const float*>(table), cand, q,
+                              q_idx, splits == 1 ? nullptr : thr,
                               splits == 1 ? od : part_d,
                               splits == 1 ? oi : part_i, B, C, N, D, k,
-                              exclude_self, c, per_split);
+                              exclude_self, c, per_split, scale);
   e = cudaGetLastError();
   if (e != cudaSuccess || splits == 1) return (int)e;
   return merge_tree(part_d, part_i, od, oi, B, splits, k, st, cand, C);

@@ -8,6 +8,10 @@ forms in PyTorch — for tensors on the CPU:
 - ball:        d(x,y) = (1/√c)·arcosh(1 + 2c‖x−y‖² / ((1−c‖x‖²)(1−c‖y‖²)))
   with ‖x−y‖² = ‖x‖² − 2⟨x,y⟩ + ‖y‖²;
 - hyperboloid: d(x,y) = (1/√c)·arcosh(−c⟨x,y⟩_L) (time lane negated).
+
+Two lanes: float32, and bfloat16 in and out (the bf16 serving lane),
+which computes in float32 and rounds each distance once, as the TPU
+kernel's body does.
 """
 
 from __future__ import annotations
@@ -24,8 +28,13 @@ _KINDS = {"poincare": 0, "lorentz": 1}
 
 def pdist_plain(x: torch.Tensor, y: torch.Tensor, c, *,
                 manifold: str) -> torch.Tensor:
-    """The closed forms in plain PyTorch, in the inputs' dtype (the
-    epsilon guards follow the dtype, as the JAX twins do)."""
+    """The closed forms in plain PyTorch.  float32 computes in float32
+    (the epsilon guards follow the dtype, as the JAX twins do); bfloat16
+    inputs compute in float32 and round the distances once to bfloat16,
+    as the TPU kernel's body does."""
+    if x.dtype == torch.bfloat16:
+        return pdist_plain(x.float(), y.float(), c,
+                           manifold=manifold).to(torch.bfloat16)
     cc = torch.as_tensor(c, dtype=x.dtype, device=x.device)
     sc = smath.clamp_min(smath.sqrt_c(cc, x), smath.min_norm(x.dtype))
     if manifold == "lorentz":
@@ -40,17 +49,25 @@ def pdist_plain(x: torch.Tensor, y: torch.Tensor, c, *,
     return smath.arcosh1p(2.0 * cc * d2 / den) / sc
 
 
+_ENTRY = {torch.float32: "hs_pdist", torch.bfloat16: "hs_pdist_bf16"}
+_LANE = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
 def _launch(x: torch.Tensor, y: torch.Tensor, c: float,
             kind: int) -> torch.Tensor:
-    S.check_cuda("pdist", (torch.float32,), x, y)
+    S.check_cuda("pdist", tuple(_ENTRY), x, y)
+    if x.dtype != y.dtype:
+        raise ValueError(f"pdist: x is {x.dtype}, y is {y.dtype}; want "
+                         "one dtype")
     n, d = x.shape
-    out = torch.empty((n, y.shape[0]), dtype=torch.float32, device=x.device)
+    out = torch.empty((n, y.shape[0]), dtype=x.dtype, device=x.device)
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn = S.function("pdist", "hs_pdist",
+    fn = S.function("pdist", _ENTRY[x.dtype],
                     [P, P, P, I, I, I, ctypes.c_float, I, P])
     S.check(fn(x.data_ptr(), y.data_ptr(), out.data_ptr(), n, y.shape[0], d,
                float(c), kind, S.stream_ptr(x)), "pdist")
     pdist.launches += 1
+    pdist.launches_by_lane[_LANE[x.dtype]] += 1
     return out
 
 
@@ -61,8 +78,9 @@ def pdist(x: torch.Tensor, y: torch.Tensor, c, *,
     ``x: [n, d]``, ``y: [m, d]`` (Lorentz rows carry the time coordinate
     in lane 0), ``c`` the positive curvature magnitude (a float),
     ``manifold`` one of ``"poincare"`` / ``"lorentz"``.  CUDA tensors
-    (float32, contiguous) go through the CUDA kernel; CPU tensors
-    through :func:`pdist_plain`."""
+    (float32 or bfloat16, one dtype, contiguous) go through the CUDA
+    kernel and give the inputs' dtype; CPU tensors go through
+    :func:`pdist_plain`."""
     if manifold not in _KINDS:
         raise ValueError(f"pdist: unknown manifold {manifold!r} "
                          f"(want one of {sorted(_KINDS)})")
@@ -77,3 +95,6 @@ def pdist(x: torch.Tensor, y: torch.Tensor, c, *,
 
 
 pdist.launches = 0
+# launches of each lane: the smoke's lane runs read and reset them with
+# ``launches``
+pdist.launches_by_lane = dict.fromkeys(_LANE.values(), 0)

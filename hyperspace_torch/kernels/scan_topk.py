@@ -1,5 +1,5 @@
 """Streaming exact k-NN without a distance matrix (counterpart of
-``hyperspace_tpu/kernels/scan_topk.py``, dense float32 lane).
+``hyperspace_tpu/kernels/scan_topk.py``).
 
 ``scan_topk`` launches the hand-written CUDA kernel ``csrc/scan_topk.cu``
 for tensors on a CUDA device and runs :func:`scan_topk_plain` for
@@ -8,6 +8,13 @@ float32 distances and int32 global ids ``col0 + local``; rows at global
 id >= ``n`` are masked, as is each query's own row under
 ``exclude_self``; unreachable slots are ``(+inf, -1)``; ties go to the
 lowest global column.
+
+The slab's lanes (``serve/quant.py``): float32, bfloat16, int8 with a
+float32 scale a row (``scale=``), and int4 packed two nibbles a byte
+with an f16 scale a row (``packed=True``).  Each lane widens its rows
+to float32 (``code · scale``) and scores them with the float32 lane's
+arithmetic: results are those of the widened table, and only the
+table's bytes shrink.  Queries are float32 or bfloat16 (widened).
 
 The kernel picks its own shared-memory tile and splits the table over
 enough blocks to fill the card, so the JAX module's VMEM footprint
@@ -21,7 +28,9 @@ the same source:
 
 - :func:`scan_topk_cand` — per-query candidate rows (the IVF probing
   scorer): each query scores its own gathered cells' table rows.  Ties
-  go to the earlier position in the candidate list.
+  go to the earlier position in the candidate list.  Lanes float32,
+  bfloat16 and int8 (each candidate's scale read beside its row); the
+  int4 lane has no candidate kernel, in JAX as here.
 - :func:`scan_topk_pq` — ADC over a PQ-coded slab: per-query lookup
   tables (:func:`pq_lut`, plain PyTorch as in JAX) summed over the
   ``m`` subspace codes of each row in subspace order, then closed into
@@ -61,6 +70,31 @@ _INF_BITS = 0x7F800000   # float32 +inf, the threshold words' start
 _CAND_WARPS_PER_SM = 7
 _CAND_MIN_SPLIT = 32
 _CAND_ROWS = 2           # csrc/scan_topk.cu CAND_ROWS: positions a lane a step
+# the slab lanes, in csrc/scan_topk.cu's `Lane` order
+_LANES = ("f32", "bf16", "int8", "int4")
+_CAND_LANES = ("f32", "bf16", "int8")
+_SMEM_BUDGET = 200 * 1024   # csrc/scan_topk.cu SMEM_BUDGET
+_LANE_DQ_MAX = 16           # csrc/scan_topk.cu LANE_DQ_MAX
+
+
+def _row_bytes(lane: str, dim: int) -> int:
+    """Bytes of one slab row in a lane (csrc/scan_topk.cu row_bytes)."""
+    return {"f32": 4 * dim, "bf16": 2 * dim, "int8": dim,
+            "int4": (dim + 1) // 2}[lane]
+
+
+def _lane_fits(lane: str, dim: int, k: int) -> bool:
+    """Does the narrowest tile (32 rows) of a narrow lane fit the block's
+    shared memory (csrc/scan_topk.cu dense_bytes)?  The float32 lane's
+    limit is ``FUSED_MAX_DIM``."""
+    if lane == "f32":
+        return True
+    sel = 8 * k * 8 + 8 * 32 * 20
+    query = 8 * dim * 4 if dim > _LANE_DQ_MAX else 0
+    raw = (32 * _row_bytes(lane, dim) + 31) // 16 * 16
+    scale = (32 * {"int8": 4, "int4": 2}.get(lane, 0) + 31) // 16 * 16
+    tile = 32 * (dim | 1) * 4
+    return sel + query + tile + 2 * raw + 2 * scale <= _SMEM_BUDGET
 
 
 def kind_supported(spec: tuple) -> bool:
@@ -68,10 +102,13 @@ def kind_supported(spec: tuple) -> bool:
     return spec[0] in _KINDS
 
 
-def supports(spec: tuple, *, k: int, dim: int) -> bool:
-    """Can :func:`scan_topk` serve this (spec, k, dim)?"""
+def supports(spec: tuple, *, k: int, dim: int, lane: str = "f32") -> bool:
+    """Can :func:`scan_topk` serve this (spec, k, dim) in ``lane``?
+    The narrow lanes' byte buffers cap their width below
+    ``FUSED_MAX_DIM`` (:func:`_lane_fits`)."""
     return (kind_supported(spec) and 1 <= int(k) <= FUSED_MAX_K
-            and int(dim) <= FUSED_MAX_DIM)
+            and int(dim) <= FUSED_MAX_DIM
+            and _lane_fits(lane, int(dim), int(k)))
 
 
 def supports_pq(spec: tuple, *, k: int, m: int) -> bool:
@@ -81,16 +118,19 @@ def supports_pq(spec: tuple, *, k: int, m: int) -> bool:
             and 1 <= int(m) <= FUSED_MAX_PQ_M)
 
 
-def supports_cand(spec: tuple, *, k: int, dim: int, cand: int) -> bool:
-    """Can :func:`scan_topk_cand` serve this shape?  The :func:`supports`
-    rules; ``cand`` (the candidates a query) sets no limit.  The JAX
+def supports_cand(spec: tuple, *, k: int, dim: int, cand: int,
+                  lane: str = "f32") -> bool:
+    """Can :func:`scan_topk_cand` serve this shape in ``lane`` (float32,
+    bf16 or int8; its rows are read from the table, so the lane's bytes
+    set no limit)?  The float32 :func:`supports` rules; ``cand`` (the
+    candidates a query) sets no limit.  The JAX
     module also caps the pre-gathered ``[B, C, 128-lane]`` candidate
     block its TPU kernel streams (``CAND_GATHER_BUDGET``, C <= 512 at
     D = 10); the CUDA kernel gathers each row by id from the table and
     builds no such block, so the cap has no counterpart.  Answers are
     rank-identical to the two-stage candidate scan either way."""
     del cand
-    return supports(spec, k=k, dim=dim)
+    return lane in _CAND_LANES and supports(spec, k=k, dim=dim)
 
 
 def _dist_plain(kind: str, c: float, q: torch.Tensor,
@@ -102,14 +142,27 @@ def _dist_plain(kind: str, c: float, q: torch.Tensor,
     return smath.safe_sqrt(d2)
 
 
+def _widen(rows: torch.Tensor, scale, packed: bool, dim: int):
+    """A lane's rows widened to float32 (``serve/quant.py``); ``scale``
+    [M] or [M, 1] for int8 and int4."""
+    from hyperspace_torch.serve.quant import dequantize_torch
+
+    if scale is not None:
+        scale = scale.reshape(-1, 1)
+    return dequantize_torch(rows, scale, packed=packed, dim=dim)
+
+
 def scan_topk_plain(slab: torch.Tensor, q: torch.Tensor,
                     q_idx: torch.Tensor, col0: int, *, kind: str, c: float,
-                    k: int, n: int, exclude_self: bool):
-    """The full masked distance matrix, then a stable ascending sort —
-    stable, so equal distances keep column order (``torch.topk`` is not
-    stable on ties)."""
+                    k: int, n: int, exclude_self: bool, scale=None,
+                    packed: bool = False):
+    """The slab widened to float32 (``serve/quant.py``), the full masked
+    distance matrix, then a stable ascending sort — stable, so equal
+    distances keep column order (``torch.topk`` is not stable on
+    ties)."""
     b, m = q.shape[0], slab.shape[0]
-    d = _dist_plain(kind, c, q.to(torch.float32), slab.to(torch.float32))
+    rows = _widen(slab, scale, packed, q.shape[1])
+    d = _dist_plain(kind, c, q.to(torch.float32), rows)
     gcol = col0 + torch.arange(m, device=q.device, dtype=torch.int64)
     mask = (gcol >= n)[None, :].expand(b, m)
     if exclude_self:
@@ -157,8 +210,41 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _launch(slab, q, q_idx, col0, *, kind, c, k, n, exclude_self):
-    S.check_cuda("scan_topk", (torch.float32,), slab, q)
+_SLAB_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16,
+                "int8": torch.int8, "int4": torch.uint8}
+_SCALE_DTYPES = {"int8": torch.float32, "int4": torch.float16}
+
+
+def _lane_of(slab: torch.Tensor, scale, packed: bool) -> str:
+    if packed:
+        return "int4"
+    if scale is not None:
+        return "int8"
+    return "bf16" if slab.dtype == torch.bfloat16 else "f32"
+
+
+def _check_lane(name: str, lane: str, rows: torch.Tensor, scale,
+                q: torch.Tensor) -> torch.Tensor:
+    """The kernel's dtypes for ``lane``; returns the float32 queries."""
+    S.check_cuda(name, (_SLAB_DTYPES[lane],), rows)
+    S.check_cuda(name, (torch.float32, torch.bfloat16), q)
+    others = [q]
+    if lane in _SCALE_DTYPES:
+        S.check_cuda(name, (_SCALE_DTYPES[lane],), scale)
+        if scale.numel() != rows.shape[0]:
+            raise ValueError(f"{name}: scale has {scale.numel()} entries "
+                             f"for {rows.shape[0]} rows")
+        others.append(scale)
+    for t in others:
+        if t.device != rows.device:
+            raise ValueError(f"{name}: tensors on {t.device} and "
+                             f"{rows.device}")
+    return q.to(torch.float32).contiguous()
+
+
+def _launch(slab, q, q_idx, col0, *, kind, c, k, n, exclude_self, lane,
+            scale):
+    q = _check_lane("scan_topk", lane, slab, scale, q)
     if (q_idx.device != q.device or q_idx.dtype != torch.int32
             or not q_idx.is_contiguous()):
         raise ValueError("scan_topk: q_idx must be contiguous int32 on "
@@ -171,48 +257,66 @@ def _launch(slab, q, q_idx, col0, *, kind, c, k, n, exclude_self):
     pd, pi, thr = _parts(b, splits, k, q.device)
     P, I = ctypes.c_void_p, ctypes.c_int
     fn = S.function("scan_topk", "hs_scan_topk",
-                    [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I,
-                     ctypes.c_float, I, I, P])
-    S.check(fn(slab.data_ptr(), q.data_ptr(), q_idx.data_ptr(), _ptr(thr),
-               _ptr(pd), _ptr(pi), od.data_ptr(), oi.data_ptr(), b, m, dim,
-               k, int(col0), int(n), int(exclude_self), float(c),
-               _KINDS.index(kind), splits, S.stream_ptr(q)), "scan_topk")
+                    [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I,
+                     ctypes.c_float, I, I, I, P])
+    S.check(fn(slab.data_ptr(), _ptr(scale), q.data_ptr(), q_idx.data_ptr(),
+               _ptr(thr), _ptr(pd), _ptr(pi), od.data_ptr(), oi.data_ptr(),
+               b, m, dim, k, int(col0), int(n), int(exclude_self), float(c),
+               _KINDS.index(kind), _LANES.index(lane), splits,
+               S.stream_ptr(q)), "scan_topk")
     scan_topk.launches += 1
+    scan_topk.launches_by_lane[lane] += 1
     return od, oi
 
 
 def scan_topk(slab: torch.Tensor, q: torch.Tensor, q_idx: torch.Tensor,
               col0: int, *, spec: tuple, k: int, n: int,
-              exclude_self: bool = False):
+              exclude_self: bool = False, scale=None, packed: bool = False):
     """Streaming top-k of ``q`` [B, D] against the row block ``slab``
     [M, D] → ``(dists ascending float32 [B, k], ids int32 [B, k])``.
 
     ``ids`` are global column ids ``col0 + local``; rows at global id
     >= ``n`` are masked, as is each query's own row when
     ``exclude_self`` (by ``q_idx`` [B] int32).  Slots beyond the
-    reachable candidates are ``(+inf, -1)``.  Callers gate shapes with
+    reachable candidates are ``(+inf, -1)``.  The slab's lane: float32
+    or bfloat16 rows; int8 rows with ``scale`` ([M] or [M, 1] float32);
+    ``packed=True``: int4 rows [M, ceil(D/2)] uint8 with ``scale`` ([M]
+    or [M, 1] float16, required).  Callers gate shapes with
     :func:`supports`; unsupported ones raise here."""
     dim = q.shape[1]
-    if slab.ndim != 2 or slab.shape[1] != dim:
+    if packed:
+        if scale is None:
+            raise ValueError("scan_topk: packed=True (int4) requires scale=")
+        if slab.ndim != 2 or slab.shape[1] != (dim + 1) // 2:
+            raise ValueError(
+                f"scan_topk: packed slab {tuple(slab.shape)} is not "
+                f"[M, ceil({dim}/2)]")
+    elif slab.ndim != 2 or slab.shape[1] != dim:
         raise ValueError(
             f"scan_topk: slab {tuple(slab.shape)} does not match query "
             f"dim {dim}")
-    if not supports(spec, k=k, dim=dim):
+    lane = _lane_of(slab, scale, packed)
+    if not supports(spec, k=k, dim=dim, lane=lane):
         raise ValueError(
-            f"scan_topk: unsupported (spec={spec[0]!r}, k={k}, dim={dim})"
-            " — gate on scan_topk.supports() and use the two-stage scan")
+            f"scan_topk: unsupported (spec={spec[0]!r}, k={k}, dim={dim}, "
+            f"lane={lane}) — gate on scan_topk.supports() and use the "
+            "two-stage scan")
     kind = spec[0]
     c = 0.0 if kind == "euclidean" else float(spec[1])
     kw = dict(kind=kind, c=c, k=int(k), n=int(n),
               exclude_self=bool(exclude_self))
     if q.device.type == "cpu" and slab.device.type == "cpu":
-        return scan_topk_plain(slab, q, q_idx, int(col0), **kw)
+        return scan_topk_plain(slab, q, q_idx, int(col0), scale=scale,
+                               packed=packed, **kw)
     if q.device.type != "cuda":
         raise ValueError(f"scan_topk: unsupported device {q.device}")
-    return _launch(slab, q, q_idx, col0, **kw)
+    return _launch(slab, q, q_idx, col0, lane=lane, scale=scale, **kw)
 
 
 scan_topk.launches = 0
+# launches of each lane: the smoke's lane runs read and reset them with
+# ``launches``
+scan_topk.launches_by_lane = dict.fromkeys(_LANES, 0)
 
 
 # --- per-query candidate variant (the IVF probing scorer) --------------------
@@ -256,11 +360,16 @@ def _cand_dist_plain(kind: str, c: float, q: torch.Tensor,
 
 def _cand_masked_dist(table: torch.Tensor, cand: torch.Tensor,
                       q: torch.Tensor, q_idx: torch.Tensor, *, kind: str,
-                      c: float, exclude_self: bool) -> torch.Tensor:
-    """[B, C] float32 distances of each query to its candidate rows,
-    +inf at ``id < 0`` and (under ``exclude_self``) at ``id == q_idx``."""
+                      c: float, exclude_self: bool,
+                      scale=None) -> torch.Tensor:
+    """[B, C] float32 distances of each query to its candidate rows
+    (widened to float32, int8 rows by their gathered ``scale``), +inf at
+    ``id < 0`` and (under ``exclude_self``) at ``id == q_idx``."""
     cand = cand.to(torch.int64)
-    rows = table.to(torch.float32)[torch.clamp_min(cand, 0)]   # [B, C, D]
+    safe = torch.clamp_min(cand, 0)
+    rows = _widen(table[safe].reshape(-1, table.shape[1]),
+                  None if scale is None else scale.reshape(-1)[safe],
+                  False, table.shape[1]).reshape(safe.shape + (-1,))
     d = _cand_dist_plain(kind, c, q.to(torch.float32), rows)
     mask = cand < 0
     if exclude_self:
@@ -270,12 +379,13 @@ def _cand_masked_dist(table: torch.Tensor, cand: torch.Tensor,
 
 def scan_topk_cand_plain(table: torch.Tensor, cand: torch.Tensor,
                          q: torch.Tensor, q_idx: torch.Tensor, *, kind: str,
-                         c: float, k: int, exclude_self: bool):
-    """Gather every candidate row, the closed-form distances, mask
-    ``id < 0`` and (under ``exclude_self``) ``id == q_idx``, then a
-    stable ascending sort over the candidate positions."""
+                         c: float, k: int, exclude_self: bool, scale=None):
+    """Gather every candidate row (widened to float32), the closed-form
+    distances, mask ``id < 0`` and (under ``exclude_self``) ``id ==
+    q_idx``, then a stable ascending sort over the candidate
+    positions."""
     d = _cand_masked_dist(table, cand, q, q_idx, kind=kind, c=c,
-                          exclude_self=exclude_self)
+                          exclude_self=exclude_self, scale=scale)
     return _topk_of(d, cand.to(torch.int64), k)
 
 
@@ -286,8 +396,9 @@ def _cand_splits(b: int, cc: int, k: int, device: torch.device) -> int:
                         min_rows=_CAND_MIN_SPLIT)
 
 
-def _launch_cand(table, cand, q, q_idx, *, kind, c, k, exclude_self):
-    S.check_cuda("scan_topk_cand", (torch.float32,), table, q)
+def _launch_cand(table, cand, q, q_idx, *, kind, c, k, exclude_self, lane,
+                 scale):
+    q = _check_lane("scan_topk_cand", lane, table, scale, q)
     S.check_cuda("scan_topk_cand", (torch.int32,), cand, q_idx)
     if cand.device != q.device or q_idx.device != q.device:
         raise ValueError("scan_topk_cand: tensors on different devices")
@@ -299,14 +410,16 @@ def _launch_cand(table, cand, q, q_idx, *, kind, c, k, exclude_self):
     pd, pi, thr = _parts(b, splits, k, q.device)
     P, I = ctypes.c_void_p, ctypes.c_int
     fn = S.function("scan_topk", "hs_scan_topk_cand",
-                    [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I,
-                     ctypes.c_float, I, I, P])
-    S.check(fn(table.data_ptr(), cand.data_ptr(), q.data_ptr(),
+                    [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I,
+                     ctypes.c_float, I, I, I, P])
+    S.check(fn(table.data_ptr(), _ptr(scale), cand.data_ptr(), q.data_ptr(),
                q_idx.data_ptr(), _ptr(thr), _ptr(pd), _ptr(pi),
                od.data_ptr(), oi.data_ptr(), b, cc, table.shape[0], dim, k,
-               int(exclude_self), float(c), _KINDS.index(kind), splits,
-               S.stream_ptr(q)), "scan_topk_cand")
+               int(exclude_self), float(c), _KINDS.index(kind),
+               _LANES.index(lane), splits, S.stream_ptr(q)),
+            "scan_topk_cand")
     scan_topk_cand.launches += 1
+    scan_topk_cand.launches_by_lane[lane] += 1
     return od, oi
 
 
@@ -319,10 +432,9 @@ def scan_topk_cand(table: torch.Tensor, cand: torch.Tensor, q: torch.Tensor,
     [B, k])``.  Padding and, under ``exclude_self``, each query's own
     row (``q_idx`` [B] int32) are masked; ties go to the earlier
     candidate position; slots beyond the reachable candidates are
-    ``(+inf, -1)``.  ``scale`` (the int8 lane) is not ported."""
-    if scale is not None:
-        raise ValueError("scan_topk_cand: the int8 scale= lane is not "
-                         "ported yet")
+    ``(+inf, -1)``.  The table's lane: float32 or bfloat16 rows, or int8
+    rows with ``scale`` ([N] or [N, 1] float32), each candidate's scale
+    read beside its row."""
     dim = q.shape[1]
     if table.ndim != 2 or table.shape[1] != dim or cand.ndim != 2 \
             or cand.shape[0] != q.shape[0]:
@@ -330,7 +442,9 @@ def scan_topk_cand(table: torch.Tensor, cand: torch.Tensor, q: torch.Tensor,
             f"scan_topk_cand: want table [N, {dim}], cand [B, C] and q "
             f"[B, {dim}]; got {tuple(table.shape)}, {tuple(cand.shape)}, "
             f"{tuple(q.shape)}")
-    if not supports_cand(spec, k=k, dim=dim, cand=cand.shape[1]):
+    lane = _lane_of(table, scale, False)
+    if not supports_cand(spec, k=k, dim=dim, cand=cand.shape[1],
+                         lane=lane):
         raise ValueError(
             f"scan_topk_cand: unsupported (spec={spec[0]!r}, k={k}, "
             f"dim={dim}) — gate on scan_topk.supports_cand() and use the "
@@ -339,13 +453,14 @@ def scan_topk_cand(table: torch.Tensor, cand: torch.Tensor, q: torch.Tensor,
     c = 0.0 if kind == "euclidean" else float(spec[1])
     kw = dict(kind=kind, c=c, k=int(k), exclude_self=bool(exclude_self))
     if q.device.type == "cpu" and table.device.type == "cpu":
-        return scan_topk_cand_plain(table, cand, q, q_idx, **kw)
+        return scan_topk_cand_plain(table, cand, q, q_idx, scale=scale, **kw)
     if q.device.type != "cuda":
         raise ValueError(f"scan_topk_cand: unsupported device {q.device}")
-    return _launch_cand(table, cand, q, q_idx, **kw)
+    return _launch_cand(table, cand, q, q_idx, lane=lane, scale=scale, **kw)
 
 
 scan_topk_cand.launches = 0
+scan_topk_cand.launches_by_lane = dict.fromkeys(_CAND_LANES, 0)
 
 
 # --- PQ slab variant (ADC over coded rows) -----------------------------------

@@ -19,8 +19,8 @@ target, the marker goes in last, and one ``os.rename`` commits.  The
 fingerprint (sha256 over the canonical spec/shape/dtype JSON, the
 attached index's and payload's hashes, and the table bytes) is
 byte-identical to the JAX package's, so an artifact written by either
-package loads in the other under the same name.  An int4 payload loads
-(the engine does not serve that lane yet); building one is not ported.
+package loads in the other under the same name, int4 and PQ payloads
+included.
 """
 
 from __future__ import annotations
@@ -40,6 +40,27 @@ META_FILE = "artifact.json"
 TABLE_FILE = "table.npy"
 INDEX_FILE = "index.npz"  # optional IVF index (serve/index.py)
 QUANT_FILE = "quant.npz"  # optional packed scan lane (serve/quant.py)
+
+
+def manifold_from_spec(spec: tuple):
+    """The manifold a spec names (curvatures frozen as floats)."""
+    from hyperspace_torch.manifolds import (Euclidean, Lorentz,
+                                            PoincareBall, Product, Sphere)
+
+    kinds = {"poincare": PoincareBall, "lorentz": Lorentz, "sphere": Sphere}
+    kind = spec[0]
+    if kind == "product":
+        factors, dims = [], []
+        for fkind, dim, c in spec[1]:
+            factors.append(Euclidean() if fkind == "euclidean"
+                           else kinds[fkind](float(c)))
+            dims.append(int(dim))
+        return Product(factors, dims)
+    if kind == "euclidean":
+        return Euclidean()
+    if kind in kinds:
+        return kinds[kind](float(spec[1]))
+    raise ValueError(f"unknown manifold spec kind {kind!r}")
 
 
 def spec_to_json(spec: tuple) -> dict:
@@ -131,24 +152,30 @@ def quant_fingerprint_of(lane: str, arrays: dict, params: dict) -> str:
 def build_quant_payload(table, spec: tuple, lane: str, *,
                         pq_m: int = 0, pq_iters: int = 6,
                         pq_seed: int = 0) -> QuantPayload:
-    """Pack ``table`` for ``lane`` as a live engine would: ``"pq"``
-    trains lifted-subspace codebooks (``serve/quant.py:build_pq``,
-    deterministic in ``pq_seed``) and encodes every row.  The int4
-    packing is not ported yet."""
+    """Pack ``table`` for ``lane`` as a live engine would: ``"int4"``
+    packs per-row nibbles and f16 scales (``serve/quant.py``);
+    ``"pq"`` trains lifted-subspace codebooks (``build_pq``,
+    deterministic in ``pq_seed``) and encodes every row."""
     table = np.ascontiguousarray(np.asarray(table, np.float32))
     if table.ndim != 2:
         raise ValueError(f"table must be [N, D]; got {table.shape}")
     if lane == "int4":
-        raise ValueError("the int4 quant payload is not ported yet")
-    if lane != "pq":
+        from hyperspace_torch.serve.quant import pack_int4_rows
+
+        packed, scale = pack_int4_rows(table)
+        arrays = {"packed": packed, "scale": scale}
+        params = {"dim": int(table.shape[1])}
+    elif lane == "pq":
+        from hyperspace_torch.serve.quant import build_pq
+
+        codes, cb = build_pq(table, spec, m=pq_m, iters=pq_iters,
+                             seed=pq_seed)
+        arrays = {"codes": codes, "codebooks": cb.codebooks}
+        params = {"m": int(cb.m), "lift_dim": int(cb.lift_dim),
+                  "iters": int(cb.iters), "seed": int(cb.seed)}
+    else:
         raise ValueError(
             f"quant payloads cover lanes ('int4', 'pq'); got {lane!r}")
-    from hyperspace_torch.serve.quant import build_pq
-
-    codes, cb = build_pq(table, spec, m=pq_m, iters=pq_iters, seed=pq_seed)
-    arrays = {"codes": codes, "codebooks": cb.codebooks}
-    params = {"m": int(cb.m), "lift_dim": int(cb.lift_dim),
-              "iters": int(cb.iters), "seed": int(cb.seed)}
     return QuantPayload(lane=lane, arrays=arrays, params=params,
                         fingerprint=quant_fingerprint_of(
                             lane, arrays, params))
@@ -412,9 +439,8 @@ def export_from_checkpoint(ckpt_dir: str, out_dir: str, *,
       ``ProductEmbedConfig``'s default.
 
     ``index_ncells`` builds an IVF index into the artifact (``<= 0``
-    picks ``auto_ncells`` ≈ √N); ``quant_lane="pq"`` packs the PQ codes
-    and codebooks (``"int4"`` raises: its packing is not ported).  The
-    index is built on ``device`` (CUDA unless the caller asks for the
+    picks ``auto_ncells`` ≈ √N); ``quant_lane`` (``"int4"`` or
+    ``"pq"``) ships that lane's payload.  The index is built on ``device`` (CUDA unless the caller asks for the
     CPU).
     """
     import torch

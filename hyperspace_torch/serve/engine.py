@@ -20,25 +20,42 @@ scan strategies (``scan_mode``), rank-identical:
   over the padded table; the distance matrix never reaches memory.  k
   above ``FUSED_MAX_K`` uses the two-stage scan.
 
-Two approximate lanes compose with both modes:
+Specs: the ball and the hyperboloid score chunks with ``pdist``;
+euclidean, sphere and product specs with the manifold's own distance
+(the JAX engine's ``_tile_dist``), euclidean also through the fused
+scan.  Sphere and product specs have no kernel of their own, in JAX as
+here, so ``fused`` serves them by the two-stage scan.
 
-- **PQ** (``precision="pq"``): one uint8 code a subspace of each row's
-  lift (``serve/quant.py``; ``quant=`` takes a payload shipped in an
-  artifact).  The coarse scan keeps ``k + max(16k, 128)`` candidates —
-  by ADC in the ``scan_topk_pq`` kernel under ``fused``, by decoding
-  chunks to the lift under ``two_stage`` — and rescores them against
-  the f32 master table, so every returned distance is an f32 manifold
-  distance.
-- **IVF probing** (``index=`` + ``nprobe=``; ``serve/index.py``): the
-  queries are scored against the index's centroids (``pdist``), the
-  nearest ``nprobe`` cells' row ids are gathered (nearest cell first,
-  ``-1`` pads inside each cell's row), and only those candidates are
-  scanned — by the ``scan_topk_cand`` kernel under ``fused``, by
-  chunked gathers and plain distances under ``two_stage``; ties go to
-  the earlier candidate position.  Under PQ the candidate scan decodes
-  codes and the rescore follows.  Exact fallbacks (the engine then is
-  the exact engine): ``nprobe=0``, ``nprobe >= ncells``, tables under
-  ``IVF_MIN_TABLE_ROWS``.
+The coarse-scan lanes (``precision=``) compose with both modes.  Each
+keeps a copy of the padded table beside the f32 master, scans it for
+``k_scan`` candidates and rescores them against the master, so every
+returned distance is an f32 manifold distance:
+
+- **bf16**: a bf16 copy, the queries cast to bf16; ``k + max(k, 8)``
+  candidates; bf16 ``pdist`` chunks under ``two_stage``.
+- **int8**: a per-row symmetric int8 code and f32 scale
+  (``serve/quant.py``); ``k + max(4k, 32)`` candidates.
+- **int4**: two nibbles a byte and an f16 scale a row (``quant=`` takes
+  an int4 payload shipped in an artifact); ``k + max(16k, 128)``.
+- **PQ**: one uint8 code a subspace of each row's lift (``quant=``
+  takes a PQ payload); ``k + max(16k, 128)`` candidates, by ADC in the
+  ``scan_topk_pq`` kernel under ``fused``, by decoding chunks to the
+  lift under ``two_stage`` (product specs: always, per factor).
+
+Under ``fused`` the bf16, int8 and int4 lanes stream their copy through
+``scan_topk``; under ``two_stage`` each chunk is widened to f32 in
+PyTorch (bf16 stays bf16 for ``pdist``) and scored as the f32 lane's.
+
+**IVF probing** (``index=`` + ``nprobe=``; ``serve/index.py``) composes
+with every lane and spec: the queries are scored against the index's
+centroids (``pdist`` in f32, or the manifold's distance), the nearest
+``nprobe`` cells' row ids are gathered (nearest cell first, ``-1`` pads
+inside each cell's row), and only those candidates are scanned — by the
+``scan_topk_cand`` kernel under ``fused`` (f32, bf16 and int8 copies),
+by chunked gathers and plain distances under ``two_stage`` and for int4
+and PQ; ties go to the earlier candidate position.  The lanes' rescore
+follows.  Exact fallbacks (the engine then is the exact engine):
+``nprobe=0``, ``nprobe >= ncells``, tables under ``IVF_MIN_TABLE_ROWS``.
 
 Inside a span scope (``telemetry/spans.py``, the serve CLI's ``trace=``)
 each query records a ``device_compute`` stage that ends after a sync of
@@ -46,8 +63,7 @@ the caller's stream; with spans off nothing waits.
 
 Everything runs on ``device`` — CUDA unless the caller asks for the CPU,
 where the kernels' plain versions answer.  Not ported yet (they raise):
-the ``carry`` scan, the bf16/int8/int4 lanes, mesh sharding, and
-product / sphere / euclidean specs.
+the ``carry`` scan and mesh sharding; the live index is not ported.
 """
 
 from __future__ import annotations
@@ -60,8 +76,9 @@ import torch
 from hyperspace_torch.kernels import _support
 from hyperspace_torch.kernels import scan_topk as fused_kernel
 from hyperspace_torch.kernels.distmat import pdist
-from hyperspace_torch.manifolds import Lorentz, PoincareBall, smath
-from hyperspace_torch.serve.artifact import ServingArtifact, fingerprint_of
+from hyperspace_torch.manifolds import smath
+from hyperspace_torch.serve.artifact import (ServingArtifact, fingerprint_of,
+                                             manifold_from_spec, spec_dim)
 from hyperspace_torch.telemetry import spans
 
 # f32 bytes one [B, chunk] distance tile may occupy at the nominal batch
@@ -72,24 +89,28 @@ _ROW_ALIGN = 128
 SCAN_MODES = ("two_stage", "fused")
 QUANT_PRECISIONS = ("int8", "int4", "pq")
 PRECISIONS = ("f32", "bf16") + QUANT_PRECISIONS
-_SERVED_PRECISIONS = ("f32", "pq")
-_MANIFOLDS = {"poincare": PoincareBall, "lorentz": Lorentz}
+SPEC_KINDS = ("poincare", "lorentz", "euclidean", "sphere", "product")
+# the families whose chunks ``pdist`` scores
+_PDIST_KINDS = ("poincare", "lorentz")
 
-# the PQ lane's over-fetch: k + max(16k, 128) coarse candidates, so the
-# f32 rescore can repair the coarse ranking's k-th-boundary mistakes
-_PQ_RESCORE_MIN = 128
-_PQ_RESCORE_MULT = 16
+# each lane's over-fetch, k + max(MULT·k, MIN) coarse candidates (the
+# JAX engine's), so the f32 rescore can repair the coarse ranking's
+# k-th-boundary mistakes: bf16 and int8 steps are fine, int4's 16 times
+# int8's, and a PQ code quantizes whole subspaces
+_RESCORE = {"bf16": (1, 8), "int8": (4, 32), "int4": (16, 128),
+            "pq": (16, 128)}
 
 
 def _round_up(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
-def auto_chunk_rows(n: int) -> int:
-    """Table-chunk rows that keep one [NOMINAL_BATCH, chunk] f32 distance
-    tile under ``TILE_BUDGET`` (the two-stage sizing of the JAX
-    engine)."""
-    per_row = 4 * NOMINAL_BATCH
+def auto_chunk_rows(n: int, width: int = 1) -> int:
+    """Table-chunk rows that keep one [NOMINAL_BATCH, chunk, width] f32
+    tile under ``TILE_BUDGET`` (the two-stage sizing of the JAX engine:
+    ``width`` 1 for [B, chunk] distance tiles, a product spec's row width
+    for its factors' broadcast distances)."""
+    per_row = 4 * NOMINAL_BATCH * int(width)
     chunk = max(_ROW_ALIGN,
                 (TILE_BUDGET // per_row) // _ROW_ALIGN * _ROW_ALIGN)
     return min(chunk, _round_up(max(n, 1), _ROW_ALIGN))
@@ -116,10 +137,24 @@ def _arcosh_close(c: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
                                                smath.min_norm(u.dtype))
 
 
+def _tile_dist(spec: tuple, q: torch.Tensor,
+               rows: torch.Tensor) -> torch.Tensor:
+    """[B, D] × [M, D] → [B, M] distances: ``pdist`` for the ball and the
+    hyperboloid (in the inputs' dtype, f32 or bf16), the manifold's own
+    distance broadcast for the other specs (in f32)."""
+    if spec[0] in _PDIST_KINDS:
+        return pdist(q, rows, spec[1], manifold=spec[0])
+    return manifold_from_spec(spec).dist(q.float()[:, None, :],
+                                         rows.float()[None, :, :])
+
+
 def _cand_dist(spec: tuple, q: torch.Tensor,
                rows: torch.Tensor) -> torch.Tensor:
     """[B, D] queries × per-query candidate rows [B, C, D] → [B, C]: the
-    closed forms with one batched Gram."""
+    closed forms with one batched Gram (the manifold's own distance for
+    euclidean, sphere and product specs, as in JAX)."""
+    if spec[0] not in _PDIST_KINDS:
+        return manifold_from_spec(spec).dist(q[:, None, :], rows)
     c = torch.as_tensor(spec[1], dtype=q.dtype, device=q.device)
     if spec[0] == "lorentz":
         gram = (torch.einsum("bd,bcd->bc", q[:, 1:], rows[..., 1:])
@@ -145,18 +180,52 @@ def _pq_decode_rows(cb: torch.Tensor, codes: torch.Tensor,
 
 def _pq_lift_dist(spec: tuple, q_lift: torch.Tensor,
                   rows_lift: torch.Tensor) -> torch.Tensor:
-    """Coarse distances in the lift (Lorentz coordinates at the spec's
-    curvature): lifted queries [B, DL] × reconstructions ([M, DL] shared
-    or [B, C, DL] per query) → [B, M] / [B, C], with the clamps the PQ
-    kernel applies (the reconstructions sit off the hyperboloid)."""
-    c = torch.as_tensor(spec[1], dtype=q_lift.dtype, device=q_lift.device)
-    if rows_lift.ndim == 2:
-        gram = (q_lift[:, 1:] @ rows_lift[:, 1:].T
-                - q_lift[:, :1] * rows_lift[None, :, 0])
-    else:
-        gram = (torch.einsum("bd,bcd->bc", q_lift[:, 1:], rows_lift[..., 1:])
-                - q_lift[:, :1] * rows_lift[..., 0])
-    return _arcosh_close(c, smath.clamp_min(-c * gram - 1.0, 0.0))
+    """Coarse distances in the lift: lifted queries [B, DL] ×
+    reconstructions ([M, DL] shared or [B, C, DL] per query) → [B, M] /
+    [B, C] (the JAX engine's ``_pq_lift_dist``).  A ball or hyperboloid
+    lifts to Lorentz coordinates at the spec's curvature (the clamps the
+    PQ kernel applies: the reconstructions sit off the hyperboloid);
+    euclidean to itself (the Gram form); a sphere to itself, the
+    reconstruction projected back; a product per factor, combined as
+    ``Product.dist`` combines them."""
+    kind = spec[0]
+    shared = rows_lift.ndim == 2
+    if kind == "product":
+        from hyperspace_torch.serve.index import _lift_dim
+
+        o, acc = 0, 0.0
+        for fk, d, c in spec[1]:
+            dl = _lift_dim((fk, c), d)
+            df = _pq_lift_dist((fk, c), q_lift[:, o:o + dl],
+                               rows_lift[..., o:o + dl])
+            acc = acc + torch.square(df)
+            o += dl
+        return smath.safe_sqrt(acc)
+    if kind in _PDIST_KINDS:
+        c = torch.as_tensor(spec[1], dtype=q_lift.dtype,
+                            device=q_lift.device)
+        if shared:
+            gram = (q_lift[:, 1:] @ rows_lift[:, 1:].T
+                    - q_lift[:, :1] * rows_lift[None, :, 0])
+        else:
+            gram = (torch.einsum("bd,bcd->bc", q_lift[:, 1:],
+                                 rows_lift[..., 1:])
+                    - q_lift[:, :1] * rows_lift[..., 0])
+        return _arcosh_close(c, smath.clamp_min(-c * gram - 1.0, 0.0))
+    if kind == "euclidean":
+        if shared:
+            gram = q_lift @ rows_lift.T
+            yy = torch.sum(rows_lift * rows_lift, dim=-1)[None, :]
+        else:
+            gram = torch.einsum("bd,bcd->bc", q_lift, rows_lift)
+            yy = torch.sum(rows_lift * rows_lift, dim=-1)
+        xx = torch.sum(q_lift * q_lift, dim=-1, keepdim=True)
+        return smath.safe_sqrt(smath.clamp_min(xx - 2.0 * gram + yy, 0.0))
+    m = manifold_from_spec(spec)          # sphere: the lift is the identity
+    rows = m.proj(rows_lift)
+    if shared:
+        return m.dist(q_lift[:, None, :], rows[None, :, :])
+    return m.dist(q_lift[:, None, :], rows)
 
 
 def _rescore_f32(spec: tuple, rows: torch.Tensor, q: torch.Tensor,
@@ -164,7 +233,7 @@ def _rescore_f32(spec: tuple, rows: torch.Tensor, q: torch.Tensor,
     """f32 manifold distances of gathered candidate rows [B, K, D] to the
     f32 queries [B, D]; slots the coarse scan left at -1 or +inf stay
     +inf, so they never outrank a real candidate."""
-    d = _MANIFOLDS[spec[0]](float(spec[1])).dist(q[:, None, :], rows)
+    d = manifold_from_spec(spec).dist(q[:, None, :], rows)
     return torch.where((idx < 0) | ~torch.isfinite(scan_d),
                        torch.full_like(d, float("inf")), d)
 
@@ -218,16 +287,16 @@ class QueryEngine:
         if precision not in PRECISIONS:
             raise ValueError(
                 f"precision must be one of {PRECISIONS}; got {precision!r}")
-        if precision not in _SERVED_PRECISIONS:
-            raise ValueError(f"precision={precision!r} is not ported yet "
-                             f"(the {' and '.join(_SERVED_PRECISIONS)} "
-                             "lanes are)")
         if mesh is not None:
             raise ValueError("mesh sharding is not ported yet")
         self.spec = tuple(manifold_spec)
-        if self.spec[0] not in _MANIFOLDS:
-            raise ValueError(f"{self.spec[0]!r} specs are not ported yet "
-                             f"(want one of {sorted(_MANIFOLDS)})")
+        if self.spec[0] not in SPEC_KINDS:
+            raise ValueError(f"unknown manifold spec kind {self.spec[0]!r} "
+                             f"(want one of {SPEC_KINDS})")
+        want = spec_dim(self.spec)
+        if want >= 0 and table.shape[1] != want:
+            raise ValueError(f"table width {table.shape[1]} != product "
+                             f"spec width {want}")
         chunk_rows = int(chunk_rows)
         if chunk_rows < 0:
             raise ValueError(f"chunk_rows must be >= 0 (0 = auto); "
@@ -249,13 +318,23 @@ class QueryEngine:
                 raise ValueError(
                     f"index centroid width {index.centroids.shape[1]} "
                     f"!= table width {self.dim}")
+        # a payload is read only by the lane it packs (an artifact may
+        # carry an int4 payload while this engine serves f32)
+        if quant is not None and getattr(quant, "lane", None) == precision:
+            if int(quant.num_nodes) != self.num_nodes:
+                raise ValueError(
+                    f"quant payload covers {quant.num_nodes} rows; table "
+                    f"has {self.num_nodes} — re-export for THIS table")
+        else:
+            quant = None
         self.device = _support.resolve_device(device)
         self.scan_mode = scan_mode
         self.precision = precision
         self.index = index
-        self.manifold = _MANIFOLDS[self.spec[0]](float(self.spec[1]))
+        self.manifold = manifold_from_spec(self.spec)
         self.fingerprint = fingerprint or fingerprint_of(table, self.spec)
-        self.chunk_rows = chunk_rows or auto_chunk_rows(self.num_nodes)
+        self.chunk_rows = chunk_rows or auto_chunk_rows(
+            self.num_nodes, self.dim if self.spec[0] == "product" else 1)
         self._fused = (scan_mode == "fused"
                        and fused_kernel.kind_supported(self.spec)
                        and self.dim <= fused_kernel.FUSED_MAX_DIM)
@@ -267,8 +346,12 @@ class QueryEngine:
         self._cols = torch.arange(padded, dtype=torch.int32,
                                   device=self.device)
         self._pq = precision == "pq"
+        self._mixed = precision != "f32"
+        self.scan_table, self.scan_scale = self.table, None
         if self._pq:
             self._init_pq(table, quant, int(pq_m), padded)
+        elif self._mixed:
+            self._init_lane(table, quant, padded)
 
         from hyperspace_torch.serve.index import IVF_MIN_TABLE_ROWS
 
@@ -282,6 +365,31 @@ class QueryEngine:
             self._cand_chunk = cand_chunk_rows(
                 self.dim, self.nprobe * index.max_cell)
 
+    def _init_lane(self, table: np.ndarray, quant, padded: int) -> None:
+        """The bf16, int8 or int4 scan copy of the padded table (zero
+        padding rows quantize to scale 0 and dequantize to exact zeros;
+        they are masked by index anyway); int4 takes a matching
+        payload's codes."""
+        from hyperspace_torch.serve import quant as Q
+
+        if self.precision == "bf16":
+            self.scan_table = self.table.to(torch.bfloat16)
+            return
+        rows = np.zeros((padded, self.dim), np.float32)
+        rows[:self.num_nodes] = table
+        if self.precision == "int8":
+            codes, scale = Q.quantize_rows(rows)
+        elif quant is not None:
+            codes = np.zeros((padded, Q.int4_packed_width(self.dim)),
+                             np.uint8)
+            scale = np.zeros((padded, 1), np.float16)
+            codes[:self.num_nodes] = quant.arrays["packed"]
+            scale[:self.num_nodes] = quant.arrays["scale"]
+        else:
+            codes, scale = Q.pack_int4_rows(rows)
+        self.scan_table = torch.as_tensor(codes, device=self.device)
+        self.scan_scale = torch.as_tensor(scale, device=self.device)
+
     def _init_pq(self, table: np.ndarray, quant, pq_m: int,
                  padded: int) -> None:
         """The PQ scan copy: the payload's codes and codebooks when it
@@ -290,18 +398,11 @@ class QueryEngine:
         from hyperspace_torch.serve.quant import (build_pq, default_pq_m,
                                                   pq_fingerprint_of)
 
-        payload = None
-        if quant is not None and getattr(quant, "lane", None) == "pq":
-            if int(quant.num_nodes) != self.num_nodes:
-                raise ValueError(
-                    f"quant payload covers {quant.num_nodes} rows; table "
-                    f"has {self.num_nodes} — re-export for THIS table")
-            payload = quant
         self._lift_dim = _lift_dim(self.spec, self.dim)
-        if payload is not None:
-            pp = payload.params
-            codes = payload.arrays["codes"]
-            cb = np.asarray(payload.arrays["codebooks"], np.float32)
+        if quant is not None:
+            pp = quant.params
+            codes = quant.arrays["codes"]
+            cb = np.asarray(quant.arrays["codebooks"], np.float32)
             self._pq_fp = pq_fingerprint_of(
                 cb, lift_dim=int(pp["lift_dim"]), iters=int(pp["iters"]),
                 seed=int(pp["seed"]))
@@ -337,7 +438,9 @@ class QueryEngine:
         """Result identity of the scan path (a batcher cache-key part):
         ``("exact",)`` or ``("ivf", nprobe, index fingerprint)``, then
         ``"fused"`` (rank-identical to two-stage but only ulp-close in
-        distance) and the PQ lane with its codebooks' fingerprint."""
+        distance) and the quantized lane (``"int8"``, ``"int4"``, or
+        ``"pq"`` with its codebooks' fingerprint), as JAX's engine
+        writes it; the batcher's key carries the precision beside it."""
         sig = (("ivf", self.nprobe, self.index.fingerprint) if self._ivf
                else ("exact",))
         return sig + self._lane_markers()
@@ -348,12 +451,15 @@ class QueryEngine:
             + self._lane_markers()
 
     def _lane_markers(self) -> tuple:
-        return ((("fused",) if self._fused else ())
-                + (("pq", self._pq_fp) if self._pq else ()))
+        lane = (("pq", self._pq_fp) if self._pq
+                else (self.precision,) if self.precision in ("int8", "int4")
+                else ())
+        return (("fused",) if self._fused else ()) + lane
 
     def _k_scan(self, k: int, cap: int) -> int:
-        """Over-fetch width of the PQ coarse scan, at most ``cap``."""
-        return min(k + max(_PQ_RESCORE_MULT * k, _PQ_RESCORE_MIN), cap)
+        """Over-fetch width of the lane's coarse scan, at most ``cap``."""
+        mult, least = _RESCORE[self.precision]
+        return min(k + max(mult * k, least), cap)
 
     # --- queries --------------------------------------------------------------
 
@@ -391,8 +497,8 @@ class QueryEngine:
         if self._ivf:
             return self._probe_topk(q, q_idx, k, exclude_self=exclude_self,
                                     nprobe=nprobe)
-        if self._pq:
-            sd, sidx = self._scan_pq(q, q_idx, self._k_scan(
+        if self._mixed:
+            sd, sidx = self._scan_lane(q, q_idx, self._k_scan(
                 k, self.num_nodes), exclude_self)
             return self._rescore(q, sidx, sd, k)
         if self._fused and fused_kernel.supports(self.spec, k=k,
@@ -401,9 +507,9 @@ class QueryEngine:
                 self.table, q, q_idx, 0, spec=self.spec, k=k,
                 n=self.num_nodes, exclude_self=exclude_self)
             return i, d
-        d, i = self._two_stage(lambda s: pdist(
-            q, self.table[s:s + self.chunk_rows], self.spec[1],
-            manifold=self.spec[0]), q_idx, k, exclude_self)
+        d, i = self._two_stage(lambda s: _tile_dist(
+            self.spec, q, self.table[s:s + self.chunk_rows]), q_idx, k,
+            exclude_self)
         return i, d
 
     def _sync_for_span(self) -> None:
@@ -430,6 +536,42 @@ class QueryEngine:
                 yield d, cols[None, :].expand(d.shape[0], -1)
 
         return _two_stage_core(tiles(), k)
+
+    def _lane_query(self, q: torch.Tensor) -> torch.Tensor:
+        """The queries as the lane scans them: cast to bf16 for the bf16
+        copy, the f32 master rows otherwise (the table is quantized, not
+        the queries)."""
+        return q.to(torch.bfloat16) if self.precision == "bf16" else q
+
+    def _widened(self, ids) -> torch.Tensor:
+        """Rows of the lane's copy (a slice or a gather) widened to f32
+        as the scans widen them; the bf16 copy stays bf16."""
+        from hyperspace_torch.serve.quant import dequantize_torch
+
+        rows = self.scan_table[ids]
+        if self.scan_scale is None:             # the f32 and bf16 copies
+            return rows
+        return dequantize_torch(rows, self.scan_scale[ids],
+                                packed=self.precision == "int4",
+                                dim=self.dim)
+
+    def _scan_lane(self, q: torch.Tensor, q_idx: torch.Tensor, k_scan: int,
+                   exclude_self: bool):
+        """The exact coarse scan of the lane's copy → ``(dists, ids)``:
+        ``scan_topk`` (``scan_topk_pq`` for PQ) under ``fused``, else
+        the two-stage walk over widened chunks."""
+        if self._pq:
+            return self._scan_pq(q, q_idx, k_scan, exclude_self)
+        qs = self._lane_query(q)
+        if self._fused and fused_kernel.supports(
+                self.spec, k=k_scan, dim=self.dim, lane=self.precision):
+            return fused_kernel.scan_topk(
+                self.scan_table, qs, q_idx, 0, spec=self.spec, k=k_scan,
+                n=self.num_nodes, exclude_self=exclude_self,
+                scale=self.scan_scale, packed=self.precision == "int4")
+        return self._two_stage(lambda s: _tile_dist(
+            self.spec, qs, self._widened(slice(s, s + self.chunk_rows))),
+            q_idx, k_scan, exclude_self)
 
     def _scan_pq(self, q: torch.Tensor, q_idx: torch.Tensor, k_scan: int,
                  exclude_self: bool):
@@ -474,7 +616,7 @@ class QueryEngine:
             raise ValueError(
                 f"k={k} exceeds the probe capacity nprobe×max_cell = "
                 f"{p}×{self.index.max_cell} = {capacity}; raise nprobe=")
-        k_scan = self._k_scan(k, capacity) if self._pq else k
+        k_scan = self._k_scan(k, capacity) if self._mixed else k
         idx, dist = self._topk_ivf(q, q_idx, k, k_scan, p, exclude_self)
         if bool(torch.isinf(dist).any()):
             raise ValueError(
@@ -486,18 +628,18 @@ class QueryEngine:
 
     def _topk_ivf(self, q: torch.Tensor, q_idx: torch.Tensor, k: int,
                   k_scan: int, nprobe: int, exclude_self: bool):
-        """Centroid scoring (``pdist``) → the nearest ``nprobe`` cells'
-        row ids, nearest cell first → the candidate scan (+ the PQ
-        rescore) → ``(ids, dists)``.  The cells partition the table, so
-        a candidate appears at most once."""
-        dc = pdist(q, self._centroids, self.spec[1],
-                   manifold=self.spec[0])                   # [B, ncells]
+        """Centroid scoring (f32 ``pdist``, or the manifold's distance)
+        → the nearest ``nprobe`` cells' row ids, nearest cell first →
+        the candidate scan (+ the lane's rescore) → ``(ids, dists)``.
+        The cells partition the table, so a candidate appears at most
+        once."""
+        dc = _tile_dist(self.spec, q, self._centroids)     # [B, ncells]
         # the nearest cells, ties to the lower cell (lax.top_k's rule)
         cell_sel = torch.sort(dc, dim=1, stable=True)[1][:, :nprobe]
         cand = self._cells[cell_sel].reshape(q.shape[0], -1)
         sd, sidx = self._scan_topk_cand(q, cand, q_idx, k_scan,
                                         exclude_self)
-        if self._pq:
+        if self._mixed:
             return self._rescore(q, sidx, sd, k)
         return sidx, sd
 
@@ -505,16 +647,19 @@ class QueryEngine:
                         q_idx: torch.Tensor, k: int, exclude_self: bool):
         """Top-k over each query's own candidates ``cand`` [B, C] (-1 =
         padding) → ``(dists, table ids)`` [B, min(k, C)]: the
-        ``scan_topk_cand`` kernel under ``fused`` (f32), else chunked
-        gathers and plain distances (PQ codes decode to the lift)."""
+        ``scan_topk_cand`` kernel under ``fused`` (the f32, bf16 and int8
+        copies), else chunked gathers, widened to f32, and plain
+        distances (PQ codes decode to the lift)."""
         ctot = cand.shape[1]
         ko = min(k, ctot)
+        qs = self._lane_query(q)
         if (self._fused and not self._pq
                 and fused_kernel.supports_cand(self.spec, k=k, dim=self.dim,
-                                               cand=ctot)):
+                                               cand=ctot,
+                                               lane=self.precision)):
             d, i = fused_kernel.scan_topk_cand(
-                self.table, cand, q, q_idx, spec=self.spec, k=k,
-                exclude_self=exclude_self)
+                self.scan_table, cand, qs, q_idx, spec=self.spec, k=k,
+                exclude_self=exclude_self, scale=self.scan_scale)
             return d[:, :ko], i[:, :ko]
         q_lift = None
         if self._pq:
@@ -532,7 +677,8 @@ class QueryEngine:
                         self.pq_codebooks, self.scan_table[safe],
                         self._lift_dim))
                 else:
-                    d = _cand_dist(self.spec, q, self.table[safe])
+                    d = _cand_dist(self.spec, qs.float(),
+                                   self._widened(safe).float())
                 mask = ids < 0
                 if exclude_self:
                     mask = mask | (ids == q_idx[:, None])

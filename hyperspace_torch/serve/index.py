@@ -9,8 +9,9 @@ The inverted-file index of Jégou et al. 2011 with geodesic geometry:
   centroid update is a normalized sum in each family's lift: a lorentz
   cell's centroid is the Lorentz centroid of Law et al. 2019, a
   poincare cell's is that centroid of the rows lifted to the
-  hyperboloid, projected back, a euclidean cell's the mean.  Empty cells
-  keep their previous centroid.
+  hyperboloid, projected back, a euclidean cell's the mean, a sphere
+  cell's the mean projected onto the sphere, and a product cell's each
+  factor's rule on its slice.  Empty cells keep their previous centroid.
 - **Cell layout: dense.**  Per-cell row ids packed into a
   ``[ncells, max_cell]`` int32 array padded with ``-1``; every table
   row lands in exactly one cell.
@@ -20,15 +21,16 @@ The inverted-file index of Jégou et al. 2011 with geodesic geometry:
 
 On a CUDA device the nearest-centroid assignment is the ``scan_topk``
 kernel at k = 1 with the centroids as the slab, as the JAX index build
-uses its kernel there; on the CPU it is the JAX index build's
-reduced-key argmin, step for step, so the two packages build the same
-index from the same table and seed.  The per-cell sums are summed in
+uses its kernel there (sphere and product specs, which the kernel does
+not take, argmin the full distance, as JAX does); on the CPU it is the
+JAX index build's reduced-key argmin, step for step, so the two
+packages build the same index from the same table and seed.  The per-cell sums are summed in
 row order (``index_add_``) on the CPU and by a one-hot product on the
 card (no float atomics).
 
-Not ported (they raise ``NotImplementedError``): sphere and product
-specs, and the host-streamed build for tables of ``HOST_BUILD_ROWS`` and
-more (``HostEmbedTable`` sources).
+Not ported (it raises ``NotImplementedError``): the host-streamed build
+for tables of ``HOST_BUILD_ROWS`` and more (``HostEmbedTable``
+sources).
 """
 
 from __future__ import annotations
@@ -41,8 +43,9 @@ import numpy as np
 import torch
 
 from hyperspace_torch.kernels import _support
-from hyperspace_torch.manifolds import Lorentz, PoincareBall, smath
+from hyperspace_torch.manifolds import Lorentz, Sphere, smath
 from hyperspace_torch.manifolds.maps import ball_to_lorentz, lorentz_to_ball
+from hyperspace_torch.serve.artifact import manifold_from_spec
 
 INDEX_VERSION = 1
 
@@ -57,7 +60,7 @@ _BUILD_CHUNK = 4096
 # from the host; that build is not ported
 HOST_BUILD_ROWS = 1 << 20
 
-_KINDS = ("poincare", "lorentz", "euclidean")
+_KINDS = ("poincare", "lorentz", "euclidean", "sphere", "product")
 
 
 def auto_ncells(n: int) -> int:
@@ -118,21 +121,33 @@ def index_fingerprint_of(centroids: np.ndarray, cells: np.ndarray,
 
 def _check_kind(spec: tuple) -> str:
     if spec[0] not in _KINDS:
-        raise NotImplementedError(
-            f"{spec[0]!r} specs are not ported for the IVF/PQ lanes yet "
-            f"(want one of {_KINDS})")
+        raise ValueError(f"unknown manifold spec kind {spec[0]!r} (want "
+                         f"one of {_KINDS})")
     return spec[0]
 
 
 def _lift_dim(spec: tuple, dim: int) -> int:
-    """Width of the lifted coordinates (poincare lifts to d+1)."""
-    return dim + 1 if _check_kind(spec) == "poincare" else dim
+    """Width of the lifted coordinates (poincare lifts to d+1; a product
+    to the sum of its factors' lifts)."""
+    kind = _check_kind(spec)
+    if kind == "poincare":
+        return dim + 1
+    if kind == "product":
+        return sum(_lift_dim((fk, c), d) for fk, d, c in spec[1])
+    return dim
 
 
 def _lift(spec: tuple, x: torch.Tensor) -> torch.Tensor:
     """Coordinates in which the family's centroid is a normalized sum."""
-    if _check_kind(spec) == "poincare":
+    kind = _check_kind(spec)
+    if kind == "poincare":
         return ball_to_lorentz(x, spec[1])
+    if kind == "product":
+        parts, o = [], 0
+        for fk, d, c in spec[1]:
+            parts.append(_lift((fk, c), x[..., o:o + d]))
+            o += d
+        return torch.cat(parts, dim=-1)
     return x
 
 
@@ -140,22 +155,28 @@ def _unlift(spec: tuple, s: torch.Tensor, cnt: torch.Tensor) -> torch.Tensor:
     """Per-cell lifted sums ``s`` [ncells, DL] + counts → centroids
     [ncells, D] (garbage on empty cells — the caller masks those)."""
     kind = _check_kind(spec)
+    mean = s / torch.clamp_min(cnt, 1.0)[:, None]
     if kind == "lorentz":
         return Lorentz(float(spec[1])).centroid(s[:, None, :])
     if kind == "poincare":
         mu = Lorentz(float(spec[1])).centroid(s[:, None, :])
         return lorentz_to_ball(mu, spec[1])
-    return s / torch.clamp_min(cnt, 1.0)[:, None]
+    if kind == "sphere":
+        return Sphere(float(spec[1])).proj(mean)
+    if kind == "product":
+        parts, o = [], 0
+        for fk, d, c in spec[1]:
+            dl = _lift_dim((fk, c), d)
+            parts.append(_unlift((fk, c), s[:, o:o + dl], cnt))
+            o += dl
+        return torch.cat(parts, dim=-1)
+    return mean
 
 
 def _dist(spec: tuple, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """The manifold's own distance, broadcast over rows."""
-    kind = _check_kind(spec)
-    if kind == "poincare":
-        return PoincareBall(float(spec[1])).dist(x, y)
-    if kind == "lorentz":
-        return Lorentz(float(spec[1])).dist(x, y)
-    return smath.safe_norm(y - x, keepdim=False)
+    _check_kind(spec)
+    return manifold_from_spec(spec).dist(x, y)
 
 
 # --- Lloyd -------------------------------------------------------------------
@@ -170,8 +191,13 @@ def _nearest_centroid(cent: torch.Tensor, rows: torch.Tensor, *,
     CPU: the JAX index build's argmin of a monotone-reduced key —
     poincare ``d²(x,y) / (1 − c‖y‖²)``, lorentz ``−⟨x, y⟩_L``,
     euclidean ``‖x − y‖²`` — which picks the same centroid as the full distance
-    except at floating-point near-ties; first index on ties."""
+    except at floating-point near-ties; first index on ties.  Sphere and
+    product specs argmin the full distance on either device, as JAX
+    does."""
     kind = spec[0]
+    if kind in ("sphere", "product"):
+        return torch.argmin(_dist(spec, rows[:, None, :], cent[None, :, :]),
+                            dim=1)
     if rows.device.type == "cuda":
         from hyperspace_torch.kernels import scan_topk as fused_kernel
 

@@ -1,5 +1,18 @@
-"""Product quantization for the serve table's coarse-scan lane
-(counterpart of the PQ half of ``hyperspace_tpu/serve/quant.py``).
+"""Quantized copies of the serve table for the coarse-scan lanes
+(counterpart of ``hyperspace_tpu/serve/quant.py``).
+
+- **int8**: a per-row symmetric code in [-127, 127] and a per-row f32
+  scale; the scans dequantize ``code · scale`` in f32.
+- **int4**: two signed nibbles a byte in the planar layout (byte ``j``
+  holds element ``j`` low and element ``ceil(D/2) + j`` high) and a
+  per-row f16 scale fitted first, so every reconstruction is
+  ``nibble · float(scale)`` bit for bit.
+- **PQ**, below.
+
+The quantizers are host numpy, each the JAX package's step for step,
+so codes and scales are array-equal to JAX's for the same table;
+:func:`unpack_int4_torch` is the tensor twin of the nibble unpack that
+the engine's two-stage scan applies to each chunk.
 
 PQ splits a row's *lift* (``serve/index.py:_lift``: a poincare row
 lifts to the hyperboloid, lorentz and euclidean rows lift to
@@ -15,7 +28,7 @@ master table, so a returned distance never comes from a code.
 Training and encoding are host numpy, step for step the JAX package's,
 so codes and codebooks are array-equal to JAX's for the same table and
 seed; the only device-dependent step is the lift, done here on the CPU
-in float32.  The int8 and int4 lanes are not ported yet.
+in float32.
 """
 
 from __future__ import annotations
@@ -25,6 +38,121 @@ import hashlib
 import json
 
 import numpy as np
+
+# int8 levels per side: symmetric, so -128 is never produced and the
+# dequantized range is exactly [-max|row|, +max|row|]
+QLEVELS = 127
+
+
+def quantize_rows(table: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Per-row symmetric int8 quantization: ``table`` [N, D] →
+    ``(q [N, D] int8, scale [N, 1] float32)`` with ``q · scale ≈ table``
+    (at most ``scale/2`` off an element).  All-zero rows get scale 0 and
+    codes 0, so they dequantize to exactly 0."""
+    table = np.asarray(table, np.float32)
+    if table.ndim != 2:
+        raise ValueError(f"table must be [N, D]; got {table.shape}")
+    amax = np.max(np.abs(table), axis=1, keepdims=True)     # [N, 1]
+    scale = (amax / QLEVELS).astype(np.float32)
+    # guard the divide only: a zero scale still lands in the output
+    safe = np.where(scale > 0, scale, 1.0)
+    q = np.clip(np.rint(table / safe), -QLEVELS, QLEVELS).astype(np.int8)
+    return q, scale
+
+
+def dequantize_rows(q: np.ndarray, scale: np.ndarray) -> np.ndarray:
+    """``q · scale`` in f32, what the scans apply to each row."""
+    return q.astype(np.float32) * np.asarray(scale, np.float32)
+
+
+def quant_error_bound(scale: np.ndarray) -> float:
+    """The largest reconstruction error of an element: half the worst
+    row's step, ``max(scale)/2``."""
+    s = np.asarray(scale, np.float32)
+    return float(s.max() / 2.0) if s.size else 0.0
+
+
+# int4 levels per side: nibbles in [-7, 7] (-8 is never produced)
+QLEVELS4 = 7
+
+
+def int4_packed_width(dim: int) -> int:
+    """Packed bytes a row: two elements a byte, planar."""
+    return (int(dim) + 1) // 2
+
+
+def pack_int4_rows(table: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Per-row symmetric int4 quantization, two nibbles a byte:
+    ``table`` [N, D] → ``(packed [N, ceil(D/2)] uint8, scale [N, 1]
+    float16)``.  Byte ``j`` holds element ``j`` (low nibble) and element
+    ``hw + j`` (high nibble, ``hw = ceil(D/2)``; zero past D).  The scale
+    is rounded to float16 first and the codes fitted against the stored
+    value.  All-zero rows get scale 0 and codes 0."""
+    table = np.asarray(table, np.float32)
+    if table.ndim != 2:
+        raise ValueError(f"table must be [N, D]; got {table.shape}")
+    n, d = table.shape
+    amax = np.max(np.abs(table), axis=1, keepdims=True)          # [N, 1]
+    scale = (amax / QLEVELS4).astype(np.float16)                 # stored
+    s32 = scale.astype(np.float32)
+    safe = np.where(s32 > 0, s32, 1.0)
+    q = np.clip(np.rint(table / safe), -QLEVELS4, QLEVELS4).astype(np.int8)
+    hw = int4_packed_width(d)
+    planar = np.zeros((n, 2 * hw), np.int8)
+    planar[:, :d] = q
+    lo = planar[:, :hw].astype(np.uint8) & 0xF
+    hi = planar[:, hw:].astype(np.uint8) & 0xF
+    return (lo | (hi << 4)).astype(np.uint8), scale
+
+
+def unpack_int4_rows(packed: np.ndarray, dim: int) -> np.ndarray:
+    """``packed`` [N, hw] uint8 → signed int8 codes [N, dim] (low
+    nibbles first, then high)."""
+    packed = np.asarray(packed, np.uint8)
+    lo = (packed & 0xF).astype(np.int8)
+    hi = (packed >> 4).astype(np.int8)
+    lo = np.where(lo >= 8, lo - 16, lo)
+    hi = np.where(hi >= 8, hi - 16, hi)
+    return np.concatenate([lo, hi], axis=-1)[..., :int(dim)]
+
+
+def unpack_int4_torch(packed, dim: int):
+    """Tensor twin of :func:`unpack_int4_rows`: ``packed`` [..., hw]
+    uint8 → signed int32 codes [..., dim] on the tensor's device."""
+    import torch
+
+    t = packed.to(torch.int32)
+    lo = t & 0xF
+    hi = t >> 4
+    lo = torch.where(lo >= 8, lo - 16, lo)
+    hi = torch.where(hi >= 8, hi - 16, hi)
+    return torch.cat([lo, hi], dim=-1)[..., :int(dim)]
+
+
+def dequantize_int4_rows(packed: np.ndarray, scale: np.ndarray,
+                         dim: int) -> np.ndarray:
+    """``unpack · scale`` in f32, what the scans apply to each row."""
+    codes = unpack_int4_rows(packed, dim).astype(np.float32)
+    return codes * np.asarray(scale, np.float32)
+
+
+def dequantize_torch(codes, scale=None, *, packed: bool = False,
+                     dim: int = 0):
+    """Rows of a scan lane widened to float32 on their device, as the
+    scans widen them: bf16 or float32 ``codes`` [..., D] as they are;
+    int8 ``codes`` times ``scale`` [..., 1]; ``packed`` int4 bytes
+    [..., ceil(dim/2)] unpacked to ``dim`` nibbles times ``scale``."""
+    import torch
+
+    if packed:
+        return (unpack_int4_torch(codes, dim).to(torch.float32)
+                * scale.to(torch.float32))
+    if scale is not None:
+        return codes.to(torch.float32) * scale.to(torch.float32)
+    return codes.to(torch.float32)
+
+
+# --- PQ lane ------------------------------------------------------------------
 
 PQ_VERSION = 1
 # centroids per subspace — one uint8 code

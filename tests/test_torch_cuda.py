@@ -2435,3 +2435,162 @@ def test_no_kernel_build_after_prewarm(dev, tmp_path):
 
     statuses, new = _door_run(bat, go)
     assert statuses == [200] * 7 and new == [0, 0, 0]
+
+
+# --- the bf16, int8 and int4 lanes ------------------------------------------
+
+
+def lane_slabs(slab):
+    """The slab in each narrow lane: (lane, rows, scale, packed)."""
+    from hyperspace_torch.serve import quant as Q
+
+    host = slab.cpu().numpy()
+    q8, s8 = Q.quantize_rows(host)
+    p4, s4 = Q.pack_int4_rows(host)
+    dev = slab.device
+    return [("bf16", slab.to(torch.bfloat16), None, False),
+            ("int8", torch.as_tensor(q8, device=dev),
+             torch.as_tensor(s8, device=dev), False),
+            ("int4", torch.as_tensor(p4, device=dev),
+             torch.as_tensor(s4, device=dev), True)]
+
+
+@pytest.mark.parametrize("kind,d,n,m", [
+    ("poincare", 10, 8, 2048), ("poincare", 10, 1024, 287),
+    ("lorentz", 11, 37, 2051), ("poincare", 40, 37, 301)])
+def test_pdist_bf16_kernel_within_one_ulp_of_plain(dev, kind, d, n, m):
+    """bf16 in and out, f32 inside: within one bf16 ulp of the plain
+    version beyond the f32 tier the two f32 results keep (RTOL, ATOL:
+    hyperboloid rows lifted from radius 0.9 have x_0 up to 9.5, where the
+    f32 Gram forms of near pairs differ by more than a bf16 ulp of d)."""
+    rng = np.random.default_rng(12)
+    x = rows(rng, n, d, kind, dev).to(torch.bfloat16)
+    y = rows(rng, m, d, kind, dev).to(torch.bfloat16)
+    before = pdist.launches_by_lane["bf16"]
+    got = pdist(x, y, 1.0, manifold=kind)
+    again = pdist(x, y, 1.0, manifold=kind)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and torch.equal(got, again)
+    assert pdist.launches_by_lane["bf16"] == before + 2
+    want = pdist_plain(x, y, 1.0, manifold=kind).float()
+    ulp = torch.where(want > 0, 2.0 ** (torch.floor(torch.log2(want)) - 7),
+                      torch.full_like(want, 2.0 ** -133))
+    assert bool(((got.float() - want).abs()
+                 <= ulp + ATOL + RTOL * want.abs()).all())
+
+
+@pytest.mark.parametrize("kind,d", [("poincare", 10), ("lorentz", 11),
+                                    ("euclidean", 3), ("poincare", 40)])
+@pytest.mark.parametrize("k", [1, 10, 256])
+@pytest.mark.parametrize("b", [8, 300])
+def test_scan_topk_lanes_match_plain(dev, kind, d, k, b):
+    """Each narrow lane against the plain version on the same widened
+    rows, with col0 and n cut and exclude_self; twice, bitwise."""
+    rng = np.random.default_rng(13)
+    m = 3001
+    slab, q = rows(rng, m, d, kind, dev), rows(rng, b, d, kind, dev)
+    spec = (kind, 0.0 if kind == "euclidean" else 1.0)
+    for lane, lrows, scale, packed in lane_slabs(slab):
+        for ex, col0, n in ((False, 0, m), (True, 400, 400 + m - 77)):
+            qi = torch.as_tensor(rng.integers(col0, col0 + m, b),
+                                 dtype=torch.int32, device=dev)
+            before = scan_topk.launches_by_lane[lane]
+            run = lambda: scan_topk(lrows, q, qi, col0, spec=spec, k=k,  # noqa: E731
+                                    n=n, exclude_self=ex, scale=scale,
+                                    packed=packed)
+            got, again = run(), run()
+            torch.cuda.synchronize()
+            assert scan_topk.launches_by_lane[lane] == before + 2
+            assert torch.equal(got[0], again[0])
+            assert torch.equal(got[1], again[1])
+            wd, wi = scan_topk_plain(lrows, q, qi, col0, kind=kind,
+                                     c=spec[1], k=k, n=n, exclude_self=ex,
+                                     scale=scale, packed=packed)
+            assert topk_disagreements(
+                got[1].cpu().numpy(), got[0].cpu().numpy(),
+                wi.cpu().numpy(), wd.cpu().numpy(), rtol=RTOL,
+                atol=ATOL) == 0, lane
+
+
+@pytest.mark.parametrize("kind,d", [("poincare", 10), ("lorentz", 11),
+                                    ("euclidean", 7)])
+@pytest.mark.parametrize("k", [10, 256])
+def test_scan_topk_cand_lanes_match_plain(dev, kind, d, k):
+    """bf16 and int8 candidate lanes, pads in mid-list, exclude_self."""
+    rng = np.random.default_rng(14)
+    table = rows(rng, 20000, d, kind, dev)
+    q = rows(rng, 300, d, kind, dev)
+    cand = torch.as_tensor(rng.integers(0, 20000, (300, 1500)),
+                           dtype=torch.int32, device=dev)
+    cand[:, 100:133] = -1
+    qi = cand[:, 17].clone()
+    spec = (kind, 0.0 if kind == "euclidean" else 1.0)
+    for lane, ltab, scale, _ in lane_slabs(table)[:2]:
+        before = scan_topk_cand.launches_by_lane[lane]
+        run = lambda: scan_topk_cand(ltab, cand, q, qi, spec=spec, k=k,  # noqa: E731
+                                     exclude_self=True,
+                                     scale=None if scale is None
+                                     else scale.reshape(-1))
+        got, again = run(), run()
+        torch.cuda.synchronize()
+        assert scan_topk_cand.launches_by_lane[lane] == before + 2
+        assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+        want = scan_topk_cand_plain(ltab, cand, q, qi, kind=kind, c=spec[1],
+                                    k=k, exclude_self=True, scale=scale)
+        assert_cand_close(kind, table, got, want)
+
+
+def test_lane_kernels_refuse_what_they_do_not_take(dev):
+    rng = np.random.default_rng(15)
+    slab = rows(rng, 500, 10, "poincare", dev)
+    q = rows(rng, 4, 10, "poincare", dev)
+    qi = torch.zeros(4, dtype=torch.int32, device=dev)
+    spec = ("poincare", 1.0)
+    (_, b16, _, _), (_, q8, s8, _), (_, p4, s4, _) = lane_slabs(slab)
+    with pytest.raises(ValueError, match="float32"):   # int8 scale as f16
+        scan_topk(q8, q, qi, 0, spec=spec, k=5, n=500, scale=s4)
+    with pytest.raises(ValueError, match="float16"):   # int4 scale as f32
+        scan_topk(p4, q, qi, 0, spec=spec, k=5, n=500, scale=s8,
+                  packed=True)
+    with pytest.raises(ValueError, match="entries"):
+        scan_topk(q8, q, qi, 0, spec=spec, k=5, n=500, scale=s8[:-1])
+    with pytest.raises(ValueError, match="one dtype"):
+        pdist(q, b16, 1.0, manifold="poincare")
+    cand = torch.zeros((4, 9), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="want table"):  # no int4 lane
+        scan_topk_cand(p4, cand, q, qi, spec=spec, k=5)
+
+
+@pytest.mark.parametrize("precision", ["bf16", "int8", "int4"])
+@pytest.mark.parametrize("nprobe", [0, 2])
+def test_engine_lanes_agree_on_cuda(dev, precision, nprobe):
+    """Each lane's engine on the card, fused and two-stage, against the
+    CPU engine on the same table and index: ids equal outside near-ties;
+    fused launches the lane's kernel once a batch."""
+    from hyperspace_torch.serve.index import build_index
+
+    rng = np.random.default_rng(16)
+    table = rows(rng, 6000, 10, "poincare", dev).cpu().numpy()
+    spec = ("poincare", 1.0)
+    index = build_index(table, spec, 40)
+    q = np.arange(0, 6000, 41)
+    out = {}
+    for mode in ("two_stage", "fused"):
+        eng = QueryEngine(table, spec, scan_mode=mode, precision=precision,
+                          index=index, nprobe=nprobe)
+        before = (scan_topk.launches_by_lane[precision],
+                  scan_topk_cand.launches_by_lane.get(precision, 0))
+        i, d = eng.topk_neighbors(q, 10)
+        after = (scan_topk.launches_by_lane[precision],
+                 scan_topk_cand.launches_by_lane.get(precision, 0))
+        fused_cand = nprobe and precision != "int4"
+        want = ((0, 0) if mode == "two_stage"
+                else (0, 1) if fused_cand else (0, 0) if nprobe
+                else (1, 0))
+        assert tuple(a - b for a, b in zip(after, before)) == want
+        out[mode] = (i.cpu().numpy(), d.cpu().numpy())
+    cpu = QueryEngine(table, spec, device="cpu", precision=precision,
+                      index=index, nprobe=nprobe)
+    ci, cd = (a.numpy() for a in cpu.topk_neighbors(q, 10))
+    for i, d in out.values():
+        assert topk_disagreements(i, d, ci, cd, rtol=RTOL, atol=ATOL) == 0

@@ -242,11 +242,12 @@ def test_new_wrappers_refuse_and_count_no_cpu_launch():
     codes = torch.zeros((6, 2), dtype=torch.uint8)
     scan_topk.scan_topk_pq(codes, torch.zeros((2, 512)), qi, 0, spec=spec,
                            k=2, n=6)
+    # the int8 lane's scale= is served: on the CPU by the plain version
+    got = scan_topk.scan_topk_cand(t.to(torch.int8), cand, t[:2], qi,
+                                   spec=spec, k=2, scale=torch.ones(6))
+    assert got[1].shape == (2, 2)
     assert (scan_topk.scan_topk_cand.launches,
             scan_topk.scan_topk_pq.launches) == before
-    with pytest.raises(ValueError, match="not ported"):
-        scan_topk.scan_topk_cand(t, cand, t[:2], qi, spec=spec, k=2,
-                                 scale=torch.ones(6))
     with pytest.raises(ValueError, match="unsupported"):
         scan_topk.scan_topk_cand(t, cand, t[:2], qi, spec=spec, k=300)
     with pytest.raises(ValueError, match="want table"):
@@ -343,12 +344,17 @@ def test_build_index_options_and_fingerprint():
 @pytest.mark.parametrize("spec", [
     ("sphere", 1.0), ("product", (("poincare", 3, 1.0), ("euclidean", 3, 0.0)))])
 def test_unported_builds_raise(spec):
+    """Sphere and product builds are ported (their lifts and cell means,
+    ``tests/test_torch_serve_specs.py`` holds them against JAX): a table
+    of one repeated point builds a valid partition and code table; the
+    host-streamed build still raises."""
     table = np.zeros((3000, 6), np.float32)
     table[:, 0] = 1.0
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tidx.build_index(table, spec, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tquant.build_pq(table, spec)
+    index = tidx.build_index(table, spec, 8, device="cpu")
+    assert sorted(index.cells[index.cells >= 0].tolist()) == list(
+        range(3000))
+    codes, cb = tquant.build_pq(table, spec)
+    assert codes.shape == (3000, cb.m)
     with pytest.raises(NotImplementedError, match="not ported"):
         tidx.build_index(clustered(3000, 6), ("poincare", 1.0), 8,
                          host_resident=True, device="cpu")
@@ -394,6 +400,9 @@ def test_artifacts_load_both_ways(served, tmp_path):
 
 
 def test_int4_payload_loads_and_is_not_served(served, tmp_path):
+    """The int4 payload JAX wrote loads, and is served now: the engine's
+    int4 copy is the payload's codes and scales, array-equal to the
+    port's own packing; f32 engines ignore it."""
     table, spec = served["table"], served["spec"]
     q4 = jart.build_quant_payload(table, spec, "int4")
     path = str(tmp_path / "int4")
@@ -401,10 +410,14 @@ def test_int4_payload_loads_and_is_not_served(served, tmp_path):
     art = tart.load_artifact(path)
     assert art.quant.lane == "int4"
     assert art.fingerprint == jart.load_artifact(path).fingerprint
-    with pytest.raises(ValueError, match="not ported"):
-        QueryEngine.from_artifact(art, precision="int4", device="cpu")
-    with pytest.raises(ValueError, match="not ported"):
-        tart.build_quant_payload(table, spec, "int4")
+    eng = QueryEngine.from_artifact(art, precision="int4", device="cpu")
+    mine = tart.build_quant_payload(table, spec, "int4")
+    assert mine.fingerprint == q4.fingerprint
+    np.testing.assert_array_equal(eng.scan_table[:4096].numpy(),
+                                  mine.arrays["packed"])
+    np.testing.assert_array_equal(eng.scan_scale[:4096].numpy(),
+                                  mine.arrays["scale"])
+    assert eng.scan_signature == ("exact", "int4")
     eng = QueryEngine.from_artifact(art, device="cpu")     # f32 ignores it
     assert eng.scan_signature == ("exact",)
 
@@ -626,7 +639,7 @@ def test_cli_serve_loop_with_nprobe_and_pq(served):
                                                    5)[0].tolist()
 
 
-@pytest.mark.parametrize("bad", ["precision=int8", "precision=bogus",
+@pytest.mark.parametrize("bad", ["scan_mode=carry", "precision=bogus",
                                  "nprobe=-1", "nprobe=abc"])
 def test_cli_rejects_bad_lane_options(served, bad):
     with pytest.raises(SystemExit):

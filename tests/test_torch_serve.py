@@ -237,9 +237,6 @@ def test_engine_pads_table_to_chunk_multiple(tables):
 @pytest.mark.parametrize("kw,match", [
     (dict(scan_mode="carry"), "not ported"),
     (dict(scan_mode="bogus"), "scan_mode"),
-    (dict(precision="bf16"), "not ported"),
-    (dict(precision="int8"), "not ported"),
-    (dict(precision="int4"), "not ported"),
     (dict(nprobe=4), "needs an IVF index"),
     (dict(mesh=object()), "not ported"),
     (dict(chunk_rows=-1), "chunk_rows")])
@@ -249,10 +246,58 @@ def test_engine_refuses_unported_options(tables, kw, match):
 
 
 def test_engine_refuses_unported_specs(tables):
-    for spec in (("sphere", 1.0), ("euclidean", 0.0),
-                 ("product", (("poincare", 5, 1.0), ("euclidean", 5, 0.0)))):
-        with pytest.raises(ValueError, match="not ported"):
-            QueryEngine(tables["poincare"], spec, device="cpu")
+    """Every spec JAX's single-device engine serves is served now; an
+    unknown kind, and a product spec narrower than the table, raise."""
+    with pytest.raises(ValueError, match="unknown manifold spec kind"):
+        QueryEngine(tables["poincare"], ("hyperbolic", 1.0), device="cpu")
+    with pytest.raises(ValueError, match="product spec width"):
+        QueryEngine(tables["poincare"], ("product", (
+            ("poincare", 5, 1.0), ("euclidean", 4, 0.0))), device="cpu")
+
+
+@pytest.mark.parametrize("precision", ["bf16", "int8", "int4"])
+def test_engine_serves_every_lane(tables, precision):
+    """The lanes these options refused before: each answers what the f32
+    engine answers on a spread table, with f32 distances (the rescore
+    against the master)."""
+    table, spec = tables["poincare"], ("poincare", C)
+    q = np.arange(0, N, 97)
+    want_i, want_d = QueryEngine(table, spec, device="cpu").topk_neighbors(
+        q, 10)
+    for mode in ("two_stage", "fused"):
+        eng = QueryEngine(table, spec, device="cpu", precision=precision,
+                          scan_mode=mode)
+        got_i, got_d = eng.topk_neighbors(q, 10)
+        assert got_d.dtype == torch.float32
+        assert topk_disagreements(got_i.numpy(), got_d.numpy(),
+                                  want_i.numpy(), want_d.numpy(),
+                                  rtol=1e-5, atol=1e-4) == 0
+
+
+@pytest.mark.parametrize("spec", [
+    ("sphere", 1.0), ("euclidean", 0.0),
+    ("product", (("poincare", 5, 1.0), ("euclidean", 5, 0.0)))])
+def test_engine_serves_every_spec(tables, spec):
+    """The specs this test refused before: answers equal a brute force
+    of the manifold's own distance in float64."""
+    from hyperspace_torch.serve.artifact import manifold_from_spec
+
+    table = tables["poincare"]
+    if spec[0] == "sphere":
+        table = table / np.linalg.norm(table, axis=1, keepdims=True)
+    q = np.arange(0, N, 211)
+    m = manifold_from_spec(spec)
+    t64 = torch.as_tensor(table, dtype=torch.float64)
+    d64 = m.dist(t64[q][:, None, :], t64[None, :, :])
+    d64[np.arange(len(q)), q] = float("inf")
+    ref_d, ref_i = torch.sort(d64, dim=1, stable=True)
+    for mode in ("two_stage", "fused"):
+        i, d = QueryEngine(table, spec, device="cpu",
+                           scan_mode=mode).topk_neighbors(q, 10)
+        assert topk_disagreements(i.numpy(), d.numpy().astype(np.float64),
+                                  ref_i[:, :10].numpy(),
+                                  ref_d[:, :10].numpy(), rtol=1e-5,
+                                  atol=1e-4) == 0
 
 
 def test_engine_validates_requests(tables):

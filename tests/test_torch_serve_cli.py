@@ -94,7 +94,8 @@ def test_export_from_port_checkpoint_matches_export_artifact(
     (["ckpt={ck}", "out={out}"], "requires c="),
     (["ckpt={ck}", "out={out}", "c=x"], "want a float"),
     (["ckpt={ck}", "out={out}", "c=1", "quant=int8"], "want int4 or pq"),
-    (["ckpt={ck}", "out={out}", "c=1", "quant=int4"], "int4"),
+    (["ckpt={ck}", "out={out}", "workload=product", "factors=[[1"],
+     "want JSON"),
     (["ckpt={ck}", "out={out}", "c=1", "ncells=-2"], "ncells"),
     (["ckpt={ck}", "out={out}", "c=1", "workload=hgcn"], "unknown workload"),
     (["ckpt={ck}/none", "out={out}", "c=1"], "no committed checkpoint"),
