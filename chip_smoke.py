@@ -299,6 +299,46 @@ f32 distance of its id, the f32 exact answers against float64 on 16
 queries, recall@10, and a scan kernel launched where the spec takes it
 (euclidean under ``fused``) and none where it does not.
 
+Phases 59-62 (after 44-49 and 58) run the graphed training steps, the
+telemetry spine and the divergence guard:
+
+59. the CLI's HyboNet step at ``configs/hybonet_textclf.yaml``'s width
+   (dim 128, 4 layers, 4 heads, batch 64) on the CLI's data: a graphed
+   chunk of 8 (``train/loop.py``'s live capture: the module's own tensors
+   are the graph's buffers) from one state against 8 eager steps from
+   another, at ``accum=1`` and 2, then a chunk of replays alone against
+   8 more: parameters, moments, counts, generators and losses bitwise;
+   that chunk's launches, the counts set to 0 before it, exactly 8 ×
+   (4, 4, 4, 1) of the flash forward, dq, dk/dv and ``hyp_mlr``; eager
+   and graphed ms a step (host clock, ending in a sync) and the card's
+   busy ms a step; then the kernels one replayed chunk ran on the card,
+   counted by name in a ``torch.profiler`` trace, the same 8 × (4, 4, 4,
+   1);
+60. the CLI's LP step on phase 40's arxiv split (hidden (128, 32), bf16
+   lanes) the same way in chunks of 4, beside a second eager run: bitwise,
+   or within the two eager runs' gap where those differ; the replay
+   chunk's launches 4 × 4 of ``csr_segment_sum`` and of
+   ``cluster_aggregate``, at the wrappers and in the trace; ms and busy
+   ms as in 59; then ``cli.train
+   hgcn`` on a Cora-size layout, ``task=nc`` and ``use_att=true``,
+   ``scan_chunk=4`` against ``scan_chunk=1`` twice, the final
+   checkpoints held the same way;
+61. graphed HyboNet through ``cli.train.main`` with ``telemetry=1
+   trace_out= metrics_out= profile_steps=16`` and without: the manifest
+   first and the summary last, ``span/*`` and ``ctr/*`` in the records,
+   the 2 profiled chunks in ``train/phase/device_step_ms``, the Chrome
+   trace and the Prometheus file loaded; ms a step with the spine on and
+   off (from the records' clocks: each record reads the loss);
+62. graphed HyboNet with ``chaos=train.step_nan:nan:after=2
+   rollback=1``: one rollback, to step 16, a finite loss and the
+   unfaulted run's final state, bitwise; ``rollback=1`` with no fault
+   bitwise the unguarded run; ``chaos=ckpt.save:ioerror:times=2``
+   retried twice (``ckpt/save_retries``) and the run complete.
+
+The kernels line gives the replay chunks' launches of 59 and 60 for the
+HyboNet kernels and B1 and B2 in a field of their own,
+``launches_graphed``; ``launches`` stays the eager main path's count.
+
 Phases 50-54 (after 44-49) serve through the HTTP front door
 (``serve/server.py``) on an ephemeral port, in a process of their own
 (``--front-door``: a server runs apart from training), every door
@@ -4545,7 +4585,8 @@ def _cli_phases(torch, args, card, dev, tmp, G, native, prep_cache, hgcn):
             "launches_nc": nc_launches, "launches_att": att_launches,
             "ga": ga, "n": n, "e_real": e_real, "n_strag": n_strag,
             "edge_err": edge_err, "scatter_err": scatter_err,
-            "mlr": lc["mlr"]}
+            "mlr": lc["mlr"], "split": split, "cfg": cfg,
+            "train_pos": train_pos}
 
 
 def learn_c_card_vs_cpu(torch, args, G, hgcn) -> dict:
@@ -5077,7 +5118,7 @@ def accum_card_vs_cpu(torch, args) -> dict:
                 vl.append(float(loss))
         vp = torch.cat([t.reshape(-1).cpu() for t in
                         torch.utils._pytree.tree_leaves(vst.params)])
-        runs[where] = (hl, hp, opt.inner.count, vl, vp,
+        runs[where] = (hl, hp, int(opt.inner.count), vl, vp,
                        int(vst.opt_state.inner_opt_state.count))
     g, c = runs["cuda"], runs["cpu"]
     rep = {"hybonet_loss_rel": max(abs(a - b) / abs(b)
@@ -5320,6 +5361,401 @@ def runtime_path(torch, args, card: dict) -> dict:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return out
+
+
+# --- phases 59-62: graphed HyboNet and HGCN steps, the spine, the guard ------
+
+GRAPH_CHUNK = 8                    # phase 59: a chunk of HyboNet steps
+HGCN_CHUNK = 4                     # phase 60: a chunk of HGCN steps
+GRAPHED_TIMED_CHUNKS = 4           # chunks timed after the capture
+EAGER_TIMED_STEPS = 16
+# the device names of the kernels each wrapper launches once a call, by
+# which a profiler trace of a replayed chunk counts them
+TRACED_KERNELS = {"flash_fwd": ("flash_fwd_kernel",),
+                  "flash_dq": ("flash_dq_kernel",),
+                  "flash_dkv": ("flash_dkv_kernel",),
+                  "hyp_mlr": ("::mlr_kernel", "::pair_kernel"),
+                  "csr_segment_sum": ("segsum_kernel",),
+                  "cluster_aggregate": ("agg_rows_kernel",)}
+TRACE_TRIES = 3                    # a profiler may drop a launch
+SPINE_STEPS, SPINE_CHUNK, SPINE_PROFILE = 128, 8, 16
+GUARD_STEPS = 32
+
+
+def live_gap(torch, a, b) -> float:
+    """:func:`tree_gap` of two live states (``checkpoint.to_tree``)."""
+    from hyperspace_torch.train.checkpoint import _to_host, to_tree
+
+    return tree_gap(torch, _to_host(to_tree(a)), _to_host(to_tree(b)))
+
+
+def traced_launches(torch, fn, names) -> dict:
+    """``{name: n}``: the kernels of the wrappers ``names`` that one call
+    of ``fn`` ran on the card, counted by their device names
+    (``TRACED_KERNELS``) in a ``torch.profiler`` trace of the call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    counts = dict.fromkeys(names, 0)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            for n in names:
+                if any(sym in e.name for sym in TRACED_KERNELS[n]):
+                    counts[n] += 1
+    return counts
+
+
+def graphed_vs_eager(torch, fresh, step, k: int, counters, reset, counts,
+                     per_step: dict, what: str) -> dict:
+    """A chunk of ``k`` replays of ``step`` captured on one fresh state
+    (``loop.ChunkedStepper``, live) against ``k`` eager steps on two
+    others, then a second chunk (replays alone, the launch counts set to
+    0 before it and read after) against ``k`` more eager steps; then
+    eager and graphed ms a step (host clock, ending in a sync) and the
+    card's busy ms a step; then the kernels a replayed chunk ran on the
+    card, counted by name in a profiler trace (``traced_launches``),
+    which must be ``k`` × ``per_step``.  Bitwise equality is asked, or,
+    where the two eager runs differ, a gap within theirs."""
+    from hyperspace_torch.train import loop
+
+    eager, eager2, graphed = fresh(), fresh(), fresh()
+    chunk = loop.ChunkedStepper(step, k, live=True, counters=counters)
+    out = {}
+    for part in ("capture", "replay"):
+        e_losses = torch.stack([step(eager)[1] for _ in range(k)])
+        for _ in range(k):
+            step(eager2)
+        reset()
+        _, g_losses = chunk(graphed)
+        torch.cuda.synchronize()
+        got = counts()
+        spread, gap = live_gap(torch, eager, eager2), live_gap(torch, eager,
+                                                                graphed)
+        out[part] = {"eager_spread": spread, "graphed_gap": gap,
+                     "bitwise": gap == 0.0 and bool(torch.equal(e_losses,
+                                                                g_losses)),
+                     "loss_gap": float((e_losses - g_losses).abs().max()),
+                     "launches": got}
+        if not (out[part]["bitwise"] or (spread > 0 and gap <= spread)):
+            raise AssertionError(f"{what} ({part}): graphed {gap} from the "
+                                 f"eager steps, two eager runs {spread}")
+        if not torch.isfinite(g_losses).all():
+            raise AssertionError(f"{what}: non-finite losses {g_losses}")
+    launches = out["replay"]["launches"]
+    for name, per in per_step.items():
+        if launches[name] != k * per:
+            raise AssertionError(f"{what}: {launches[name]} {name} launches "
+                                 f"in a chunk of {k} replays, want {k} × "
+                                 f"{per}")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(EAGER_TIMED_STEPS):
+        step(eager)
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t) / EAGER_TIMED_STEPS * 1e3
+    t = time.perf_counter()
+    for _ in range(GRAPHED_TIMED_CHUNKS):
+        chunk(graphed)
+    torch.cuda.synchronize()
+    chunk_ms = (time.perf_counter() - t) / GRAPHED_TIMED_CHUNKS * 1e3
+    e_share = device_share(torch, lambda: step(eager), eager_ms, reps=3,
+                           top_n=3)
+    g_share = device_share(torch, lambda: chunk(graphed), chunk_ms, reps=2,
+                           top_n=3)
+    g_busy = g_share["device_busy_ms"]
+    want = {name: k * per for name, per in per_step.items()}
+    traced = []
+    for _ in range(TRACE_TRIES):
+        traced.append(traced_launches(torch, lambda: chunk(graphed),
+                                      per_step))
+        if traced[-1] == want:
+            break
+    out["traced_launches"] = traced
+    if traced[-1] != want:
+        raise AssertionError(f"{what}: a replayed chunk ran {traced} on the "
+                             f"card (profiler trace), want {want}")
+    out.update({"eager_ms_per_step": eager_ms,
+                "graphed_ms_per_step": chunk_ms / k,
+                "eager_busy_ms_per_step": e_share["device_busy_ms"],
+                "eager_idle_share": e_share["device_idle_share"],
+                "graphed_busy_ms_per_step": (None if g_busy is None
+                                             else g_busy / k),
+                "graphed_idle_share": g_share["device_idle_share"],
+                "graphed_top_device_ms": g_share["top_device_ms"]})
+    return out
+
+
+def hybonet_graphed(torch, args, card: dict) -> dict:
+    """Phase 59: the CLI's HyboNet step at ``configs/hybonet_textclf.yaml``'s
+    width (dim 128, 4 layers, 4 heads, batch 64) on the CLI's data, in a
+    graphed chunk of 8 against 8 eager steps, at ``accum=1`` and 2."""
+    from hyperspace_torch.cli import train as cli_train
+    from hyperspace_torch.data import text as T
+    from hyperspace_torch.models import hybonet
+    from hyperspace_torch.optim.accum import with_grad_accumulation
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    keys = dict(p.split("=", 1) for p in cli_train.read_flat_yaml(
+        os.path.join(REPO, HB_CLI_YAML)))
+    ds, _ = T.load_text("text", None)
+    tr, _ = ds.split(0.8, seed=args.seed)
+    cfg = hybonet.HyboNetConfig(
+        vocab_size=ds.vocab_size, num_classes=ds.num_classes,
+        max_len=ds.tokens.shape[1], dim=int(keys["dim"]),
+        num_layers=int(keys["num_layers"]),
+        num_heads=int(keys["num_heads"]),
+        batch_size=int(keys["batch_size"]))
+    data = [torch.as_tensor(a, device=dev)
+            for a in (tr.tokens, tr.mask, tr.labels)]
+
+    def step(s):
+        _, loss = hybonet.train_step_sampled(s.model, s.opt, s.train, *data)
+        return s, loss
+
+    per_step = {"flash_fwd": cfg.num_layers, "flash_dq": cfg.num_layers,
+                "flash_dkv": cfg.num_layers, "hyp_mlr": 1}
+    out = {"launches": dict.fromkeys(per_step, 0)}
+    for accum in (1, 2):
+        def fresh(accum=accum):
+            model, opt, st = hybonet.init_model(cfg, args.seed, dev)
+            opt, _ = with_grad_accumulation(opt, None, accum)
+            return cli_train.ModuleState(model, opt, st)
+
+        res = graphed_vs_eager(torch, fresh, step, GRAPH_CHUNK,
+                               hybonet.path_counters(), hb_reset, hb_counts,
+                               per_step, f"hybonet accum={accum}")
+        for name in per_step:
+            out["launches"][name] += res["replay"]["launches"][name]
+        out[f"accum{accum}"] = res
+        emit({"phase": "hybonet_graphed", "accum": accum,
+              "config": HB_CLI_YAML, "chunk": GRAPH_CHUNK, **res,
+              "seconds": time.perf_counter() - t0, **card})
+    if not all(out[f"accum{a}"][p]["bitwise"] for a in (1, 2)
+               for p in ("capture", "replay")):
+        raise AssertionError("hybonet: a graphed chunk is not bitwise its "
+                             "eager steps")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def hgcn_graphed(torch, args, card: dict, cp: dict, tmp: str) -> dict:
+    """Phase 60: the CLI's LP step on the arxiv layout of
+    ``configs/hgcn_arxiv_lp.yaml`` (phase 40's split and graph; hidden
+    (128, 32), bf16 lanes) in a graphed chunk of 4 against 4 eager steps;
+    then ``cli.train hgcn`` with ``scan_chunk=4`` against ``scan_chunk=1``
+    (twice) for NC and for the attention arm on a Cora-size layout (phase
+    38's, written again), the final checkpoints compared."""
+    from hyperspace_torch.cli import train as cli_train
+    from hyperspace_torch.data import graphs as G
+    from hyperspace_torch.models import hgcn
+    from hyperspace_torch.train.checkpoint import restore_params_only
+
+    t0 = time.perf_counter()
+    split, cfg, n, ga = cp["split"], cp["cfg"], cp["n"], cp["ga"]
+    train_pos, dev = cp["train_pos"], ga.receivers.device
+    cora_dir = os.path.join(tmp, "cora")
+    ce, cx, cl, _ = G.community_power_law_graph(seed=args.seed,
+                                                **CORA_SHAPE)
+    G.write_cora_layout(cora_dir, ce, (cx > 1.5).astype(np.float32), cl)
+
+    def fresh():
+        return cli_train.ModuleState(*hgcn.init_lp(cfg, split.graph, seed=0,
+                                                   device=dev))
+
+    def step(st):
+        _, loss = hgcn.train_step_lp(st.model, st.opt, n, st.train, ga,
+                                     train_pos)
+        return st, loss
+
+    out = {"lp": graphed_vs_eager(
+        torch, fresh, step, HGCN_CHUNK, hgcn.path_counters(), nc_reset,
+        nc_counts, CLI_LP_PER_STEP, "hgcn lp (arxiv layout)")}
+    emit({"phase": "hgcn_graphed", "task": "lp", "config": CLI_LP_YAML,
+          "chunk": HGCN_CHUNK, "nodes": n, **out["lp"],
+          "seconds": time.perf_counter() - t0, **card})
+    steps = 2 * HGCN_CHUNK
+    for name, extra in (("nc", ["task=nc"]), ("att", ["use_att=true"])):
+        argv = ["hgcn", "dataset=cora", f"data_root={cora_dir}",
+                "agg_dtype=bfloat16", "graph_cache=false", f"steps={steps}",
+                "ckpt_every=0", *extra]
+        trees, results = {}, {}
+        for tag, k in (("eager_a", 1), ("eager_b", 1),
+                       ("graphed", HGCN_CHUNK)):
+            d = os.path.join(tmp, f"graphed_{name}_{tag}")
+            results[tag] = run_cli(argv + [f"scan_chunk={k}",
+                                           f"ckpt_dir={d}"])
+            trees[tag] = restore_params_only(d)[0]
+        spread = tree_gap(torch, trees["eager_a"], trees["eager_b"])
+        gap = tree_gap(torch, trees["eager_a"], trees["graphed"])
+        out[name] = {"eager_spread": spread, "graphed_gap": gap,
+                     "bitwise": gap == 0.0,
+                     "losses": [results[t]["loss"] for t in results]}
+        emit({"phase": "hgcn_graphed", "task": name, "dataset": "cora",
+              "chunk": HGCN_CHUNK, "steps": steps, **out[name],
+              "seconds": time.perf_counter() - t0, **card})
+        if not (gap == 0.0 or (spread > 0 and gap <= spread)):
+            raise AssertionError(f"hgcn {name} on Cora: graphed {gap} from "
+                                 f"the eager run, two eager runs {spread}")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def parse_prometheus(text: str) -> dict:
+    """``{series: value}`` of a Prometheus text exposition; a line that
+    does not parse raises."""
+    vals = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            series, value = line.rsplit(" ", 1)
+            vals[series] = float(value)
+    return vals
+
+
+def spine_runs(torch, tmp: str, card: dict) -> dict:
+    """Phase 61: graphed HyboNet through ``cli.train.main`` with the
+    spine on (``telemetry=1 trace_out= metrics_out= profile_steps=16``)
+    and off, the same steps: the manifest first, ``span/*`` and ``ctr/*``
+    in the records, the profiled chunks' ``train/phase/device_step_ms``
+    count, the trace and the Prometheus file loaded; ms a step from the
+    log records' clocks after the first record (each record reads the
+    loss: a sync)."""
+    from hyperspace_torch.telemetry import registry as telem
+
+    t0 = time.perf_counter()
+    base = ["hybonet", "--yaml", HB_CLI_YAML, f"steps={SPINE_STEPS}",
+            f"scan_chunk={SPINE_CHUNK}", "eval_every=16"]
+    trace, prom = os.path.join(tmp, "spine.json"), os.path.join(tmp,
+                                                                "spine.prom")
+    out = {}
+    for tag, extra in (("off", []), ("on", [
+            "telemetry=1", f"trace_out={trace}", f"metrics_out={prom}",
+            f"profile_steps={SPINE_PROFILE}"])):
+        log = os.path.join(tmp, f"spine_{tag}.jsonl")
+        mark = telem.default_registry().mark()
+        res = run_cli(base + [f"log={log}"] + extra)
+        delta = telem.default_registry().snapshot(baseline=mark)
+        with open(log) as f:
+            recs = [json.loads(line) for line in f]
+        rows = [r for r in recs if "event" not in r and "loss" in r]
+        ms = ((rows[-1]["ts"] - rows[0]["ts"])
+              / (rows[-1]["step"] - rows[0]["step"]) * 1e3)
+        hist = delta.get("hist/train/phase/device_step_ms", {})
+        out[tag] = {"result": res, "ms_per_step": ms,
+                    "records": len(recs),
+                    "span_fields": sorted({k for r in rows for k in r
+                                           if k.startswith("span/")}),
+                    "ctr_fields": len({k for r in rows for k in r
+                                       if k.startswith("ctr/")}),
+                    "first_event": recs[0].get("event"),
+                    "last_event": recs[-1].get("event"),
+                    "device_step_ms_count": hist.get("count", 0),
+                    "device_step_ms_mean": (hist["sum"] / hist["count"]
+                                            if hist.get("count") else None),
+                    "dispatches": delta.get("train/dispatches", 0)}
+    on = out["on"]
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    with open(prom) as f:
+        series = parse_prometheus(f.read())
+    on["trace_events"] = len(events)
+    on["prometheus_series"] = len(series)
+    on["telemetry_cost_ms_per_step"] = on["ms_per_step"] - out["off"][
+        "ms_per_step"]
+    emit({"phase": "spine", **out, "seconds": time.perf_counter() - t0,
+          **card})
+    want_prof = -(-SPINE_PROFILE // SPINE_CHUNK)
+    if (on["first_event"] != "run_manifest"
+            or on["last_event"] != "telemetry_summary"
+            or "span/dispatch_s" not in on["span_fields"]
+            or not on["ctr_fields"]
+            or on["device_step_ms_count"] != want_prof
+            or not any(e.get("name") == "dispatch" for e in events)
+            or not any(k.startswith("hyperspace_train_dispatches")
+                       for k in series)):
+        raise AssertionError(f"spine: {on}")
+    off = out["off"]
+    if off["first_event"] is not None or off["span_fields"] \
+            or off["ctr_fields"] or off["device_step_ms_count"]:
+        raise AssertionError(f"spine off added telemetry: {off}")
+    return out
+
+
+def guard_runs(torch, tmp: str, card: dict) -> dict:
+    """Phase 62: graphed HyboNet (chunks of 8, a save every 8 steps) with
+    ``chaos=train.step_nan:nan:after=2 rollback=1``: one rollback, to step
+    16 (the last commit before the poisoned chunk's boundary), a finite
+    final loss and the unfaulted run's final state; ``rollback=1`` with no
+    fault bitwise the unguarded run; ``chaos=ckpt.save:ioerror:times=2``
+    retried, counted, the run complete."""
+    from hyperspace_torch.telemetry import registry as telem
+    from hyperspace_torch.train.checkpoint import restore_params_only
+
+    t0 = time.perf_counter()
+    base = ["hybonet", "--yaml", HB_CLI_YAML, f"steps={GUARD_STEPS}",
+            "scan_chunk=8", "ckpt_every=8", "eval_every=8"]
+
+    def run(tag, *extra):
+        d = os.path.join(tmp, f"guard_{tag}")
+        log = os.path.join(tmp, f"guard_{tag}.jsonl")
+        mark = telem.default_registry().mark()
+        res = run_cli(base + [f"ckpt_dir={d}", f"log={log}", *extra])
+        delta = telem.default_registry().snapshot(baseline=mark)
+        with open(log) as f:
+            recs = [json.loads(line) for line in f]
+        tree, step = restore_params_only(d)
+        return res, recs, tree, step, delta
+
+    clean = run("clean")
+    fault = run("nan", "rollback=1", "chaos=train.step_nan:nan:after=2")
+    idle = run("idle", "rollback=1")
+    save = run("ioerror", "chaos=ckpt.save:ioerror:times=2")
+    rollbacks = [r for r in fault[1] if r.get("event") == "rollback"]
+    out = {"rollbacks": rollbacks,
+           "fault_final_loss": fault[0]["loss"],
+           "fault_vs_clean_gap": tree_gap(torch, clean[2], fault[2]),
+           "idle_vs_clean_gap": tree_gap(torch, clean[2], idle[2]),
+           "idle_results_equal": idle[0] == clean[0],
+           "save_retries": save[4].get("ckpt/save_retries", 0),
+           "saves": save[4].get("ckpt/saves", 0),
+           "ioerror_chaos": save[0].get("chaos"), "ioerror_step": save[3],
+           "seconds": time.perf_counter() - t0}
+    emit({"phase": "guard", **out, **card})
+    if len(rollbacks) != 1 or rollbacks[0]["restored_step"] != 16 \
+            or not np.isfinite(fault[0]["loss"] or np.nan) \
+            or out["fault_vs_clean_gap"] != 0.0:
+        raise AssertionError(f"guard: the NaN run did not roll back to the "
+                             f"clean run's trajectory: {out}")
+    if out["idle_vs_clean_gap"] != 0.0 or not out["idle_results_equal"]:
+        raise AssertionError(f"guard: an idle guard changed the run: {out}")
+    if out["save_retries"] != 2 or save[3] != GUARD_STEPS \
+            or save[0]["chaos"]["fired"] != 2:
+        raise AssertionError(f"guard: ckpt.save ioerror: {out}")
+    return out
+
+
+def graphed_kernel_fields(g59: dict, g60: dict, kernels: list) -> None:
+    """Add the graphed paths' launches to the kernels line in a field of
+    their own, ``launches_graphed`` (``launches`` stays the eager main
+    path's count): phase 59's replay chunks (both ``accum``) for the
+    HyboNet kernels, phase 60's LP replay chunk for B1 and B2."""
+    names = {"flash_attention_fwd": "flash_fwd",
+             "flash_attention_dq": "flash_dq",
+             "flash_attention_dkv": "flash_dkv", "hyp_mlr": "hyp_mlr"}
+    lp = g60["lp"]["replay"]["launches"]
+    for e in kernels:
+        n = None
+        if e["name"] in names:
+            n = g59["launches"][names[e["name"]]]
+        elif e["name"] in CLI_LP_PER_STEP:
+            n = lp[e["name"]]
+        if n is not None:
+            e["launches_graphed"] = n
 
 
 # --- phases 50-54: serving through the HTTP front door -----------------------
@@ -6540,6 +6976,20 @@ def main(argv=None) -> int:
 
     # --- phases 44-49: product embeddings and the train runtime ----------
     runtime_path(torch, args, card)
+
+    # --- phases 59-62: graphed HyboNet and HGCN, the spine, the guard -----
+    g59 = hybonet_graphed(torch, args, card)
+    work = os.path.join(REPO, "build", "chip_smoke")
+    os.makedirs(work, exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=work)
+    try:
+        # --- phase 60: graphed HGCN steps --------------------------------
+        g60 = hgcn_graphed(torch, args, card, cp, tmp)
+        spine_runs(torch, tmp, card)
+        guard_runs(torch, tmp, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    graphed_kernel_fields(g59, g60, kernels)
 
     # --- phases 50-54: serving through the HTTP front door ----------------
     fp = front_door_path(torch, args, card, table_b, ip["art"])

@@ -15,8 +15,9 @@ degradation ladder, access logs and the telemetry registry), and
 the five training workloads of ``cli.train`` (HGCN, HyboNet, Poincaré
 and product-manifold embeddings, the hyperbolic VAE) through one
 training loop (``train.loop.run_loop``: checkpoint and resume, JSONL
-records, health samples, gradient accumulation).  ``ROADMAP.md`` lists
-what is left.
+records, health samples, gradient accumulation, the telemetry spine and
+the divergence guard), every one of them in graphed chunks on the card
+(``scan_chunk``).  ``ROADMAP.md`` lists what is left.
 """
 
 __version__ = "0.1.0"

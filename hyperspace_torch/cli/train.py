@@ -31,8 +31,25 @@ microbatch gradients an update (``hybonet`` and ``hvae``; ``steps``
 counts microsteps).  ``health_every=N`` samples the numerical-health
 monitor every N calls (``health_eps``, ``health_tol``, ``health_abort``).
 ``scan_chunk=K`` runs K steps a call (one CUDA graph replayed K times on
-the card; the step budget rounded up to a multiple of K) for
-``poincare`` (dense steps), ``hvae`` and ``product``.
+the card; the step budget rounded up to a multiple of K) for every
+workload: ``poincare`` (dense steps), ``hvae``, ``product``, ``hybonet``
+(any ``accum``) and ``hgcn`` (``task=lp`` and ``nc``, either arm; the
+graph, its row plan and the host prep are built once, outside the
+captured step).
+
+Telemetry, as JAX's: ``telemetry=1`` writes the run manifest first in
+the JSONL log, ``span/*`` and ``ctr/*`` fields in every record and a
+closing ``telemetry_summary``; ``trace_out=PATH`` dumps the host spans
+as a Chrome trace (Perfetto); ``metrics_out=PATH`` writes the registry's
+Prometheus text every ``metrics_every`` seconds and at the end;
+``profile_steps=N`` waits for the card after each of the first N steps'
+dispatches and records ``train/phase/device_step_ms``.  The guard:
+``rollback=N`` (needs ``ckpt_dir``) rewinds to the last committed
+checkpoint on a non-finite loss or a health violation, at most N times
+(``rollback_lr_backoff`` is the scale handed to the hook and recorded);
+``chaos=site:kind[:key=value...]`` arms faults at ``ckpt.save`` and
+``train.step_nan`` (``chaos_seed``), and the result gains a ``chaos``
+block.
 
 ``hybonet`` prints ``{"workload", "source", "loss", "accuracy"}`` (the
 held-out 20 %).  ``poincare`` trains on the closure TSV at ``data_root``
@@ -58,15 +75,12 @@ ROC-AUC (``lp``) or the val/test accuracy and macro-F1 (``nc``), then
 takes a JSON list, the ``*dtype`` keys dtype names.
 
 Not ported, each exiting with its name when set away from its default:
-the telemetry spine (``telemetry``, ``trace_out``, ``metrics_out``,
-``metrics_every``, ``profile_steps``), fault injection and the
-divergence guard (``chaos``, ``chaos_seed``, ``rollback``,
-``rollback_lr_backoff``), meshes and multi-process runs
-(``multihost``, ``tp``, ``coordinator``, ``num_processes``,
-``process_id``), the host-resident table (``host_table``, ``hot_rows``,
-``host_chunk_steps``, ``host_gather_ahead``), XLA's compilation cache
-(``compile_cache_dir``), sampled HGCN (``sampled=true``) and chunked
-HGCN or HyboNet steps (``scan_chunk>1``).
+meshes and multi-process runs (``multihost``, ``tp``, ``coordinator``,
+``num_processes``, ``process_id``), the host-resident table
+(``host_table``, ``hot_rows``, ``host_chunk_steps``,
+``host_gather_ahead``), XLA's compilation cache (``compile_cache_dir``),
+sampled HGCN (``sampled=true``) and the host prefetcher's fault site
+(``chaos=data.next_batch:...``).
 """
 
 from __future__ import annotations
@@ -83,6 +97,7 @@ import torch
 from hyperspace_torch import precision as precision_lib
 from hyperspace_torch.cli.serve import _coerce, _json_safe, apply_overrides
 from hyperspace_torch.optim.accum import with_grad_accumulation
+from hyperspace_torch.telemetry.trace import span
 from hyperspace_torch.train.loop import (make_chunked_stepper,
                                          round_steps_to_chunk, run_loop)
 
@@ -102,7 +117,7 @@ class RunConfig:
     data_root: str | None = None
     multihost: bool = False
     tp: int = 2
-    scan_chunk: int = 1           # steps a call (poincare, hvae, product)
+    scan_chunk: int = 1           # steps a call (a CUDA graph on the card)
     graph_cache: str = "auto"     # hgcn's host-prep cache: auto|true|false
     accum: int = 1                # microbatches an update (hybonet, hvae)
     precision: str = "f32"        # f32 | bf16, copied into the workload
@@ -132,12 +147,6 @@ class RunConfig:
 
 # the JAX run keys that are not ported, by what they belong to
 NOT_PORTED = {
-    **dict.fromkeys(("telemetry", "trace_out", "metrics_out",
-                     "metrics_every", "profile_steps"),
-                    "the telemetry spine"),
-    **dict.fromkeys(("chaos", "chaos_seed", "rollback",
-                     "rollback_lr_backoff"),
-                    "fault injection and the divergence guard"),
     **dict.fromkeys(("tp", "coordinator", "num_processes", "process_id"),
                     "meshes and multi-process runs"),
     **dict.fromkeys(("hot_rows", "host_chunk_steps", "host_gather_ahead"),
@@ -157,6 +166,10 @@ def check_ported(run: RunConfig) -> None:
     if run.multihost:
         raise SystemExit("multihost=true: meshes are not ported (the port "
                          "trains on one device)")
+    if run.chaos and "data.next_batch" in run.chaos:
+        raise SystemExit(f"chaos={run.chaos!r}: the data.next_batch fault "
+                         "site belongs to the host prefetcher "
+                         "(data/prefetch.py), which is not ported")
 
 
 def split_overrides(pairs: list[str], run: RunConfig):
@@ -226,7 +239,8 @@ def _chunk_run(run: RunConfig) -> RunConfig:
 def _chunked(run: RunConfig, step_fn, **kw):
     """``(stepper, steps a call)``: ``step_fn(state) -> (state, loss)`` as
     ``scan_chunk`` steps a call (``train/loop.py``, a CUDA graph on the
-    card), unchanged for ``scan_chunk <= 1``."""
+    card; ``live=True`` for a :class:`ModuleState`, updated in place),
+    unchanged for ``scan_chunk <= 1``."""
     k = max(int(run.scan_chunk), 1)
     return make_chunked_stepper(step_fn, k, **kw), k
 
@@ -267,22 +281,25 @@ def run_hybonet(run: RunConfig, overrides: dict) -> dict:
                               num_classes=ds.num_classes,
                               max_len=ds.tokens.shape[1]),
         _precision_default(run, overrides))
-    if run.scan_chunk > 1:
-        raise SystemExit(f"scan_chunk={run.scan_chunk}: chunked (graphed) "
-                         "HyboNet steps are not ported (want scan_chunk=1)")
     model, opt, train = hybonet.init_model(cfg, run.seed, run.device)
     opt, _ = with_grad_accumulation(opt, None, run.accum)
     data = [torch.as_tensor(a, device=train.generator.device)
             for a in (tr.tokens, tr.mask, tr.labels)]
 
-    def stepper(st):
+    def step(st):
         _, loss = hybonet.train_step_sampled(st.model, st.opt, st.train,
                                              *data)
         return st, loss
 
+    if run.scan_chunk > 1:
+        run = _chunk_run(run)
+    stepper, spc = _chunked(run, step, live=True,
+                            counters=hybonet.path_counters())
     _, loss = run_loop(run, ModuleState(model, opt, train), stepper,
+                       steps_per_call=spc,
                        health_fn=_maybe_health(run, _module_health))
-    res = hybonet.evaluate(model, te)
+    with span("eval"):
+        res = hybonet.evaluate(model, te)
     return {"workload": "hybonet", "source": source, "loss": float(loss),
             **res}
 
@@ -328,7 +345,8 @@ def run_poincare(run: RunConfig, overrides: dict) -> dict:
         ball, params_of=lambda st: st.table))
     state, _ = run_loop(run, state, stepper, project=project,
                         steps_per_call=spc, health_fn=health_fn)
-    res = pe.evaluate(ball.proj(state.table), ds.pairs, cfg.c)
+    with span("eval"):
+        res = pe.evaluate(ball.proj(state.table), ds.pairs, cfg.c)
     # the state's step is the count taken (a resumed chunked run may pass
     # run.steps)
     return {"workload": "poincare", "steps": int(state.step), **res}
@@ -370,7 +388,8 @@ def run_hvae(run: RunConfig, overrides: dict) -> dict:
     recon, kl = (last["recon_kl"].tolist() if last
                  else [math.nan, math.nan])
     gen = torch.Generator(device=x_all.device).manual_seed(1)
-    iwae = hvae.iwae_bound(model, state.params, x_all[:256], gen, k=16)
+    with span("eval"):
+        iwae = hvae.iwae_bound(model, state.params, x_all[:256], gen, k=16)
     return {"workload": "hvae", "source": source, "loss": float(loss),
             "recon": recon, "kl": kl, "iwae": float(iwae)}
 
@@ -414,7 +433,8 @@ def run_product(run: RunConfig, overrides: dict) -> dict:
     state, _ = run_loop(run, state, stepper, project=project,
                         steps_per_call=spc,
                         health_fn=_maybe_health(run, product_health))
-    res = pme.evaluate(cfg, state.params, ds.pairs)
+    with span("eval"):
+        res = pme.evaluate(cfg, state.params, ds.pairs)
     return {"workload": "product", **res,
             "curvatures": pme.curvatures(cfg, state.params)}
 
@@ -445,13 +465,6 @@ def _graph_cache(run: RunConfig):
     raise SystemExit(f"graph_cache={run.graph_cache!r}: want auto/true/false")
 
 
-def _precision_default(run: RunConfig, overrides: dict) -> dict:
-    """Copy the run's ``precision`` into the workload's overrides unless
-    they set it (explicit wins)."""
-    overrides.setdefault("precision", run.precision)
-    return overrides
-
-
 # the neighbour-sampled mode's keys (configs/hgcn_sampled_nc.yaml)
 _SAMPLED_KEYS = ("fanouts", "batch", "plan_steps")
 
@@ -473,9 +486,6 @@ def run_hgcn(run: RunConfig, overrides: dict) -> dict:
     if sampled:
         raise SystemExit("sampled=true: neighbour-sampled HGCN "
                          "(models/hgcn_sampled.py) is not ported")
-    if run.scan_chunk > 1:
-        raise SystemExit(f"scan_chunk={run.scan_chunk}: chunked (graphed) "
-                         "HGCN steps are not ported (want scan_chunk=1)")
     if task not in ("lp", "nc"):
         raise SystemExit(f"task={task!r}: want lp or nc")
     if reorder not in ("0", "false", "no", "1", "true", "yes", "bfs",
@@ -512,7 +522,7 @@ def run_hgcn(run: RunConfig, overrides: dict) -> dict:
         ga = G.to_device(graph, dev)
         train_pos = G.index_tensor(split.train_pos, dev)
 
-        def stepper(st):
+        def step(st):
             _, loss = hgcn.train_step_lp(st.model, st.opt, num_nodes,
                                          st.train, ga, train_pos)
             return st, loss
@@ -526,14 +536,20 @@ def run_hgcn(run: RunConfig, overrides: dict) -> dict:
         ga = G.to_device(graph, dev)
         lab, mask = hgcn.nc_targets(graph, dev)
 
-        def stepper(st):
+        def step(st):
             _, loss = hgcn.train_step_nc(st.model, st.opt, st.train, ga, lab,
                                          mask)
             return st, loss
+    if run.scan_chunk > 1:
+        run = _chunk_run(run)
+    stepper, spc = _chunked(run, step, live=True,
+                            counters=hgcn.path_counters())
     _, loss = run_loop(run, ModuleState(model, opt, train), stepper,
+                       steps_per_call=spc,
                        health_fn=_maybe_health(run, _module_health))
-    res = (hgcn.evaluate_lp(model, split, "test", ga=ga) if task == "lp"
-           else hgcn.evaluate_nc(model, graph, ga=ga))
+    with span("eval"):
+        res = (hgcn.evaluate_lp(model, split, "test", ga=ga) if task == "lp"
+               else hgcn.evaluate_nc(model, graph, ga=ga))
     return {"workload": "hgcn", "task": task, "dataset": dataset,
             "source": source, "loss": float(loss), **res,
             "prep": graph.prep, "seconds": time.perf_counter() - t0}
@@ -561,7 +577,29 @@ def main(argv: list[str] | None = None) -> int:
     except ValueError as e:
         raise SystemExit(str(e)) from None
     check_ported(run)
-    result = WORKLOADS[args.workload](run, wl_overrides)
+    if run.metrics_out and run.metrics_every <= 0:
+        raise SystemExit(f"metrics_every={run.metrics_every}: want a "
+                         "positive snapshot cadence in seconds")
+    if run.rollback > 0 and not run.ckpt_dir:
+        raise SystemExit("rollback=N needs ckpt_dir= — the divergence "
+                         "guard rewinds to the last committed checkpoint")
+    from hyperspace_torch.resilience import faults
+    from hyperspace_torch.telemetry import cli_session
+
+    try:
+        chaos_armed = faults.install_chaos(run.chaos, run.chaos_seed)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
+    try:
+        # the tracer comes up before the workload, so the host prep's
+        # spans record too; the trace is dumped even if the run raises
+        with cli_session(run.telemetry, run.trace_out):
+            result = WORKLOADS[args.workload](run, wl_overrides)
+        if chaos_armed:
+            result["chaos"] = faults.stats()
+    finally:
+        if chaos_armed:    # an in-process caller never inherits them
+            faults.clear()
     print(json.dumps(_json_safe(result)), flush=True)
     return 0
 

@@ -55,7 +55,7 @@ def flash_attention_plain(q, k, v, c, beta=0.0, tau=1.0, mask=None):
     """The dense twin (``_t_flash_attention``): softmax over every key,
     fully-masked rows set to 0 by ``torch.where`` (never by a product),
     then the centroid rescale with the manifold clamps of q's dtype."""
-    cc = torch.as_tensor(c, dtype=q.dtype, device=q.device)
+    cc = smath.as_scalar(c, q)
     gram = torch.matmul(q, _flip(k).transpose(-1, -2))
     logits = (2.0 / cc + 2.0 * gram + beta) / tau
     if mask is not None:
@@ -323,7 +323,7 @@ def _epilogue(s: torch.Tensor, c) -> torch.Tensor:
     sp = (torch.sum(s[..., 1:] * s[..., 1:], dim=-1, keepdim=True)
           - s[..., :1] * s[..., :1])
     nrm = torch.sqrt(smath.clamp_min(smath.clamp_min(-sp, EPS_F32), 0.0))
-    cc = torch.as_tensor(c, dtype=torch.float32, device=s.device)
+    cc = smath.as_scalar(c, s)          # a fill: a graph can capture it
     sc = smath.clamp_min(torch.sqrt(smath.clamp_min(cc, 0.0)), MIN_NORM_F32)
     return s / (sc * nrm)
 
@@ -374,7 +374,7 @@ class _FlashAttention(torch.autograd.Function):
 def _per_batch(x, lead, like: torch.Tensor) -> torch.Tensor:
     """A per-(batch, head) scalar spec (a number or [..., 1, 1]) broadcast
     to [B] in ``like``'s dtype, differentiably."""
-    t = torch.as_tensor(x, dtype=like.dtype, device=like.device)
+    t = smath.as_scalar(x, like)        # a number is filled on the device
     return torch.broadcast_to(t, lead + (1, 1))[..., 0, 0].reshape(-1)
 
 

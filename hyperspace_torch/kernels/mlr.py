@@ -37,7 +37,7 @@ def hyp_mlr_plain(x: torch.Tensor, p: torch.Tensor, a: torch.Tensor,
                   c) -> torch.Tensor:
     """The expansion in plain PyTorch: x [..., d] ball points, p [K, d]
     hyperplane points, a [K, d] normals; returns [..., K]."""
-    cc = torch.as_tensor(c, dtype=x.dtype, device=x.device)
+    cc = smath.as_scalar(c, x)          # a fill: a graph can capture it
     mn, eps = smath.min_norm(x.dtype), smath.eps_for(x.dtype)
     sc = smath.clamp_min(smath.safe_sqrt(cc), mn)
     x2 = smath.sq_norm(x)                                    # [..., 1]

@@ -21,7 +21,7 @@ def lorentz_to_ball(x: torch.Tensor, c) -> torch.Tensor:
 
 def ball_to_lorentz(y: torch.Tensor, c) -> torch.Tensor:
     """x_0 = (1/√c)(1 + c‖y‖²)/(1 − c‖y‖²),  x_space = 2y/(1 − c‖y‖²)."""
-    c = torch.as_tensor(c, dtype=y.dtype, device=y.device)
+    c = smath.as_scalar(c, y)
     sc = smath.sqrt_c(c, y)
     y2 = smath.sq_norm(y)
     denom = smath.clamp_min(1.0 - c * y2, smath.eps_for(y.dtype))
@@ -44,7 +44,7 @@ def lorentz_tangent_to_ball(x: torch.Tensor, v: torch.Tensor,
 def ball_tangent_to_lorentz(y: torch.Tensor, u: torch.Tensor,
                             c) -> torch.Tensor:
     """d(ball_to_lorentz)_y applied to the tangent u."""
-    c = torch.as_tensor(c, dtype=y.dtype, device=y.device)
+    c = smath.as_scalar(c, y)
     sc = smath.sqrt_c(c, y)
     y2 = smath.sq_norm(y)
     dy2 = 2.0 * torch.sum(y * u, dim=-1, keepdim=True)

@@ -59,6 +59,7 @@ from hyperspace_torch.nn.gcn import HGCConv, from_tangent0_coords, \
     make_manifold
 from hyperspace_torch.nn.mlr import LorentzMLR
 from hyperspace_torch.optim.adamw import AdamW
+from hyperspace_torch.optim.common import step_counter
 from hyperspace_torch.utils import metrics as metrics_lib
 
 
@@ -250,11 +251,16 @@ def make_optimizer(cfg: HGCNConfig, model: nn.Module) -> AdamW:
 @dataclasses.dataclass
 class TrainState:
     """What a step carries besides the parameters (which the model owns):
-    the generators of the negatives and of dropout, and the step count."""
+    the generators of the negatives and of dropout, and the step count, a
+    0-dim int64 tensor on the generators' device (a CUDA graph of the
+    step advances it; a number given is made one)."""
 
     generator: torch.Generator
     dropout_generator: torch.Generator
-    step: int = 0
+    step: Optional[torch.Tensor] = None
+
+    def __post_init__(self):
+        self.step = step_counter(self.step, self.generator.device)
 
 
 def init_lp(cfg: HGCNConfig, g: graph_data.Graph, seed: int = 0,
@@ -545,3 +551,14 @@ def train_nc(cfg: HGCNConfig, g: graph_data.Graph, steps: int = 200,
     for _ in range(steps):
         state, loss = train_step_nc(model, opt, state, ga, labels, tr)
     return model, {"loss": float(loss), **evaluate_nc(model, g, ga=ga)}
+
+
+def path_counters() -> list:
+    """The launch counters of every kernel an LP or NC step reaches, in
+    either arm (the segment and cluster kernels, ``hyp_mlr``)."""
+    from hyperspace_torch.kernels import cluster, segment
+    from hyperspace_torch.kernels.mlr import hyp_mlr
+
+    return [segment.csr_segment_sum, segment.csr_segment_reduce_1d,
+            segment.csr_att_bwd_edges, cluster.cluster_aggregate,
+            cluster.cluster_att_fwd, cluster.cluster_att_bwd, hyp_mlr]

@@ -36,6 +36,7 @@ from hyperspace_torch.nn.gcn import dropout, from_tangent0_coords
 from hyperspace_torch.nn.layers import LorentzLinear, params_from_flax
 from hyperspace_torch.nn.mlr import LorentzMLR
 from hyperspace_torch.optim.adamw import AdamW
+from hyperspace_torch.optim.common import step_counter
 from hyperspace_torch.utils import metrics as metrics_lib
 
 
@@ -128,11 +129,16 @@ class HyboNetClassifier(nn.Module):
 @dataclasses.dataclass
 class TrainState:
     """What a step carries besides the parameters (which the model owns):
-    the batch sampler's and dropout's generators, and the step count."""
+    the batch sampler's and dropout's generators, and the step count, a
+    0-dim int64 tensor on the generators' device (a CUDA graph of the
+    step advances it; a number given is made one)."""
 
     generator: torch.Generator
     dropout_generator: torch.Generator
-    step: int = 0
+    step: Optional[torch.Tensor] = None
+
+    def __post_init__(self):
+        self.step = step_counter(self.step, self.generator.device)
 
 
 def init_model(cfg: HyboNetConfig, seed: int = 0, device="cuda"):
@@ -215,3 +221,12 @@ def evaluate(model: HyboNetClassifier, ds, batch: int = 256) -> dict:
         outs.append(eval_logits(model, t, m).float().cpu().numpy())
     return {"accuracy": metrics_lib.accuracy(np.concatenate(outs),
                                              ds.labels)}
+
+
+def path_counters() -> list:
+    """The launch counters of every kernel a training step reaches: the
+    flash forward, dq, dk/dv and ``hyp_mlr``."""
+    from hyperspace_torch.kernels import attention as A
+    from hyperspace_torch.kernels.mlr import hyp_mlr
+
+    return [A.flash_fwd, A.flash_dq, A.flash_dkv, hyp_mlr]

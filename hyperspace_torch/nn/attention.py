@@ -51,7 +51,7 @@ def _normalize(s: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
 def lorentz_attention(q, k, v, manifold, *, beta=0.0, tau=1.0, mask=None):
     """Dense hyperbolic attention; returns hyperboloid points [..., Nq, D].
     ``mask`` [..., Nq, Nk], True attends."""
-    c = torch.as_tensor(manifold.c, dtype=q.dtype, device=q.device)
+    c = smath.as_scalar(manifold.c, q)
     sqd = -2.0 / c - 2.0 * minkowski_gram(q, k)   # squared Lorentz distance
     logits = (-sqd + beta) / tau
     if mask is not None:
@@ -65,7 +65,7 @@ def lorentz_attention_tiled(q, k, v, manifold, *, beta=0.0, tau=1.0,
                             mask=None, block_size: int = 128):
     """:func:`lorentz_attention` over KV blocks of ``block_size`` with an
     online softmax, carrying (running max, denominator, numerator)."""
-    c = torch.as_tensor(manifold.c, dtype=q.dtype, device=q.device)
+    c = smath.as_scalar(manifold.c, q)
     nk = k.shape[-2]
     pad = (-nk) % block_size
     if pad:

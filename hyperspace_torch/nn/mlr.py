@@ -32,7 +32,7 @@ def hyp_mlr_logits(x: torch.Tensor, p: torch.Tensor, a: torch.Tensor,
     """Naive Möbius-form logits [..., K]: x [..., d] ball points, p [K, d]
     hyperplane points, a [K, d] normals.  Materialises z [..., K, d]."""
     ball = PoincareBall(c)
-    cc = torch.as_tensor(c, dtype=x.dtype, device=x.device)
+    cc = smath.as_scalar(c, x)          # a fill: a graph can capture it
     sc = smath.clamp_min(smath.safe_sqrt(cc), smath.min_norm(x.dtype))
     z = ball.mobius_add(-p, x[..., None, :])                  # [..., K, d]
     z2 = smath.sq_norm(z)[..., 0]

@@ -72,3 +72,13 @@ def ptransp_of(tag, x: torch.Tensor, y: torch.Tensor,
 
         return K.ptransp(x, y, v, tag.c)
     return tag.ptransp(x, y, v)
+
+
+def step_counter(step, device) -> torch.Tensor:
+    """A step count as a 0-dim int64 tensor on ``device`` (``None`` is 0,
+    a number is filled in, a tensor is kept), so that a CUDA graph of a
+    step advances it."""
+    if isinstance(step, torch.Tensor):
+        return step
+    return torch.full((), 0 if step is None else int(step),
+                      dtype=torch.int64, device=device)

@@ -3,11 +3,15 @@
 
 Faults are named (a test arms exactly the failure it is about),
 deterministic (a seeded schedule fires on the same calls every run) and
-free when off (a site costs one module-global read).  The port's one
-site is ``serve.dispatch`` (``serve/batcher.py``: sleep or raise on the
-dispatch thread, before the engine call); the train CLI's sites
-(``ckpt.save``, ``data.next_batch``, ``train.step_nan``) are not ported,
-but their specs parse as in JAX.
+free when off (a site costs one module-global read).  The port's
+sites: ``serve.dispatch`` (``serve/batcher.py``: sleep or raise on the
+dispatch thread, before the engine call), ``ckpt.save``
+(``train/checkpoint.py``: an ``ioerror`` the save retries, latency, or
+``crash_staged``'s debris and a crash that is not retried) and
+``train.step_nan`` (``train/loop.py``: every floating tensor of the state
+NaN-ed in place after a dispatch).  ``data.next_batch`` belongs to the
+host prefetcher, which is not ported; its specs parse as in JAX and the
+train CLI refuses them.
 
 Kinds: ``ioerror`` raises :class:`InjectedIOError` (an ``IOError``);
 ``latency`` sleeps ``ms``; ``nan`` makes :func:`poison` return True;
@@ -21,7 +25,7 @@ Python 3.12 refuses, so the two packages' ``prob`` streams differ.
 Every armed spec counts into ``fault/armed`` and every fired fault into
 ``fault/fired``.
 
-CLI grammar (the serve CLI's ``chaos=``)::
+CLI grammar (``chaos=`` of both CLIs)::
 
     chaos=site:kind[:key=value[:key=value...]][,site:kind...]
     chaos=serve.dispatch:latency:ms=50:times=3

@@ -15,8 +15,9 @@ thresholds, logs a ``health/*`` record and warns or aborts.
 
 ``proj`` pins float32 ball points at a margin of 4e-3, well under the
 default ``boundary_eps`` of 1e-2, so a table pushed to the rim flags at
-once while healthy training (margins near 1) never does.  The ``health/*``
-counters of JAX's registry come with the rest of the telemetry package.
+once while healthy training (margins near 1) never does.  Each check
+counts ``health/checks`` in the telemetry registry, each check that found
+a problem ``health/warnings``.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import torch
 import torch.utils._pytree as pytree
 
 from hyperspace_torch.manifolds.base import Manifold, reduce_health_stats
+from hyperspace_torch.telemetry import registry as telem
 
 DEFAULT_BOUNDARY_EPS = 1e-2
 DEFAULT_VIOLATION_TOL = 1e-3
@@ -130,6 +132,7 @@ class HealthMonitor:
                               for k in names]).tolist() if names else []
         vals = dict(zip(names, values))
         self.checks += 1
+        telem.inc("health/checks")
         problems = self.problems(vals)
         if log is not None:
             rec = {f"health/{k}": v for k, v in vals.items()}
@@ -137,6 +140,7 @@ class HealthMonitor:
             log.log(step, **rec)
         if problems:
             self.warnings += 1
+            telem.inc("health/warnings")
             msg = f"[health] step {step}: " + "; ".join(problems)
             print(msg, flush=True)
             if self.abort:

@@ -189,35 +189,3 @@ def observe(name: str, value: float) -> None:
 
 def snapshot(prefix: str = "") -> dict:
     return default_registry().snapshot(prefix)
-
-
-_default: Optional[Registry] = None
-_default_lock = threading.Lock()
-
-
-def default_registry() -> Registry:
-    global _default
-    if _default is None:
-        with _default_lock:
-            if _default is None:
-                _default = Registry()
-    return _default
-
-
-def inc(name: str, value: float = 1) -> None:
-    """Bump a counter on the default registry (the call sites' one-liner)."""
-    default_registry().inc(name, value)
-
-
-def set_gauge(name: str, value: float) -> None:
-    default_registry().set_gauge(name, value)
-
-
-def observe(name: str, value: float) -> None:
-    """Record one value into histogram ``name`` on the default registry
-    (latencies in ms by call-site convention)."""
-    default_registry().observe(name, value)
-
-
-def snapshot(prefix: str = "") -> dict:
-    return default_registry().snapshot(prefix)

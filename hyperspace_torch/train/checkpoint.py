@@ -27,11 +27,18 @@ directory, or one holding an entry with ``checkpoint-tmp`` in its name
 (orbax's staging marker contains it too), is never a restore target,
 and :meth:`CheckpointManager.__init__` removes such debris.
 
-Saves are synchronous (``wait`` is a no-op kept for JAX's contract); the
-interval gate is orbax's: a step saves when it is past the newest saved
-step and a multiple of ``save_interval_steps``, or when no checkpoint
-exists yet.  A save that still fails with ``OSError`` after
-``save_retries`` more attempts raises.
+Saves are synchronous; the interval gate is orbax's: a step saves when it
+is past the newest saved step and a multiple of ``save_interval_steps``,
+or when no checkpoint exists yet.  A save that still fails with
+``OSError`` after ``save_retries`` more attempts raises.
+
+Telemetry (JAX's names): every save that started counts ``ckpt/saves``,
+its seconds into ``ckpt/save_s`` and the ``ckpt/save_ms`` histogram, and
+records a ``ckpt_save`` span while the tracer is on; a retried attempt
+counts ``ckpt/save_retries``, removed debris ``ckpt/orphans_cleaned``;
+:meth:`CheckpointManager.wait` sets the ``ckpt/bytes`` gauge while the
+tracer is on.  The ``ckpt.save`` fault site (``resilience/faults.py``)
+sits before each attempt's write.
 """
 
 from __future__ import annotations
@@ -102,6 +109,11 @@ def load_into(like: Any, saved, path: str = "state"):
     tensors, numbers replaced).  Raises where the two differ in
     structure or shape."""
     if isinstance(like, torch.Tensor):
+        if (like.dim() == 0 and isinstance(saved, (int, float))
+                and not isinstance(saved, bool)):
+            # a count a checkpoint held as a number, now a device tensor
+            like.fill_(saved)
+            return like
         if not isinstance(saved, torch.Tensor) or saved.shape != like.shape:
             got = tuple(saved.shape) if isinstance(saved, torch.Tensor) \
                 else type(saved).__name__
@@ -193,6 +205,9 @@ class CheckpointManager:
                 print(f"[ckpt] failed to clean orphan {path}: {e}",
                       flush=True)
         if cleaned:
+            from hyperspace_torch.telemetry import registry as telem
+
+            telem.inc("ckpt/orphans_cleaned", cleaned)
             print(f"[ckpt] cleaned {cleaned} orphaned staging dir(s) under "
                   f"{self._dir} (crash between staging write and commit "
                   "rename)", flush=True)
@@ -213,11 +228,42 @@ class CheckpointManager:
         torch.save(tree, os.path.join(staging, STATE_FILE))
         os.rename(staging, os.path.join(self._dir, str(int(step))))
 
+    def _fault_point(self, step: int) -> None:
+        """The ``ckpt.save`` fault site: latency sleeps; ``ioerror``
+        raises :class:`InjectedIOError` (an ``OSError``: the retry loop
+        absorbs it); ``crash_staged`` leaves the debris of a process
+        killed between the staging write and the commit rename (an
+        uncommitted step directory and a staging directory), then raises
+        :class:`InjectedCrash`, which is not retried."""
+        from hyperspace_torch.resilience import faults
+
+        spec = faults.due("ckpt.save")
+        if spec is None:
+            return
+        if spec.kind == "latency":
+            time.sleep(spec.ms / 1e3)
+        elif spec.kind == "ioerror":
+            raise faults.InjectedIOError("injected IOError at ckpt.save")
+        elif spec.kind == "crash_staged":
+            partial = os.path.join(self._dir, str(int(step)))
+            os.makedirs(os.path.join(partial, f"tmp.{STAGING_MARK}-0"),
+                        exist_ok=True)
+            os.makedirs(os.path.join(self._dir,
+                                     f"{int(step)}.{STAGING_MARK}-0"),
+                        exist_ok=True)
+            raise faults.InjectedCrash(
+                "injected crash between staging write and commit rename")
+
     def save(self, step: int, state: Any, *, force: bool = False) -> bool:
         """Save if the interval gate (or ``force``) says so; True if it
         saved.  The state is copied to the host first; ``OSError`` is
         retried ``save_retries`` more times with exponential backoff and
         then raised."""
+        from hyperspace_torch.resilience import faults
+        from hyperspace_torch.telemetry import registry as telem
+        from hyperspace_torch.telemetry.trace import default_tracer
+
+        t0 = time.perf_counter()
         if not (force or self.should_save(step)):
             return False
         if step in self._steps:
@@ -225,11 +271,14 @@ class CheckpointManager:
         tree = _to_host(to_tree(state))
         for attempt in range(self._save_retries + 1):
             try:
+                if faults.active():
+                    self._fault_point(step)
                 self._write(step, tree)
                 break
             except OSError as e:
                 if attempt >= self._save_retries:
                     raise
+                telem.inc("ckpt/save_retries")
                 delay = self._retry_backoff_s * (2 ** attempt)
                 print(f"[ckpt] save step {step} attempt {attempt + 1} "
                       f"failed ({e}); retrying in {delay:.3g}s", flush=True)
@@ -237,6 +286,13 @@ class CheckpointManager:
         self._steps = sorted(self._steps + [int(step)])
         while self._max_to_keep and len(self._steps) > self._max_to_keep:
             shutil.rmtree(os.path.join(self._dir, str(self._steps.pop(0))))
+        t1 = time.perf_counter()
+        telem.inc("ckpt/saves")
+        telem.inc("ckpt/save_s", t1 - t0)
+        telem.observe("ckpt/save_ms", (t1 - t0) * 1e3)
+        tracer = default_tracer()
+        if tracer.enabled:
+            tracer.record_span("ckpt_save", t0, t1, args={"step": int(step)})
         return True
 
     def restore(self, state_like: Any, *, step: Optional[int] = None,
@@ -260,7 +316,15 @@ class CheckpointManager:
         return _latest_committed_step(self._dir)
 
     def wait(self) -> None:
-        """Saves are synchronous: nothing is in flight."""
+        """Saves are synchronous: nothing is in flight.  While the
+        tracer is on (a telemetry run), sets the ``ckpt/bytes`` gauge to
+        the directory's size."""
+        from hyperspace_torch.telemetry.trace import default_tracer
+
+        if default_tracer().enabled:
+            from hyperspace_torch.telemetry import registry as telem
+
+            telem.set_gauge("ckpt/bytes", dir_bytes(self._dir))
 
     def close(self) -> None:
         pass

@@ -2594,3 +2594,182 @@ def test_engine_lanes_agree_on_cuda(dev, precision, nprobe):
     ci, cd = (a.numpy() for a in cpu.topk_neighbors(q, 10))
     for i, d in out.values():
         assert topk_disagreements(i, d, ci, cd, rtol=RTOL, atol=ATOL) == 0
+
+
+# --- graphed HyboNet and HGCN steps, the guard and the spine on the card ----
+
+
+def _live_bitwise(a, b) -> bool:
+    from hyperspace_torch.train.checkpoint import _to_host, to_tree
+
+    la = torch.utils._pytree.tree_leaves(_to_host(to_tree(a)))
+    lb = torch.utils._pytree.tree_leaves(_to_host(to_tree(b)))
+    return len(la) == len(lb) and all(
+        torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+        for x, y in zip(la, lb))
+
+
+def _graphed_against_eager(fresh, step, k, counters, per_step=()):
+    """A live chunk of ``k`` replays against ``k`` eager steps from the
+    same start, twice (capture, then replays alone); the second chunk's
+    launches, ``k`` × ``per_step`` of each counter given."""
+    from hyperspace_torch.train.loop import ChunkedStepper
+
+    eager, graphed = fresh(), fresh()
+    chunk = ChunkedStepper(step, k, live=True, counters=counters)
+    for part in range(2):
+        want = torch.stack([step(eager)[1] for _ in range(k)])
+        for c in counters:
+            c.launches = 0
+        _, got = chunk(graphed)
+        torch.cuda.synchronize()
+        assert torch.equal(want, got), part
+        assert _live_bitwise(eager, graphed), part
+    for c, per in zip(counters, per_step):
+        assert c.launches == k * per
+
+
+@pytest.mark.parametrize("accum", [1, 2])
+def test_graphed_hybonet_chunk_is_its_eager_steps(dev, accum):
+    from hyperspace_torch.cli.train import ModuleState
+    from hyperspace_torch.data.text import synthetic_text
+    from hyperspace_torch.models import hybonet
+    from hyperspace_torch.optim.accum import with_grad_accumulation
+
+    ds = synthetic_text(num_samples=128, vocab_size=64, num_classes=4,
+                        max_len=16, seed=0)
+    cfg = hybonet.HyboNetConfig(vocab_size=64, num_classes=4, max_len=16,
+                                dim=32, num_heads=2, num_layers=2,
+                                batch_size=16)
+    data = [torch.as_tensor(a, device=dev)
+            for a in (ds.tokens, ds.mask, ds.labels)]
+
+    def fresh():
+        model, opt, st = hybonet.init_model(cfg, 0, dev)
+        return ModuleState(model, with_grad_accumulation(opt, None,
+                                                         accum)[0], st)
+
+    def step(s):
+        return s, hybonet.train_step_sampled(s.model, s.opt, s.train,
+                                             *data)[1]
+
+    _graphed_against_eager(fresh, step, 4, hybonet.path_counters(),
+                           [2, 2, 2, 1])
+
+
+@pytest.mark.parametrize("task", ["lp", "nc", "att"])
+def test_graphed_hgcn_chunk_is_its_eager_steps(dev, task):
+    from hyperspace_torch.cli.train import ModuleState
+    from hyperspace_torch.data import graphs as G
+    from hyperspace_torch.models import hgcn
+
+    e, x, lab, k = G.community_power_law_graph(
+        num_nodes=600, num_edges=2400, num_classes=5, feat_dim=16, seed=1)
+    cfg = hgcn.HGCNConfig(feat_dim=16, hidden_dims=(16, 8),
+                          agg_dtype=torch.bfloat16, use_att=task == "att",
+                          num_classes=k if task == "nc" else 0)
+    cmp_ = G.cluster_min_pair_for(cfg.use_att)
+    if task == "nc":
+        tr, va, te = G.node_split_masks(600, seed=0)
+        g = G.prepare(e, 600, x, labels=lab, num_classes=k, train_mask=tr,
+                      val_mask=va, test_mask=te, cluster_min_pair=cmp_,
+                      cache=False)
+        ga = G.to_device(g, dev)
+        y, mask = hgcn.nc_targets(g, dev)
+
+        def fresh():
+            return ModuleState(*hgcn.init_nc(cfg, g, seed=0, device=dev))
+
+        def step(st):
+            return st, hgcn.train_step_nc(st.model, st.opt, st.train, ga, y,
+                                          mask)[1]
+    else:
+        split = G.split_edges(e, 600, x, seed=0, cluster_min_pair=cmp_,
+                              cache=False)
+        ga = G.to_device(split.graph, dev)
+        pos = G.index_tensor(split.train_pos, dev)
+
+        def fresh():
+            return ModuleState(*hgcn.init_lp(cfg, split.graph, seed=0,
+                                             device=dev))
+
+        def step(st):
+            return st, hgcn.train_step_lp(st.model, st.opt, 600, st.train,
+                                          ga, pos)[1]
+
+    _graphed_against_eager(fresh, step, 4, hgcn.path_counters())
+
+
+def test_graphed_rollback_and_spine_on_the_card(dev, tmp_path):
+    """A NaN in a graphed HyboNet run rolls back to the last commit and
+    ends at the unfaulted run's state; ``profile_steps`` observes the
+    profiled chunks' device step."""
+    import io
+    import json
+    from contextlib import redirect_stdout
+
+    from hyperspace_torch.cli import train as tcli
+    from hyperspace_torch.telemetry import registry as telem
+    from hyperspace_torch.train.checkpoint import restore_params_only
+
+    base = ["hybonet", "dim=32", "num_heads=2", "num_layers=2",
+            "batch_size=16", "steps=16", "scan_chunk=4", "ckpt_every=4",
+            "eval_every=4"]
+
+    def run(tag, *extra):
+        buf = io.StringIO()
+        with redirect_stdout(buf):
+            tcli.main(base + [f"ckpt_dir={tmp_path / tag}",
+                              f"log={tmp_path / tag}.jsonl", *extra])
+        return json.loads(buf.getvalue().splitlines()[-1])
+
+    clean = run("clean")
+    mark = telem.default_registry().mark()
+    res = run("nan", "rollback=1", "chaos=train.step_nan:nan:after=2",
+              "telemetry=1", "profile_steps=8")
+    delta = telem.default_registry().snapshot(baseline=mark)
+    with open(tmp_path / "nan.jsonl") as f:
+        recs = [json.loads(line) for line in f]
+    ev = [r for r in recs if r.get("event") == "rollback"]
+    assert len(ev) == 1 and ev[0]["restored_step"] == 8
+    assert recs[0]["event"] == "run_manifest"
+    assert recs[0]["backend"] == "cuda"
+    assert delta["hist/train/phase/device_step_ms"]["count"] == 2
+    assert res["loss"] == clean["loss"]
+    a, _ = restore_params_only(str(tmp_path / "clean"))
+    b, _ = restore_params_only(str(tmp_path / "nan"))
+    la, lb = (torch.utils._pytree.tree_leaves(t) for t in (a, b))
+    assert all(torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+               for x, y in zip(la, lb))
+
+
+@pytest.mark.parametrize("form", ["step", "step_on_device"])
+@pytest.mark.parametrize("max_norm", [None, 1.0])
+def test_adamw_device_count_is_the_python_count_on_the_card(dev, max_norm,
+                                                           form):
+    """On the card PyTorch divides by a Python float through its float64
+    reciprocal: the device-count update keeps those bits, and so does
+    ``GradAccumulation``'s running mean (k = 3: a third is inexact), in
+    its eager form and in the form a graph captures."""
+    from hyperspace_torch.optim.accum import GradAccumulation
+    from hyperspace_torch.optim.adamw import AdamW
+    from tests.test_torch_graphed_steps import (PythonCountAdamW,
+                                                PythonGradAccumulation)
+
+    g = torch.Generator().manual_seed(0)
+    p0 = {"w": torch.randn(300, 37, generator=g),
+          "b": torch.randn(11, generator=g) * 1e-3}
+    new = GradAccumulation(AdamW({k: v.to(dev) for k, v in p0.items()},
+                                 1e-2, 1e-2, max_norm), 3)
+    old = PythonGradAccumulation(PythonCountAdamW(
+        {k: v.to(dev) for k, v in p0.items()}, 1e-2, 1e-2, max_norm), 3)
+    gen = torch.Generator().manual_seed(1)
+    for _ in range(30):
+        grads = [(torch.randn(p.shape, generator=gen) * 0.1).to(dev)
+                 for p in new.params]
+        getattr(new, form)([t.clone() for t in grads])
+        old.step(grads)
+    for a, b in zip(new.params + new.acc + new.inner.mu,
+                    old.inner.params + old.acc + old.inner.mu):
+        assert torch.equal(a, b)
+    assert int(new.inner.count) == old.inner.count == 10

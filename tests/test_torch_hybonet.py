@@ -258,7 +258,7 @@ def test_cli_trains_and_prints_one_json_line(capsys, tmp_path):
 def test_cli_usage_errors():
     base = ["hybonet", "steps=1", "device=cpu", "dim=8", "num_heads=2",
             "num_layers=1"]
-    for extra in (["no_such_key=1"], ["scan_chunk=2"], ["precision=f16"],
+    for extra in (["no_such_key=1"], ["rollback=1"], ["precision=f16"],
                   ["oops"]):
         with pytest.raises(SystemExit):
             cli_train.main(base + extra)

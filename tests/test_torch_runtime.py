@@ -420,9 +420,6 @@ def test_run_loop_records_and_saves_match_jax(tmp_path, steps, eval_every,
 
 
 NOT_PORTED_VALUES = {
-    "telemetry": "1", "trace_out": "t.json", "metrics_out": "m.prom",
-    "metrics_every": "5", "profile_steps": "2", "chaos": "ckpt.save:ioerror",
-    "chaos_seed": "1", "rollback": "1", "rollback_lr_backoff": "0.25",
     "tp": "4", "hot_rows": "8", "host_chunk_steps": "4",
     "host_gather_ahead": "1", "compile_cache_dir": "cache",
     "coordinator": "10.0.0.1:1", "num_processes": "2", "process_id": "1",
