@@ -389,6 +389,47 @@ after its own traffic; the prewarm's launches are reported apart:
    dispatches flat after the prewarm; then the total seconds and a
    ``front_door`` line with the numbers of 50-54.
 
+Phases 63-66 (the same process, after 57) drive the rest of the
+single-process serving plane:
+
+63. ``serve-http live=1 delta_cap=1024 compact_at=0.75`` (two-stage base,
+   ``prewarm=1``) over phase 4's table and over phase 16's IVF artifact
+   (nprobe 8): a near-duplicate upserted at a new id ranks top-1 at once;
+   a re-upsert answers ``inserted`` 0; the deleted id answers 400 as a
+   query and is never returned; ``generation`` counts the mutations;
+   then 1,000 single-row upserts (updates and inserts) with a query of 8
+   ids every 10, past the background compaction (the streamed index
+   build on the IVF base: the master is a ``HostEmbedTable``); a
+   synchronous compaction folds what came after its snapshot; 64 answers
+   then equal a fresh frozen engine's over ``master.to_array()`` bit for
+   bit (the deleted id dropped) and, exact, a float64 brute force over the
+   live rows; ``pdist`` launched by the traffic, builds and loads flat;
+   ``serve/upsert_visible_ms``, each compaction's seconds, and batch ms
+   and busy ms of 1,024 queries with an empty and a full delta beside
+   the frozen base;
+64. ``serve-http`` (fused) over phase 4's table, ``POST /admin/rollover``
+   to phase 54's artifact: the door flips and prewarms, answers as a solo
+   door on that artifact, ``memory_allocated`` falls by the old engine's
+   device bytes less the new one's, first-use counters flat;
+65. three tenants behind one door (``EngineRegistry`` with
+   ``run_front_door(registry=)``): phase 4's table (fused), its
+   hyperboloid lift (two_stage), phase 16's IVF artifact (fused, nprobe
+   8): by name, by fingerprint and by default bitwise the solo engines,
+   404 for an unknown tenant, ``?tenant=`` stats, per-tenant p50/p99 with
+   one tenant offered 10x the other's rate (two client processes); then
+   under a budget of one engine, alternating tenants: admissions,
+   evictions, ``memory_allocated`` falling by each evicted engine's bytes
+   (less the admitted one's), a cold tenant's first-answer ms, answers
+   bitwise the unbudgeted ones, first-use counters flat; then
+   ``serve-http tenants=<file>`` (one fused scan mode) answers each;
+66. the host-streamed IVF build of 1,200,000 × 10 clustered rows (above
+   ``HOST_BUILD_ROWS``), then the resident build from the same seeds:
+   the same cells (or near ties only), the device rows peak 4,096, each
+   build's seconds, recall@10 at nprobe 8 against the exact fused scan.
+
+The kernels line gives rows 1, 2 and 4 ``launches_live`` (63's traffic,
+compactions included) and ``launches_tenants`` (65's three-tenant door).
+
 The kernels line (phase 23) also gives ``hyp_mlr`` at the NC head's own
 input (``*_nc_head`` keys: device ms, plain ms, bound, no library call)
 and, for the three kernels of the NC path, their launches there, a step
@@ -5814,7 +5855,8 @@ class FrontDoorThread:
     prewarm returned, its launches and the libraries it loaded; the
     launch counts are set to 0 once the listener is up."""
 
-    def __init__(self, batcher, prewarm_ks=(K,), max_wait_us=2000.0):
+    def __init__(self, batcher, prewarm_ks=(K,), max_wait_us=2000.0,
+                 registry=None):
         import asyncio
         import threading
 
@@ -5836,7 +5878,8 @@ class FrontDoorThread:
                 got["result"] = asyncio.run(run_front_door(
                     batcher, host="127.0.0.1", port=0,
                     max_wait_us=max_wait_us, ready=ready,
-                    prewarm_ks=list(prewarm_ks) or None))
+                    prewarm_ks=list(prewarm_ks) or None,
+                    registry=registry))
             except BaseException as e:   # reported by the caller
                 got["error"] = e
                 up.set()
@@ -5938,8 +5981,10 @@ def load_client(spec: dict) -> dict:
             delay = t0 + float(off) - loop.time()
             if delay > 0:
                 await asyncio.sleep(delay)
-            tasks.append(asyncio.ensure_future(one(
-                t0 + float(off), {"ids": ids[i].tolist(), "k": spec["k"]})))
+            body = {"ids": ids[i].tolist(), "k": spec["k"]}
+            if spec.get("tenant"):
+                body["tenant"] = spec["tenant"]
+            tasks.append(asyncio.ensure_future(one(t0 + float(off), body)))
         sent_s = loop.time() - t0
         await asyncio.gather(*tasks)
         return statuses, lat, errors, n / max(sent_s, 1e-9), \
@@ -6513,6 +6558,646 @@ def front_door_lanes(torch, tmp: str, card: dict) -> dict:
     return res
 
 
+# --- phases 63-66: the live index, rollover, tenants, the streamed build -----
+
+LIVE_CAP, LIVE_COMPACT_AT = 1024, 0.75   # phase 63's delta segment
+LIVE_UPSERTS = 1000                      # one id an upsert, past compaction
+LIVE_QUERY_EVERY = 10                    # a query of 8 ids every 10 upserts
+TENANT_QPS = (200.0, 20.0)               # phase 65: hot and cold tenants
+TENANT_LOAD_S = 3.0
+STREAM_ROWS = 1_200_000                  # phase 66: above HOST_BUILD_ROWS
+STREAM_CLUSTERS = 4096
+STREAM_QUERIES = 1024
+ALLOC_SLACK = 8 * 512                    # the allocator rounds a block to 512 B
+
+
+class CliDoor:
+    """``cli.serve.run_serve_http(ServeConfig(**kw))`` (what ``serve-http``
+    runs) on its own thread, on an ephemeral port: the bound door, the
+    prewarm's launches and the first-use counters read in ``ready`` (the
+    launch counts then set to 0); :meth:`drain` ends it and returns the
+    closing stats."""
+
+    def __init__(self, **kw):
+        import threading
+
+        from hyperspace_torch.cli import serve as cli_serve
+        from hyperspace_torch.telemetry import registry as telem
+
+        reg = telem.default_registry()
+        lane_reset()
+        got: dict = {}
+        up = threading.Event()
+
+        def ready(door):
+            got["door"], got["prewarm_launches"] = door, lane_counts()
+            got["first_use"] = first_use(reg)
+            lane_reset()
+            up.set()
+
+        def run():
+            try:
+                got["result"] = cli_serve.run_serve_http(
+                    cli_serve.ServeConfig(port=0, **kw), ready=ready)
+            except BaseException as e:   # reported by the caller
+                got["error"] = e
+                up.set()
+
+        self.got = got
+        self.thread = threading.Thread(target=run, daemon=True)
+        self.thread.start()
+        if not up.wait(300) or "door" not in got:
+            raise AssertionError(f"serve-http {kw} did not start: "
+                                 f"{got.get('error')!r}")
+        self.door = got["door"]
+        self.addr = (self.door.host, self.door.port)
+        self.prewarm_launches = got["prewarm_launches"]
+        self.first_use = got["first_use"]
+
+    def drain(self) -> dict:
+        import asyncio
+
+        asyncio.run_coroutine_threadsafe(self.door.drain(),
+                                         self.door.loop).result(120)
+        self.thread.join(120)
+        if self.thread.is_alive():
+            raise AssertionError("serve-http did not stop")
+        return self.got.get("result", {})
+
+
+def ball_nudge(x: np.ndarray, d: float, rng) -> np.ndarray:
+    """A point at geodesic distance ``d`` from ball row ``x`` (c = 1): the
+    exponential map along a random unit direction, scaled by 1/λ_x."""
+    import torch
+
+    from hyperspace_torch.manifolds import PoincareBall
+
+    v = rng.standard_normal(x.shape)
+    lam = 2.0 / (1.0 - float(np.sum(x.astype(np.float64) ** 2)))
+    v = v / np.linalg.norm(v) * (d / lam)
+    return PoincareBall(C).expmap(
+        torch.as_tensor(x, dtype=torch.float64)[None],
+        torch.as_tensor(v)[None]).float().numpy()[0]
+
+
+def hist_summary(delta: dict, name: str):
+    h = delta.get(f"hist/{name}")
+    if not h or not h["count"]:
+        return None
+    return {q: h[q] for q in ("count", "p50", "p95", "p99", "max")}
+
+
+def live_door(torch, name: str, art: str, kw: dict, rng, card: dict) -> dict:
+    """Phase 63 on one artifact: ``serve-http live=1`` (two-stage base),
+    the planted near-duplicate, a re-upsert, a delete, then
+    ``LIVE_UPSERTS`` single-row upserts (half updates, half inserts) with
+    a query of 8 live ids every ``LIVE_QUERY_EVERY``, past the background
+    compaction; a synchronous compaction folds what came after its
+    snapshot.  The answers then equal a fresh frozen engine's over
+    ``master.to_array()`` (deleted ids dropped) and, on the exact base, a
+    float64 brute force over the live rows."""
+    import gc
+
+    from hyperspace_torch.kernels._support import topk_disagreements
+    from hyperspace_torch.manifolds import PoincareBall
+    from hyperspace_torch.serve import QueryEngine
+    from hyperspace_torch.telemetry import registry as telem
+
+    reg = telem.default_registry()
+    t0 = time.perf_counter()
+    door = CliDoor(artifact=art, live=True, delta_cap=LIVE_CAP,
+                   compact_at=LIVE_COMPACT_AT, scan_mode="two_stage",
+                   prewarm="1", k=K, cache_size=0, **kw)
+    eng = door.door.batcher.engine
+    compactions = []
+    inner = eng._compact_inner
+
+    def timed_compaction():
+        c0 = time.perf_counter()
+        out = inner()
+        compactions.append(time.perf_counter() - c0)
+        return out
+
+    eng._compact_inner = timed_compaction
+    table = eng.master.to_array()
+    n0 = table.shape[0]
+    addr = door.addr
+    base = reg.mark()
+    try:
+        r = int(rng.integers(0, n0))
+        (s0, q0, _), = fd_requests(addr, [("POST", "/v1/topk",
+                                           {"ids": [r], "k": K})])
+        planted = ball_nudge(table[r], 0.5 * q0["dists"][0][0], rng)
+        body = {"ids": [n0], "rows": [planted.tolist()]}
+        steps = fd_requests(addr, [
+            ("POST", "/v1/upsert", body),
+            ("POST", "/v1/topk", {"ids": [r], "k": K}),
+            ("POST", "/v1/upsert", body),
+            ("POST", "/v1/delete", {"ids": [n0]}),
+            ("POST", "/v1/topk", {"ids": [n0], "k": K}),
+            ("POST", "/v1/topk", {"ids": [r], "k": K}),
+            ("GET", "/v1/stats", None)])
+        st = [x[0] for x in steps]
+        checks = {
+            "statuses": [s0] + st,
+            "planted_top1": steps[1][1]["neighbors"][0][0] == n0,
+            "reupsert_inserted": steps[2][1].get("inserted"),
+            "deleted_query_kind": (steps[4][1] or {}).get(
+                "error", {}).get("kind"),
+            "deleted_never_returned": n0 not in steps[5][1]["neighbors"][0],
+            "generation": steps[6][1]["generation"]}
+        # the traffic: updates of random existing rows, inserts at the tail
+        upd = rng.choice(n0, LIVE_UPSERTS // 2, replace=False)
+        nxt, statuses, qstat, returned_dead = n0 + 1, {}, {}, 0
+        gen0 = checks["generation"]
+        for j in range(LIVE_UPSERTS):
+            if j % 2:
+                i, row = int(upd[j // 2]), ball_nudge(
+                    table[int(upd[j // 2])], 0.05, rng)
+            else:
+                src = int(rng.integers(0, n0))
+                i, row, nxt = nxt, ball_nudge(table[src], 0.05, rng), nxt + 1
+            (s, b, _), = fd_requests(addr, [("POST", "/v1/upsert", {
+                "ids": [i], "rows": [row.tolist()]})])
+            statuses[str(s)] = statuses.get(str(s), 0) + 1
+            if j % LIVE_QUERY_EVERY == LIVE_QUERY_EVERY - 1:
+                ids = rng.integers(0, n0, 8).tolist()
+                (s, b, _), = fd_requests(addr, [("POST", "/v1/topk",
+                                                 {"ids": ids, "k": K})])
+                qstat[str(s)] = qstat.get(str(s), 0) + 1
+                returned_dead += int(n0 in np.asarray(b["neighbors"]))
+        if not eng.join_compaction(600):
+            raise AssertionError(f"live {name}: the compaction never ended")
+        background = list(compactions)
+        traffic_launches = lane_counts()
+        after_traffic = first_use(reg)
+        delta = reg.snapshot(baseline=base)
+        tail = eng.segment_rows
+        eng.compact()              # what came after the snapshot, folded
+        gen = eng.generation
+        master = eng.master.to_array()
+        # answers against a fresh frozen engine over the master (the
+        # compacted base's index) and, exact, a float64 brute force
+        live_ids = np.setdiff1d(np.arange(master.shape[0]), [n0])
+        qids = rng.choice(live_ids, 64, replace=False)
+        (sq, ans, _), = fd_requests(addr, [("POST", "/v1/topk", {
+            "ids": qids.tolist(), "k": K})])
+        fresh = QueryEngine(master, ("poincare", C), scan_mode="two_stage",
+                            index=eng.base.index, nprobe=kw.get("nprobe", 0))
+        fi, fd = (x.cpu().numpy() for x in fresh.topk_neighbors(
+            qids.astype(np.int32), K + 1))
+        keep = fi != n0
+        fi = np.stack([row[m][:K] for row, m in zip(fi, keep)])
+        fd = np.stack([row[m][:K] for row, m in zip(fd, keep)])
+        ai = np.asarray(ans["neighbors"])
+        ad = np.asarray(ans["dists"], np.float32)
+        equals_fresh = bool(np.array_equal(ai, fi)
+                            and np.array_equal(ad, fd))
+        tab64 = torch.as_tensor(master[live_ids], dtype=torch.float64)
+        d64 = PoincareBall(C).dist(
+            torch.as_tensor(master[qids[:16]], dtype=torch.float64)[:, None],
+            tab64[None])
+        d64[torch.as_tensor(live_ids)[None, :]
+            == torch.as_tensor(qids[:16])[:, None]] = float("inf")
+        ref_d, ref_o = torch.sort(d64, dim=1, stable=True)
+        ref_i = live_ids[ref_o[:, :K].numpy()]
+        truth_bad = topk_disagreements(
+            ai[:16], ad[:16].astype(np.float64), ref_i,
+            ref_d[:, :K].numpy(), rtol=TRUTH_RTOL, atol=TRUTH_ATOL)
+        recall = float(np.mean([len(set(a) & set(b)) / K
+                                for a, b in zip(ai[:16], ref_i)]))
+        del fresh
+        gc.collect()
+    finally:
+        closing = door.drain()
+    res = {"base": name, **kw, "checks": checks,
+           "upserts": LIVE_UPSERTS, "upsert_statuses": statuses,
+           "query_statuses": qstat, "deleted_returned": returned_dead,
+           "generation_after_traffic": closing.get("generation"),
+           "generation_before_traffic": gen0,
+           "compaction_s_background": background,
+           "compaction_s_tail": compactions[len(background):],
+           "segment_rows_after_background": tail,
+           "generation_after_compaction": gen,
+           "upsert_visible_ms": hist_summary(delta,
+                                             "serve/upsert_visible_ms"),
+           "e2e_ms": hist_summary(delta, "serve/e2e_ms"),
+           "launches": traffic_launches,
+           "prewarm_launches": door.prewarm_launches,
+           "first_use_after_prewarm": door.first_use,
+           "first_use_after_traffic": after_traffic,
+           "equals_fresh_engine": equals_fresh, "fresh_status": sq,
+           "rows_disagreeing_with_f64": truth_bad,
+           "recall_vs_f64": recall, "rows": int(master.shape[0]),
+           "seconds": time.perf_counter() - t0, **card}
+    emit({"phase": "live", **res})
+    if (checks["statuses"] != [200] * 5 + [400, 200, 200]
+            or not checks["planted_top1"] or checks["reupsert_inserted"]
+            or checks["deleted_query_kind"] != "validation"
+            or not checks["deleted_never_returned"]
+            or checks["generation"] != 3):
+        raise AssertionError(f"live {name}: {checks}")
+    if (set(statuses) != {"200"} or set(qstat) != {"200"} or returned_dead
+            or not background or not equals_fresh or sq != 200):
+        raise AssertionError(f"live {name}: traffic or answers: {res}")
+    if name == "exact" and truth_bad:
+        raise AssertionError(f"live {name}: {truth_bad} rows disagree with "
+                             "the float64 brute force over the live rows")
+    if traffic_launches["pdist"] < 1:
+        raise AssertionError(f"live {name}: the traffic launched no pdist")
+    for key in ("builds", "loads"):
+        if after_traffic[key] != door.first_use[key]:
+            raise AssertionError(f"live {name}: kernel {key} moved: "
+                                 f"{door.first_use} -> {after_traffic}")
+    return res
+
+
+def live_batch_times(torch, art: str, kw: dict, rng, card: dict) -> dict:
+    """Phase 63's batch of 1024 queries through a ``LiveQueryEngine`` (the
+    CLI's construction, compaction off) with an empty and a full delta
+    segment, beside its frozen base: host ms (CUDA events around
+    back-to-back batches) and busy ms (profiler device time)."""
+    from hyperspace_torch.parallel.host_table import HostEmbedTable
+    from hyperspace_torch.serve import QueryEngine, load_artifact
+    from hyperspace_torch.serve.delta import LiveQueryEngine
+
+    a = load_artifact(art)
+    base = QueryEngine.from_artifact(a, scan_mode="two_stage", **kw)
+    live = LiveQueryEngine(base, HostEmbedTable.from_array(
+        np.array(a.table, np.float32)), capacity=LIVE_CAP,
+        auto_compact=False)
+    ids = rng.choice(a.num_nodes, BATCH, replace=False)
+
+    def run(eng):
+        return lambda: eng.topk_neighbors(ids, K)
+
+    out = {"frozen": {"batch_ms": timed_ms(torch, run(base), 10),
+                      "busy_ms": device_ms(torch, run(base), 5)},
+           "empty_delta": {"batch_ms": timed_ms(torch, run(live), 10),
+                           "busy_ms": device_ms(torch, run(live), 5)}}
+    n = a.num_nodes
+    src = rng.integers(0, n, LIVE_CAP)
+    live.upsert(np.arange(n, n + LIVE_CAP),
+                np.stack([ball_nudge(a.table[i], 0.05, rng) for i in src]))
+    out["full_delta"] = {"batch_ms": timed_ms(torch, run(live), 10),
+                         "busy_ms": device_ms(torch, run(live), 5),
+                         "segment_rows": live.segment_rows}
+    return {**out, **card}
+
+
+def live_path(torch, art: str, ivf: str, rng, card: dict) -> dict:
+    """Phase 63: the live index on phase 4's table (exact) and phase 16's
+    IVF artifact (nprobe 8)."""
+    out = {}
+    for name, path, kw in (("exact", art, {}), ("ivf", ivf, {"nprobe": 8})):
+        out[name] = live_door(torch, name, path, kw, rng, card)
+        out[name]["batch"] = live_batch_times(torch, path, kw, rng, card)
+        emit({"phase": "live_batch", "base": name, **out[name]["batch"]})
+    return out
+
+
+def rollover_path(torch, art: str, target: str, card: dict) -> dict:
+    """Phase 64: ``serve-http`` (fused, prewarmed) over phase 4's table,
+    ``POST /admin/rollover`` to phase 54's artifact: the report, the
+    answers against a solo door's on that artifact, ``memory_allocated``
+    before and after the flip against the two engines' device bytes, and
+    the first-use counters."""
+    import gc
+
+    from hyperspace_torch.serve.registry import engine_device_bytes
+    from hyperspace_torch.telemetry import registry as telem
+
+    reg = telem.default_registry()
+    t0 = time.perf_counter()
+    ids = list(range(0, 5461, 341))
+    door = CliDoor(artifact=art, scan_mode="fused", prewarm="1", k=K)
+    try:
+        (s0, _b, _), = fd_requests(door.addr, [("POST", "/v1/topk",
+                                                {"ids": ids, "k": K})])
+        old_bytes = engine_device_bytes(door.door.batcher.engine)
+        torch.cuda.synchronize()
+        gc.collect()
+        m0 = torch.cuda.memory_allocated()
+        before = first_use(reg)
+        (sr, rep, _), (s1, ans, _), (sh, health, _) = fd_requests(
+            door.addr, [("POST", "/admin/rollover", {"target": target}),
+                        ("POST", "/v1/topk", {"ids": ids, "k": K}),
+                        ("GET", "/healthz", None)])
+        new_bytes = engine_device_bytes(door.door.batcher.engine)
+        torch.cuda.synchronize()
+        gc.collect()
+        m1 = torch.cuda.memory_allocated()
+        after = first_use(reg)
+        launches = lane_counts()
+    finally:
+        door.drain()
+    solo = serve_http_door(target, {}, ids)
+    equal = bool(s1 == 200
+                 and np.array_equal(ans["neighbors"], solo["neighbors"])
+                 and np.array_equal(np.asarray(ans["dists"], np.float64),
+                                    solo["dists"]))
+    res = {"statuses": [s0, sr, s1, sh], "report": rep,
+           "healthz_fingerprint": health.get("fingerprint"),
+           "equals_solo_door": equal, "memory_allocated": [m0, m1],
+           "old_engine_bytes": old_bytes, "new_engine_bytes": new_bytes,
+           "first_use_before": before, "first_use_after": after,
+           "launches": launches, "seconds": time.perf_counter() - t0, **card}
+    emit({"phase": "rollover", **res})
+    if res["statuses"] != [200] * 4 or not rep.get("flipped") or not equal:
+        raise AssertionError(f"rollover: {res}")
+    if health.get("fingerprint") != rep["new_fingerprint"]:
+        raise AssertionError(f"rollover: /healthz still names the old "
+                             f"artifact: {res}")
+    if m0 - m1 < old_bytes - new_bytes - ALLOC_SLACK:
+        raise AssertionError(f"rollover: memory_allocated fell by "
+                             f"{m0 - m1} B, the old engine held {old_bytes}")
+    if after != before:
+        raise AssertionError(f"rollover: first-use counters moved: "
+                             f"{before} -> {after}")
+    return res
+
+
+TENANTS = (("ball", "art", {"scan_mode": "fused"}),
+           ("hyperboloid", "lorentz", {"scan_mode": "two_stage"}),
+           ("ivf", "ivf", {"scan_mode": "fused", "nprobe": 8}))
+
+
+def tenant_registry(paths: dict, budget_mb: float = 0.0):
+    from hyperspace_torch.serve.registry import EngineRegistry
+
+    reg = EngineRegistry(device_budget_mb=budget_mb, prewarm_ks=(K,))
+    for name, key, kw in TENANTS:
+        reg.add_tenant(name, paths[key], engine_kw=dict(kw),
+                       batcher_kw={"cache_size": 0})
+    return reg
+
+
+def tenants_path(torch, paths: dict, rng, card: dict) -> dict:
+    """Phase 65: three tenants behind one door (``EngineRegistry`` +
+    ``run_front_door(registry=)``): phase 4's table (fused), its
+    hyperboloid lift (two_stage), phase 16's IVF artifact (fused, nprobe
+    8).  Routing by name and by fingerprint against solo engines, an
+    unknown tenant, ``?tenant=`` stats, per-tenant latency with one
+    tenant offered 10x another's rate; then under a budget of one engine,
+    alternating tenants: admissions, evictions, ``memory_allocated``
+    around each switch, a cold tenant's first answer, the answers against
+    the unbudgeted ones; then ``serve-http tenants=<file>``."""
+    import gc
+
+    from hyperspace_torch.serve import QueryEngine, load_artifact
+    from hyperspace_torch.serve.registry import engine_device_bytes
+    from hyperspace_torch.telemetry import registry as telem
+
+    treg = telem.default_registry()
+    t0 = time.perf_counter()
+    ids = rng.choice(ROWS, 8, replace=False).tolist()
+    solo, fps, nbytes = {}, {}, {}
+    for name, key, kw in TENANTS:
+        eng = QueryEngine.from_artifact(load_artifact(paths[key]), **kw)
+        i, d = eng.topk_neighbors(np.asarray(ids, np.int32), K)
+        solo[name] = (i.cpu().numpy(), d.cpu().numpy())
+        fps[name], nbytes[name] = eng.fingerprint, engine_device_bytes(eng)
+        del eng
+    gc.collect()
+
+    def same(body, name) -> bool:
+        return bool(np.array_equal(body["neighbors"], solo[name][0])
+                    and np.array_equal(np.asarray(body["dists"], np.float32),
+                                       solo[name][1]))
+
+    fd = FrontDoorThread(None, registry=tenant_registry(paths))
+    try:
+        base = treg.mark()
+        reqs = [("POST", "/v1/topk", {"ids": ids, "k": K, "tenant": t})
+                for t in [n for n, _, _ in TENANTS] + [fps["hyperboloid"],
+                                                        fps["ivf"]]]
+        reqs += [("POST", "/v1/topk", {"ids": ids, "k": K}),
+                 ("POST", "/v1/topk", {"ids": ids, "k": K,
+                                       "tenant": "nobody"}),
+                 ("GET", "/v1/stats?tenant=ivf", None),
+                 ("GET", "/healthz", None)]
+        got = fd_requests(fd.addr, reqs)
+        routed = [same(got[j][1], n) for j, n in enumerate(
+            ["ball", "hyperboloid", "ivf", "hyperboloid", "ivf", "ball"])]
+        spec = [{"host": fd.addr[0], "port": fd.addr[1], "size": 1,
+                 "qps": q, "seconds": TENANT_LOAD_S, "seed": 65 + j,
+                 "rows": ROWS, "k": K, "tenant": t}
+                for j, (t, q) in enumerate(zip(("ball", "hyperboloid"),
+                                               TENANT_QPS))]
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                   "--load-client", json.dumps(sp)],
+                                  stdout=subprocess.PIPE, text=True, cwd=REPO)
+                 for sp in spec]
+        clients = [json.loads(p.communicate(timeout=300)[0].strip()
+                              .splitlines()[-1]) for p in procs]
+        delta = treg.snapshot(baseline=base)
+        launches = lane_counts()
+        stats = json.loads(got[7][2])
+    finally:
+        fd.drain()
+    load = {t: {"offered_qps": c["offered_qps"], "statuses": c["statuses"],
+                "client_ms": c["client_ms"],
+                "e2e_ms": hist_summary(delta, f"serve/e2e_ms@tenant={t}")}
+            for t, c in zip(("ball", "hyperboloid"), clients)}
+    first = {"statuses": [g[0] for g in got], "routed_equal_solo": routed,
+             "unknown_kind": (got[6][1] or {}).get("error", {}).get("kind"),
+             "stats_tenant": stats.get("tenant"), "load": load,
+             "launches": launches}
+    emit({"phase": "tenants", **first, **card})
+    if (first["statuses"] != [200] * 6 + [404, 200, 200] or not all(routed)
+            or first["unknown_kind"] != "unknown_tenant"
+            or first["stats_tenant"] != "ivf"):
+        raise AssertionError(f"tenants: {first}")
+    for t, c in load.items():
+        if set(c["statuses"]) != {"200"}:
+            raise AssertionError(f"tenants: load on {t}: {c}")
+
+    # paging: a budget that holds the largest engine and not two
+    budget = max(nbytes.values()) * 1.25 / (1 << 20)
+    fd = FrontDoorThread(None, registry=tenant_registry(paths, budget))
+    switches = []
+    try:
+        before = first_use(treg)
+        names = [n for n, _, _ in TENANTS]
+        for t in names * 2 + ["ball"]:
+            stacks = {s.name: s for s in fd.door.registry.tenants()}
+            cold = not stacks[t].resident
+            out_of = [s.name for s in stacks.values() if s.resident]
+            torch.cuda.synchronize()
+            gc.collect()
+            m0 = torch.cuda.memory_allocated()
+            c0 = time.perf_counter()
+            (st, body, _), = fd_requests(fd.addr, [("POST", "/v1/topk", {
+                "ids": ids, "k": K, "tenant": t})])
+            ms = (time.perf_counter() - c0) * 1e3
+            torch.cuda.synchronize()
+            gc.collect()
+            m1 = torch.cuda.memory_allocated()
+            evicted = [n for n in out_of if not stacks[n].resident]
+            switches.append({
+                "tenant": t, "status": st, "cold": cold, "ms": ms,
+                "evicted": evicted, "memory_allocated": [m0, m1],
+                "freed_enough": m0 - m1 >= sum(nbytes[e] for e in evicted)
+                - (nbytes[t] if cold else 0) - ALLOC_SLACK,
+                "equals_unbudgeted": same(body, t)})
+        after = first_use(treg)
+        summary = {s.name: s.summary() for s in fd.door.registry.tenants()}
+    finally:
+        fd.drain()
+    paging = {"budget_mb": budget, "engine_bytes": nbytes,
+              "switches": switches,
+              "admissions": {n: s["admissions"] for n, s in summary.items()},
+              "evictions": {n: s["evictions"] for n, s in summary.items()},
+              "cold_first_answer_ms": [w["ms"] for w in switches
+                                       if w["cold"]],
+              "first_use_before": before, "first_use_after": after}
+    emit({"phase": "tenant_paging", **paging, **card})
+    if (any(w["status"] != 200 or not w["equals_unbudgeted"]
+            or not w["freed_enough"] for w in switches)
+            or sum(paging["evictions"].values()) < len(names)
+            or after != before):
+        raise AssertionError(f"tenant paging: {paging}")
+
+    # the CLI's roster path: one fused scan mode for every tenant
+    roster = os.path.join(os.path.dirname(paths["art"]), "tenants.json")
+    with open(roster, "w") as f:
+        json.dump([{"name": n, "artifact": paths[k],
+                    **({"nprobe": 8} if n == "ivf" else {})}
+                   for n, k, _ in TENANTS], f)
+    door = CliDoor(tenants=roster, scan_mode="fused", prewarm="1", k=K)
+    try:
+        cli = fd_requests(door.addr, [
+            ("POST", "/v1/topk", {"ids": ids, "k": K, "tenant": n})
+            for n, _, _ in TENANTS] + [("POST", "/v1/topk", {
+                "ids": ids, "k": K, "tenant": "nobody"})])
+    finally:
+        closing = door.drain()
+    res = {**first, "paging": paging,
+           "cli_statuses": [c[0] for c in cli],
+           "cli_tenants": sorted(closing.get("tenants", {})),
+           "seconds": time.perf_counter() - t0, **card}
+    emit({"phase": "tenants_cli", "statuses": res["cli_statuses"],
+          "tenants": res["cli_tenants"]})
+    if res["cli_statuses"] != [200, 200, 200, 404]:
+        raise AssertionError(f"serve-http tenants=: {res['cli_statuses']}")
+    return res
+
+
+def stream_table(torch, rng) -> np.ndarray:
+    """``STREAM_ROWS`` clustered rows in the 10-dim ball (c = 1), made in
+    blocks on the host."""
+    from hyperspace_torch.manifolds import PoincareBall
+
+    centers = rng.standard_normal((STREAM_CLUSTERS, DIM)) * 0.25
+    out = np.empty((STREAM_ROWS, DIM), np.float32)
+    for lo in range(0, STREAM_ROWS, 1 << 18):
+        n = min(1 << 18, STREAM_ROWS - lo)
+        vv = (centers[rng.integers(0, STREAM_CLUSTERS, size=n)]
+              + rng.standard_normal((n, DIM)) * 0.05)
+        out[lo:lo + n] = PoincareBall(C).expmap0(
+            torch.as_tensor(vv, dtype=torch.float32)).numpy()
+    return out
+
+
+def stream_build_path(torch, rng, card: dict) -> dict:
+    """Phase 66: the host-streamed IVF build of ``STREAM_ROWS`` rows (auto:
+    above ``HOST_BUILD_ROWS``), then the resident build from the same
+    seeds (``host_resident=False``; both seed from a sample of the
+    streamed build's default size): the cell layouts, the device rows
+    peak, each build's seconds, recall@10 at nprobe 8 against the exact
+    fused scan."""
+    from hyperspace_torch.serve import QueryEngine
+    from hyperspace_torch.serve import index as ix
+    from hyperspace_torch.telemetry import registry as telem
+
+    t0 = time.perf_counter()
+    table = stream_table(torch, rng)
+    spec, ncells = ("poincare", C), ix.auto_ncells(STREAM_ROWS)
+    data_s = time.perf_counter() - t0
+    telem.set_gauge("index/build_device_rows_peak", 0)
+    t1 = time.perf_counter()
+    streamed = ix.build_index(table, spec, ncells,
+                              seed_sample=ix.SEED_SAMPLE_DEFAULT)
+    torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t1
+    peak = telem.default_registry().snapshot()[
+        "index/build_device_rows_peak"]
+    t1 = time.perf_counter()
+    resident = ix.build_index(table, spec, ncells, host_resident=False,
+                              seed_sample=ix.SEED_SAMPLE_DEFAULT)
+    torch.cuda.synchronize()
+    resident_s = time.perf_counter() - t1
+
+    def assign(index):
+        a = np.empty(STREAM_ROWS, np.int64)
+        for c, row in enumerate(index.cells):
+            a[row[row >= 0]] = c
+        return a
+
+    sa, ra = assign(streamed), assign(resident)
+    diff = np.flatnonzero(sa != ra)
+    ties = True
+    if diff.size:
+        # each differing row: its distances to the two cells' centroids
+        # equal within the f32 tier
+        from hyperspace_torch.manifolds import PoincareBall
+
+        x = torch.as_tensor(table[diff], dtype=torch.float64)
+        ds = PoincareBall(C).dist(x, torch.as_tensor(
+            streamed.centroids[sa[diff]], dtype=torch.float64))
+        dr = PoincareBall(C).dist(x, torch.as_tensor(
+            resident.centroids[ra[diff]], dtype=torch.float64))
+        ties = bool(torch.all((ds - dr).abs() <= 1e-6 + 1e-5 * dr.abs()))
+    qids = rng.choice(STREAM_ROWS, STREAM_QUERIES, replace=False)
+    ivf = QueryEngine(table, spec, index=streamed, nprobe=8,
+                      scan_mode="fused")
+    exact = QueryEngine(table, spec, scan_mode="fused")
+    q = qids.astype(np.int32)
+    ii = ivf.topk_neighbors(q, K)[0].cpu().numpy()
+    ei = exact.topk_neighbors(q, K)[0].cpu().numpy()
+    recall = float(np.mean([len(set(a) & set(b)) / K
+                            for a, b in zip(ii, ei)]))
+    res = {"rows": STREAM_ROWS, "dim": DIM, "ncells": ncells,
+           "max_cell": streamed.max_cell, "data_s": data_s,
+           "stream_s": stream_s, "resident_s": resident_s,
+           "device_rows_peak": peak, "rows_assigned_differently":
+           int(diff.size), "differing_rows_near_ties": ties,
+           "centroids_max_abs_diff": float(np.max(np.abs(
+               streamed.centroids - resident.centroids))),
+           "recall_at_10_nprobe8": recall,
+           "seconds": time.perf_counter() - t0, **card}
+    emit({"phase": "stream_build", **res})
+    if peak != ix._BUILD_CHUNK or not ties:
+        raise AssertionError(f"stream build: {res}")
+    return res
+
+
+def serving_plane_path(torch, spec: dict, rng) -> dict:
+    """Phases 63-66 in the front-door process."""
+    from hyperspace_torch.manifolds.maps import ball_to_lorentz
+    from hyperspace_torch.serve import export_artifact, load_artifact
+
+    card, tmp = spec["card"], spec["tmp"]
+    lor = os.path.join(tmp, "lorentz")
+    table = load_artifact(spec["art"]).table
+    export_artifact(lor, ball_to_lorentz(torch.as_tensor(
+        np.array(table)), C).numpy(), ("lorentz", C))
+    paths = {"art": spec["art"], "ivf": spec["ivf"], "lorentz": lor}
+    out = {}
+    for name, fn in (
+            ("live", lambda: live_path(torch, spec["art"], spec["ivf"], rng,
+                                       card)),
+            ("rollover", lambda: rollover_path(
+                torch, spec["art"], os.path.join(tmp, "fd_art"), card)),
+            ("tenants", lambda: tenants_path(torch, paths, rng, card)),
+            ("stream", lambda: stream_build_path(torch, rng, card))):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        emit({"phase": f"serving_plane_{name}_done",
+              "seconds": time.perf_counter() - t0})
+    return out
+
+
 def front_door_path(torch, args, card: dict, table_b, ivf_art) -> dict:
     """Phases 50-54: phase 4's table and phase 16's IVF/PQ artifact are
     exported again here, then served by a process of their own (this
@@ -6583,6 +7268,8 @@ def front_door_phases(torch, spec: dict) -> dict:
         emit({"phase": f"front_door_{name}_done",
               "seconds": time.perf_counter() - t0})
     out["seconds"] = time.perf_counter() - t_all
+    # phases 63-66: the live index, rollover, tenants, the streamed build
+    out["plane"] = serving_plane_path(torch, spec, rng)
     return out
 
 
@@ -6591,7 +7278,9 @@ def front_door_fields(fp: dict, kernels: list) -> None:
     launches by the doors' traffic over phases 50-54 (each door's counts
     set to 0 once its listener is up and read after its traffic), and
     ``launches_front_door_prewarm``: the launches of those doors'
-    prewarms."""
+    prewarms; ``launches_live`` and ``launches_tenants`` on rows 1, 2 and
+    4: the traffic of phase 63's two live doors (compactions included)
+    and of phase 65's three-tenant door, prewarms apart."""
     doors = (list(fp["checks"].values())
              + [fp["control"], fp["latency"], fp["overload"]]
              + list(fp["export"]["served"].values())
@@ -6604,6 +7293,14 @@ def front_door_fields(fp: dict, kernels: list) -> None:
             entry["launches_front_door_prewarm"] = sum(
                 d["prewarm"]["launches"][name] for d in doors
                 if "prewarm" in d)
+    # phases 63 and 65: the traffic's launches, prewarms apart
+    live, ten = fp["plane"]["live"], fp["plane"]["tenants"]
+    for entry in kernels:
+        name = entry["name"]
+        if name in ("pdist", "scan_topk", "scan_topk_cand"):
+            entry["launches_live"] = sum(d["launches"][name]
+                                         for d in live.values())
+            entry["launches_tenants"] = ten["launches"][name]
 
 
 def front_door_line(fp: dict) -> dict:
@@ -6632,7 +7329,34 @@ def front_door_line(fp: dict) -> dict:
         "control_without_prewarm": fp["control"]["requests"],
         "flushes_of_64_singles": {m: c["flushes"]
                                   for m, c in fp["checks"].items()},
-        "seconds": fp["seconds"]}}
+        "seconds": fp["seconds"]}, "serving_plane": plane_line(fp["plane"])}
+
+
+def plane_line(pl: dict) -> dict:
+    """The numbers of phases 63-66 in one object."""
+    live = {name: {k: d[k] for k in (
+        "upsert_visible_ms", "compaction_s_background", "compaction_s_tail",
+        "generation_after_traffic", "equals_fresh_engine",
+        "rows_disagreeing_with_f64", "recall_vs_f64", "seconds")}
+        | {"batch": {k: d["batch"][k] for k in (
+            "frozen", "empty_delta", "full_delta")}}
+        for name, d in pl["live"].items()}
+    ro, te, st = pl["rollover"], pl["tenants"], pl["stream"]
+    return {
+        "live": live,
+        "rollover": {"seconds_report": ro["report"]["seconds"],
+                     "memory_allocated": ro["memory_allocated"],
+                     "old_engine_bytes": ro["old_engine_bytes"],
+                     "new_engine_bytes": ro["new_engine_bytes"]},
+        "tenants": {"load": te["load"],
+                    "cold_first_answer_ms": te["paging"][
+                        "cold_first_answer_ms"],
+                    "admissions": te["paging"]["admissions"],
+                    "evictions": te["paging"]["evictions"],
+                    "engine_bytes": te["paging"]["engine_bytes"]},
+        "stream_build": {k: st[k] for k in (
+            "rows", "ncells", "stream_s", "resident_s", "device_rows_peak",
+            "rows_assigned_differently", "recall_at_10_nprobe8")}}
 
 
 def main(argv=None) -> int:

@@ -11,7 +11,8 @@ plain PyTorch version beside it that runs only for tensors on the CPU.
 Ported so far: the exact and IVF/PQ serving paths (artifact →
 ``serve.QueryEngine`` → ``serve.RequestBatcher`` → ``serve.Collator`` →
 ``serve.HttpFrontDoor`` → ``cli.serve``, with deadlines, admission, the
-degradation ladder, access logs and the telemetry registry), and
+degradation ladder, access logs and the telemetry registry; the live
+index, the multi-tenant engine registry and blue-green rollover), and
 the five training workloads of ``cli.train`` (HGCN, HyboNet, Poincaré
 and product-manifold embeddings, the hyperbolic VAE) through one
 training loop (``train.loop.run_loop``: checkpoint and resume, JSONL

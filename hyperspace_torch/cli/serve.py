@@ -15,20 +15,36 @@
     python -m hyperspace_torch.cli.serve serve artifact=DIR deadline_ms=50
 
     # the asyncio HTTP front door with continuous batching (port=0 =
-    # ephemeral; "[serve-http] listening on HOST:PORT" goes to stderr)
+    # ephemeral; "[serve-http] listening on HOST:PORT" goes to stderr);
+    # POST /admin/rollover {"target": DIR2} flips it onto another artifact
     python -m hyperspace_torch.cli.serve serve-http artifact=DIR \
         port=8080 max_wait_us=2000 queue_max=64 deadline_ms=50 prewarm=1
 
+    # the live index: upserts and deletes through a delta segment
+    python -m hyperspace_torch.cli.serve serve-http artifact=DIR live=1 \
+        delta_cap=1024 compact_at=0.75
+
+    # many artifacts behind one door, engines paged under a budget
+    python -m hyperspace_torch.cli.serve serve-http device_budget_mb=64 \
+        tenants='[{"name": "en", "artifact": "A"}, {"name": "de",
+                  "artifact": "B", "weight": 2, "nprobe": 8}]'
+
 Loop requests and responses have the JAX CLI's shapes:
 
-    {"op": "topk",  "ids": [0, 1, 2], "k": 5}  -> {"neighbors": ..., "dists": ...}
-    {"op": "score", "u": [0, 1], "v": [2, 3], "prob": true}  -> {"scores": ...}
+    {"op": "topk",   "ids": [0, 1, 2], "k": 5}  -> {"neighbors": ..., "dists": ...}
+    {"op": "score",  "u": [0, 1], "v": [2, 3], "prob": true}  -> {"scores": ...}
+    {"op": "upsert", "ids": [7, 120], "rows": [[...], [...]]}
+    {"op": "delete", "ids": [3]}
     {"op": "stats"}                            -> the serve counters
 
 A failed line answers ``{"error": {"kind": ..., "message": ...}}``
 (``parse`` / ``validation`` / ``deadline_exceeded`` / ``overloaded`` /
-``internal``) and the loop continues.  ``upsert``/``delete`` answer
-``validation`` (the live index is not ported).  ``deadline_ms=`` and
+``internal``) and the loop continues.  ``upsert``/``delete`` need
+``live=1`` (the artifact's engine under a
+:class:`~hyperspace_torch.serve.delta.LiveQueryEngine`; ``delta_cap=``
+and ``compact_at=`` size its delta segment); a frozen engine answers
+``validation``.  ``tenants=`` (serve-http only; inline JSON or a file)
+and ``device_budget_mb=`` arm the engine registry.  ``deadline_ms=`` and
 ``queue_max=`` arm deadlines, admission and the degradation ladder;
 ``chaos=`` arms faults; ``access_log=``, ``window_s=``, ``slo_ms=``,
 ``incident_dir=``, ``trace=``, ``slow_log=``, ``log=``, ``telemetry=``
@@ -36,7 +52,7 @@ and ``trace_out=`` arm the observability plane; ``prewarm=`` launches
 the bucket ladder before traffic; SIGTERM drains.  ``device=cuda`` is
 the default (``serve-http`` without a card exits before it binds);
 ``device=cpu`` runs the kernels' plain PyTorch versions.  JAX's
-multi-tenant, live-index and mesh keys exit naming themselves.
+``mesh`` and ``compile_cache_dir`` keys exit naming themselves.
 """
 
 from __future__ import annotations
@@ -94,9 +110,12 @@ class ServeConfig:
     # IVF probing: cells probed per query.  0 = exact scan; needs an
     # artifact exported with an index.
     nprobe: int = 0
-    live: bool = False            # not ported: the live index
-    delta_cap: int = 1024         # not ported
-    compact_at: float = 0.75      # not ported
+    # the live index (serve/delta.py): upsert/delete through a delta
+    # segment of delta_cap rows, compacted in the background at
+    # compact_at of it; the base must not be fused
+    live: bool = False
+    delta_cap: int = 1024
+    compact_at: float = 0.75
     # overload safety: a default per-request deadline (0 = none), and a
     # bounded admission queue driving the degradation ladder (0 = off)
     deadline_ms: float = 0.0
@@ -120,17 +139,19 @@ class ServeConfig:
     incident_dir: str | None = None  # flight-recorder dumps
     trace: bool = False           # per-stage span trees (syncs per dispatch)
     slow_log: str | None = None   # SLO breaches with span trees
-    tenants: str | None = None    # not ported: multi-tenant serving
-    device_budget_mb: float = 0.0  # not ported: engine paging
+    # multi-tenant serving (serve-http only; serve/registry.py): a JSON
+    # list, inline or a file, of {"name", "artifact", "weight"?,
+    # "queue_max"?, "deadline_ms"?, "slo_ms"?, "precision"?, "nprobe"?};
+    # the first is the default route.  Exclusive of artifact= and live=1
+    tenants: str | None = None
+    # engine paging: MiB of device tables past which idle tenants'
+    # engines are dropped and rebuilt on demand (0 = unlimited)
+    device_budget_mb: float = 0.0
 
 
 # JAX's keys this port does not serve yet: set to anything but the
 # default, they exit naming themselves
 NOT_PORTED = {
-    **dict.fromkeys(("tenants", "device_budget_mb"),
-                    "multi-tenant serving (the engine registry)"),
-    **dict.fromkeys(("live", "delta_cap", "compact_at"),
-                    "the live mutable index"),
     "mesh": "mesh sharding (the port serves one device)",
     "compile_cache_dir": "XLA's persistent compilation cache",
 }
@@ -214,6 +235,17 @@ def _build(cfg: ServeConfig):
                                         precision=cfg.precision,
                                         nprobe=cfg.nprobe,
                                         device=cfg.device)
+        if cfg.live:
+            # the artifact table becomes the host master (a writable
+            # copy: the loaded artifact stays as it is) and the frozen
+            # engine the base under a delta segment
+            from hyperspace_torch.parallel.host_table import HostEmbedTable
+            from hyperspace_torch.serve.delta import LiveQueryEngine
+
+            master = HostEmbedTable.from_array(
+                np.array(art.table, np.float32))
+            eng = LiveQueryEngine(eng, master, capacity=cfg.delta_cap,
+                                  compact_at=cfg.compact_at)
     except (ValueError, RuntimeError) as e:  # bad options, or no CUDA
         raise SystemExit(str(e)) from None
     window = recorder = alog = sink = slow = slow_sink = None
@@ -254,6 +286,88 @@ def _build(cfg: ServeConfig):
     batcher.access_log = alog  # closed by the serve-session bracket
     batcher.slow_log = slow
     return batcher
+
+
+TENANT_FIELDS = ("name", "artifact", "weight", "queue_max", "deadline_ms",
+                 "slo_ms", "precision", "nprobe")
+
+
+def _build_registry(cfg: ServeConfig, prewarm_ks: list[int]):
+    """``tenants=`` (inline JSON or a path to a JSON file) → a built
+    :class:`~hyperspace_torch.serve.registry.EngineRegistry`.  A tenant's
+    fields override the shared config's knobs; malformed rosters are
+    usage errors before any engine builds."""
+    from hyperspace_torch.serve.registry import EngineRegistry
+
+    if cfg.artifact:
+        raise SystemExit("tenants= and artifact= are mutually exclusive "
+                         "(each tenant names its own artifact)")
+    if cfg.live:
+        raise SystemExit("tenants= does not support live=1 yet (the "
+                         "delta segment is per-engine state that "
+                         "engine paging would drop)")
+    text = cfg.tenants
+    if text and os.path.exists(text):
+        try:
+            with open(text, "r", encoding="utf-8") as f:
+                text = f.read()
+        except OSError as e:
+            raise SystemExit(f"tenants={cfg.tenants}: {e}") from None
+    try:
+        roster = json.loads(text or "")
+    except json.JSONDecodeError as e:
+        raise SystemExit(
+            f"tenants= wants a JSON list (inline or a file path): {e}"
+        ) from None
+    if (not isinstance(roster, list) or not roster
+            or not all(isinstance(t, dict) for t in roster)):
+        raise SystemExit(
+            "tenants= wants a non-empty JSON list of tenant objects")
+    try:
+        reg = EngineRegistry(device_budget_mb=cfg.device_budget_mb,
+                             max_wait_us=cfg.max_wait_us,
+                             prewarm_ks=prewarm_ks)
+    except ValueError as e:
+        raise SystemExit(f"device_budget_mb: {e}") from None
+    try:
+        for t in roster:
+            name, artifact = t.get("name"), t.get("artifact")
+            if not (isinstance(name, str) and name
+                    and isinstance(artifact, str) and artifact):
+                raise SystemExit(
+                    f"tenant entry {t!r}: wants string \"name\" and "
+                    "\"artifact\" fields")
+            unknown = set(t) - set(TENANT_FIELDS)
+            if unknown:
+                raise SystemExit(
+                    f"tenant {name!r}: unknown field(s) "
+                    f"{sorted(unknown)}")
+            reg.add_tenant(
+                name, artifact,
+                weight=float(t.get("weight", 1.0)),
+                window_s=cfg.window_s,
+                engine_kw=dict(
+                    chunk_rows=cfg.chunk_rows,
+                    scan_mode=cfg.scan_mode,
+                    precision=t.get("precision", cfg.precision),
+                    nprobe=int(t.get("nprobe", cfg.nprobe)),
+                    device=cfg.device),
+                batcher_kw=dict(
+                    min_bucket=cfg.min_bucket,
+                    max_bucket=cfg.max_bucket,
+                    cache_size=cfg.cache_size,
+                    queue_max=int(t.get("queue_max", cfg.queue_max)),
+                    deadline_ms=float(t.get("deadline_ms",
+                                            cfg.deadline_ms)),
+                    slo_ms=float(t.get("slo_ms", cfg.slo_ms))))
+    except (ValueError, TypeError, OSError, RuntimeError) as e:
+        # a bad artifact, a duplicate name, bad knob values, no CUDA
+        reg.close(wait=False)
+        raise SystemExit(f"tenants=: {e}") from None
+    except SystemExit:
+        reg.close(wait=False)
+        raise
+    return reg
 
 
 def _prewarm_ks(cfg: ServeConfig) -> list[int]:
@@ -347,7 +461,9 @@ def run_query(cfg: ServeConfig) -> dict:
 
 
 def _close_logs(batcher) -> None:
-    for log in (batcher.access_log, batcher.slow_log):
+    """Close the logs ``_build`` opened (a registry's batchers have none)."""
+    for log in (getattr(batcher, "access_log", None),
+                getattr(batcher, "slow_log", None)):
         if log is not None:
             log.close()
 
@@ -397,6 +513,9 @@ def _serve_session(cfg: ServeConfig, batcher):
     mark."""
     from hyperspace_torch.telemetry import registry as telem
 
+    logs = (getattr(batcher, "access_log", None),
+            getattr(batcher, "slow_log", None))
+    del batcher   # a rollover's flip must be able to free the old engine
     mark = telem.default_registry().mark()
     logger = None
     try:
@@ -415,7 +534,9 @@ def _serve_session(cfg: ServeConfig, batcher):
                          **telem.default_registry().snapshot(
                              "ctr/", baseline=mark))
             logger.close()
-        _close_logs(batcher)
+        for log in logs:
+            if log is not None:
+                log.close()
         if cfg.trace or cfg.slow_log:
             from hyperspace_torch.telemetry import spans
 
@@ -637,7 +758,10 @@ def run_serve(cfg: ServeConfig, *, stdin=None, stdout=None) -> dict:
 
 def run_serve_http(cfg: ServeConfig, *, ready=None) -> dict:
     """The asyncio HTTP front door (``serve/server.py``) over the
-    continuous-batching collator; SIGTERM drains.  ``ready(door)`` is
+    continuous-batching collator, or over an engine registry with
+    ``tenants=``; ``/admin/rollover`` is armed with a builder that
+    replays this config against the posted artifact (single tenant);
+    SIGTERM drains.  ``ready(door)`` is
     called once the listener is bound (after the default ``[serve-http]
     listening on HOST:PORT`` line on stderr): ``door.port`` is the bound
     port, and an in-process caller drains the door on ``door.loop``."""
@@ -654,26 +778,60 @@ def run_serve_http(cfg: ServeConfig, *, ready=None) -> dict:
     except (RuntimeError, ValueError) as e:
         raise SystemExit(f"serve-http: {e}") from None
 
+    served = {}
+
     def announce(door):
+        served["door"] = door
         _stderr(f"[serve-http] listening on {door.host}:{door.port}")
         if ready is not None:
             ready(door)
 
-    batcher = _build(cfg)
-    with _serve_session(cfg, batcher):
+    if cfg.tenants:
+        # one engine, batcher and ladder per roster entry behind the one
+        # door, fair dispatch on the shared executor, engine paging
+        registry = _build_registry(cfg, prewarm_ks)
+        with _serve_session(cfg, registry.default.batcher):
+            try:
+                result = asyncio.run(run_front_door(
+                    registry=registry, host=cfg.host, port=cfg.port,
+                    max_wait_us=cfg.max_wait_us, ready=announce,
+                    prewarm_ks=prewarm_ks))
+            except ValueError as e:  # prewarm k out of range
+                raise SystemExit(f"prewarm: {e}") from None
+            except OSError as e:
+                raise SystemExit(
+                    f"serve-http: cannot bind {cfg.host}:{cfg.port} "
+                    f"— {e}") from None
+            finally:
+                registry.close(wait=False)
+        return {"mode": "serve_http", **result,
+                "tenants": registry.stats()}
+    def rebuild(target: str):
+        # _build reports a bad artifact by SystemExit, which would escape
+        # the connection task: the door's taxonomy answers a ValueError
+        try:
+            return _build(dataclasses.replace(cfg, artifact=target))
+        except SystemExit as e:
+            raise ValueError(str(e)) from None
+
+    # the door alone holds the batcher (no local name here), so a
+    # rollover frees the engine it flips away from; the closing stats
+    # and window are the serving batcher's
+    built = [_build(cfg)]
+    with _serve_session(cfg, built[0]):
         try:
             result = asyncio.run(run_front_door(
-                batcher, host=cfg.host, port=cfg.port,
+                built.pop(), host=cfg.host, port=cfg.port,
                 max_wait_us=cfg.max_wait_us, ready=announce,
-                prewarm_ks=prewarm_ks))
+                prewarm_ks=prewarm_ks, rollover_builder=rebuild))
         except ValueError as e:  # prewarm k out of range for this table
             raise SystemExit(f"prewarm: {e}") from None
         except OSError as e:  # bind failure: a usage error
             raise SystemExit(
                 f"serve-http: cannot bind {cfg.host}:{cfg.port} — {e}"
             ) from None
-        _print_window(batcher)
-    return {"mode": "serve_http", **result, **batcher.stats()}
+        _print_window(served["door"].batcher)
+    return {"mode": "serve_http", **result, **served["door"].batcher.stats()}
 
 
 MODES = {"export": run_export, "query": run_query, "serve": run_serve,

@@ -6,7 +6,8 @@
   field), threaded through the lifecycle into span args, the response
   and the access record.
 - :class:`AccessLog` — one JSONL line per request (``access_log=`` on
-  the serve CLI): request id, route, buckets, collator flush id,
+  the serve CLI): request id, route, tenant (the registry tenant's name,
+  None on a single-tenant door), buckets, collator flush id,
   queue-wait/dispatch/e2e ms, cache hits and misses, degrade level,
   taxonomy outcome and the per-stage decomposition.  Thread-safe,
   line-buffered appends.

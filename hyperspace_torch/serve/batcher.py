@@ -44,9 +44,15 @@ collator (``serve/collator.py``), which puts its own queueing between
 the cache pass and the dispatch; ``dispatch_topk`` attributes one shared
 dispatch to every member lifecycle and counts engine slots once.
 
-Mutations (``upsert``/``delete``) answer a ``validation`` error, as a
-frozen engine does in JAX: the live index is not ported.  The port
-serves one tenant.
+- **Mutations** (``upsert``/``delete``) go to a live engine
+  (``serve/delta.py``) inside the same admission, deadline and
+  access-record envelope, observing ``serve/upsert_visible_ms`` (enqueue
+  to the generation bump); a frozen engine answers ``validation``.
+- **Tenants.**  ``tenant=`` (the multi-tenant registry,
+  ``serve/registry.py``) double-writes the key series (requests, e2e,
+  shed, deadline, errors) under a ``<name>@tenant=<t>`` twin that the
+  exposition renders as a ``tenant`` label, and stamps access records
+  with the tenant.
 """
 
 from __future__ import annotations
@@ -67,6 +73,7 @@ from hyperspace_torch.serve.errors import (DeadlineExceededError,
                                            kind_of)
 from hyperspace_torch.telemetry import registry as telem
 from hyperspace_torch.telemetry import spans
+from hyperspace_torch.telemetry.exposition import tenant_metric
 from hyperspace_torch.telemetry.trace import span, tracing
 
 DEFAULT_MIN_BUCKET = 8
@@ -173,12 +180,14 @@ class _Lifecycle:
     __slots__ = ("t_enq", "t_form", "info", "buckets_used",
                  "dispatch_s", "t_deadline", "op", "request_id",
                  "flush_id", "cache_hits", "cache_misses", "t_done",
-                 "t_coll", "t_result", "span")
+                 "t_coll", "t_result", "span", "tenant")
 
     def __init__(self, op: str, deadline_ms: Optional[float] = None,
                  t_enq: Optional[float] = None,
-                 request_id: Optional[str] = None):
+                 request_id: Optional[str] = None,
+                 tenant: Optional[str] = None):
         self.t_enq = time.perf_counter() if t_enq is None else t_enq
+        self.tenant = tenant   # drives the tenant twins and the record
         self.t_form = self.t_enq
         self.op = op
         self.request_id = request_id
@@ -222,6 +231,9 @@ class _Lifecycle:
         if (self.t_deadline is not None
                 and time.perf_counter() > self.t_deadline):
             telem.inc("serve/deadline_exceeded")
+            if self.tenant:
+                telem.inc(tenant_metric("serve/deadline_exceeded",
+                                        self.tenant))
             raise DeadlineExceededError(
                 f"deadline_ms expired {where} "
                 f"({(time.perf_counter() - self.t_enq) * 1e3:.1f} ms "
@@ -241,6 +253,9 @@ class _Lifecycle:
         if self.buckets_used:
             telem.observe("serve/dispatch_ms", self.dispatch_s * 1e3)
         telem.observe("serve/e2e_ms", (self.t_done - self.t_enq) * 1e3)
+        if self.tenant:
+            telem.observe(tenant_metric("serve/e2e_ms", self.tenant),
+                          (self.t_done - self.t_enq) * 1e3)
         if self.span is not None:
             st = self.stages_ms()
             telem.observe("serve/stage/queue_wait_ms", st["queue_wait"])
@@ -271,13 +286,13 @@ class _Lifecycle:
 
     def access_record(self, outcome: str, degrade_level: int) -> dict:
         """One access-log line's payload (JAX's record shape; ``tenant``
-        is None on the single-tenant port).  A failed request still
+        is None on a single-tenant batcher).  A failed request still
         carries its elapsed time and flush id."""
         end = self.t_done if self.t_done is not None else time.perf_counter()
         return {
             "request_id": self.request_id,
             "route": self.op,
-            "tenant": None,
+            "tenant": self.tenant,
             "outcome": outcome,
             "bucket": list(self.buckets_used),
             "flush_id": self.flush_id,
@@ -343,7 +358,8 @@ class RequestBatcher:
     :class:`~hyperspace_torch.telemetry.window.SloWindow`) and
     ``slo_ms`` feed ``stats()`` and the ladder's latency signal;
     ``access_sink``, ``recorder`` and ``slow_sink`` take access records,
-    degrade transitions and SLO breaches."""
+    degrade transitions and SLO breaches.  ``tenant`` names the
+    registry tenant this batcher serves (module docstring)."""
 
     def __init__(self, engine: QueryEngine, *,
                  min_bucket: int = DEFAULT_MIN_BUCKET,
@@ -356,10 +372,8 @@ class RequestBatcher:
                  window=None, slo_ms: float = 0.0,
                  access_sink=None, recorder=None, slow_sink=None,
                  tenant: Optional[str] = None):
-        if tenant is not None:
-            raise ValueError("tenant= needs the multi-tenant registry, "
-                             "which is not ported yet")
         self.engine = engine
+        self.tenant = tenant
         self.buckets = bucket_sizes(min_bucket, max_bucket)
         self.cache = _LRU(cache_size)
         if queue_max < 0:
@@ -418,15 +432,17 @@ class RequestBatcher:
             self._admission.release()
 
     def count_request(self) -> None:
-        """Bump ``serve/requests`` — the one place a request is counted
-        (shared with the collator)."""
+        """Bump ``serve/requests`` (and its tenant twin) — the one place
+        a request is counted (shared with the collator)."""
         telem.inc("serve/requests")
+        if self.tenant:
+            telem.inc(tenant_metric("serve/requests", self.tenant))
 
     def new_lifecycle(self, op: str, deadline_ms: Optional[float] = None,
                       t_enq: Optional[float] = None,
                       request_id: Optional[str] = None) -> _Lifecycle:
         return _Lifecycle(op, deadline_ms, t_enq=t_enq,
-                          request_id=request_id)
+                          request_id=request_id, tenant=self.tenant)
 
     def _begin(self, op: str, deadline_ms, t_enq, request_id) -> _Lifecycle:
         """Start a request: its lifecycle (the batcher's default
@@ -455,8 +471,12 @@ class RequestBatcher:
             self.window.tick()
         if outcome == "overloaded":
             telem.inc("serve/shed")
+            if self.tenant:
+                telem.inc(tenant_metric("serve/shed", self.tenant))
         elif outcome not in ("ok", "deadline_exceeded"):
             telem.inc("serve/errors")
+            if self.tenant:
+                telem.inc(tenant_metric("serve/errors", self.tenant))
         if life.span is not None:
             life.span.close()
         breach = False
@@ -802,16 +822,38 @@ class RequestBatcher:
 
     # --- mutations ------------------------------------------------------------
 
-    def _mutate(self, op: str, *, deadline_ms: Optional[float],
+    def _live_engine(self):
+        """The engine, when it takes mutations (``serve/delta.py``); a
+        frozen engine answers ``validation`` and says how to get one."""
+        if not hasattr(self.engine, "upsert"):
+            raise ValueError(
+                "engine is frozen: mutations need a live engine "
+                "(serve with live=true, or wrap the base in "
+                "serve.delta.LiveQueryEngine)")
+        return self.engine
+
+    def _mutate(self, op: str, apply, *, deadline_ms: Optional[float],
                 t_enq: Optional[float],
                 request_id: Optional[str]) -> dict:
-        """The mutation envelope (admission, access record) around the
-        answer JAX's frozen engines give: a ``validation`` error."""
+        """The mutation envelope: :meth:`topk`'s admission, deadline and
+        access-record contract around ``apply(engine)``.  A success
+        observes ``serve/upsert_visible_ms`` (enqueue to the generation
+        bump).  A mutation past its deadline stays applied (the
+        generation moved) and answers ``deadline_exceeded``."""
         life = self._begin(op, deadline_ms, t_enq, request_id)
         try:
-            raise ValueError(
-                "engine is frozen: mutations need a live engine, and the "
-                "live index (serve/delta.py) is not ported")
+            with span("query", args=life.info):
+                eng = self._live_engine()
+                life.formed()
+                life.check_deadline("before the mutation")
+                out = apply(eng)
+                life.result_ready()
+                telem.observe("serve/upsert_visible_ms",
+                              (time.perf_counter() - life.t_enq) * 1e3)
+                life.check_deadline("at completion")
+                life.finish()
+                self.emit_access(life)
+                return out
         except _REQUEST_ERRORS as e:
             self.emit_access(life, kind_of(e))
             raise
@@ -821,14 +863,19 @@ class RequestBatcher:
     def upsert(self, ids, rows, *, deadline_ms: Optional[float] = None,
                t_enq: Optional[float] = None,
                request_id: Optional[str] = None) -> dict:
-        return self._mutate("upsert", deadline_ms=deadline_ms, t_enq=t_enq,
-                            request_id=request_id)
+        """Insert or update rows through the live engine's delta segment
+        (``{"upserted", "inserted", "generation", "segment_rows"}``)."""
+        return self._mutate(
+            "upsert", lambda eng: eng.upsert(ids, rows),
+            deadline_ms=deadline_ms, t_enq=t_enq, request_id=request_id)
 
     def delete(self, ids, *, deadline_ms: Optional[float] = None,
                t_enq: Optional[float] = None,
                request_id: Optional[str] = None) -> dict:
-        return self._mutate("delete", deadline_ms=deadline_ms, t_enq=t_enq,
-                            request_id=request_id)
+        """Tombstone rows (``{"deleted", "generation"}``)."""
+        return self._mutate(
+            "delete", lambda eng: eng.delete(ids),
+            deadline_ms=deadline_ms, t_enq=t_enq, request_id=request_id)
 
     # --- introspection --------------------------------------------------------
 
@@ -855,7 +902,7 @@ class RequestBatcher:
         gauges = reg.snapshot()
         mode = self._mode()
         return {
-            "tenant": None,
+            "tenant": self.tenant,
             "latency_e2e_ms": gauges.get("hist/serve/e2e_ms"),
             "kernel_builds": reg.get("kernels/builds"),
             "kernel_loads": reg.get("kernels/loads"),
@@ -875,8 +922,9 @@ class RequestBatcher:
             "scan_strategy": self.engine.scan_strategy,
             "scan_mode": self.engine.scan_mode,
             "nprobe": self.engine.nprobe,
-            "generation": None,       # no live index in the port
-            "segment_rows": None,
+            # live engines only (serve/delta.py); None on a frozen one
+            "generation": getattr(self.engine, "generation", None),
+            "segment_rows": getattr(self.engine, "segment_rows", None),
             "queue_max": (self._admission.queue_max
                           if self._admission else 0),
             "shed": reg.get("serve/shed"),

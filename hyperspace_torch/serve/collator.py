@@ -29,13 +29,19 @@ rows and answers ``deadline_exceeded`` at completion.
 Every structure here is touched only on the event loop; the batcher's
 admission counter, ladder and LRU carry their own locks.  With spans on,
 a flush builds one shared ``flush`` span adopted into every member's
-tree and scoped on the dispatch thread with ``spans.use``.  JAX's
-``FairDispatcher`` (multi-tenant fair dispatch) is not ported yet.
+tree and scoped on the dispatch thread with ``spans.use``.
+
+A multi-tenant front door (``serve/registry.py``) runs one collator per
+tenant on one **shared** dispatch executor (``executor=``): device work
+stays serialized across tenants.  :class:`FairDispatcher` interposes
+per-tenant job queues drained by deficit round robin, so a hot tenant's
+flushes cannot starve the others.
 """
 
 from __future__ import annotations
 
 import asyncio
+import collections
 import functools
 from concurrent.futures import ThreadPoolExecutor
 from typing import Optional, Sequence
@@ -49,6 +55,7 @@ from hyperspace_torch.serve.errors import (DeadlineExceededError,
                                            OverloadedError, kind_of)
 from hyperspace_torch.telemetry import registry as telem
 from hyperspace_torch.telemetry import spans
+from hyperspace_torch.telemetry.exposition import tenant_metric
 
 # default max-wait before a non-full pending bucket flushes (µs)
 DEFAULT_MAX_WAIT_US = 2000
@@ -77,33 +84,139 @@ class _Group:
         self.keyf = keyf
 
 
+class FairDispatcher:
+    """Deficit round robin (Shreedhar & Varghese) over per-tenant job
+    queues in front of the shared one-worker dispatch executor.
+
+    Each visit to a tenant's non-empty queue adds ``weight × quantum``
+    to its deficit; its head job dispatches once the deficit covers the
+    job's cost (the flush's unique id count: the device work), paying
+    the cost down.  A tenant whose queue empties forfeits its deficit,
+    so an idle tenant banks no burst credit.  One job is in flight at a
+    time (the executor has one worker; a second would reorder inside the
+    pool and bypass the policy); its completion re-pumps on the event
+    loop.  Every structure is touched on the event loop only."""
+
+    def __init__(self, executor: ThreadPoolExecutor, *,
+                 weights: Optional[dict] = None, quantum: int = 8):
+        if quantum < 1:
+            raise ValueError(f"quantum must be >= 1; got {quantum}")
+        self._exec = executor
+        self._weights = dict(weights or {})
+        self._quantum = int(quantum)
+        self._queues: dict = {}    # tenant -> deque[(cost, fn, fut)]
+        self._deficit: dict = {}   # tenant -> accumulated credit
+        self._rr: collections.deque = collections.deque()  # visit order
+        self._busy = False
+
+    def weight(self, tenant) -> float:
+        """The tenant's share (default 1.0; floored above 0, so a zero
+        weight throttles hard instead of halting)."""
+        return max(float(self._weights.get(tenant, 1.0)), 1e-6)
+
+    def set_weight(self, tenant, weight: float) -> None:
+        self._weights[tenant] = float(weight)
+
+    def submit(self, loop: asyncio.AbstractEventLoop, tenant,
+               cost: int, fn) -> asyncio.Future:
+        """Enqueue ``fn`` for ``tenant`` at ``cost`` work units; a future
+        of ``fn()``'s result (``run_in_executor``'s shape)."""
+        fut = loop.create_future()
+        q = self._queues.get(tenant)
+        if q is None:
+            q = self._queues[tenant] = collections.deque()
+            self._deficit.setdefault(tenant, 0.0)
+            self._rr.append(tenant)
+        q.append((max(1, int(cost)), fn, fut))
+        self._pump(loop)
+        return fut
+
+    def _pump(self, loop) -> None:
+        if self._busy:
+            return
+        # deficits grow on every visit to a non-empty queue, so the scan
+        # ends at the first affordable head job or when all queues drain
+        while self._rr:
+            tenant = self._rr[0]
+            q = self._queues.get(tenant)
+            while q and q[0][2].done():
+                q.popleft()  # the caller gave up while queued: never run
+            if not q:
+                self._rr.popleft()
+                self._queues.pop(tenant, None)
+                self._deficit[tenant] = 0.0
+                continue
+            self._deficit[tenant] += self.weight(tenant) * self._quantum
+            cost, fn, fut = q[0]
+            if self._deficit[tenant] < cost:
+                self._rr.rotate(-1)
+                continue
+            q.popleft()
+            self._deficit[tenant] -= cost
+            self._rr.rotate(-1)
+            self._busy = True
+            telem.inc("serve/fair_dispatches")
+            if tenant:
+                telem.inc(tenant_metric("serve/fair_dispatches", tenant))
+            efut = loop.run_in_executor(self._exec, fn)
+            efut.add_done_callback(
+                functools.partial(self._done, loop, fut))
+            return
+
+    def _done(self, loop, fut: asyncio.Future, efut) -> None:
+        self._busy = False
+        if not fut.done():
+            if efut.cancelled():
+                fut.cancel()
+            elif efut.exception() is not None:
+                fut.set_exception(efut.exception())
+            else:
+                fut.set_result(efut.result())
+        self._pump(loop)
+
+    def pending(self) -> dict:
+        """{tenant: queued jobs}."""
+        return {t: len(q) for t, q in self._queues.items() if q}
+
+
 class Collator:
     """Continuous batching over a :class:`RequestBatcher` (module
-    docstring).  One collator serves one batcher and owns its dispatch
-    executor; construct and use it on one event loop.  ``dispatcher=``
-    (JAX's multi-tenant fair dispatch) raises: not ported yet."""
+    docstring).  One collator serves one batcher; construct and use it
+    on one event loop.  ``executor=`` shares a dispatch executor owned
+    by someone else (the registry's; ``close()`` then leaves it
+    running), ``dispatcher=`` routes this collator's submissions through
+    a :class:`FairDispatcher` under its ``tenant``."""
 
     def __init__(self, batcher: RequestBatcher, *,
                  max_wait_us: float = DEFAULT_MAX_WAIT_US,
-                 dispatcher=None):
-        if dispatcher is not None:
-            raise ValueError("dispatcher= needs the multi-tenant "
-                             "registry, which is not ported yet")
+                 executor: Optional[ThreadPoolExecutor] = None,
+                 dispatcher: Optional[FairDispatcher] = None,
+                 tenant: Optional[str] = None):
         if max_wait_us < 0:
             raise ValueError(
                 f"max_wait_us must be >= 0; got {max_wait_us}")
         self.batcher = batcher
+        self.tenant = tenant if tenant is not None else batcher.tenant
         self.max_wait_s = float(max_wait_us) / 1e6
         self._groups: dict[tuple, _Group] = {}
-        self._exec = ThreadPoolExecutor(max_workers=1,
-                                        thread_name_prefix="serve-dispatch")
+        self._owns_exec = executor is None
+        self._exec = executor if executor is not None else (
+            ThreadPoolExecutor(max_workers=1,
+                               thread_name_prefix="serve-dispatch"))
+        self._dispatcher = dispatcher
         self._closed = False
         # monotone flush id, stamped on every member a flush examines
         # (expired ones included: a 504 names the flush that missed it)
         self._flush_seq = 0
 
-    def _submit(self, fn) -> asyncio.Future:
-        return asyncio.get_running_loop().run_in_executor(self._exec, fn)
+    def _submit(self, cost: int, fn) -> asyncio.Future:
+        """One dispatch submission: through the fair dispatcher under
+        this collator's tenant when armed, else straight to the
+        executor."""
+        loop = asyncio.get_running_loop()
+        if self._dispatcher is not None:
+            return self._dispatcher.submit(loop, self.tenant, cost, fn)
+        return loop.run_in_executor(self._exec, fn)
 
     def prewarm(self, ks: Sequence[int], **kw) -> dict:
         """:meth:`RequestBatcher.prewarm` on the dispatch thread, waited
@@ -171,7 +284,7 @@ class Collator:
             life.check_deadline("after validation")
             if self._closed:
                 raise OverloadedError("server draining: dispatch closed")
-            out = await self._submit(functools.partial(
+            out = await self._submit(len(u), functools.partial(
                 b.dispatch_score, u, v, prob=prob, fd_r=fd_r, fd_t=fd_t,
                 lives=(life,), deadline_life=life, span_parent=life.span))
             life.result_ready()
@@ -189,11 +302,12 @@ class Collator:
                      deadline_ms: Optional[float] = None,
                      t_enq: Optional[float] = None,
                      request_id: Optional[str] = None) -> dict:
-        """The batcher's ``upsert`` on the dispatch executor (a frozen
-        engine's ``validation`` answer)."""
+        """The batcher's ``upsert`` on the dispatch executor: mutations
+        are serialized with the topk and score work, so a flush never
+        scans a half-applied generation."""
         if self._closed:
             raise OverloadedError("server draining: dispatch closed")
-        return await self._submit(functools.partial(
+        return await self._submit(_cost(ids), functools.partial(
             self.batcher.upsert, ids, rows, deadline_ms=deadline_ms,
             t_enq=t_enq, request_id=request_id))
 
@@ -201,9 +315,10 @@ class Collator:
                      deadline_ms: Optional[float] = None,
                      t_enq: Optional[float] = None,
                      request_id: Optional[str] = None) -> dict:
+        """The batcher's ``delete``, serialized the same way."""
         if self._closed:
             raise OverloadedError("server draining: dispatch closed")
-        return await self._submit(functools.partial(
+        return await self._submit(_cost(ids), functools.partial(
             self.batcher.delete, ids, deadline_ms=deadline_ms,
             t_enq=t_enq, request_id=request_id))
 
@@ -274,7 +389,7 @@ class Collator:
             for m in alive:
                 if m.life.span is not None:
                     m.life.span.adopt(fspan)
-        fut = self._submit(functools.partial(
+        fut = self._submit(len(ids), functools.partial(
             self.batcher.dispatch_topk, ids, k, exclude_self=exclude_self,
             nprobe_ov=nprobe_ov, keyf=g.keyf,
             lives=[m.life for m in alive], span_parent=fspan))
@@ -305,7 +420,18 @@ class Collator:
     def close(self, wait: bool = True) -> None:
         """Release the dispatch executor; idempotent.  The front door's
         drain passes ``wait=False`` after it has awaited every in-flight
-        request: joining the thread from the event loop would block it."""
+        request: joining the thread from the event loop would block it.
+        A shared executor is its owner's to shut down."""
         if not self._closed:
             self._closed = True
-            self._exec.shutdown(wait=wait)
+            if self._owns_exec:
+                self._exec.shutdown(wait=wait)
+
+
+def _cost(ids) -> int:
+    """A mutation's fair-dispatch cost: its id count (1 for a malformed
+    list, which the batcher rejects)."""
+    try:
+        return len(ids)
+    except TypeError:
+        return 1

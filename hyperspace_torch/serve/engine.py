@@ -61,9 +61,14 @@ Inside a span scope (``telemetry/spans.py``, the serve CLI's ``trace=``)
 each query records a ``device_compute`` stage that ends after a sync of
 the caller's stream; with spans off nothing waits.
 
+The live index (``serve/delta.py``) queries a frozen engine through
+``topk_neighbors(q_rows=, drop=, allow_underfill=)``: fresh query rows,
+and a tombstone penalty row added to every tile (a masked scan always
+runs the two-stage path: no kernel has a tombstone lane).
+
 Everything runs on ``device`` — CUDA unless the caller asks for the CPU,
 where the kernels' plain versions answer.  Not ported yet (they raise):
-the ``carry`` scan and mesh sharding; the live index is not ported.
+the ``carry`` scan and mesh sharding.
 """
 
 from __future__ import annotations
@@ -464,13 +469,47 @@ class QueryEngine:
     # --- queries --------------------------------------------------------------
 
     def topk_neighbors(self, q_idx, k: int, *, exclude_self: bool = True,
-                       nprobe: Optional[int] = None):
+                       nprobe: Optional[int] = None, q_rows=None, drop=None,
+                       allow_underfill: bool = False):
         """``(neighbors [B, k] int32, dists [B, k])`` tensors on the
         engine's device, ascending by distance.  ``k`` must leave room
         in the table (``k <= N - exclude_self``).  ``nprobe`` (probing
         engines only) narrows the probe for this call, within
-        ``[1, self.nprobe]``."""
-        q_idx = self._check_ids(q_idx, "q_idx")
+        ``[1, self.nprobe]``.
+
+        ``q_rows`` / ``drop`` / ``allow_underfill`` are the live index's
+        hooks (``serve/delta.py``).  ``q_rows`` ([B, D] f32) supplies the
+        query vectors (fresh master rows) instead of this table's rows;
+        the ids then only drive the self-mask and may lie past the
+        table.  ``drop`` ([padded rows] f32: 0 live, +inf deleted or
+        superseded) is added to every distance tile before its top-k, so
+        a masked row never wins; a masked scan never takes a fused
+        kernel (they have no such lane, in JAX as here) and runs the
+        two-stage path.  ``allow_underfill`` lets a probing engine
+        answer +inf filler instead of raising, for the caller's merge."""
+        if q_rows is None:
+            q_idx = self._check_ids(q_idx, "q_idx")
+        else:
+            arr = np.asarray(q_idx)
+            if arr.ndim != 1 or arr.size == 0:
+                raise ValueError("q_idx must be a non-empty 1-D id array")
+            if not np.issubdtype(arr.dtype, np.integer):
+                raise ValueError(
+                    f"q_idx must be integer ids; got {arr.dtype}")
+            q_rows = torch.as_tensor(q_rows, dtype=self.table.dtype,
+                                     device=self.device)
+            if q_rows.ndim != 2 or q_rows.shape[0] != arr.size:
+                raise ValueError(
+                    f"q_rows {tuple(q_rows.shape)} must be [B, D] aligned "
+                    f"with q_idx (B={arr.size})")
+            q_idx = torch.as_tensor(arr.astype(np.int32), device=self.device)
+        if drop is not None:
+            drop = torch.as_tensor(drop, dtype=self.table.dtype,
+                                   device=self.device)
+            if tuple(drop.shape) != (self.table.shape[0],):
+                raise ValueError(
+                    f"drop mask shape {tuple(drop.shape)} must match the "
+                    f"padded table rows ({self.table.shape[0]},)")
         k = int(k)
         limit = self.num_nodes - (1 if exclude_self else 0)
         if not 1 <= k <= limit:
@@ -487,29 +526,32 @@ class QueryEngine:
         # no-op and nothing waits
         with spans.stage("device_compute",
                          metric="serve/stage/device_compute_ms"):
-            out = self._topk(q_idx, k, exclude_self, nprobe)
+            out = self._topk(q_idx, k, exclude_self, nprobe, q_rows, drop,
+                             allow_underfill)
             self._sync_for_span()
         return out
 
     def _topk(self, q_idx: torch.Tensor, k: int, exclude_self: bool,
-              nprobe: Optional[int]):
-        q = self.table[q_idx.long()]                       # [B, D]
+              nprobe: Optional[int], q_rows=None, drop=None,
+              allow_underfill: bool = False):
+        q = self.table[q_idx.long()] if q_rows is None else q_rows  # [B, D]
         if self._ivf:
             return self._probe_topk(q, q_idx, k, exclude_self=exclude_self,
-                                    nprobe=nprobe)
+                                    nprobe=nprobe, drop=drop,
+                                    allow_underfill=allow_underfill)
         if self._mixed:
             sd, sidx = self._scan_lane(q, q_idx, self._k_scan(
-                k, self.num_nodes), exclude_self)
+                k, self.num_nodes), exclude_self, drop)
             return self._rescore(q, sidx, sd, k)
-        if self._fused and fused_kernel.supports(self.spec, k=k,
-                                                 dim=self.dim):
+        if (self._fused and drop is None
+                and fused_kernel.supports(self.spec, k=k, dim=self.dim)):
             d, i = fused_kernel.scan_topk(
                 self.table, q, q_idx, 0, spec=self.spec, k=k,
                 n=self.num_nodes, exclude_self=exclude_self)
             return i, d
         d, i = self._two_stage(lambda s: _tile_dist(
             self.spec, q, self.table[s:s + self.chunk_rows]), q_idx, k,
-            exclude_self)
+            exclude_self, drop)
         return i, d
 
     def _sync_for_span(self) -> None:
@@ -519,10 +561,11 @@ class QueryEngine:
             torch.cuda.current_stream(self.device).synchronize()
 
     def _two_stage(self, dist_of, q_idx: torch.Tensor, k: int,
-                   exclude_self: bool):
+                   exclude_self: bool, drop=None):
         """The chunked slab scan: ``dist_of(s)`` gives the [B, chunk]
         distances of the chunk at row ``s``; zero-padding rows and,
-        under ``exclude_self``, each query's own row are masked."""
+        under ``exclude_self``, each query's own row are masked, and
+        ``drop``'s slice of the chunk is added."""
         def tiles():
             for s in range(0, self.table.shape[0], self.chunk_rows):
                 d = dist_of(s)
@@ -533,6 +576,8 @@ class QueryEngine:
                 if exclude_self:
                     d.masked_fill_(cols[None, :] == q_idx[:, None],
                                    float("inf"))
+                if drop is not None:
+                    d = d + drop[s:s + self.chunk_rows].to(d.dtype)[None, :]
                 yield d, cols[None, :].expand(d.shape[0], -1)
 
         return _two_stage_core(tiles(), k)
@@ -556,14 +601,15 @@ class QueryEngine:
                                 dim=self.dim)
 
     def _scan_lane(self, q: torch.Tensor, q_idx: torch.Tensor, k_scan: int,
-                   exclude_self: bool):
+                   exclude_self: bool, drop=None):
         """The exact coarse scan of the lane's copy → ``(dists, ids)``:
         ``scan_topk`` (``scan_topk_pq`` for PQ) under ``fused``, else
-        the two-stage walk over widened chunks."""
+        (and under a ``drop`` mask) the two-stage walk over widened
+        chunks."""
         if self._pq:
-            return self._scan_pq(q, q_idx, k_scan, exclude_self)
+            return self._scan_pq(q, q_idx, k_scan, exclude_self, drop)
         qs = self._lane_query(q)
-        if self._fused and fused_kernel.supports(
+        if self._fused and drop is None and fused_kernel.supports(
                 self.spec, k=k_scan, dim=self.dim, lane=self.precision):
             return fused_kernel.scan_topk(
                 self.scan_table, qs, q_idx, 0, spec=self.spec, k=k_scan,
@@ -571,17 +617,17 @@ class QueryEngine:
                 scale=self.scan_scale, packed=self.precision == "int4")
         return self._two_stage(lambda s: _tile_dist(
             self.spec, qs, self._widened(slice(s, s + self.chunk_rows))),
-            q_idx, k_scan, exclude_self)
+            q_idx, k_scan, exclude_self, drop)
 
     def _scan_pq(self, q: torch.Tensor, q_idx: torch.Tensor, k_scan: int,
-                 exclude_self: bool):
+                 exclude_self: bool, drop=None):
         """The exact PQ coarse scan: ``scan_topk_pq`` under ``fused``,
         else the two-stage walk decoding each chunk to the lift."""
         from hyperspace_torch.serve.index import _lift
 
         q_lift = _lift(self.spec, q).to(torch.float32)
-        if self._fused and fused_kernel.supports_pq(self.spec, k=k_scan,
-                                                    m=self._pq_m):
+        if self._fused and drop is None and fused_kernel.supports_pq(
+                self.spec, k=k_scan, m=self._pq_m):
             lut = fused_kernel.pq_lut(q_lift, self.pq_codebooks,
                                       kind=self.spec[0])
             return fused_kernel.scan_topk_pq(
@@ -590,7 +636,7 @@ class QueryEngine:
         return self._two_stage(lambda s: _pq_lift_dist(
             self.spec, q_lift, _pq_decode_rows(
                 self.pq_codebooks, self.scan_table[s:s + self.chunk_rows],
-                self._lift_dim)), q_idx, k_scan, exclude_self)
+                self._lift_dim)), q_idx, k_scan, exclude_self, drop)
 
     def _rescore(self, q: torch.Tensor, sidx: torch.Tensor,
                  sd: torch.Tensor, k: int):
@@ -601,10 +647,12 @@ class QueryEngine:
                                sidx, k)
 
     def _probe_topk(self, q: torch.Tensor, q_idx: torch.Tensor, k: int, *,
-                    exclude_self: bool, nprobe: Optional[int]):
+                    exclude_self: bool, nprobe: Optional[int], drop=None,
+                    allow_underfill: bool = False):
         """The probing path: validate the width and the capacity, run
         :meth:`_topk_ivf`, and raise when some query's probed cells held
-        fewer than ``k`` reachable rows (filler is not an answer)."""
+        fewer than ``k`` reachable rows (filler is not an answer), unless
+        ``allow_underfill``."""
         p = self.nprobe if nprobe is None else int(nprobe)
         if not 1 <= p <= self.nprobe:
             raise ValueError(
@@ -617,8 +665,9 @@ class QueryEngine:
                 f"k={k} exceeds the probe capacity nprobe×max_cell = "
                 f"{p}×{self.index.max_cell} = {capacity}; raise nprobe=")
         k_scan = self._k_scan(k, capacity) if self._mixed else k
-        idx, dist = self._topk_ivf(q, q_idx, k, k_scan, p, exclude_self)
-        if bool(torch.isinf(dist).any()):
+        idx, dist = self._topk_ivf(q, q_idx, k, k_scan, p, exclude_self,
+                                   drop)
+        if not allow_underfill and bool(torch.isinf(dist).any()):
             raise ValueError(
                 f"IVF probe under-filled: some query's {p} "
                 f"nearest cell(s) hold fewer than k={k} reachable rows "
@@ -627,7 +676,7 @@ class QueryEngine:
         return idx, dist
 
     def _topk_ivf(self, q: torch.Tensor, q_idx: torch.Tensor, k: int,
-                  k_scan: int, nprobe: int, exclude_self: bool):
+                  k_scan: int, nprobe: int, exclude_self: bool, drop=None):
         """Centroid scoring (f32 ``pdist``, or the manifold's distance)
         → the nearest ``nprobe`` cells' row ids, nearest cell first →
         the candidate scan (+ the lane's rescore) → ``(ids, dists)``.
@@ -638,22 +687,24 @@ class QueryEngine:
         cell_sel = torch.sort(dc, dim=1, stable=True)[1][:, :nprobe]
         cand = self._cells[cell_sel].reshape(q.shape[0], -1)
         sd, sidx = self._scan_topk_cand(q, cand, q_idx, k_scan,
-                                        exclude_self)
+                                        exclude_self, drop)
         if self._mixed:
             return self._rescore(q, sidx, sd, k)
         return sidx, sd
 
     def _scan_topk_cand(self, q: torch.Tensor, cand: torch.Tensor,
-                        q_idx: torch.Tensor, k: int, exclude_self: bool):
+                        q_idx: torch.Tensor, k: int, exclude_self: bool,
+                        drop=None):
         """Top-k over each query's own candidates ``cand`` [B, C] (-1 =
         padding) → ``(dists, table ids)`` [B, min(k, C)]: the
         ``scan_topk_cand`` kernel under ``fused`` (the f32, bf16 and int8
-        copies), else chunked gathers, widened to f32, and plain
-        distances (PQ codes decode to the lift)."""
+        copies), else (and under a ``drop`` mask, added per gathered id)
+        chunked gathers, widened to f32, and plain distances (PQ codes
+        decode to the lift)."""
         ctot = cand.shape[1]
         ko = min(k, ctot)
         qs = self._lane_query(q)
-        if (self._fused and not self._pq
+        if (self._fused and not self._pq and drop is None
                 and fused_kernel.supports_cand(self.spec, k=k, dim=self.dim,
                                                cand=ctot,
                                                lane=self.precision)):
@@ -679,6 +730,8 @@ class QueryEngine:
                 else:
                     d = _cand_dist(self.spec, qs.float(),
                                    self._widened(safe).float())
+                if drop is not None:
+                    d = d + drop[safe].to(d.dtype)
                 mask = ids < 0
                 if exclude_self:
                     mask = mask | (ids == q_idx[:, None])

@@ -19,9 +19,8 @@ kind                meaning
 
 The HTTP front door maps the kinds onto status codes: ``parse`` and
 ``validation`` 400, ``overloaded`` 429, ``deadline_exceeded`` 504,
-``internal`` 500.  The port serves one tenant, so ``unknown_tenant``
-does not occur yet; the kinds keep their wire values so a client
-branches the same way on either package.
+``unknown_tenant`` 404 (the multi-tenant registry, or a fingerprint a
+single-tenant door does not serve), ``internal`` 500.
 """
 
 from __future__ import annotations
@@ -51,6 +50,18 @@ class DeadlineExceededError(ServeError):
     """The request's deadline expired before an honest answer existed."""
 
     kind = "deadline_exceeded"
+
+
+class UnknownTenantError(ServeError):
+    """The named tenant or fingerprint is not served here: 404, not a
+    400 — a client must tell a typo'd payload from a tenant that was
+    never registered (or already retired)."""
+
+    kind = "unknown_tenant"
+
+    def __init__(self, tenant):
+        super().__init__(f"unknown tenant or fingerprint: {tenant!r}")
+        self.tenant = tenant
 
 
 def kind_of(exc: BaseException) -> str:

@@ -28,9 +28,16 @@ packages build the same index from the same table and seed.  The per-cell sums a
 row order (``index_add_``) on the CPU and by a one-hot product on the
 card (no float atomics).
 
-Not ported (it raises ``NotImplementedError``): the host-streamed build
-for tables of ``HOST_BUILD_ROWS`` and more (``HostEmbedTable``
-sources).
+**The host-streamed build** (``host_resident=True``, or automatically
+for tables of ``HOST_BUILD_ROWS`` rows and more and for a
+:class:`~hyperspace_torch.parallel.host_table.HostEmbedTable` source):
+the table stays on the host.  k-means++ seeds from a uniform subsample
+(``seed_sample``, ``SEED_SAMPLE_DEFAULT`` rows by default), each Lloyd
+pass and the final assignment copy one ``[_BUILD_CHUNK, D]`` block at a
+time to the device (the ``index/build_device_rows_peak`` gauge), and
+the spill pass copies only the spilled rows.  The per-block arithmetic
+and its fold order are the resident build's, so from the same seeds the
+two builds assign every row alike.
 """
 
 from __future__ import annotations
@@ -56,9 +63,11 @@ IVF_MIN_TABLE_ROWS = 2048
 # Lloyd assignment walks the table this many rows at a time
 _BUILD_CHUNK = 4096
 
-# at or above this many rows the JAX index build streams the table
-# from the host; that build is not ported
+# at or above this many rows the build streams the table from the host
 HOST_BUILD_ROWS = 1 << 20
+
+# k-means++ candidate rows of a streamed build when seed_sample is 0
+SEED_SAMPLE_DEFAULT = 1 << 17
 
 _KINDS = ("poincare", "lorentz", "euclidean", "sphere", "product")
 
@@ -236,21 +245,79 @@ def _segment_sums(lifted: torch.Tensor, seg: torch.Tensor,
     return sums, cnts
 
 
-def _lloyd(table: torch.Tensor, cent: torch.Tensor, *, spec: tuple,
-           chunk: int, iters: int, ncells: int):
-    """Fixed-iteration Lloyd over the table in ``chunk``-row blocks.
+# --- table sources: resident (a device tensor) or host-streamed --------------
+
+
+def _src_rows(table) -> tuple[int, int]:
+    """(rows, width) of an ndarray, a tensor or a ``HostEmbedTable``."""
+    from hyperspace_torch.parallel.host_table import HostEmbedTable
+
+    if isinstance(table, HostEmbedTable):
+        return table.num_rows, table.width
+    return int(table.shape[0]), int(table.shape[1])
+
+
+def _src_iter(table, chunk: int):
+    """Yield ``(start, np block)`` host views, at most ``chunk`` rows each
+    (a ``HostEmbedTable``'s never cross a shard)."""
+    from hyperspace_torch.parallel.host_table import HostEmbedTable
+
+    if isinstance(table, HostEmbedTable):
+        yield from table.iter_chunks(chunk)
+        return
+    for lo in range(0, table.shape[0], chunk):
+        yield lo, table[lo:lo + chunk]
+
+
+def _src_gather(table, ids: np.ndarray) -> np.ndarray:
+    from hyperspace_torch.parallel.host_table import HostEmbedTable
+
+    if isinstance(table, HostEmbedTable):
+        return table.gather(ids)
+    return table[ids]
+
+
+def _device_block(block: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """One streamed host block on the device: the only table rows a
+    streamed build holds there at a time."""
+    return torch.tensor(np.asarray(block, np.float32), device=dev)
+
+
+def _blocks(src, chunk: int, dev: torch.device):
+    """``(start, device block)`` over a resident device tensor (slices)
+    or a host source (one copied block at a time)."""
+    if isinstance(src, torch.Tensor):
+        for lo in range(0, src.shape[0], chunk):
+            yield lo, src[lo:lo + chunk]
+        return
+    for lo, blk in _src_iter(src, chunk):
+        yield lo, _device_block(blk, dev)
+
+
+def _rows_of(src, ids: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """The rows ``ids`` of a resident tensor or a host source, on the
+    device."""
+    if isinstance(src, torch.Tensor):
+        return src[torch.as_tensor(ids, device=dev)]
+    return _device_block(_src_gather(src, ids), dev)
+
+
+def _lloyd(src, cent: torch.Tensor, *, spec: tuple, chunk: int, iters: int,
+           ncells: int):
+    """Fixed-iteration Lloyd over ``src`` in ``chunk``-row blocks: a
+    device tensor (the resident build) or a host source (the streamed
+    build, one block on the device at a time); the same per-block
+    arithmetic in the same fold order either way.
 
     Returns ``(centroids [ncells, D], assign [N] int64)`` — the
     assignment is a final pass against the returned centroids, so the
     cell layout matches them exactly."""
-    n = table.shape[0]
-    dl = _lift_dim(spec, table.shape[1])
+    dev = cent.device
+    dl = _lift_dim(spec, _src_rows(src)[1])
     for _ in range(int(iters)):
-        sums = torch.zeros((ncells, dl), dtype=torch.float32,
-                           device=table.device)
-        cnts = torch.zeros(ncells, dtype=torch.float32, device=table.device)
-        for lo in range(0, n, chunk):
-            rows = table[lo:lo + chunk]
+        sums = torch.zeros((ncells, dl), dtype=torch.float32, device=dev)
+        cnts = torch.zeros(ncells, dtype=torch.float32, device=dev)
+        for _lo, rows in _blocks(src, chunk, dev):
             a = _nearest_centroid(cent, rows, spec=spec)
             s, k = _segment_sums(_lift(spec, rows), a, ncells)
             sums, cnts = sums + s, cnts + k
@@ -258,10 +325,23 @@ def _lloyd(table: torch.Tensor, cent: torch.Tensor, *, spec: tuple,
         # empty cells keep their centroid — a zero sum must never
         # normalize into a garbage point that then captures rows
         cent = torch.where(cnts[:, None] > 0, new, cent)
-    assign = torch.cat([_nearest_centroid(cent, table[lo:lo + chunk],
-                                          spec=spec)
-                        for lo in range(0, n, chunk)])
+    assign = torch.cat([_nearest_centroid(cent, rows, spec=spec)
+                        for _lo, rows in _blocks(src, chunk, dev)])
     return cent, assign
+
+
+def _lloyd_stream(table, cent0: torch.Tensor, *, spec: tuple, chunk: int,
+                  iters: int, ncells: int):
+    """The host-streamed Lloyd: :func:`_lloyd` over the host source, the
+    largest block it put on the device in ``index/build_device_rows_peak``
+    (a row count)."""
+    from hyperspace_torch.telemetry import registry as telem
+
+    peak = max((blk.shape[0] for _lo, blk in _src_iter(table, chunk)),
+               default=0)
+    telem.set_gauge("index/build_device_rows_peak", peak)
+    return _lloyd(table, cent0, spec=spec, chunk=chunk, iters=iters,
+                  ncells=ncells)
 
 
 def _own_dist(rows: torch.Tensor, cent_rows: torch.Tensor, *,
@@ -281,9 +361,8 @@ def _all_cell_dist(rows: torch.Tensor, cent: torch.Tensor, *,
     return _dist(spec, rows[:, None, :], cent[None, :, :])
 
 
-def _spill_balance(table: torch.Tensor, centroids: torch.Tensor,
-                   assign: np.ndarray, spec: tuple, *,
-                   cap: int) -> np.ndarray:
+def _spill_balance(src, centroids: torch.Tensor, assign: np.ndarray,
+                   spec: tuple, *, cap: int) -> np.ndarray:
     """Cap every cell at ``cap`` rows.
 
     Oversized cells keep their ``cap`` closest members (by geodesic
@@ -291,15 +370,16 @@ def _spill_balance(table: torch.Tensor, centroids: torch.Tensor,
     at round ``j`` every still-unplaced row bids for its ``j``-th
     nearest centroid, and each cell grants its remaining room in
     spilled order.  Total capacity ``ncells × cap >= N`` guarantees
-    every row lands."""
+    every row lands.  ``src`` is the resident device table or the
+    streamed build's host source (blocks and spilled rows copied to the
+    device as needed)."""
     ncells = int(centroids.shape[0])
     counts = np.bincount(assign, minlength=ncells)
     if counts.max() <= cap:
         return assign
-    dev = table.device
+    dev = centroids.device
     parts = []
-    for lo in range(0, table.shape[0], _BUILD_CHUNK):
-        blk = table[lo:lo + _BUILD_CHUNK]
+    for lo, blk in _blocks(src, _BUILD_CHUNK, dev):
         ca = centroids[torch.as_tensor(assign[lo:lo + blk.shape[0]],
                                        device=dev)]
         parts.append(_own_dist(blk, ca, spec=spec).cpu().numpy())
@@ -315,8 +395,8 @@ def _spill_balance(table: torch.Tensor, centroids: torch.Tensor,
     bs = _BUILD_CHUNK
     for s in range(0, len(spilled), bs):
         rows = spilled[s:s + bs]
-        pd = _all_cell_dist(table[torch.as_tensor(rows, device=dev)],
-                            centroids, spec=spec).cpu().numpy()
+        pd = _all_cell_dist(_rows_of(src, rows, dev), centroids,
+                            spec=spec).cpu().numpy()
         pref = np.argsort(pd, axis=1, kind="stable")
         left = np.arange(len(rows))
         for j in range(ncells):
@@ -352,21 +432,20 @@ def build_index(table, manifold_spec: tuple, ncells: int, *,
     (the JAX index build's stream).  ``balance`` caps cells at
     ``balance × N/ncells`` rows (0 disables the cap);
     ``seed_sample`` draws the k-means++ seeds from a uniform subsample
-    of that many rows.  The table sits on ``device`` — CUDA unless the
-    caller asks for the CPU."""
-    if host_resident:
-        raise NotImplementedError(
-            "the host-streamed index build is not ported yet")
-    table = np.ascontiguousarray(np.asarray(table, np.float32))
-    if table.ndim != 2:
-        raise ValueError(f"index table must be [N, D]; got {table.shape}")
-    n, dim = table.shape
-    spec = tuple(manifold_spec)
-    _check_kind(spec)
-    if n >= HOST_BUILD_ROWS and host_resident is None:
-        raise NotImplementedError(
-            f"tables of {HOST_BUILD_ROWS} rows and more take the "
-            "host-streamed build, which is not ported yet")
+    of that many rows.  ``table`` is an ``[N, D]`` array or a
+    :class:`~hyperspace_torch.parallel.host_table.HostEmbedTable`;
+    ``host_resident`` picks the streamed build (module docstring; None:
+    a ``HostEmbedTable`` or ``N >= HOST_BUILD_ROWS`` streams).  The work
+    runs on ``device`` — CUDA unless the caller asks for the CPU."""
+    from hyperspace_torch.parallel.host_table import HostEmbedTable
+
+    is_host_tab = isinstance(table, HostEmbedTable)
+    if not is_host_tab:
+        table = np.ascontiguousarray(np.asarray(table, np.float32))
+        if table.ndim != 2:
+            raise ValueError(
+                f"index table must be [N, D]; got {table.shape}")
+    n, _dim = _src_rows(table)
     ncells = int(ncells)
     if not 2 <= ncells <= n:
         raise ValueError(
@@ -374,8 +453,16 @@ def build_index(table, manifold_spec: tuple, ncells: int, *,
     if balance and not balance >= 1.0:
         raise ValueError(
             f"balance must be 0 (disabled) or >= 1.0; got {balance}")
+    spec = tuple(manifold_spec)
+    _check_kind(spec)
+    stream = (host_resident if host_resident is not None
+              else is_host_tab or n >= HOST_BUILD_ROWS)
+    if is_host_tab and not stream:
+        raise ValueError(
+            "a HostEmbedTable source builds host-resident — drop "
+            "host_resident=False (densifying it on device is the "
+            "materialization this path exists to avoid)")
     dev = _support.resolve_device(device)
-    tdev = torch.tensor(table, device=dev)
 
     # k-means++ seeding: D² sampling under the geodesic metric — each
     # new seed is drawn ∝ squared distance to the nearest chosen seed
@@ -385,16 +472,21 @@ def build_index(table, manifold_spec: tuple, ncells: int, *,
         d = _dist(spec, rows, rows[pick][None, :]).cpu().numpy()
         return np.square(d, dtype=np.float64)
 
-    if seed_sample and int(seed_sample) < n:
-        ssize = int(seed_sample)
+    tdev = None
+    if stream or (seed_sample and int(seed_sample) < n):
+        ssize = min(int(seed_sample) or SEED_SAMPLE_DEFAULT, n)
         if ssize < ncells:
             raise ValueError(
                 f"seed_sample={ssize} must hold at least ncells="
                 f"{ncells} candidate rows")
         sample_ids = np.sort(rng.choice(n, size=ssize, replace=False))
-        pool = tdev[torch.as_tensor(sample_ids, device=dev)]
+        if stream:
+            pool = _device_block(_src_gather(table, sample_ids), dev)
+        else:
+            tdev = torch.tensor(table, device=dev)
+            pool = tdev[torch.as_tensor(sample_ids, device=dev)]
     else:
-        pool = tdev
+        pool = tdev = torch.tensor(table, device=dev)
     size = pool.shape[0]
     chosen = [int(rng.integers(size))]
     d2 = sq_dist_to(pool, chosen[0])
@@ -408,12 +500,19 @@ def build_index(table, manifold_spec: tuple, ncells: int, *,
         d2 = np.minimum(d2, sq_dist_to(pool, pick))
     cent0 = pool[torch.as_tensor(chosen, device=dev)]
 
-    cent, assign = _lloyd(tdev, cent0, spec=spec, chunk=int(chunk),
-                          iters=int(iters), ncells=ncells)
+    if stream:
+        src = table
+        cent, assign = _lloyd_stream(table, cent0, spec=spec,
+                                     chunk=int(chunk), iters=int(iters),
+                                     ncells=ncells)
+    else:
+        src = tdev
+        cent, assign = _lloyd(tdev, cent0, spec=spec, chunk=int(chunk),
+                              iters=int(iters), ncells=ncells)
     centroids = cent.cpu().numpy().astype(np.float32)
     assign = assign.cpu().numpy()
     if balance and balance > 0:
-        assign = _spill_balance(tdev, cent, assign, spec,
+        assign = _spill_balance(src, cent, assign, spec,
                                 cap=int(np.ceil(float(balance) * n
                                                 / ncells)))
 

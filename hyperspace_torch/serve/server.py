@@ -9,15 +9,31 @@ route                 body / answer
                       "dists": [[...]]}``
 ``POST /v1/score``    ``{"u": [...], "v": [...], "prob"?: bool, "fd_r"?,
                       "fd_t"?, "deadline_ms"?}`` → ``{"scores": [...]}``
-``POST /v1/upsert``   400 ``validation``: the engine is frozen (the live
-``POST /v1/delete``   index is not ported), as JAX answers for one
-``POST /admin/rollover``  400: no rollover coordinator is armed
+``POST /v1/upsert``   ``{"ids": [...], "rows": [[...]], "deadline_ms"?}``
+                      → ``{"upserted", "inserted", "generation",
+                      "segment_rows"}`` (live engines, ``serve/delta.py``;
+                      a frozen engine answers 400)
+``POST /v1/delete``   ``{"ids": [...], "deadline_ms"?}`` →
+                      ``{"deleted", "generation"}``
+``POST /admin/rollover``  ``{"target": "<artifact dir>"}`` → the flip
+                      report (``serve/rollover.py``); 400 when no
+                      coordinator is armed or the gate refuses
 ``GET|POST /v1/stats``  ``batcher.stats()`` + a ``server`` block +
-                      ``collator_flushes``
+                      ``collator_flushes`` (``?tenant=`` narrows)
 ``GET /healthz``      ok/draining, uptime, version, fingerprint, scan
-                      signature, precision, degrade level (503 draining)
+                      signature, precision, degrade level, generation
+                      (503 draining; ``?tenant=`` narrows)
 ``GET /metrics``      Prometheus text of the telemetry registry
 ====================  ======================================================
+
+With a registry (``registry=``, ``serve/registry.py``) one door serves
+many tenants: a body's ``tenant`` field (a name or an artifact
+fingerprint; absent = the default tenant) picks the stack, a paged-out
+tenant is re-admitted before its dispatch, and an unknown one answers
+404 ``unknown_tenant``.  ``door.batcher`` and ``door.collator`` are then
+views onto the default tenant's stack, so a rollover flips the default
+tenant.  A single-tenant door answers its own fingerprint as a tenant
+and 404 for any other.
 
 Every parsed request gets a request id (``X-Request-Id`` from the
 client, sanitized, or generated), echoed as a response header and
@@ -47,6 +63,7 @@ import json
 import signal
 import sys
 import time
+import urllib.parse
 from typing import Optional
 
 import numpy as np
@@ -55,7 +72,8 @@ import hyperspace_torch
 from hyperspace_torch.serve.access import new_request_id
 from hyperspace_torch.serve.batcher import _REQUEST_ERRORS, RequestBatcher
 from hyperspace_torch.serve.collator import DEFAULT_MAX_WAIT_US, Collator
-from hyperspace_torch.serve.errors import error_response
+from hyperspace_torch.serve.errors import (ServeError, UnknownTenantError,
+                                           error_response)
 from hyperspace_torch.telemetry import registry as telem
 from hyperspace_torch.telemetry import spans
 from hyperspace_torch.telemetry.exposition import render_prometheus
@@ -156,15 +174,32 @@ class HttpFrontDoor:
     SIGTERM handler and blocks until a drain completes, or drive
     ``drain()`` directly (from another thread, on ``.loop``).
     ``prewarm_info`` is what :func:`run_front_door`'s prewarm returned
-    (None without one)."""
+    (None without one).  ``registry=`` (exclusive of ``batcher=`` and
+    ``collator=``) serves every tenant of an
+    :class:`~hyperspace_torch.serve.registry.EngineRegistry`;
+    ``rollover`` (a :class:`~hyperspace_torch.serve.rollover.
+    RolloverCoordinator`, armed after construction) serves
+    ``/admin/rollover``."""
 
-    def __init__(self, batcher: RequestBatcher, *,
+    def __init__(self, batcher: Optional[RequestBatcher] = None, *,
                  host: str = "127.0.0.1", port: int = 0,
                  max_wait_us: float = DEFAULT_MAX_WAIT_US,
-                 collator: Optional[Collator] = None):
-        self.batcher = batcher
-        self.collator = collator or Collator(batcher,
-                                             max_wait_us=max_wait_us)
+                 collator: Optional[Collator] = None,
+                 registry=None):
+        self._registry = registry
+        if registry is not None:
+            if batcher is not None or collator is not None:
+                raise ValueError(
+                    "registry= and batcher=/collator= are mutually "
+                    "exclusive — the registry owns the tenant stacks")
+        else:
+            if batcher is None:
+                raise ValueError("HttpFrontDoor needs a batcher "
+                                 "or a registry")
+            self._batcher = batcher
+            self._collator = collator or Collator(
+                batcher, max_wait_us=max_wait_us)
+        self.rollover = None     # a RolloverCoordinator, or 400
         self.host = host
         self.port = int(port)
         self.served = 0          # responses written (errors included)
@@ -177,6 +212,40 @@ class HttpFrontDoor:
         self._conn_tasks: set = set()
         self._draining: Optional[asyncio.Event] = None
         self._drained: Optional[asyncio.Event] = None
+
+    # --- default-tenant views -------------------------------------------------
+    # with a registry, door.batcher / door.collator read and write the
+    # default tenant's stack (the rollover's flip keeps working)
+
+    @property
+    def batcher(self) -> RequestBatcher:
+        if self._registry is not None:
+            return self._registry.default.batcher
+        return self._batcher
+
+    @batcher.setter
+    def batcher(self, b: RequestBatcher) -> None:
+        if self._registry is not None:
+            self._registry.default.batcher = b
+        else:
+            self._batcher = b
+
+    @property
+    def collator(self) -> Collator:
+        if self._registry is not None:
+            return self._registry.default.collator
+        return self._collator
+
+    @collator.setter
+    def collator(self, c: Collator) -> None:
+        if self._registry is not None:
+            self._registry.default.collator = c
+        else:
+            self._collator = c
+
+    @property
+    def registry(self):
+        return self._registry
 
     # --- lifecycle ------------------------------------------------------------
 
@@ -216,7 +285,9 @@ class HttpFrontDoor:
             return
         self._draining.set()
         self._server.close()          # the listener stops accepting
-        self.collator.flush_all()
+        for coll in ([s.collator for s in self._registry.tenants()]
+                     if self._registry is not None else [self.collator]):
+            coll.flush_all()
         if self._conn_tasks:
             _done, pending = await asyncio.wait(self._conn_tasks,
                                                 timeout=timeout_s)
@@ -225,7 +296,10 @@ class HttpFrontDoor:
             await asyncio.wait_for(self._server.wait_closed(), 1.0)
         # every answered dispatch has returned; wait=False keeps a
         # straggler (an abandoned connection's) off the event loop
-        self.collator.close(wait=False)
+        if self._registry is not None:
+            self._registry.close(wait=False)
+        else:
+            self.collator.close(wait=False)
         if self.batcher.recorder is not None:
             self.batcher.recorder.dump("sigterm_drain", _cls="drain",
                                        wait=True)
@@ -368,13 +442,25 @@ class HttpFrontDoor:
             route, request_id=req.request_id, outcome=outcome,
             t_enq=req.t_in)
 
+    @staticmethod
+    def _query_tenant(query: str) -> Optional[str]:
+        """The ``?tenant=`` selector of the scrape routes."""
+        if not query:
+            return None
+        vals = urllib.parse.parse_qs(query).get("tenant")
+        return vals[-1] if vals else None
+
     async def _route(self, req: _Request) -> tuple[int, dict]:
-        target = req.target.partition("?")[0]
+        target, _, query = req.target.partition("?")
         if target == "/healthz":
             if req.method != "GET":
                 return 405, {"error": {"kind": "validation",
                                        "message": "/healthz wants GET"}}
-            return self._healthz()
+            try:
+                return self._healthz(self._query_tenant(query))
+            except ServeError as e:   # an unknown ?tenant= → 404
+                err = error_response(e)
+                return _STATUS_BY_KIND[err["error"]["kind"]], err
         if target == "/metrics":
             if req.method != "GET":
                 return 405, {"error": {"kind": "validation",
@@ -385,7 +471,11 @@ class HttpFrontDoor:
                 return 405, {"error": {"kind": "validation",
                                        "message":
                                        "/v1/stats wants GET or POST"}}
-            return 200, self._stats()
+            try:
+                return 200, self._stats(self._query_tenant(query))
+            except ServeError as e:   # an unknown ?tenant= → 404
+                err = error_response(e)
+                return _STATUS_BY_KIND[err["error"]["kind"]], err
         if target not in ("/v1/topk", "/v1/score", "/v1/upsert",
                           "/v1/delete", "/admin/rollover"):
             self._serve_access(req, "none", "validation")
@@ -409,19 +499,38 @@ class HttpFrontDoor:
                     f"request body must be a JSON object, got "
                     f"{type(body).__name__}")
             if target == "/admin/rollover":
-                raise ValueError(
-                    "no rollover coordinator armed on this server "
-                    "(blue-green rollover is not ported)")
-            tenant = body.get("tenant")
-            if tenant is not None:
-                if not isinstance(tenant, str) or not tenant:
-                    raise ValueError("tenant must be a non-empty string, "
-                                     f"got {tenant!r}")
-                if tenant != self.batcher.engine.fingerprint:
+                if self.rollover is None:
                     raise ValueError(
-                        f"unknown tenant or fingerprint: {tenant!r} (the "
-                        "port serves one artifact)")
-            resp = await self._serve_op(target, route, body, req, entered)
+                        "no rollover coordinator armed on this server "
+                        "(serve-http arms one when it can rebuild from "
+                        "an artifact)")
+                dest = body.get("target")
+                if not isinstance(dest, str) or not dest:
+                    raise ValueError(
+                        "rollover needs \"target\": a non-empty "
+                        "artifact path string")
+                # the standby builds off the loop; the flip is one loop
+                # step, and in-flight requests answer from the old stack
+                resp = await self.rollover.rollover(dest)
+            elif self._registry is not None:
+                stack = self._registry.resolve(body.get("tenant"))
+                # a paged-out tenant is re-admitted (coalesced, on the
+                # paging executor) before its dispatch
+                await self._registry.ensure_resident(stack)
+                async with self._registry.using(stack):
+                    resp = await self._serve_op(target, route, body, req,
+                                                stack.collator, entered)
+            else:
+                tenant = body.get("tenant")
+                if tenant is not None:
+                    if not isinstance(tenant, str) or not tenant:
+                        raise ValueError(
+                            "tenant must be a non-empty string, "
+                            f"got {tenant!r}")
+                    if tenant != self.batcher.engine.fingerprint:
+                        raise UnknownTenantError(tenant)
+                resp = await self._serve_op(target, route, body, req,
+                                            self.collator, entered)
         except _REQUEST_ERRORS as e:
             # an IO fault or a kernel that failed to build or launch
             # answers 500 and the server survives
@@ -432,8 +541,9 @@ class HttpFrontDoor:
         return 200, resp
 
     async def _serve_op(self, target: str, route: str, body: dict,
-                        req: _Request, entered: list) -> dict:
-        coll = self.collator
+                        req: _Request, coll: Collator,
+                        entered: list) -> dict:
+        """One serve op against the resolved tenant's collator."""
         if target == "/v1/topk":
             exclude_self = _json_bool(body, "exclude_self", True)
             deadline_ms = _req_deadline(body)
@@ -468,10 +578,30 @@ class HttpFrontDoor:
                 body.get("ids"), deadline_ms=deadline_ms, t_enq=req.t_in,
                 request_id=req.request_id)
 
-    def _healthz(self) -> tuple[int, dict]:
+    def _healthz(self, tenant_key: Optional[str] = None
+                 ) -> tuple[int, dict]:
         """The load balancer's body: ok, uptime, version, and which
-        artifact and program answer (503 + ``ok: false`` draining)."""
+        artifact and program answer (503 + ``ok: false`` draining).  With
+        a registry: a per-tenant summary list, or one tenant's summary
+        under ``?tenant=`` (its identity captured at build, so a
+        paged-out tenant answers without a rebuild)."""
         ok = not self._draining.is_set()
+        if self._registry is not None:
+            out = {"ok": ok, "draining": not ok,
+                   "uptime_s": round(time.monotonic() - self.t_start, 3),
+                   "version": hyperspace_torch.__version__}
+            if tenant_key is not None:
+                out.update(self._registry.resolve(tenant_key).summary())
+            else:
+                d = self._registry.default
+                out["fingerprint"] = d.fingerprint
+                out["tenant"] = d.name
+                out["tenants"] = [s.summary()
+                                  for s in self._registry.tenants()]
+            return (200 if ok else 503), out
+        if tenant_key is not None and (
+                tenant_key != self.batcher.engine.fingerprint):
+            raise UnknownTenantError(tenant_key)
         eng = self.batcher.engine
         return (200 if ok else 503), {
             "ok": ok,
@@ -482,11 +612,19 @@ class HttpFrontDoor:
             "scan_signature": list(eng.scan_signature),
             "precision": eng.precision,
             "degrade_level": self.batcher.degrade_level,
-            "generation": None,
+            "generation": getattr(eng, "generation", None),
         }
 
-    def _stats(self) -> dict:
-        out = dict(self.batcher.stats())
+    def _stats(self, tenant_key: Optional[str] = None) -> dict:
+        if self._registry is not None:
+            tenants = self._registry.stats()
+            if tenant_key is not None:
+                out = dict(tenants[self._registry.resolve(tenant_key).name])
+            else:
+                out = dict(tenants[self._registry.default.name])
+                out["tenants"] = tenants
+        else:
+            out = dict(self.batcher.stats())
         out["server"] = {"served": self.served,
                          "inflight": self.inflight,
                          "draining": self.draining,
@@ -533,22 +671,44 @@ def latency_summary_line(baseline: Optional[dict] = None) -> str:
             % (lat["count"], lat["p50"], lat["p95"], lat["p99"]))
 
 
-async def run_front_door(batcher: RequestBatcher, *, host: str, port: int,
+async def run_front_door(batcher: Optional[RequestBatcher] = None, *,
+                         host: str, port: int,
                          max_wait_us: float = DEFAULT_MAX_WAIT_US,
-                         ready=None, prewarm_ks=None) -> dict:
+                         ready=None, prewarm_ks=None,
+                         rollover_builder=None, registry=None) -> dict:
     """Prewarm, start, announce, serve until drained, summarize.
 
-    ``prewarm_ks`` launches the whole bucket ladder on the collator's
-    dispatch thread before the listener opens (deliberately blocking:
-    nothing listens yet), so no request ever meets a kernel build.
-    ``ready(door)`` is called once the listener is bound (``door.host``,
-    ``door.port``; in-process callers drain it on ``door.loop``).
-    Returns the closing counts."""
+    ``prewarm_ks`` launches the whole bucket ladder on the dispatch
+    thread before the listener opens (deliberately blocking: nothing
+    listens yet), so no request ever meets a kernel build; with a
+    registry, every resident tenant's.  ``ready(door)`` is called once
+    the listener is bound (``door.host``, ``door.port``; in-process
+    callers drain it on ``door.loop``).  ``rollover_builder(target)`` (a
+    blocking callable returning a standby :class:`RequestBatcher`) arms
+    ``POST /admin/rollover``, the standby prewarmed over the same
+    ``prewarm_ks``.  ``registry=`` serves every tenant of an
+    :class:`~hyperspace_torch.serve.registry.EngineRegistry` instead of
+    one batcher.  Returns the closing counts."""
     door = HttpFrontDoor(batcher, host=host, port=port,
-                         max_wait_us=max_wait_us)
+                         max_wait_us=max_wait_us, registry=registry)
+    # the door owns the batcher: after a rollover's flip nothing here may
+    # keep the old engine's tensors alive
+    del batcher
+    if rollover_builder is not None:
+        from hyperspace_torch.serve.rollover import RolloverCoordinator
+
+        door.rollover = RolloverCoordinator(
+            door, rollover_builder, prewarm_ks=prewarm_ks or None)
     session_mark = telem.default_registry().mark()
     if prewarm_ks:
-        info = door.prewarm_info = door.collator.prewarm(prewarm_ks)
+        if registry is not None:
+            infos = registry.prewarm(prewarm_ks)
+            info = door.prewarm_info = {
+                "programs": sum(i["programs"] for i in infos.values()),
+                "seconds": sum(i["seconds"] for i in infos.values()),
+                "tenants": infos}
+        else:
+            info = door.prewarm_info = door.collator.prewarm(prewarm_ks)
         with contextlib.suppress(OSError, ValueError):
             print(f"[serve-http] prewarmed {info['programs']} "
                   f"program(s) in {info['seconds']:.2f}s",
@@ -556,7 +716,10 @@ async def run_front_door(batcher: RequestBatcher, *, host: str, port: int,
     try:
         await door.start()
     except BaseException:
-        door.collator.close(wait=False)
+        if registry is not None:
+            registry.close(wait=False)
+        else:
+            door.collator.close(wait=False)
         raise
     if ready is not None:
         ready(door)

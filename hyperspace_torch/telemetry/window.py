@@ -66,6 +66,23 @@ class SloWindow:
         self._next_slot = now + self.slot_s
         self._ring.append(self._capture(now))
 
+    @classmethod
+    def for_tenant(cls, tenant: str, window_s: float = DEFAULT_WINDOW_S,
+                   **kw) -> "SloWindow":
+        """A window over one tenant's series: the default histogram and
+        counter names with the tenant suffix the batcher double-writes
+        (``exposition.tenant_metric``), so each tenant of a multi-tenant
+        process gets its own SLO view, not the shared aggregates."""
+        from hyperspace_torch.telemetry.exposition import tenant_metric
+
+        return cls(
+            window_s,
+            hist_names=tuple(tenant_metric(n, tenant)
+                             for n in DEFAULT_HISTS),
+            counter_names=tuple(tenant_metric(n, tenant)
+                                for n in DEFAULT_COUNTERS),
+            **kw)
+
     def _reg(self) -> Registry:
         return self._registry or default_registry()
 

@@ -2773,3 +2773,152 @@ def test_adamw_device_count_is_the_python_count_on_the_card(dev, max_norm,
                     old.inner.params + old.acc + old.inner.mu):
         assert torch.equal(a, b)
     assert int(new.inner.count) == old.inner.count == 10
+
+
+# --- the live index and engine paging (serve/delta.py, serve/registry.py) ----
+
+
+def _live_table(n, seed):
+    from hyperspace_torch.manifolds import PoincareBall
+
+    g = torch.Generator().manual_seed(seed)
+    return PoincareBall(1.0).expmap0(
+        torch.randn(n, 10, generator=g, dtype=torch.float64) * 0.5
+    ).float().numpy()
+
+
+@pytest.mark.parametrize("nprobe", [0, 8])
+def test_masked_two_stage_and_delta_scans_match_cpu(dev, nprobe):
+    """``topk_neighbors(q_rows=, drop=)`` (the masked two-stage path:
+    ``pdist`` chunks plus the penalty row) and the delta scan on the card
+    against the same calls on the CPU; fresh query rows, 1 in 7 rows
+    tombstoned.  Ids equal outside near-ties, distances rtol 1e-5,
+    atol 1e-4."""
+    from hyperspace_torch.serve.delta import _delta_scan
+    from hyperspace_torch.serve.index import build_index
+
+    table = _live_table(20000, 1)
+    spec = ("poincare", 1.0)
+    index = build_index(table, spec, 64, iters=3, device="cpu") \
+        if nprobe else None
+    engs = [QueryEngine(table, spec, index=index, nprobe=nprobe, device=d,
+                        scan_mode="fused") for d in (dev, "cpu")]
+    rng = np.random.default_rng(2)
+    drop = np.zeros(engs[0].table.shape[0], np.float32)
+    drop[rng.choice(20000, 20000 // 7, replace=False)] = np.inf
+    q_idx = rng.integers(0, 20000, 64)
+    q_rows = _live_table(64, 3)
+    outs = [e.topk_neighbors(q_idx, 10, q_rows=q_rows, drop=drop,
+                             allow_underfill=True) for e in engs]
+    (ci, cd), (pi, pd) = [(i.cpu().numpy(), d.cpu().numpy())
+                          for i, d in outs]
+    assert np.all(np.isfinite(pd)) and not np.any(drop[pi] > 0)
+    assert topk_disagreements(ci, cd, pi, pd, rtol=RTOL, atol=ATOL) == 0
+    rows, pen = _live_table(1024, 4), np.zeros(1024, np.float32)
+    pen[700:] = np.inf
+    ids = np.arange(20000, 21024, dtype=np.int32)
+    got = _delta_scan(*(torch.as_tensor(x, device=dev) for x in (
+        q_rows, rows, pen, q_idx.astype(np.int32), ids)), spec=spec,
+        exclude_self=True).cpu()
+    want = _delta_scan(*(torch.as_tensor(x) for x in (
+        q_rows, rows, pen, q_idx.astype(np.int32), ids)), spec=spec,
+        exclude_self=True)
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+
+
+def test_live_upserts_interleaved_with_queries_answer_their_generation(dev):
+    """One thread upserts (updates and inserts, one batch a generation)
+    while another queries; each answer equals, bitwise, the answer of a
+    sequential replay at a generation between the query's first and last
+    reading of ``generation``: the device mirrors a scan holds never
+    change under it."""
+    import threading
+
+    from hyperspace_torch.parallel.host_table import HostEmbedTable
+    from hyperspace_torch.serve.delta import LiveQueryEngine
+
+    table = _live_table(30000, 5)
+    spec = ("poincare", 1.0)
+    rng = np.random.default_rng(6)
+    batches = []
+    for g in range(40):
+        ids = [int(rng.integers(0, 30000)), 30000 + g]
+        batches.append((ids, _live_table(2, 100 + g)))
+    q = np.asarray([0, 11, 222, 3333, 29999, 7, 8], np.int64)
+
+    def fresh():
+        return LiveQueryEngine(QueryEngine(table, spec, device=dev),
+                               HostEmbedTable.from_array(table.copy()),
+                               capacity=128, auto_compact=False)
+
+    def ask(eng):
+        i, d = eng.topk_neighbors(q, 10)
+        return i.cpu().numpy(), d.cpu().numpy()
+
+    eng = fresh()
+    ref = {0: ask(eng)}
+    for g, (ids, rows) in enumerate(batches, 1):
+        eng.upsert(ids, rows)
+        ref[g] = ask(eng)
+    live, seen, done = fresh(), [], threading.Event()
+
+    def writer():
+        for ids, rows in batches:
+            live.upsert(ids, rows)
+        done.set()
+
+    t = threading.Thread(target=writer)
+    t.start()
+    while not done.is_set() or len(seen) < 5:
+        g0 = live.generation
+        ans = ask(live)
+        seen.append((g0, live.generation, ans))
+    t.join(60)
+    assert not t.is_alive()
+    for g0, g1, (i, d) in seen:
+        assert any(np.array_equal(ref[g][0], i)
+                   and np.array_equal(ref[g][1], d)
+                   for g in range(g0, g1 + 1)), (g0, g1)
+
+
+def test_eviction_frees_at_least_the_engines_device_bytes(dev, tmp_path):
+    """Paging a tenant out lowers ``memory_allocated`` by at least its
+    ``engine_device_bytes`` (its tensors go back to the caching
+    allocator), and re-admitting it answers bitwise as before."""
+    import asyncio
+    import gc
+
+    from hyperspace_torch.serve.artifact import export_artifact
+    from hyperspace_torch.serve.index import build_index
+    from hyperspace_torch.serve.registry import EngineRegistry
+
+    table = _live_table(50000, 7)
+    spec = ("poincare", 1.0)
+    export_artifact(str(tmp_path / "a"), table, spec,
+                    index=build_index(table, spec, 64, iters=2,
+                                      device="cpu"))
+    export_artifact(str(tmp_path / "b"), table[:40000].copy(), spec)
+    reg = EngineRegistry()
+    try:
+        for name, kw in (("a", {"nprobe": 8, "precision": "bf16"}),
+                         ("b", {})):
+            reg.add_tenant(name, str(tmp_path / name), window_s=0.0,
+                           engine_kw={"device": dev, **kw})
+        ids = [1, 2, 3, 99]
+        for name in ("a", "b"):
+            stack = reg.resolve(name)
+            before_ans = stack.batcher.topk(ids, 10)
+            torch.cuda.synchronize()
+            gc.collect()
+            before = torch.cuda.memory_allocated()
+            reg._evict(stack)
+            gc.collect()
+            freed = before - torch.cuda.memory_allocated()
+            assert stack.device_bytes > 0 and freed >= stack.device_bytes
+            asyncio.run(reg.ensure_resident(stack))
+            stack.batcher.cache = type(stack.batcher.cache)(0)
+            again = stack.batcher.topk(ids, 10)
+            assert all(np.array_equal(x, y)
+                       for x, y in zip(before_ans, again))
+    finally:
+        reg.close()

@@ -346,18 +346,18 @@ def test_build_index_options_and_fingerprint():
 def test_unported_builds_raise(spec):
     """Sphere and product builds are ported (their lifts and cell means,
     ``tests/test_torch_serve_specs.py`` holds them against JAX): a table
-    of one repeated point builds a valid partition and code table; the
-    host-streamed build still raises."""
+    of one repeated point builds a valid partition and code table, by the
+    resident and by the host-streamed build (held against JAX's streamed
+    build in ``tests/test_torch_index_stream.py``)."""
     table = np.zeros((3000, 6), np.float32)
     table[:, 0] = 1.0
-    index = tidx.build_index(table, spec, 8, device="cpu")
-    assert sorted(index.cells[index.cells >= 0].tolist()) == list(
-        range(3000))
+    for host_resident in (None, True):
+        index = tidx.build_index(table, spec, 8, device="cpu",
+                                 host_resident=host_resident)
+        assert sorted(index.cells[index.cells >= 0].tolist()) == list(
+            range(3000))
     codes, cb = tquant.build_pq(table, spec)
     assert codes.shape == (3000, cb.m)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tidx.build_index(clustered(3000, 6), ("poincare", 1.0), 8,
-                         host_resident=True, device="cpu")
 
 
 # --- artifacts ----------------------------------------------------------------

@@ -11,6 +11,10 @@ are not ported.
 - The stdin loop with ``deadline_ms``, ``queue_max``, ``access_log``,
   ``window_s`` and ``log`` writes JAX's access-record, window and
   session-record shapes (the same keys, the same value types).
+- ``tenants=`` (inline or a file, with ``device_budget_mb``) serves
+  every roster entry behind one door; bad rosters, ``tenants=`` with
+  ``artifact=`` or ``live=1``, and bad ``live=1`` options exit with the
+  JAX CLI's messages.
 """
 
 import http.client
@@ -277,9 +281,7 @@ def test_stdin_loop_deadline_and_chaos(artifact, tmp_path, capsys):
     assert not faults.active()
 
 
-NOT_PORTED_VALUES = {"tenants": "[]", "device_budget_mb": "64",
-                     "live": "1", "delta_cap": "8", "compact_at": "0.5",
-                     "mesh": "-1", "compile_cache_dir": "/tmp/x"}
+NOT_PORTED_VALUES = {"mesh": "-1", "compile_cache_dir": "/tmp/x"}
 
 
 @pytest.mark.parametrize("key", sorted(NOT_PORTED_VALUES))
@@ -301,3 +303,99 @@ def test_serve_keys_are_jax_keys():
         assert getattr(tdef, f.name) == getattr(jdef, f.name), f.name
     assert {f.name for f in dataclasses.fields(tcli.ServeConfig)} - {
         f.name for f in dataclasses.fields(jcli.ServeConfig)} == {"device"}
+
+
+def _roster(artifact, n=2, **extra):
+    return json.dumps([{"name": f"t{i}", "artifact": artifact, **extra}
+                       for i in range(n)])
+
+
+BAD_SERVE = {
+    "tenants_with_artifact": lambda a: ["serve-http", f"artifact={a}",
+                                        f"tenants={_roster(a)}"],
+    "tenants_with_live": lambda a: ["serve-http", "live=1",
+                                    f"tenants={_roster(a)}"],
+    "roster_not_json": lambda a: ["serve-http", "tenants=[{nope"],
+    "roster_empty": lambda a: ["serve-http", "tenants=[]"],
+    "roster_not_objects": lambda a: ["serve-http", "tenants=[1, 2]"],
+    "roster_no_artifact": lambda a: ["serve-http",
+                                     'tenants=[{"name": "t0"}]'],
+    "roster_unknown_field": lambda a: [
+        "serve-http", f"tenants={_roster(a, 1, color=1)}"],
+    "roster_duplicate": lambda a: [
+        "serve-http", "tenants=" + json.dumps(
+            [{"name": "t", "artifact": a}, {"name": "t", "artifact": a}])],
+    "roster_zero_weight": lambda a: ["serve-http",
+                                      f"tenants={_roster(a, 1, weight=0)}"],
+    "live_fused": lambda a: ["serve", f"artifact={a}", "live=1",
+                             "scan_mode=fused"],
+    "live_zero_cap": lambda a: ["serve", f"artifact={a}", "live=1",
+                                "delta_cap=0"],
+    "live_bad_compact_at": lambda a: ["serve", f"artifact={a}", "live=1",
+                                      "compact_at=1.5"],
+}
+
+
+@pytest.mark.parametrize("case", sorted(BAD_SERVE))
+def test_bad_tenant_and_live_options_exit_as_jax(artifact, case):
+    argv = BAD_SERVE[case](artifact)
+    with pytest.raises(SystemExit) as je:
+        jcli.main(argv)
+    with pytest.raises(SystemExit) as te:
+        tcli.main(argv + ["device=cpu"])
+    assert str(te.value) == str(je.value) != ""
+
+
+@pytest.mark.parametrize("source", ["inline", "file"])
+def test_serve_http_tenants_route_and_page(artifact, tmp_path, source):
+    """Two tenants over one artifact (fingerprint routing picks the first
+    with it), a budget of one engine: each answers its solo engine's
+    rows, an unknown tenant 404s, and every switch pages."""
+    import asyncio
+
+    from hyperspace_torch.serve import QueryEngine, load_artifact
+    from hyperspace_torch.serve.registry import engine_device_bytes
+
+    solo = QueryEngine.from_artifact(load_artifact(artifact), device="cpu")
+    budget = engine_device_bytes(solo) * 1.25 / (1 << 20)
+    roster = _roster(artifact)
+    if source == "file":
+        path = tmp_path / "roster.json"
+        path.write_text(roster)
+        roster = str(path)
+    got, up = {}, threading.Event()
+
+    def ready(door):
+        got["door"] = door
+        up.set()
+
+    t = threading.Thread(target=lambda: got.update(
+        result=tcli.run_serve_http(tcli.ServeConfig(
+            tenants=roster, device="cpu", port=0, k=3,
+            device_budget_mb=budget), ready=ready)), daemon=True)
+    t.start()
+    assert up.wait(60)
+    port = got["door"].port
+    try:
+        want = solo.topk_neighbors(np.asarray([1, 2], np.int32), 3)[0]
+        for tenant in ("t0", "t1", "t0", None):
+            body = {"ids": [1, 2], "k": 3}
+            if tenant:
+                body["tenant"] = tenant
+            s, b = _get(port, "POST", "/v1/topk", body)
+            assert s == 200 and json.loads(b)["neighbors"] == want.tolist()
+        s, b = _get(port, "POST", "/v1/topk",
+                    {"ids": [1], "k": 3, "tenant": "t9"})
+        assert s == 404 and json.loads(b)["error"]["kind"] == \
+            "unknown_tenant"
+        s, b = _get(port, "GET", "/v1/stats?tenant=t1")
+        assert s == 200 and json.loads(b)["tenant"] == "t1"
+    finally:
+        asyncio.run_coroutine_threadsafe(got["door"].drain(),
+                                         got["door"].loop).result(30)
+        t.join(30)
+    res = got["result"]
+    assert res["drained"] and set(res["tenants"]) == {"t0", "t1"}
+    reg = {n: v["registry"] for n, v in res["tenants"].items()}
+    assert reg["t0"]["admissions"] == 2 and reg["t1"]["admissions"] == 1
+    assert reg["t0"]["evictions"] == reg["t1"]["evictions"] == 2
