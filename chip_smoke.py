@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving and training paths, its
-Poincaré ops, its Poincaré-embedding trainer, HGCN node classification,
-the hyperbolic VAE and HGCN through its CLI from graphs on disk on one
-GPU and check them.
+Poincaré ops, its Poincaré-embedding trainer (in HBM and through a
+host-resident table), HGCN node classification, the hyperbolic VAE and
+HGCN through its CLI from graphs on disk on one GPU and check them.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -83,7 +83,8 @@ prints its seconds):
    peak memory, the largest device items, and each kernel's launch count
    (exactly layers, layers, layers and 1 a step);
 14. the CLI, ``cli.train hybonet --yaml configs/hybonet_textclf.yaml``
-   at its 500 steps: loss and accuracy; the last loss finite and below
+   at 250 of its 500 steps (``HB_CLI_STEPS``): loss and accuracy; the
+   last loss finite and below
    the first;
 15. two HyboNet steps on the card against the port on the CPU from the
    same parameters and batches: losses within rel 1e-4 (all f32);
@@ -180,7 +181,7 @@ prints its seconds):
 27. ``evaluate`` before and after RAdam's two graphed epochs: 317
    ``pdist`` launches, MAP rising, the kernel's MAP and mean rank within
    1e-3 of the plain version's on the card;
-28. the bench leg (``run_poincare_bench``, 2 timed repeats): epoch seconds
+28. the bench leg (``run_poincare_bench``, 1 timed repeat): epoch seconds
    of every strategy, the headline, step ms at the depth-6 table
    (597,871 rows, RAdam), peak memory, and the device busy time and idle
    share of 20 steps of each strategy;
@@ -282,8 +283,8 @@ Phases 55-56 (after 16-19) serve the bf16, int8 and int4 lanes:
    ``fused`` (the candidate scan under IVF; int4 probes score in
    PyTorch), one bf16 ``pdist`` a chunk under bf16 ``two_stage``; every
    served distance the f32 distance of its id; recall@10 against the f32
-   exact answers; queries/s, batch ms and the card's busy ms at buckets
-   8 and 1024 of each narrow lane on the clustered table.  The kernels
+   exact answers; queries/s, batch ms and the card's busy ms at bucket
+   1024 of each narrow lane on the clustered table.  The kernels
    line gains an entry a lane (``pdist_bf16``, ``scan_topk_bf16``,
    ``scan_topk_int8``, ``scan_topk_int4``, ``scan_topk_cand_bf16``,
    ``scan_topk_cand_int8``: device ms at buckets 1024 and 8, the bound in
@@ -430,6 +431,49 @@ single-process serving plane:
 The kernels line gives rows 1, 2 and 4 ``launches_live`` (63's traffic,
 compactions included) and ``launches_tenants`` (65's three-tenant door).
 
+Phases 67-70 (after 59-62, before the front-door process) train
+Poincaré embeddings through a host-resident table
+(``train/host_embed.py``, ``parallel/host_table.py``):
+
+67. at the JAX bench's big-table train leg (200,000 rows, dim 8, batch
+   1,024, 10 negatives, chunks of 8, plan seed 1, 100,000 random pairs),
+   RSGD and RAdam: a warm chunk, then 24 timed steps of
+   ``HostPlannedTrainer`` (host clock, ``profile`` on: the four phases'
+   ms a chunk) and of ``run_planned_inhbm`` from the same start; the two
+   bitwise (master, moments, losses); again over a cache of a quarter of
+   the auto size (chunks of 2, whose worst case that is), evictions
+   counted, bitwise; the card within rel 1e-4 of the CPU after one chunk;
+   one graph captured for the chunk length; then one more replay chunk
+   in a ``torch.profiler`` trace, whose kernels, counted by their device
+   names (``traced_launches``), must be 8 ``expmap`` and 8
+   ``csr_segment_sum`` (and 8 ``ptransp`` with RAdam);
+   ``host_step_ms``, ``inhbm_step_ms``, ``host_vs_inhbm``, the hit rate
+   and the upload bytes a chunk;
+68. the 10,000,000 × 8 RSGD master built shard by shard from the seed
+   (``HostEmbedTable.build``), through ``HostPlannedTrainer`` alone (a
+   warm chunk, 24 timed steps): ``host_step_ms_full``, the hit rate, the
+   upload bytes a chunk, and the device memory the run takes (its peak
+   over what was allocated at its start) held under a quarter of the
+   table's 320 MB;
+69. that master saved at 8 shards (``save_sharded``) and restored at 3,
+   bitwise, ``io_rows_peak`` within max(⌈N/8⌉, ⌈N/3⌉); the row files of 4
+   processes (``save_owned_rows``) and a 1,000,000-row range across two
+   of them (``load_rows``), bitwise; the seconds of each;
+70. ``cli.train poincare --yaml configs/poincare_wordnet.yaml host_table=1
+   scan_chunk=1 steps=64 ckpt_dir=...`` on the closure TSV of the
+   66,430-node tree: MAP in (0, 1], the saved master bitwise a trainer
+   driven with the CLI's arguments, 317 ``pdist`` launches (the closing
+   evaluation, eager); ``host_gather_ahead=1`` (exact here: the cache
+   holds the table); ``chaos=data.next_batch:ioerror:after=2:times=1`` in
+   a subprocess (on the CLI's default tree) ends non-zero naming the
+   injected error; a ``data.next_batch`` spec on a dense run (the default
+   tree) never reaches its site and changes nothing.
+
+The kernels line gives ``pdist``, ``csr_segment_sum``, ``expmap`` and
+``ptransp`` this path's launches, ``launches_host``: for the row ops and
+B1 the traced replay chunks of 67 (one an optimizer), for ``pdist`` 70's
+closing evaluation.
+
 The kernels line (phase 23) also gives ``hyp_mlr`` at the NC head's own
 input (``*_nc_head`` keys: device ms, plain ms, bound, no library call)
 and, for the three kernels of the NC path, their launches there, a step
@@ -457,6 +501,7 @@ import io
 import itertools
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -1436,6 +1481,7 @@ MLR_NC_SHAPE = (169343, 40, 32)
 FLASH_GRAD_TOL = 2e-3
 HB_CARD_CPU_RTOL = 1e-4
 HB_CLI_YAML = os.path.join("configs", "hybonet_textclf.yaml")
+HB_CLI_STEPS = 250                 # of the config's 500: the smoke's clock
 
 
 def hb_counts() -> dict:
@@ -1652,7 +1698,8 @@ def hybonet_path(torch, args, card: dict) -> dict:
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         cli_train.main(["hybonet", "--yaml", os.path.join(REPO, HB_CLI_YAML),
-                        f"log={log}", "eval_every=1"])
+                        f"log={log}", "eval_every=1",
+                        f"steps={HB_CLI_STEPS}"])
     counts = hb_counts()
     res = json.loads(out.getvalue().strip().splitlines()[-1])
     with open(log) as f:
@@ -2588,9 +2635,8 @@ def quant_lane_engines(torch, args, card: dict, table_b, ip: dict) -> dict:
     0 before each run and read after: exactly the launches
     :func:`expected_quant_launches` gives; every served distance the f32
     distance of its id; recall@10 against the f32 exact answers of the
-    same table; then queries/s and the card's busy ms at buckets 8 and
-    1024 for each narrow lane on the clustered table (bucket 8: the
-    exact scans)."""
+    same table; then queries/s and the card's busy ms at bucket 1024 for
+    each narrow lane on the clustered table."""
     from hyperspace_torch.cli import serve as cli
     from hyperspace_torch.manifolds import PoincareBall
     from hyperspace_torch.serve import (QueryEngine, RequestBatcher,
@@ -2682,19 +2728,17 @@ def quant_lane_engines(torch, args, card: dict, table_b, ip: dict) -> dict:
               "two_stage_fused_ids_equal_share": agree,
               "index_build_s": index_s,
               "seconds": time.perf_counter() - t0, **card})
-        # queries/s and busy ms at buckets 8 and 1024, clustered table
+        # queries/s and busy ms at bucket 1024, clustered table
         art = load_artifact(arts["clustered"])
         throughput = {}
-        for b in QLANE_BUCKETS:
-            cold = rng.permutation(ROWS)[:40 * b].reshape(40, b)
-            for prec in QLANES:
-                for npb in (0, 8) if b == BATCH else (0,):
-                    for mode in ("two_stage", "fused"):
-                        e = QueryEngine.from_artifact(
-                            art, scan_mode=mode, precision=prec, nprobe=npb)
-                        throughput[f"{prec}_nprobe{npb}_{mode}_b{b}"] = \
-                            batch_throughput(torch, e, RequestBatcher(e),
-                                             cold)
+        cold = rng.permutation(ROWS)[:40 * BATCH].reshape(40, BATCH)
+        for prec in QLANES:
+            for npb in (0, 8):
+                for mode in ("two_stage", "fused"):
+                    e = QueryEngine.from_artifact(
+                        art, scan_mode=mode, precision=prec, nprobe=npb)
+                    throughput[f"{prec}_nprobe{npb}_{mode}_b{BATCH}"] = \
+                        batch_throughput(torch, e, RequestBatcher(e), cold)
         emit({"phase": "qlane_throughput", "k": K, "rows": ROWS,
               **throughput, **card})
     finally:
@@ -3290,6 +3334,7 @@ PE_EVAL_CHUNKS = -(-PE_PAIRS // 1024)  # 317 pdist launches an evaluation
 PE_CLI_YAML = "configs/poincare_wordnet.yaml"
 PE_CARD_CPU_RTOL = 1e-4
 PE_PROFILE_STEPS = 20
+PE_BENCH_REPEATS = 1                  # timed epochs a strategy (the clock)
 # kernels launched a step by each strategy (all others 0, pdist included)
 PE_PER_STEP = {"dense": ("expmap",), "sparse": ("expmap",),
                "planned": ("expmap", "csr_segment_sum"),
@@ -3640,7 +3685,8 @@ def poincare_path(torch, args, card: dict) -> dict:
     # --- phase 28: the bench leg and the large table ------------------------
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-    bench = PB.run_poincare_bench(repeats=2, device="cuda", seed=args.seed)
+    bench = PB.run_poincare_bench(repeats=PE_BENCH_REPEATS, device="cuda",
+                                  seed=args.seed)
     peak = torch.cuda.max_memory_allocated()
     # device busy time and idle share of 20 steps of each strategy (a
     # window of an epoch's ~20,000 device events is more than the
@@ -5410,14 +5456,17 @@ GRAPH_CHUNK = 8                    # phase 59: a chunk of HyboNet steps
 HGCN_CHUNK = 4                     # phase 60: a chunk of HGCN steps
 GRAPHED_TIMED_CHUNKS = 4           # chunks timed after the capture
 EAGER_TIMED_STEPS = 16
-# the device names of the kernels each wrapper launches once a call, by
-# which a profiler trace of a replayed chunk counts them
+# the device names (patterns) of the kernels each wrapper launches once a
+# call, by which a profiler trace of a replayed chunk counts them; the
+# row ops by their op's template argument (pointwise.cu's ``enum Op``)
 TRACED_KERNELS = {"flash_fwd": ("flash_fwd_kernel",),
                   "flash_dq": ("flash_dq_kernel",),
                   "flash_dkv": ("flash_dkv_kernel",),
                   "hyp_mlr": ("::mlr_kernel", "::pair_kernel"),
                   "csr_segment_sum": ("segsum_kernel",),
-                  "cluster_aggregate": ("agg_rows_kernel",)}
+                  "cluster_aggregate": ("agg_rows_kernel",),
+                  "expmap": (r"packed_kernel<\s*2\s*,",),
+                  "ptransp": (r"packed_kernel<\s*6\s*,",)}
 TRACE_TRIES = 3                    # a profiler may drop a launch
 SPINE_STEPS, SPINE_CHUNK, SPINE_PROFILE = 128, 8, 16
 GUARD_STEPS = 32
@@ -5446,7 +5495,7 @@ def traced_launches(torch, fn, names) -> dict:
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             for n in names:
-                if any(sym in e.name for sym in TRACED_KERNELS[n]):
+                if any(re.search(p, e.name) for p in TRACED_KERNELS[n]):
                     counts[n] += 1
     return counts
 
@@ -5797,6 +5846,416 @@ def graphed_kernel_fields(g59: dict, g60: dict, kernels: list) -> None:
             n = lp[e["name"]]
         if n is not None:
             e["launches_graphed"] = n
+
+
+# --- phases 67-70: training through a host-resident table ---------------------
+
+HOST_ROWS, HOST_DIM = 200_000, 8       # the JAX bench's big-table train leg
+HOST_BATCH, HOST_NEG = 1024, 10
+HOST_CHUNK, HOST_STEPS, HOST_SEED = 8, 24, 1
+HOST_PAIRS = 100_000
+HOST_EVICT_CHUNK = 2                   # a chunk's working set fits a quarter
+HOST_CARD_CPU_RTOL = 1e-4              # all f32
+FULL_ROWS, FULL_PAIRS = 10_000_000, 200_000
+CKPT_SAVE_SHARDS, CKPT_LOAD_SHARDS = 8, 3
+CKPT_OWNERS = 4                        # processes of the row-file layout
+HOST_CLI_STEPS = 64
+# kernels launched a planned step, by optimizer
+HOST_PER_STEP = {"rsgd": {"expmap": 1, "csr_segment_sum": 1},
+                 "radam": {"expmap": 1, "ptransp": 1, "csr_segment_sum": 1}}
+
+
+def host_cfg(pe, rows: int, optimizer: str):
+    return pe.PoincareEmbedConfig(num_nodes=rows, dim=HOST_DIM,
+                                  batch_size=HOST_BATCH,
+                                  neg_samples=HOST_NEG, optimizer=optimizer)
+
+
+def host_delta(reg, mark, names) -> dict:
+    snap = reg.snapshot(baseline=mark)
+    return {n: snap.get(n, 0) for n in names}
+
+
+def host_timed(torch, tr, pairs, reg) -> dict:
+    """One timed ``run`` of ``HOST_STEPS`` steps after the warm chunk: ms a
+    step (host clock, ending in the last write-back's sync), the four
+    phases' ms a chunk, the hit rate and uploads a chunk (the cache's
+    counters; ``run`` restarts its plans at chunk 0, so the first timed
+    chunk repeats the warm one, as in the JAX leg), and the graphs
+    captured."""
+    from hyperspace_torch.models import poincare_embed as pe
+
+    torch.cuda.synchronize()
+    mark = reg.mark()
+    caps = pe.graph_captures()
+    t0 = time.perf_counter()
+    losses = tr.run(pairs, HOST_STEPS)
+    ms = (time.perf_counter() - t0) / HOST_STEPS * 1e3
+    chunks = HOST_STEPS // tr.chunk_steps
+    snap = reg.snapshot(baseline=mark)
+    c = host_delta(reg, mark, ("host_table/cache_hits",
+                               "host_table/cache_misses",
+                               "host_table/cache_evictions",
+                               "host_table/upload_bytes",
+                               "host_table/upload_rows"))
+    look = c["host_table/cache_hits"] + c["host_table/cache_misses"]
+    return {"step_ms": ms, "losses": losses, "chunks": chunks,
+            "phase_ms_a_chunk": {
+                k: snap[f"hist/train/phase/{k}_ms"]["sum"]
+                / snap[f"hist/train/phase/{k}_ms"]["count"]
+                for k in ("data_wait", "host_gather", "device_step",
+                          "write_back")},
+            "hit_rate": c["host_table/cache_hits"] / max(look, 1),
+            "evictions": c["host_table/cache_evictions"],
+            "upload_bytes_a_chunk": c["host_table/upload_bytes"] / chunks,
+            "upload_rows_a_chunk": c["host_table/upload_rows"] / chunks,
+            "captures": pe.graph_captures() - caps}
+
+
+def host_traced(torch, tr, pairs, optimizer: str) -> list:
+    """The kernels one more replay chunk of ``tr`` ran on the card,
+    counted by name in a profiler trace (``traced_launches``); raises
+    unless they are ``HOST_CHUNK`` × ``HOST_PER_STEP`` or the chunk
+    captured a graph.  Returns the traces taken."""
+    from hyperspace_torch.models import poincare_embed as pe
+
+    names = tuple(HOST_PER_STEP["radam"])
+    want = {n: HOST_CHUNK * HOST_PER_STEP[optimizer].get(n, 0)
+            for n in names}
+    caps = pe.graph_captures()
+    traced = []
+    for _ in range(TRACE_TRIES):
+        traced.append(traced_launches(
+            torch, lambda: tr.run(pairs, HOST_CHUNK), names))
+        if traced[-1] == want:
+            break
+    if traced[-1] != want or pe.graph_captures() != caps:
+        raise AssertionError(f"host {optimizer}: a replayed chunk ran "
+                             f"{traced} on the card (profiler trace), want "
+                             f"{want}; {pe.graph_captures() - caps} "
+                             "captures")
+    return traced
+
+
+def host_train(torch, args, card: dict) -> dict:
+    """Phase 67: the host-resident trainer against ``run_planned_inhbm``
+    at the JAX leg's width, RSGD and RAdam."""
+    import torch.utils._pytree as pytree
+
+    from hyperspace_torch.models import poincare_embed as pe
+    from hyperspace_torch.telemetry import registry as telem
+    from hyperspace_torch.train import host_embed as he
+
+    dev = torch.device("cuda")
+    reg = telem.default_registry()
+    pairs = np.random.default_rng(args.seed + 67).integers(
+        0, HOST_ROWS, (HOST_PAIRS, 2)).astype(np.int32)
+    out = {"launches": dict.fromkeys(HOST_PER_STEP["radam"], 0)}
+    for optimizer in ("rsgd", "radam"):
+        t0 = time.perf_counter()
+        cfg = host_cfg(pe, HOST_ROWS, optimizer)
+        start, opt = pe.init_state(cfg, 0, dev)
+        caps0 = pe.graph_captures()
+        tr = he.HostPlannedTrainer.from_state(
+            cfg, opt, pe_clone(torch, start), chunk_steps=HOST_CHUNK,
+            seed=HOST_SEED, profile=True)
+        warm = tr.run(pairs, HOST_CHUNK)
+        after_one = tr.master.to_array()      # held against the CPU below
+        host = host_timed(torch, tr, pairs, reg)
+        captures = pe.graph_captures() - caps0
+        if captures != 1 or host["captures"] != 0:
+            raise AssertionError(f"host {optimizer}: {captures} captures "
+                                 "for one chunk length, want 1")
+        # the in-HBM reference: the same plans from the same start, its
+        # warm and timed calls on one set of plan buffers (one capture)
+        plans = {}
+        st, losses_w = he.run_planned_inhbm(cfg, opt, pe_clone(torch, start),
+                                            pairs, HOST_CHUNK,
+                                            chunk_steps=HOST_CHUNK,
+                                            seed=HOST_SEED, plans=plans)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        st, losses_t = he.run_planned_inhbm(cfg, opt, st, pairs, HOST_STEPS,
+                                            chunk_steps=HOST_CHUNK,
+                                            seed=HOST_SEED, plans=plans)
+        inhbm_ms = (time.perf_counter() - t1) / HOST_STEPS * 1e3
+        ref = pe.pack_state(cfg, st).packed.cpu().numpy()
+        bitwise = bool(np.array_equal(tr.master.to_array(), ref)
+                       and np.array_equal(warm, losses_w)
+                       and np.array_equal(host["losses"], losses_t))
+        # then one more replay chunk of the host trainer, traced
+        traced = host_traced(torch, tr, pairs, optimizer)
+        for k, n in traced[-1].items():
+            out["launches"][k] += n
+        # evictions: a chunk of 8 touches ~75,000 of the 200,000 rows,
+        # more than a quarter of the auto cache, so chunks of 2 run over a
+        # cache of their worst-case working set: 24,576 rows, a quarter
+        quarter = he.auto_hot_rows(cfg, HOST_EVICT_CHUNK)
+        ev = he.HostPlannedTrainer.from_state(
+            cfg, opt, pe_clone(torch, start), chunk_steps=HOST_EVICT_CHUNK,
+            hot_rows=quarter, seed=HOST_SEED)
+        mark = reg.mark()
+        ev_losses = ev.run(pairs, HOST_STEPS)
+        evictions = host_delta(reg, mark, ("host_table/cache_evictions",))[
+            "host_table/cache_evictions"]
+        st_e, ref_losses = he.run_planned_inhbm(
+            cfg, opt, pe_clone(torch, start), pairs, HOST_STEPS,
+            chunk_steps=HOST_EVICT_CHUNK, seed=HOST_SEED)
+        ev_bitwise = bool(np.array_equal(
+            ev.master.to_array(), pe.pack_state(cfg, st_e).packed.cpu()
+            .numpy()) and np.array_equal(ev_losses, ref_losses))
+        # the card against the CPU after one chunk
+        on_cpu = pytree.tree_map(
+            lambda x: x.cpu() if isinstance(x, torch.Tensor) else x,
+            start)._replace(generator=torch.Generator())
+        cpu = he.HostPlannedTrainer.from_state(
+            cfg, opt, on_cpu, chunk_steps=HOST_CHUNK, seed=HOST_SEED,
+            device="cpu")
+        cpu.run(pairs, HOST_CHUNK)
+        b = cpu.master.to_array()
+        rel = float(np.abs(after_one - b).max() / np.abs(b).max())
+        r = {"rows": HOST_ROWS, "chunk_steps": HOST_CHUNK,
+             "hot_rows": tr.cache.capacity,
+             "host_step_ms": host["step_ms"], "inhbm_step_ms": inhbm_ms,
+             "host_vs_inhbm": host["step_ms"] / inhbm_ms,
+             "phase_ms_a_chunk": host["phase_ms_a_chunk"],
+             "hit_rate": host["hit_rate"],
+             "upload_bytes_a_chunk": host["upload_bytes_a_chunk"],
+             "traced_launches_replay_chunk": traced,
+             "captures": captures, "bitwise_inhbm": bitwise,
+             "evict_hot_rows": quarter, "evict_chunk_steps": HOST_EVICT_CHUNK,
+             "evict_of_auto": quarter / tr.cache.capacity,
+             "evictions": evictions, "evict_bitwise_inhbm": ev_bitwise,
+             "card_vs_cpu_rel": rel, "rtol": HOST_CARD_CPU_RTOL,
+             "losses_finite": bool(np.all(np.isfinite(host["losses"]))),
+             "seconds": time.perf_counter() - t0}
+        emit({"phase": "host_train", "optimizer": optimizer, **r, **card})
+        if not (bitwise and ev_bitwise):
+            raise AssertionError(f"host {optimizer}: not bitwise the in-HBM "
+                                 f"trainer (plain {bitwise}, evicting "
+                                 f"{ev_bitwise})")
+        if not evictions > 0:
+            raise AssertionError(f"host {optimizer}: no eviction at "
+                                 f"hot_rows={quarter}")
+        if not rel <= HOST_CARD_CPU_RTOL or not r["losses_finite"]:
+            raise AssertionError(f"host {optimizer}: card and CPU differ by "
+                                 f"rel {rel}, or a loss is not finite")
+        out[optimizer] = r
+    return out
+
+
+def full_fill(seed: int):
+    """The JAX leg's synthetic master: ball points around 512 clustered
+    centres, each block drawn from its own start row."""
+    centers = np.random.default_rng(seed).standard_normal(
+        (512, HOST_DIM)) * 0.25
+
+    def fill(start, nr):
+        r = np.random.default_rng((1234, start))
+        v = (centers[r.integers(0, 512, nr)]
+             + r.standard_normal((nr, HOST_DIM)) * 0.05)
+        nv = np.maximum(np.linalg.norm(v, axis=1, keepdims=True), 1e-12)
+        return (np.tanh(nv) * v / nv).astype(np.float32)
+
+    return fill
+
+
+def host_train_full(torch, args, card: dict) -> dict:
+    """Phase 68: the 10,000,000-row RSGD master, built shard by shard,
+    through ``HostPlannedTrainer`` alone."""
+    from hyperspace_torch.models import poincare_embed as pe
+    from hyperspace_torch.parallel.host_table import HostEmbedTable
+    from hyperspace_torch.telemetry import registry as telem
+    from hyperspace_torch.train import host_embed as he
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    master = HostEmbedTable.build(FULL_ROWS, HOST_DIM, full_fill(args.seed))
+    build_s = time.perf_counter() - t0
+    cfg = host_cfg(pe, FULL_ROWS, "rsgd")
+    opt = pe.make_optimizer(cfg)
+    pairs = np.random.default_rng(args.seed + 68).integers(
+        0, FULL_ROWS, (FULL_PAIRS, 2)).astype(np.int32)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tr = he.HostPlannedTrainer(cfg, opt, master,
+                               opt.init(torch.zeros((1, HOST_DIM),
+                                                    device=dev)),
+                               chunk_steps=HOST_CHUNK, seed=HOST_SEED,
+                               profile=True, device=dev)
+    tr.run(pairs, HOST_CHUNK)
+    host = host_timed(torch, tr, pairs, telem.default_registry())
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    own = peak - base
+    r = {"rows": FULL_ROWS, "table_bytes": master.nbytes,
+         "build_s": build_s, "hot_rows": tr.cache.capacity,
+         "cache_bytes": tr.cache.nbytes,
+         "host_step_ms_full": host["step_ms"],
+         "phase_ms_a_chunk": host["phase_ms_a_chunk"],
+         "hit_rate": host["hit_rate"],
+         "upload_bytes_a_chunk": host["upload_bytes_a_chunk"],
+         "upload_rows_a_chunk": host["upload_rows_a_chunk"],
+         "peak_device_bytes": peak, "device_bytes_at_start": base,
+         "peak_device_bytes_over_start": own,
+         "limit_bytes": master.nbytes // 4,
+         "losses_finite": bool(np.all(np.isfinite(host["losses"]))),
+         "seconds": time.perf_counter() - t0}
+    emit({"phase": "host_train_full", **r, **card})
+    if not own < master.nbytes // 4 or not r["losses_finite"]:
+        raise AssertionError(f"host full: the run took {own} device bytes "
+                             f"(limit {master.nbytes // 4}), or a loss is "
+                             "not finite")
+    return {**r, "master": master}
+
+
+def tables_equal(a, b, block: int = 1 << 20) -> bool:
+    """Two host tables equal, compared one bounded block at a time."""
+    if (a.num_rows, a.width, a.dtype) != (b.num_rows, b.width, b.dtype):
+        return False
+    return all(np.array_equal(blk, b._slice_rows(s, s + len(blk)))
+               for s, blk in a.iter_chunks(block))
+
+
+def host_ckpt(torch, master, tmp: str, card: dict) -> dict:
+    """Phase 69: phase 68's master saved at 8 shards and restored at 3,
+    and the per-process row files, all bitwise."""
+    from hyperspace_torch.parallel import host_table as HT
+
+    n = master.num_rows
+    d = os.path.join(tmp, "sharded")
+    t0 = time.perf_counter()
+    HT.reset_io_peak()
+    master.save_sharded(d, shards=CKPT_SAVE_SHARDS)
+    save_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    back = HT.HostEmbedTable.load_sharded(d, shards=CKPT_LOAD_SHARDS)
+    load_s = time.perf_counter() - t1
+    peak = HT.io_rows_peak()
+    bound = max(-(-n // CKPT_SAVE_SHARDS), -(-n // CKPT_LOAD_SHARDS))
+    same = tables_equal(back, master) and back.num_shards == CKPT_LOAD_SHARDS
+    del back
+    shutil.rmtree(d, ignore_errors=True)
+    d = os.path.join(tmp, "owned")
+    t2 = time.perf_counter()
+    for pi in range(CKPT_OWNERS):
+        HT.save_owned_rows(master, d, process_index=pi,
+                           process_count=CKPT_OWNERS)
+    owned_s = time.perf_counter() - t2
+    lo, hi = n // 2 - n // 20, n // 2 + n // 20   # straddles two files
+    t3 = time.perf_counter()
+    rows = HT.load_rows(d, lo, hi)
+    rows_s = time.perf_counter() - t3
+    rows_same = bool(np.array_equal(rows, master._slice_rows(lo, hi)))
+    shutil.rmtree(d, ignore_errors=True)
+    r = {"rows": n, "save_shards": CKPT_SAVE_SHARDS,
+         "load_shards": CKPT_LOAD_SHARDS, "bitwise": same,
+         "io_rows_peak": peak, "io_rows_bound": bound, "save_s": save_s,
+         "load_s": load_s, "owned_processes": CKPT_OWNERS,
+         "owned_save_s": owned_s, "load_rows_range": [lo, hi],
+         "load_rows_s": rows_s, "load_rows_bitwise": rows_same,
+         "seconds": time.perf_counter() - t0}
+    emit({"phase": "host_ckpt", **r, **card})
+    if not (same and rows_same and peak <= bound):
+        raise AssertionError(f"host checkpoint: {r}")
+    return r
+
+
+def host_cli(torch, tmp: str, card: dict) -> dict:
+    """Phase 70: ``cli.train poincare host_table=1`` on the 66,430-node
+    closure."""
+    from hyperspace_torch.data.wordnet import load_closure_tsv, synthetic_tree
+    from hyperspace_torch.models import poincare_embed as pe
+    from hyperspace_torch.parallel.host_table import HostEmbedTable
+    from hyperspace_torch.train import host_embed as he
+
+    t0 = time.perf_counter()
+    ds = synthetic_tree(PE_DEPTH, PE_BRANCH)
+    tsv = os.path.join(tmp, "closure.tsv")
+    with open(tsv, "w") as f:
+        f.writelines(f"n{u}\tn{v}\n" for u, v in ds.pairs)
+    ck = os.path.join(tmp, "ck")
+    base = ["poincare", "--yaml", os.path.join(REPO, PE_CLI_YAML),
+            "scan_chunk=1", f"steps={HOST_CLI_STEPS}"]
+    host = base + ["host_table=1", f"data_root={tsv}"]
+    pe_reset()
+    res = run_cli(host + [f"ckpt_dir={ck}"])
+    pdist_n = pe_counts()["pdist"]      # eager: counted at its launches
+    # the saved master against a trainer driven with the CLI's arguments
+    cfg = pe.PoincareEmbedConfig(num_nodes=ds.num_nodes, dim=10, lr=0.3,
+                                 neg_samples=10, batch_size=1024,
+                                 burnin_steps=100)
+    st, opt = pe.init_state(cfg, 0, torch.device("cuda"))
+    tr = he.HostPlannedTrainer.from_state(cfg, opt, st)
+    tr.run(load_closure_tsv(tsv).pairs, HOST_CLI_STEPS)
+    saved = HostEmbedTable.load_sharded(os.path.join(ck, "host_table"))
+    reloads = tables_equal(saved, tr.master)
+    ahead = run_cli(host + ["host_gather_ahead=1"])
+    t1 = time.perf_counter()
+    # the fault path in a process of its own, on the CLI's default tree
+    proc = subprocess.run(
+        [sys.executable, "-m", "hyperspace_torch.cli.train", *base,
+         "host_table=1", "chaos=data.next_batch:ioerror:after=2:times=1"],
+        cwd=REPO, capture_output=True, text=True, timeout=300)
+    chaos_s = time.perf_counter() - t1
+    named = ("InjectedIOError" in proc.stderr
+             and "data.next_batch" in proc.stderr)
+    dense = run_cli(base)
+    dense_chaos = run_cli(base + ["chaos=data.next_batch:ioerror"])
+    spec = dense_chaos.pop("chaos")["specs"][0]
+    fired = spec["fired"] + spec["calls"]    # the site never reached
+    r = {"config": PE_CLI_YAML, "nodes": ds.num_nodes, **res,
+         "pdist_launches": pdist_n, "master_reloads_bitwise": reloads,
+         "gather_ahead": ahead, "chaos_rc": proc.returncode,
+         "chaos_error_named": named, "chaos_s": chaos_s,
+         "dense": dense, "dense_with_next_batch_spec": dense_chaos,
+         "dense_spec_fired": fired, "seconds": time.perf_counter() - t0}
+    emit({"phase": "host_cli", **r, **card})
+    if not (res.get("host_table") and res["steps"] == HOST_CLI_STEPS
+            and 0.0 < res["map"] <= 1.0 and reloads):
+        raise AssertionError(f"host CLI: {res}, reloads {reloads}")
+    if not (ahead["steps"] == HOST_CLI_STEPS and 0.0 < ahead["map"] <= 1.0):
+        raise AssertionError(f"host CLI gather_ahead: {ahead}")
+    if proc.returncode == 0 or not named:
+        raise AssertionError(f"host CLI chaos run: rc {proc.returncode}, "
+                             f"stderr {proc.stderr[-2000:]}")
+    if dense_chaos != dense or fired:
+        raise AssertionError(f"a data.next_batch spec changed a dense run: "
+                             f"{dense} vs {dense_chaos}")
+    if pdist_n != PE_EVAL_CHUNKS:
+        raise AssertionError(f"host CLI: {pdist_n} pdist launches, "
+                             f"want {PE_EVAL_CHUNKS}")
+    return r
+
+
+def host_path(torch, args, card: dict) -> dict:
+    """Phases 67-70; returns what the kernels line needs."""
+    ht = host_train(torch, args, card)
+    full = host_train_full(torch, args, card)
+    work = os.path.join(REPO, "build", "chip_smoke")
+    os.makedirs(work, exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=work)
+    try:
+        ck = host_ckpt(torch, full.pop("master"), tmp, card)
+        cl = host_cli(torch, tmp, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"train": ht, "full": full, "ckpt": ck, "cli": cl}
+
+
+def host_kernel_fields(hp: dict, kernels: list) -> None:
+    """Add the host-resident path's launches to the kernels line in a
+    field of their own, ``launches_host``: for B1 and the row ops the
+    kernels of phase 67's traced replay chunks (one an optimizer; a
+    profiler trace, not the wrappers' counts, which a graph replay
+    cannot add to), for ``pdist`` phase 70's closing evaluation."""
+    for e in kernels:
+        name = e["name"]
+        if name in hp["train"]["launches"]:
+            e["launches_host"] = hp["train"]["launches"][name]
+        elif name == "pdist":
+            e["launches_host"] = hp["cli"]["pdist_launches"]
 
 
 # --- phases 50-54: serving through the HTTP front door -----------------------
@@ -7714,6 +8173,12 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     graphed_kernel_fields(g59, g60, kernels)
+
+    # --- phases 67-70: training through a host-resident table --------------
+    t_host = time.perf_counter()
+    hp = host_path(torch, args, card)
+    host_kernel_fields(hp, kernels)
+    emit({"phase": "host_total", "seconds": time.perf_counter() - t_host})
 
     # --- phases 50-54: serving through the HTTP front door ----------------
     fp = front_door_path(torch, args, card, table_b, ip["art"])

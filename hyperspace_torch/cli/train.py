@@ -47,9 +47,23 @@ dispatches and records ``train/phase/device_step_ms``.  The guard:
 ``rollback=N`` (needs ``ckpt_dir``) rewinds to the last committed
 checkpoint on a non-finite loss or a health violation, at most N times
 (``rollback_lr_backoff`` is the scale handed to the hook and recorded);
-``chaos=site:kind[:key=value...]`` arms faults at ``ckpt.save`` and
-``train.step_nan`` (``chaos_seed``), and the result gains a ``chaos``
-block.
+``chaos=site:kind[:key=value...]`` arms faults at ``ckpt.save``,
+``train.step_nan`` and ``data.next_batch`` (the host prefetcher's: it
+fires on a path that runs one, ``host_table=1``) (``chaos_seed``), and
+the result gains a ``chaos`` block.
+
+``poincare host_table=1`` keeps the packed table (rows and optimizer
+moments) in host memory and trains through a device hot-row cache of
+``hot_rows`` rows (0: a chunk's worst-case working set), one planned
+chunk of ``host_chunk_steps`` steps a dispatch with the touched rows
+written back at each chunk boundary (``train/host_embed.py``), bitwise
+the in-HBM planned trainer fed the same plans; ``host_gather_ahead=1``
+gathers upcoming chunks' rows in the prefetch thread (rows evicted and
+touched again may be up to 3 chunks stale).  It refuses ``sparse=true``
+and ``scan_chunk>1``, saves the master under ``<ckpt_dir>/host_table``
+(``save_sharded``) and prints ``{"workload", "steps", "host_table",
+"mean_rank", "map"}``, or ``"eval_skipped": "beyond-hbm"`` past
+``EVAL_MAX_ROWS`` rows.
 
 ``hybonet`` prints ``{"workload", "source", "loss", "accuracy"}`` (the
 held-out 20 %).  ``poincare`` trains on the closure TSV at ``data_root``
@@ -76,11 +90,8 @@ takes a JSON list, the ``*dtype`` keys dtype names.
 
 Not ported, each exiting with its name when set away from its default:
 meshes and multi-process runs (``multihost``, ``tp``, ``coordinator``,
-``num_processes``, ``process_id``), the host-resident table
-(``host_table``, ``hot_rows``, ``host_chunk_steps``,
-``host_gather_ahead``), XLA's compilation cache (``compile_cache_dir``),
-sampled HGCN (``sampled=true``) and the host prefetcher's fault site
-(``chaos=data.next_batch:...``).
+``num_processes``, ``process_id``), XLA's compilation cache
+(``compile_cache_dir``) and sampled HGCN (``sampled=true``).
 """
 
 from __future__ import annotations
@@ -149,8 +160,6 @@ class RunConfig:
 NOT_PORTED = {
     **dict.fromkeys(("tp", "coordinator", "num_processes", "process_id"),
                     "meshes and multi-process runs"),
-    **dict.fromkeys(("hot_rows", "host_chunk_steps", "host_gather_ahead"),
-                    "the host-resident embedding table"),
     "compile_cache_dir": "XLA's persistent compilation cache",
 }
 
@@ -166,10 +175,6 @@ def check_ported(run: RunConfig) -> None:
     if run.multihost:
         raise SystemExit("multihost=true: meshes are not ported (the port "
                          "trains on one device)")
-    if run.chaos and "data.next_batch" in run.chaos:
-        raise SystemExit(f"chaos={run.chaos!r}: the data.next_batch fault "
-                         "site belongs to the host prefetcher "
-                         "(data/prefetch.py), which is not ported")
 
 
 def split_overrides(pairs: list[str], run: RunConfig):
@@ -313,15 +318,14 @@ def run_poincare(run: RunConfig, overrides: dict) -> dict:
     from hyperspace_torch.telemetry.health import make_health_fn
     from hyperspace_torch.train.checkpoint import reproject_rows
 
-    if run.host_table:
-        raise SystemExit("host_table=1: the host-resident embedding table "
-                         "is not ported")
     if run.data_root:
         ds = wordnet.load_closure_tsv(run.data_root)
     else:
         ds = wordnet.synthetic_tree(depth=5, branching=4)
     cfg = apply_overrides(pe.PoincareEmbedConfig(num_nodes=ds.num_nodes),
                           _precision_default(run, overrides))
+    if run.host_table:
+        return _run_poincare_hosted(run, cfg, ds)
     if run.scan_chunk > 1 and cfg.sparse:
         raise SystemExit(
             "scan_chunk>1 chunks the dense step only — drop sparse=true or "
@@ -350,6 +354,46 @@ def run_poincare(run: RunConfig, overrides: dict) -> dict:
     # the state's step is the count taken (a resumed chunked run may pass
     # run.steps)
     return {"workload": "poincare", "steps": int(state.step), **res}
+
+
+def _run_poincare_hosted(run: RunConfig, cfg, ds) -> dict:
+    """``host_table=1``: the packed table in host memory, trained through
+    a device hot-row cache, one planned chunk a dispatch
+    (``train/host_embed.py``); the master saved under
+    ``<ckpt_dir>/host_table``; evaluated when it fits."""
+    import os
+
+    from hyperspace_torch.kernels._support import resolve_device
+    from hyperspace_torch.manifolds import PoincareBall
+    from hyperspace_torch.models import poincare_embed as pe
+    from hyperspace_torch.train import host_embed as he
+
+    if cfg.sparse or run.scan_chunk > 1:
+        raise SystemExit(
+            "host_table=1 IS the planned-sparse chunked path — drop "
+            "sparse=true / scan_chunk (chunking is host_chunk_steps=)")
+    state, opt = pe.init_state(cfg, run.seed, resolve_device(run.device))
+    trainer = he.HostPlannedTrainer.from_state(
+        cfg, opt, state, chunk_steps=run.host_chunk_steps,
+        hot_rows=run.hot_rows, seed=run.seed,
+        gather_ahead=run.host_gather_ahead,
+        profile=bool(run.profile_steps))
+    del state
+    trainer.run(ds.pairs, run.steps)
+    if run.ckpt_dir:
+        # one bounded block a shard, never the whole table in one array
+        trainer.master.save_sharded(os.path.join(run.ckpt_dir,
+                                                 "host_table"))
+    if cfg.num_nodes > he.EVAL_MAX_ROWS:
+        # the saved master is the product of a table past one card
+        return {"workload": "poincare", "steps": int(trainer.step),
+                "host_table": True, "eval_skipped": "beyond-hbm"}
+    state = trainer.to_state()
+    with span("eval"):
+        res = pe.evaluate(PoincareBall(cfg.c).proj(state.table), ds.pairs,
+                          cfg.c)
+    return {"workload": "poincare", "steps": int(state.step),
+            "host_table": True, **res}
 
 
 def run_hvae(run: RunConfig, overrides: dict) -> dict:

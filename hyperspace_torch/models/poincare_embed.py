@@ -24,7 +24,9 @@ Four step paths, as in JAX:
   plans built on the host in numpy (:func:`plan_sparse_steps`), the
   cotangent summed per row by the sorted segment sum
   (``kernels/segment.py:csr_segment_sum``); the packed state keeps table
-  and moments side by side, one gather and one scatter a step.
+  and moments side by side, one gather and one scatter a step;
+  :func:`train_epoch_planned_hosted` runs it over a device hot-row cache
+  for the host-resident trainer (``train/host_embed.py``).
 
 :func:`train_epoch_scan` and :func:`train_epoch_planned_packed` run an
 epoch as one chunk (``train/loop.py``: a CUDA graph of one step replayed,
@@ -551,6 +553,24 @@ def train_epoch_planned_packed(cfg: PoincareEmbedConfig, opt,
     packed step replayed S times; a loop on the CPU).  The same
     trajectory as S calls of :func:`train_step_planned_packed` when
     ``state.step % S == 0`` at entry.  Returns (state, losses [S])."""
+    return _planned_epoch(cfg, opt, state, plan, "planned")
+
+
+def train_epoch_planned_hosted(cfg: PoincareEmbedConfig, opt,
+                               state: PackedState, plan: SparsePlan):
+    """:func:`train_epoch_planned_packed` for the host-resident trainer
+    (``train/host_embed.py``): ``state.packed`` is the device hot-row
+    cache ``[C, W]`` (``parallel/host_table.DeviceHotCache``), the plan's
+    ``uniq`` rows are remapped to cache slots (in no order after the
+    first eviction), and ``cfg.num_nodes`` is the capacity C, the
+    remapped sentinel.  The same per-row computation as the in-HBM
+    epoch, so the host path is bitwise it.  A chunk stepper of its own
+    (one capture per (C, S)); on the card the cache tensor the trainer
+    hands back is the graph's buffer, so a chunk copies nothing in."""
+    return _planned_epoch(cfg, opt, state, plan, "hosted")
+
+
+def _planned_epoch(cfg, opt, state, plan, kind: str):
     s = plan.u_idx.shape[0]
 
     @torch.no_grad()
@@ -561,9 +581,14 @@ def train_epoch_planned_packed(cfg: PoincareEmbedConfig, opt,
     if s == 1:
         state, loss = body(state, plan, torch.zeros((), dtype=torch.int64))
         return state, loss.reshape(1)
-    chunk = _chunk((cfg, opt, s, "planned"), lambda: make_chunked_stepper(
+    chunk = _chunk((cfg, opt, s, kind), lambda: make_chunked_stepper(
         body, s, positional=True, counters=path_counters()))
     return chunk(state, plan)
+
+
+def graph_captures() -> int:
+    """CUDA graphs captured so far by this module's chunk steppers."""
+    return sum(getattr(fn, "captures", 0) for fn in _CHUNKS.values())
 
 
 def init_state(cfg: PoincareEmbedConfig, seed: int = 0, device="cuda"):

@@ -9,9 +9,10 @@ dispatch thread, before the engine call), ``ckpt.save``
 (``train/checkpoint.py``: an ``ioerror`` the save retries, latency, or
 ``crash_staged``'s debris and a crash that is not retried) and
 ``train.step_nan`` (``train/loop.py``: every floating tensor of the state
-NaN-ed in place after a dispatch).  ``data.next_batch`` belongs to the
-host prefetcher, which is not ported; its specs parse as in JAX and the
-train CLI refuses them.
+NaN-ed in place after a dispatch) and ``data.next_batch``
+(``data/prefetch.py``: an ``ioerror`` or latency in
+``HostPrefetcher.next``, on the consumer's side; it fires only on a path
+that runs a prefetcher, such as the train CLI's ``host_table=1``).
 
 Kinds: ``ioerror`` raises :class:`InjectedIOError` (an ``IOError``);
 ``latency`` sleeps ``ms``; ``nan`` makes :func:`poison` return True;

@@ -97,6 +97,7 @@ class ChunkedStepper:
         self.live = bool(live)
         self.graph = None
         self._key = None
+        self.captures = 0          # graphs captured (a new key captures)
 
     def _call(self, state, args, i):
         return self.step_fn(state, *args, i) if self.positional \
@@ -211,6 +212,7 @@ class ChunkedStepper:
             fn.launches -= d
         self.graph, self._pos, self._losses = graph, pos, losses
         self._static = None if self.live else static
+        self.captures += 1
 
 
 def _numbers(tree) -> list:

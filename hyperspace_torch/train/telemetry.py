@@ -15,8 +15,8 @@ A chunk decomposes into the :data:`PHASES`:
 - ``write_back`` — fetching the touched cache rows back into the host
   table.
 
-Only ``device_step`` has a caller in the port: the prefetcher and the
-host-resident table, which the other three time, are not ported.  Each
+The host-resident trainer (``train/host_embed.py``) times all four a
+chunk; the train loop's ``profile_steps`` times ``device_step``.  Each
 phase observes a ``train/phase/<name>_ms`` histogram in the telemetry
 registry.  ``annotate=True`` wraps each phase in
 ``torch.profiler.record_function``, so the phases appear as named ranges

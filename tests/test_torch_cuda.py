@@ -2922,3 +2922,72 @@ def test_eviction_frees_at_least_the_engines_device_bytes(dev, tmp_path):
                        for x, y in zip(before_ans, again))
     finally:
         reg.close()
+
+
+# --- the host-resident trainer (train/host_embed.py) -----------------------
+
+
+def _host_setup(dev, optimizer, batch=128):
+    from hyperspace_torch.data.wordnet import synthetic_tree
+    from hyperspace_torch.models import poincare_embed as pe
+
+    ds = synthetic_tree(4, 6)                       # 1,555 nodes
+    cfg = pe.PoincareEmbedConfig(num_nodes=ds.num_nodes, dim=8,
+                                 batch_size=batch, neg_samples=10,
+                                 optimizer=optimizer, burnin_steps=5)
+    st, opt = pe.init_state(cfg, 3, dev)
+    return ds, cfg, st, opt
+
+
+@pytest.mark.parametrize("optimizer", ["rsgd", "radam"])
+@pytest.mark.parametrize("evict", [False, True])
+def test_host_trainer_is_bitwise_the_inhbm_reference(dev, optimizer, evict):
+    """Graphed chunks over the hot-row cache (with evictions: chunks of 1
+    over a cache of one step's worst case) against the in-HBM packed
+    chunks on the same plans: master, moments and losses bitwise."""
+    from hyperspace_torch.models import poincare_embed as pe
+    from hyperspace_torch.train import host_embed as he
+
+    ds, cfg, st, opt = _host_setup(dev, optimizer)
+    chunk = 1 if evict else 4
+    hot = he.auto_hot_rows(cfg, 1) if evict else 0
+    tr = he.HostPlannedTrainer.from_state(cfg, opt, _pe_clone(st),
+                                          chunk_steps=chunk, hot_rows=hot,
+                                          seed=5)
+    if evict:
+        assert tr.cache.capacity < cfg.num_nodes
+    losses = tr.run(ds.pairs, 14)
+    ref, ref_losses = he.run_planned_inhbm(cfg, opt, _pe_clone(st),
+                                           ds.pairs, 14, chunk_steps=chunk,
+                                           seed=5)
+    assert np.array_equal(losses, ref_losses)
+    assert np.array_equal(tr.master.to_array(),
+                          pe.pack_state(cfg, ref).packed.cpu().numpy())
+
+
+def test_host_trainer_captures_once_and_keeps_its_cache(dev):
+    """Six chunks of one length: one capture, the cache tensor the graph
+    returned stays the cache (``ensure`` writes into it), and no kernel
+    library is built or loaded after the first chunk."""
+    from hyperspace_torch.models import poincare_embed as pe
+    from hyperspace_torch.telemetry import registry as telem
+    from hyperspace_torch.train import host_embed as he
+
+    ds, cfg, st, opt = _host_setup(dev, "radam", batch=32)
+    reg = telem.default_registry()
+    caps = pe.graph_captures()
+    tr = he.HostPlannedTrainer.from_state(cfg, opt, st, chunk_steps=4,
+                                          seed=1)
+    assert tr.cache.capacity < cfg.num_nodes       # uploads every chunk
+    tr.run(ds.pairs, 4)
+    ptr = tr.cache.array.data_ptr()
+    builds = (reg.get("kernels/builds"), reg.get("kernels/loads"))
+    mark = reg.mark()
+    losses = tr.run(ds.pairs, 20)
+    assert np.all(np.isfinite(losses))
+    assert pe.graph_captures() - caps == 1
+    assert tr.cache.array.data_ptr() == ptr
+    assert (reg.get("kernels/builds"), reg.get("kernels/loads")) == builds
+    delta = reg.snapshot(baseline=mark)
+    assert delta["host_table/chunks"] == 5
+    assert delta.get("host_table/upload_rows", 0) > 0

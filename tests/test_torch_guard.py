@@ -394,7 +394,8 @@ def test_cli_save_ioerror_run_completes(tmp_path):
 
 @pytest.mark.parametrize("argv,match", [
     (["rollback=1"], "rollback=N needs ckpt_dir"),
-    (["chaos=data.next_batch:ioerror"], "data.next_batch.*not ported"),
+    (["chaos=data.next_batch:ioerror:prob=2"],
+     "data.next_batch.*prob must be in"),
     (["metrics_out=m.prom", "metrics_every=0"], "metrics_every=0"),
     (["chaos=ckpt.save:explode"], "fault kind"),
     (["chaos=ckpt.save"], "want site:kind")])

@@ -110,7 +110,8 @@ def test_cli_hgcn_config_from_the_yaml(layouts, monkeypatch):
     (["--yaml", os.path.join("configs", "hgcn_sampled_nc.yaml")],
      "sampled=true.*not ported"),
     (["multihost=true"], "meshes are not ported"),
-    (["chaos=data.next_batch:ioerror"], "data.next_batch.*not ported"),
+    (["chaos=data.next_batch:latency:ms=-1"],
+     "data.next_batch.*must be >= 0"),
     (["task=link"], "task='link'"),
     (["reorder=spectral"], "reorder='spectral'"),
     (["graph_cache=sometimes"], "graph_cache"),

@@ -3,7 +3,18 @@ JAX package's: the same numpy table (from a seed) with 1 and 3 shards
 gives bitwise equal ``gather`` across shard bounds, ``write_back`` (a
 repeated id: the last write wins in both), ``append_rows`` and its ids,
 ``iter_chunks`` (blocks and starts; none crosses a shard), ``to_array``
-and ``_slice_rows``; the errors carry JAX's messages."""
+and ``_slice_rows``; the errors carry JAX's messages.
+
+The checkpoint half: the port's ``save_sharded`` read back by JAX's
+``load_sharded``, JAX's ``save_owned_rows`` (one process, and three
+writing in turn) read by the port's ``load_sharded`` and ``load_rows``,
+and the port's ``save_owned_rows`` by JAX's, all bitwise at 1, 3 and 7
+shards either side, with ``io_rows_peak`` within max(saved shard,
+destination shard) rows; a JAX Orbax manifest is refused, naming its
+codec."""
+
+import json
+import os
 
 import numpy as np
 import pytest
@@ -81,3 +92,95 @@ def _message(fn):
 def test_errors_match_jax(arr, bad):
     assert _message(lambda: bad(tht, arr.copy())) == _message(
         lambda: bad(jht, arr.copy()))
+
+
+def _rows(n, shards):
+    return -(-n // shards)
+
+
+@pytest.mark.parametrize("mem", [1, 3])
+@pytest.mark.parametrize("saved", [1, 3, 7])
+@pytest.mark.parametrize("dest", [1, 3, 7])
+def test_save_sharded_reads_back_in_jax(arr, tmp_path, mem, saved, dest):
+    t = tht.HostEmbedTable.from_array(arr.copy(), shards=mem)
+    d = str(tmp_path / "t")
+    tht.reset_io_peak()
+    t.save_sharded(d, shards=saved)
+    assert tht.io_rows_peak() <= max(_rows(1003, mem), _rows(1003, saved))
+    with open(os.path.join(d, tht.MANIFEST)) as f:
+        meta = json.load(f)
+    assert meta["codec"] == "npy" and meta["shards"] == saved
+    assert meta["version"] == tht.FORMAT_VERSION == jht.FORMAT_VERSION
+    j = jht.HostEmbedTable.load_sharded(d, shards=dest)
+    assert j.num_shards == dest
+    np.testing.assert_array_equal(j.to_array(), arr)
+    tht.reset_io_peak()
+    back = tht.HostEmbedTable.load_sharded(d, shards=dest)
+    assert tht.io_rows_peak() <= max(_rows(1003, saved), _rows(1003, dest))
+    np.testing.assert_array_equal(back.to_array(), arr)
+    assert back.num_shards == dest
+
+
+@pytest.mark.parametrize("procs", [1, 3])
+@pytest.mark.parametrize("dest", [1, 3, 7])
+def test_jax_owned_rows_read_by_the_port(arr, tmp_path, procs, dest):
+    d = str(tmp_path / "o")
+    j = jht.HostEmbedTable.from_array(arr.copy(), shards=2)
+    for pi in range(procs):
+        jht.save_owned_rows(j, d, process_index=pi, process_count=procs)
+    t = tht.HostEmbedTable.load_sharded(d, shards=dest)
+    np.testing.assert_array_equal(t.to_array(), arr)
+    for lo, hi in ((0, 1003), (300, 700), (334, 335), (500, 500)):
+        tht.reset_io_peak()
+        np.testing.assert_array_equal(tht.load_rows(d, lo, hi), arr[lo:hi])
+        np.testing.assert_array_equal(tht.load_rows(d, lo, hi),
+                                      jht.load_rows(d, lo, hi))
+        assert tht.io_rows_peak() <= max(hi - lo, 0)
+
+
+@pytest.mark.parametrize("procs", [1, 3])
+def test_port_owned_rows_read_by_jax(arr, tmp_path, procs):
+    d = str(tmp_path / "p")
+    t = tht.HostEmbedTable.from_array(arr.copy(), shards=3)
+    calls = []
+    for pi in range(procs):
+        tht.save_owned_rows(t, d, process_index=pi, process_count=procs,
+                            barrier=lambda: calls.append(1))
+    assert len(calls) == 2 * procs
+    assert sorted(os.listdir(d)) == sorted(
+        [tht.MANIFEST] + [f"shard_{i:05d}.npy" for i in range(procs)])
+    for shards in (1, 3, 7):
+        np.testing.assert_array_equal(
+            jht.HostEmbedTable.load_sharded(d, shards=shards).to_array(),
+            arr)
+    np.testing.assert_array_equal(jht.load_rows(d, 100, 900), arr[100:900])
+
+
+def test_an_orbax_manifest_is_refused(arr, tmp_path):
+    d = tmp_path / "orbax"
+    d.mkdir()
+    with open(d / tht.MANIFEST, "w") as f:   # JAX save_sharded's manifest
+        json.dump({"version": 1, "num_rows": 1003, "width": 7,
+                   "dtype": "float32", "shards": 1, "bounds": [0, 1003]}, f)
+    for fn in (lambda: tht.HostEmbedTable.load_sharded(str(d)),
+               lambda: tht.load_rows(str(d), 0, 10)):
+        with pytest.raises(ValueError, match="codec 'orbax'"):
+            fn()
+
+
+@pytest.mark.parametrize("bad", [
+    lambda m, d, a: m.save_owned_rows(m.HostEmbedTable.from_array(a), d,
+                                      process_index=3, process_count=3),
+    lambda m, d, a: m.load_rows(d, 5, 2000),
+    lambda m, d, a: m.load_rows(d, -1, 3),
+    lambda m, d, a: m.HostEmbedTable.load_sharded(d + "v"),
+    lambda m, d, a: m.load_rows(d + "v", 0, 1),
+])
+def test_checkpoint_errors_match_jax(arr, tmp_path, bad):
+    d = str(tmp_path / "e")
+    tht.save_owned_rows(tht.HostEmbedTable.from_array(arr), d)
+    os.makedirs(d + "v")
+    with open(os.path.join(d + "v", tht.MANIFEST), "w") as f:
+        json.dump({"version": 2, "codec": "npy"}, f)
+    assert _message(lambda: bad(tht, d, arr.copy())) == _message(
+        lambda: bad(jht, d, arr.copy()))

@@ -306,5 +306,6 @@ def test_cli_reaches_the_verify_map(tmp_path, capsys):
     with pytest.raises(SystemExit, match="scan_chunk"):
         tcli.main(["poincare", "sparse=true", "scan_chunk=4",
                    "device=cpu"])
-    with pytest.raises(SystemExit, match="not ported"):
-        tcli.main(["poincare", "host_table=1", "device=cpu"])
+    with pytest.raises(SystemExit, match="host_chunk_steps"):
+        tcli.main(["poincare", "host_table=1", "scan_chunk=4",
+                   "device=cpu"])

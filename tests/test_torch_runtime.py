@@ -420,8 +420,7 @@ def test_run_loop_records_and_saves_match_jax(tmp_path, steps, eval_every,
 
 
 NOT_PORTED_VALUES = {
-    "tp": "4", "hot_rows": "8", "host_chunk_steps": "4",
-    "host_gather_ahead": "1", "compile_cache_dir": "cache",
+    "tp": "4", "compile_cache_dir": "cache",
     "coordinator": "10.0.0.1:1", "num_processes": "2", "process_id": "1",
     "multihost": "true"}
 
